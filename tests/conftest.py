@@ -22,6 +22,12 @@ ensure_compile_cache()  # this JAX ignores JAX_COMPILATION_CACHE_DIR env
 
 import pytest  # noqa: E402
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skips without")
+
+
 _mods_since_clear = [0]
 
 
