@@ -8,17 +8,24 @@ Phases, one line each; any failure raises and exits non-zero:
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
      into build/kernels/;
-  3. the fused transform+quantize kernel against its plain PyTorch version
-     on the card (B = 2112, the CIF wave batch, and B = 100; qindex 140 and
-     255), with the rounding-tie rule below, and both versions' median
-     times over 50 runs (CUDA events);
+  3. the fused transform+quantize kernel (K1) on the card, at B = 2112
+     (the CIF wave batch), 1920 (the 720p one) and 100, qindex 140 and
+     255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
+     the same source), the tie rule below against the plain PyTorch
+     version, qcoeff/dqcoeff exact on its own coefficients; at each size
+     the device time per launch of the kernel, the first kernel and the
+     plain version (a CUDA graph of 20 launches on preallocated outputs,
+     replayed 50 times between two CUDA events; three rounds in turns)
+     beside the launch's bytes, FLOP and bound, and the host time of one
+     wrapper call; then the two kernels at B = 135168, a batch far beyond
+     the L2 (bound by device memory);
   4. the inverse transform and the DC/V/H/SMOOTH/PAETH predictors on the
      card against the C-reference goldens in tests/golden/ (bit-exact);
   5. the main path: CIF 352x288, 32 frames, preset M10, qp 35, through
-     Encoder(cfg, device="cuda").send_pictures, once to warm and once
-     timed; the kernel's launch count over the timed run must be > 0; every
-     packet is decoded by the port's decoder on the card and must equal
-     Packet.recon exactly;
+     Encoder(cfg).send_pictures on the default device (the card), once to
+     warm and once timed; the kernel's launch count over the timed run
+     must be > 0; every packet is decoded by the port's decoder on the
+     card and must equal Packet.recon exactly;
   6. the same encode and decode check at 1280x720, 8 frames;
   7. the first 4 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
@@ -30,8 +37,16 @@ version's by at most 1, and only where its float64 value lies within 1e-2
 of a half-integer; qcoeff/dqcoeff must equal the plain quantizer applied
 to the kernel's own coefficients, exactly.
 
-The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.
+Bound of a K1 launch: the residual, the matrices and the quantizer
+constants read once and the three outputs written once, over 3.35 TB/s,
+against 2 x 2 x 16^3 FLOP a block over 67 TFLOP/s (the H100 SXM's
+published rates); bytes bound it.  The inputs are timed as the encode
+leaves them: just written, so in the 50 MB L2.
+
+The script imports nothing of JAX or of the JAX package (the golden
+inputs come from svt_av1_tpu_torch/goldens.py) and checks at its end
+that neither was loaded.  The second-to-last line is the kernels' JSON
+record, the last line {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -76,65 +91,230 @@ def psnr(a, b):
     return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
 
 
-def cuda_median_ms(fn, runs=50, warm=5):
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published datasheet rate
+FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+GRAPH_LAUNCHES = 20
+GRAPH_REPLAYS = 50
+
+
+def graph_us(launch, n=GRAPH_LAUNCHES, replays=GRAPH_REPLAYS):
+    """Device time per call of ``launch`` in microseconds: n calls
+    captured in one CUDA graph, replayed ``replays`` times between two
+    CUDA events, the time divided by n * replays.  No host issue time is
+    inside the events."""
     import torch
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                    # warm-up, caches
+        for _ in range(3):
+            launch()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            launch()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1000.0 / (n * replays)
+
+
+def host_issue_ms(call, n=200):
+    """Host time of one call (mean of n back-to-back calls, no
+    synchronisation inside the timed loop)."""
+    import torch
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1000.0 / n
+
+
+def txq_bound(b):
+    """(bytes, FLOP, bound in us, bound_by) of one fused_txq launch over b
+    blocks: the residual and the matrices and quantizer constants read
+    once, the three outputs written once; 2 passes of 16^3 FMAs a
+    block."""
+    nbytes = b * 1024 + 2 * 1024 + 40 + 3 * b * 1024
+    flop = b * 2 * 2 * 16 ** 3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e6
+    t_op = flop / FP32_FLOP_PER_S * 1e6
+    return nbytes, flop, max(t_mem, t_op), ("bytes" if t_mem >= t_op
+                                            else "operations")
+
+
+class V1:
+    """The first kernel (svt_fused_txq16_v1) on preallocated outputs, and
+    ``call``, a copy of the first wrapper's host work (checks, three
+    allocations, device matrices, thirteen arguments) for its issue
+    time."""
+
+    def __init__(self, resid, qp):
+        import torch
+        from svt_av1_tpu_torch.codec import constants as cc
+        from svt_av1_tpu_torch.ops import fused_txq
+        from svt_av1_tpu_torch.ops import transforms as tf
+        self.fn = fused_txq.entry("svt_fused_txq16_v1")
+        self.resid, self.qp = resid, qp
+        self.mats = tf.fwd_matrices_on(cc.DCT_DCT, cc.TX_16X16, resid.device)
+        self.out = torch.empty((3,) + tuple(resid.shape), dtype=torch.int32,
+                               device=resid.device)
+
+    def _launch(self, c, q, d):
+        import torch
+        r, qp = self.resid, self.qp
+        rc = self.fn(r.data_ptr(), r.shape[0], self.mats[0].data_ptr(),
+                     self.mats[1].data_ptr(), *(a.data_ptr() for a in qp),
+                     c.data_ptr(), q.data_ptr(), d.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_txq16_v1 launch failed: CUDA error "
+                               f"{rc}")
+
+    def launch(self):
+        self._launch(*self.out)
+        return self.out
+
+    def call(self):
+        import torch
+        from svt_av1_tpu_torch.codec import constants as cc
+        from svt_av1_tpu_torch.ops import fused_txq
+        from svt_av1_tpu_torch.ops import transforms as tf
+        fused_txq._check(self.resid, self.qp)
+        self.mats = tf.fwd_matrices_on(cc.DCT_DCT, cc.TX_16X16,
+                                       self.resid.device)
+        outs = [torch.empty_like(self.resid) for _ in range(3)]
+        with torch.cuda.device(self.resid.device):
+            self._launch(*outs)
+        return outs
+
+
+def v2_launcher(resid, qp):
+    """The kernel the encode runs (svt_fused_txq16) on preallocated
+    outputs, through its C entry point (not counted as a wrapper
+    launch)."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    fn = fused_txq.entry()
+    qc = fused_txq.packed_constants(qp)
+    fvt, fht = fused_txq.matrices_t(resid.get_device())
+    out = torch.empty((3,) + tuple(resid.shape), dtype=torch.int32,
+                      device=resid.device)
+
+    def launch():
+        rc = fn(resid.data_ptr(), resid.shape[0], fvt.data_ptr(),
+                fht.data_ptr(), qc.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_txq16 launch failed: CUDA error {rc}")
+        return out
+    return launch
+
+
+def time_txq(resid, card, plain=True):
+    """Device time per launch of the kernel, the first kernel and (when
+    ``plain``) the plain version at qindex 140, three rounds in turns, and
+    the host issue time of the wrapper and of the first wrapper."""
+    from svt_av1_tpu_torch.ops import fused_txq, quant
+    b = resid.shape[0]
+    qp = quant.to_device(quant.make_quant_params(140), "cuda")
+    v1 = V1(resid, qp)
+    fns = dict(v2=v2_launcher(resid, qp), v1=v1.launch)
+    if plain:
+        fns["plain"] = lambda: fused_txq.fused_txq_plain(resid, qp)
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns)):
+        for k in order:
+            times[k].append(graph_us(fns[k]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    nbytes, flop, bound_us, bound_by = txq_bound(b)
+    issue = host_issue_ms(lambda: fused_txq.fused_txq(resid, qp))
+    issue_v1 = host_issue_ms(v1.call)
+    plain_txt = (f"plain {med['plain']:.3f} us; " if plain else "")
+    log(f"phase 3: fused_txq B={b} qindex=140 device time per launch "
+        f"(CUDA graph of {GRAPH_LAUNCHES} launches x {GRAPH_REPLAYS} "
+        f"replays, median of 3 rounds in turns): kernel {med['v2']:.3f} us,"
+        f" first kernel {med['v1']:.3f} us, {plain_txt}{nbytes} bytes, "
+        f"{flop} FLOP; bound {bound_us:.3f} us ({bound_by}, 3.35 TB/s); "
+        f"kernel at {bound_us / med['v2']:.1%} of its bound, first kernel "
+        f"at {bound_us / med['v1']:.1%}; host issue per call: wrapper "
+        f"{issue:.4f} ms, first wrapper {issue_v1:.4f} ms; {card}")
+    return dict(b=b, us=med["v2"], v1_us=med["v1"],
+                plain_us=med.get("plain"), bytes=nbytes, flop=flop,
+                bound_us=bound_us, bound_by=bound_by,
+                share=bound_us / med["v2"], v1_share=bound_us / med["v1"],
+                host_issue_ms=issue, v1_host_issue_ms=issue_v1,
+                rounds=times)
 
 
 def phase_kernel(card):
+    """K1 (fused_txq16): bit-identity with the first kernel, the tie rule
+    against the plain version, exact quantizer on the kernel's own
+    coefficients; device time per launch of both kernels and the plain
+    version in turns; host issue time of the wrapper."""
     import torch
     import tie_rule
+    from svt_av1_tpu_torch.codec import constants as cc
     from svt_av1_tpu_torch.ops import fused_txq, quant
     from svt_av1_tpu_torch.ops import transforms as tf
-    from svt_av1_tpu.codec import constants as cc
     fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
     rng = np.random.default_rng(7)
-    rec = None
-    for b in (2112, 100):
+    rec = dict(max_abs_err=0, by_batch=[])
+    for b in (2112, 1920, 100):
         resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
         exact = tie_rule.exact_coeffs(resid_np, fv, fh)
         resid = torch.from_numpy(resid_np).cuda()
         for qindex in (140, 255):
             qp = quant.to_device(quant.make_quant_params(qindex), "cuda")
             ck, qk, dk = fused_txq.fused_txq(resid, qp)
+            v1 = V1(resid, qp).launch()
             cp, _, _ = fused_txq.fused_txq_plain(resid, qp)
             torch.cuda.synchronize()
+            n_v1 = sum(int((a != o).sum()) for a, o in zip((ck, qk, dk), v1))
+            if n_v1:
+                raise AssertionError(f"B={b} qindex={qindex}: {n_v1} values "
+                                     "differ between the kernel and the "
+                                     "first kernel")
             q_ref, d_ref = quant.quantize(ck, qp, cc.TX_16X16)
             if not (torch.equal(qk, q_ref) and torch.equal(dk, d_ref)):
                 raise AssertionError("kernel qcoeff/dqcoeff differ from the "
                                      "quantizer on its own coefficients")
             nmis, maxd = tie_rule.tie_mismatches(ck.cpu().numpy(),
                                                  cp.cpu().numpy(), exact)
-            ms = cuda_median_ms(lambda: fused_txq.fused_txq(resid, qp))
-            plain_ms = cuda_median_ms(
-                lambda: fused_txq.fused_txq_plain(resid, qp))
-            log(f"phase 3: fused_txq B={b} qindex={qindex}: "
-                f"{nmis} of {resid.numel()} coefficients differ from the "
-                f"plain version (all on rounding ties, max |diff| {maxd}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 50,"
-                f" {card})")
-            if b == 2112 and qindex == 140:
-                rec = dict(max_abs_err=maxd, ms=ms, plain_ms=plain_ms)
-            else:
-                rec["max_abs_err"] = max(rec["max_abs_err"], maxd)
+            rec["max_abs_err"] = max(rec["max_abs_err"], maxd)
+            log(f"phase 3: fused_txq B={b} qindex={qindex}: 0 of "
+                f"{3 * resid.numel()} coeff/qcoeff/dqcoeff values differ "
+                f"from the first kernel; {nmis} of {resid.numel()} "
+                f"coefficients differ from the plain version (all on "
+                f"rounding ties, max |diff| {maxd}); qcoeff/dqcoeff exact")
+        rec["by_batch"].append(time_txq(resid, card))
+    # a batch far beyond the L2: bound by device memory
+    resid = torch.randint(-255, 256, (135168, 16, 16), dtype=torch.int32,
+                          device="cuda")
+    qp = quant.to_device(quant.make_quant_params(140), "cuda")
+    n_v1 = int((v2_launcher(resid, qp)() != V1(resid, qp).launch()).sum())
+    if n_v1:
+        raise AssertionError(f"B=135168: {n_v1} values differ between the "
+                             "kernel and the first kernel")
+    rec["by_batch"].append(time_txq(resid, card, plain=False))
     return rec
 
 
 def phase_goldens():
     import torch
-    import golden_defs as gd
-    from svt_av1_tpu.codec import constants as cc
+    from svt_av1_tpu_torch import goldens as gd
+    from svt_av1_tpu_torch.codec import constants as cc
     from svt_av1_tpu_torch.ops import intra
     from svt_av1_tpu_torch.ops import transforms as tf
     inv = dict(np.load(os.path.join(gd.GOLDEN_DIR, "inv_txfm.npz")))
@@ -202,11 +382,11 @@ def decode_check(pkts, device):
 def phase_encode(tag, frames, w, h, card):
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
-    encode(frames, w, h, "cuda")                     # warm
+    encode(frames, w, h, None)                       # warm
     torch.cuda.synchronize()
     fused_txq.launches = 0
     t0 = time.perf_counter()
-    pkts = encode(frames, w, h, "cuda")
+    pkts = encode(frames, w, h, None)
     dt = time.perf_counter() - t0
     launches = fused_txq.launches
     if launches <= 0:
@@ -215,11 +395,12 @@ def phase_encode(tag, frames, w, h, card):
     mpsnr = float(np.mean([psnr(f[0], p.recon["y"])
                            for f, p in zip(frames, pkts)]))
     t1 = time.perf_counter()
-    decisions = decode_check(pkts, "cuda")
-    log(f"phase {tag}: {w}x{h} x{len(frames)} M10 qp35 on cuda: "
+    decisions = decode_check(pkts, None)
+    log(f"phase {tag}: {w}x{h} x{len(frames)} M10 qp35 on the default "
+        f"device ({torch.cuda.get_device_name(0)}): "
         f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s), {nbytes} bytes, "
         f"mean Y-PSNR {mpsnr:.4f} dB, fused_txq launches {launches} "
-        f"({card}); decoder on cuda matches recon "
+        f"({card}); decoder on the default device matches recon "
         f"({time.perf_counter() - t1:.1f} s)")
     return pkts, decisions, launches
 
@@ -268,7 +449,6 @@ def main():
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from svt_av1_tpu_torch import device as device_mod
     from svt_av1_tpu_torch import kernels
-    from svt_av1_tpu_torch.ops import fused_txq
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -299,14 +479,24 @@ def main():
     phase_encode("6", synth_frames(8, *HD), *HD, card)
     phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "svt_av1_tpu" or m.startswith("svt_av1_tpu."))
+    if leaked:
+        raise AssertionError(f"modules of JAX or of the JAX package were "
+                             f"loaded: {leaked[:8]}")
+    b0 = krec["by_batch"][0]
     log(smi)
     log(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
         source="svt_av1_tpu_torch/csrc/fused_txq.cu",
         replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
-        launches=launches, **krec)]}))
+        launches=launches, max_abs_err=krec["max_abs_err"],
+        ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
+        bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
+        library_ms=None, bound_us=b0["bound_us"], share=b0["share"],
+        host_issue_ms=b0["host_issue_ms"], v1_ms=b0["v1_us"] / 1000,
+        by_batch=krec["by_batch"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,9 @@ Slice: 8-bit 4:2:0, all-intra (intra_period_length -2 or 0), CQP/CRF,
 presets M10-M13, one tile, no AQ, and DLF, CDEF, LR, superres and film
 grain off.  Any other configuration raises NotImplementedError naming the
 ROADMAP.md item that brings it; nothing falls back to the JAX package.
-Mode decision runs on ``device`` (pipeline/intra_encoder.py); entropy
-coding is the native C tile coder of svt_av1_tpu, on the host.
+Mode decision runs on ``device`` (pipeline/intra_encoder.py; default:
+the current CUDA device); entropy coding is the port's copy of the
+native C tile coder (native/ec_native.c), on the host.
 """
 from __future__ import annotations
 
@@ -21,15 +22,15 @@ from typing import Deque, Dict, Optional
 
 import numpy as np
 
-from svt_av1_tpu.api.config import EncoderConfig
-from svt_av1_tpu.codec import fast_ec, obu
-from svt_av1_tpu.codec.syntax import TileEncoder
-from svt_av1_tpu.pipeline.presets import features_for
-from svt_av1_tpu.pipeline.rate_control import RateControlState, qp_to_qindex
-from svt_av1_tpu.utils.profiling import stage
-
 from svt_av1_tpu_torch import device as device_mod
+from svt_av1_tpu_torch.api.config import EncoderConfig
+from svt_av1_tpu_torch.codec import fast_ec, obu
+from svt_av1_tpu_torch.codec.syntax import TileEncoder
 from svt_av1_tpu_torch.pipeline import intra_encoder
+from svt_av1_tpu_torch.pipeline.presets import features_for
+from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
+                                                     qp_to_qindex)
+from svt_av1_tpu_torch.utils.profiling import stage
 
 __all__ = ["Encoder", "EncoderConfig", "Packet", "qp_to_qindex"]
 
@@ -84,21 +85,6 @@ def _unsupported(cfg: EncoderConfig):
     return None
 
 
-def _native_coder_error() -> str:
-    """The system compiler's message for the native range coder."""
-    import subprocess
-    import sysconfig
-    from svt_av1_tpu import native
-    inc = sysconfig.get_paths()["include"]
-    cmd = ["cc", "-O2", "-shared", "-fPIC", f"-I{inc}", native._SRC, "-o",
-           native._SO]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        return str(e)
-    return f"{' '.join(cmd)} -> {proc.returncode}\n{proc.stderr}"
-
-
 class Encoder:
     def __init__(self, config: EncoderConfig, device=None):
         self.cfg = config.validate()
@@ -106,11 +92,8 @@ class Encoder:
         if bad is not None:
             raise NotImplementedError(
                 f"{bad[0]}: not ported yet (ROADMAP.md {bad[1]})")
-        if not fast_ec.available():
-            raise RuntimeError("the native range coder (svt_av1_tpu/native/"
-                               "ec_native.c) did not build: "
-                               + _native_coder_error())
         self.device = device_mod.resolve(device)
+        fast_ec.available()        # builds the native coder or raises
         self.render_w = config.source_width
         self.render_h = config.source_height
         self.coded_w = _align16(config.source_width)

@@ -1,11 +1,11 @@
 """Verification decoder for the port's streams: key frames, one tile.
 
 The key-frame, single-tile subset of svt_av1_tpu/codec/decoder.py.  OBU
-parsing, the frame header and the tile syntax are the JAX package's
-numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
+parsing, the frame header and the tile syntax are the port's copies of
+the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
 ``TileDecoder``); reconstruction is the port's
-``reconstruct_from_decisions`` on ``device``.  Nothing here loads JAX,
-so the decoder runs on the card.
+``reconstruct_from_decisions`` on ``device`` (default: the current CUDA
+device).
 """
 from __future__ import annotations
 
@@ -13,13 +13,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from svt_av1_tpu.codec import obu
-from svt_av1_tpu.codec.syntax import TileDecoder
-from svt_av1_tpu.utils.bitio import BitReader
-
 from svt_av1_tpu_torch import device as device_mod
+from svt_av1_tpu_torch.codec import obu
+from svt_av1_tpu_torch.codec.syntax import TileDecoder
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
     apply_loop_filter, reconstruct_from_decisions)
+from svt_av1_tpu_torch.utils.bitio import BitReader
 
 
 class Decoder:

@@ -2,14 +2,17 @@
 
 An encoder has no weights: its "parameters" are the quantizer constants,
 the transform matrices and stage programs (data files both packages read)
-and the mode-decision rate arguments.  These functions take the JAX
-package's numpy values — ``ops.quant.make_quant_params(q)``,
-``ops.coef_rate.CoefTables`` and ``codec.rate_est.md_rate_args(...)`` —
-and return the port's tensors on ``device``, so that both packages can be
-fed identical tables.
+and the mode-decision rate arguments.  These functions take values the
+JAX package computes — ``ops.quant.make_quant_params(q)``,
+``ops.coef_rate.CoefTables`` and ``codec.rate_est.md_rate_args(...)``,
+handed over as numpy arrays and NamedTuples — and return the port's
+tensors on ``device`` (default: the current CUDA device), so that both
+packages can be fed identical tables.  Nothing here imports the JAX
+package: a NamedTuple is read by its fields.
 """
 from __future__ import annotations
 
+from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.codec.rate_est import rate_args_to
 from svt_av1_tpu_torch.ops import quant
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables
@@ -17,15 +20,15 @@ from svt_av1_tpu_torch.ops.coef_rate import CoefTables
 
 def quant_params_from_jax(qp, device=None) -> quant.QuantParams:
     """A QuantParams (five (2,) int32 arrays) as int32 tensors."""
-    return quant.to_device(qp, device)
+    return quant.to_device(qp, device_mod.resolve(device))
 
 
 def coef_tables_from_jax(t, device=None) -> CoefTables:
     """A CoefTables (six float32 arrays) as the port's CoefTables."""
-    return CoefTables(*t).to(device)
+    return CoefTables(*t).to(device_mod.resolve(device))
 
 
 def rate_args_from_jax(rt, device=None) -> tuple:
     """An md_rate_args tuple (with CoefTables in the coef slots when it
     was built with exact=True) as float32 tensors."""
-    return rate_args_to(rt, device)
+    return rate_args_to(rt, device_mod.resolve(device))

@@ -47,8 +47,8 @@ def _statics(n: int):
     """Static (numpy) context maps for an (n, n) 2-D-class txb:
     (scan-position map, nz-ctx offset map, br region offsets,
     eob-position class per eob value)."""
-    from svt_av1_tpu.codec import constants as cc
-    from svt_av1_tpu.codec import tables as tb
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.codec import tables as tb
     tx_size = {4: cc.TX_4X4, 8: cc.TX_8X8, 16: cc.TX_16X16,
                32: cc.TX_32X32}[n]
     scan = np.asarray(tb.get_scan(tx_size, cc.DCT_DCT))

@@ -9,42 +9,71 @@ port's ops (fwd_txfm2d + quantize).  There is no fallback between the
 two: a CUDA tensor launches the kernel or raises.
 
 Bound on the H100: about 16 KFLOP per 4 KB moved for each 16x16 block,
-so memory- and launch-bound at the main path's batch sizes.  The
-kernel's float32 sums run in a fixed sequential order (see the source
-note in csrc/fused_txq.cu) that differs from cuBLAS's and XLA's; a
-coefficient on a rounding tie may therefore differ by one from the plain
-version, and qcoeff/dqcoeff always equal the quantizer applied to the
-kernel's own coefficients.  rintf rounds half to even like torch.round;
-the int32 quantizer products stay below 2^31.
+so memory-bound (see the source note in csrc/fused_txq.cu).  The
+kernel's float32 sums run in a fixed sequential order that differs from
+cuBLAS's and XLA's; a coefficient on a rounding tie may therefore differ
+by one from the plain version, and qcoeff/dqcoeff always equal the
+quantizer applied to the kernel's own coefficients.  rintf rounds half to
+even like torch.round; the int32 quantizer products stay below 2^31.
+
+The encode's path is bound by the host's issue of small ops, so the
+wrapper keeps its own work small: the (transposed) device matrices are
+made once per device, the quantizer constants are read through one pointer
+(``quant.to_device`` packs them), and the three outputs are views of one
+allocation.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from svt_av1_tpu.codec import constants as cc
-
 from svt_av1_tpu_torch import kernels
+from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.ops import quant, transforms as tf
 
 N = 16
 
 launches = 0   # kernel launches made by fused_txq (the wrapper only)
 
-_bound = None
+_P = ctypes.c_void_p
 
 
-def _entry():
-    """The C entry point with its argtypes declared."""
-    global _bound
-    if _bound is None:
-        fn = kernels.lib().svt_fused_txq16
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _bound = fn
-    return _bound
+@functools.lru_cache(maxsize=None)
+def entry(name: str = "svt_fused_txq16"):
+    """A C entry point of csrc/fused_txq.cu with its argtypes declared:
+    ``svt_fused_txq16`` (the encode's kernel) or ``svt_fused_txq16_v1``
+    (the first kernel, kept for comparison)."""
+    fn = getattr(kernels.lib(), name)
+    if name == "svt_fused_txq16":
+        fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P]
+    else:
+        fn.argtypes = [_P, ctypes.c_longlong] + [_P] * 11
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def matrices_t(index: int):
+    """(fv^T, fh^T): the DCT_DCT 16x16 forward matrices transposed, as
+    contiguous float32 tensors on CUDA device ``index`` (the layout the
+    kernel copies into shared memory); made once per device.  Keyed by
+    the index: hashing a torch.device costs more than the lookup saves."""
+    fv, fh = tf.fwd_matrices_on(cc.DCT_DCT, cc.TX_16X16,
+                                torch.device("cuda", index))
+    return fv.t().contiguous(), fh.t().contiguous()
+
+
+def packed_constants(qp: quant.QuantParams) -> torch.Tensor:
+    """The ten quantizer constants ([zbin, round, quant, quant_shift,
+    dequant] x [DC, AC]) as one contiguous int32 tensor: the (5, 2)
+    tensor ``quant.to_device`` made, when qp's fields are its rows,
+    else a stacked copy."""
+    base = qp.zbin.data_ptr()
+    if all(a.data_ptr() == base + 8 * k for k, a in enumerate(qp)):
+        return qp.zbin
+    return torch.stack(tuple(qp))
 
 
 def fused_txq_plain(resid: torch.Tensor, qp: quant.QuantParams):
@@ -56,19 +85,22 @@ def fused_txq_plain(resid: torch.Tensor, qp: quant.QuantParams):
 
 
 def _check(resid: torch.Tensor, qp: quant.QuantParams):
-    if resid.dtype != torch.int32:
+    if resid.dtype is not torch.int32:
         raise TypeError(f"resid must be int32, got {resid.dtype}")
-    if resid.dim() != 3 or tuple(resid.shape[1:]) != (N, N):
+    if resid.dim() != 3 or resid.shape[1:] != (N, N):
         raise ValueError(f"resid must be (B, 16, 16), got "
                          f"{tuple(resid.shape)}")
     if not resid.is_contiguous():
         raise ValueError("resid must be contiguous")
+    if resid.data_ptr() % 16:
+        raise ValueError("resid must start on a 16-byte boundary")
+    dev = resid.device
     for name, a in zip(qp._fields, qp):
-        if (not isinstance(a, torch.Tensor) or a.device != resid.device
-                or a.dtype != torch.int32 or tuple(a.shape) != (2,)
+        if (type(a) is not torch.Tensor or a.dtype is not torch.int32
+                or a.shape != (2,) or a.device != dev
                 or not a.is_contiguous()):
             raise ValueError(f"qp.{name} must be a contiguous int32 (2,) "
-                             f"tensor on {resid.device}")
+                             f"tensor on {dev}")
 
 
 def fused_txq(resid: torch.Tensor, qp: quant.QuantParams):
@@ -83,18 +115,15 @@ def fused_txq(resid: torch.Tensor, qp: quant.QuantParams):
         raise ValueError(f"fused_txq runs on cpu or cuda, not "
                          f"{resid.device}")
     _check(resid, qp)
-    fv, fh = tf.fwd_matrices_on(cc.DCT_DCT, cc.TX_16X16, resid.device)
-    coeff = torch.empty_like(resid)
-    qc = torch.empty_like(resid)
-    dq = torch.empty_like(resid)
+    qc = packed_constants(qp)
+    fvt, fht = matrices_t(resid.get_device())
+    out = torch.empty((3,) + tuple(resid.shape), dtype=torch.int32,
+                      device=resid.device)
     with torch.cuda.device(resid.device):     # launch on resid's card
         stream = torch.cuda.current_stream(resid.device).cuda_stream
-        rc = _entry()(resid.data_ptr(), resid.shape[0], fv.data_ptr(),
-                      fh.data_ptr(), qp.zbin.data_ptr(), qp.round.data_ptr(),
-                      qp.quant.data_ptr(), qp.quant_shift.data_ptr(),
-                      qp.dequant.data_ptr(), coeff.data_ptr(), qc.data_ptr(),
-                      dq.data_ptr(), stream)
+        rc = entry()(resid.data_ptr(), resid.shape[0], fvt.data_ptr(),
+                     fht.data_ptr(), qc.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_txq16 launch failed: CUDA error {rc}")
     launches += 1
-    return coeff, qc, dq
+    return out.unbind(0)

@@ -22,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from svt_av1_tpu.codec import constants as cc
+from svt_av1_tpu_torch.codec import constants as cc
 
 _DATA = os.path.join(os.path.dirname(cc.__file__), "data",
                      "av1_intra_tables.npz")

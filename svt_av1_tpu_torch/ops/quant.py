@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from svt_av1_tpu.codec import constants as cc
+from svt_av1_tpu_torch.codec import constants as cc
 
 _DATA = os.path.join(os.path.dirname(cc.__file__), "data",
                      "av1_quant_tables.npz")
@@ -80,11 +80,20 @@ def make_quant_params(qindex: int, dc_delta: int = 0, ac_delta: int = 0,
 
 
 def to_device(qp, device) -> QuantParams:
-    """QuantParams (numpy or tensors) as contiguous int32 (2,) tensors."""
-    return QuantParams(*(torch.as_tensor(np.asarray(a) if not
-                                         isinstance(a, torch.Tensor) else a)
-                         .to(device=device, dtype=torch.int32).contiguous()
-                         for a in qp))
+    """QuantParams (numpy or tensors) as contiguous int32 (2,) tensors.
+    The five are rows of one (5, 2) tensor, so that a kernel can read all
+    ten constants from one pointer (ops/fused_txq.py)."""
+    packed = torch.stack([
+        torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a))
+        .to(device=device, dtype=torch.int32).reshape(2) for a in qp])
+    return QuantParams(*packed.unbind(0))
+
+
+@functools.lru_cache(maxsize=64)
+def params_on(qindex: int, device, bd: int = 8) -> QuantParams:
+    """``to_device(make_quant_params(qindex, bd=bd), device)``, made once
+    per (qindex, device, bd); never written."""
+    return to_device(make_quant_params(qindex, bd=bd), device)
 
 
 def tx_log_scale(tx_size: int) -> int:

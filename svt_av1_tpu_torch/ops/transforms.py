@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from svt_av1_tpu.codec import constants as cc
+from svt_av1_tpu_torch.codec import constants as cc
 
 _DATA = os.path.join(os.path.dirname(cc.__file__), "data",
                      "av1_inv_txfm_programs.npz")

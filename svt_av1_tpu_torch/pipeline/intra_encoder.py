@@ -26,10 +26,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from svt_av1_tpu.codec import constants as cc
-
 from svt_av1_tpu_torch import device as device_mod
+from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
+from svt_av1_tpu_torch.codec.syntax import _chroma_tx_type
 from svt_av1_tpu_torch.ops import fused_txq, intra, quant
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
@@ -72,7 +73,6 @@ def _predict_cand(mode, delta, n, above, left, corner, have_above,
 @functools.lru_cache(maxsize=None)
 def _scan_pos(tx_size: int) -> np.ndarray:
     """(n, n) scan position of each coefficient (inverse default scan)."""
-    from svt_av1_tpu.codec import tables as tb
     scan = np.asarray(tb.get_scan(tx_size, cc.DCT_DCT))
     pos = np.zeros(scan.shape[0], np.int32)
     pos[scan] = np.arange(scan.shape[0], dtype=np.int32)
@@ -439,9 +439,10 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                                bd: int = 8, exact_rates: bool = False,
                                device=None):
     """Enqueue the batched frame program for frames = [(y, u, v), ...]
-    (numpy, same dims, multiples of 16).  On CUDA the work runs
-    asynchronously; pair with encode_intra_frames_finish, so the host
-    can entropy-code the previous batch meanwhile."""
+    (numpy, same dims, multiples of 16) on ``device`` (default: the
+    current CUDA device).  On CUDA the work runs asynchronously; pair
+    with encode_intra_frames_finish, so the host can entropy-code the
+    previous batch meanwhile."""
     if bd != 8:
         raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
     bad = [m for m in modes if m not in MODES]
@@ -453,7 +454,7 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
     if h % BLK or w % BLK:
         raise ValueError(f"frame {w}x{h} is not a multiple of {BLK}")
     dev = device_mod.resolve(device)
-    qp = quant.to_device(quant.make_quant_params(qindex, bd=bd), dev)
+    qp = quant.params_on(int(qindex), dev, bd)
     lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
                        device=dev)
     planes = [torch.from_numpy(np.stack([f[p] for f in frames])
@@ -491,9 +492,9 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     grid the encoder's 2:1 wave order is a valid order too (every sample
     a block predicts from lies in an earlier wave, and availability
     depends on position only), so the blocks of one wave are
-    reconstructed as one batch, with the decoded modes and levels.
-    Returns dict(y, u, v) uint8 numpy planes."""
-    from svt_av1_tpu.codec.syntax import _chroma_tx_type
+    reconstructed as one batch, with the decoded modes and levels, on
+    ``device`` (default: the current CUDA device).  Returns dict(y, u, v)
+    uint8 numpy planes."""
     dev = device_mod.resolve(device)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
@@ -519,7 +520,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
         seen[bid] = True
     if not seen.all():
         raise ValueError("decisions do not cover the 16x16 grid")
-    qp = quant.to_device(quant.make_quant_params(qindex, bd=bd), dev)
+    qp = quant.params_on(int(qindex), dev, bd)
     rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
                              device=dev),
                u=torch.zeros((1, height // 2, width // 2),

@@ -1,6 +1,6 @@
 """The port on an NVIDIA GPU: the fused transform+quantize kernel against
-its plain version, and a small all-intra encode on the card against the
-same encode on the CPU.
+its plain version and against the first form of the kernel, and a small
+all-intra encode on the card against the same encode on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -12,9 +12,8 @@ import pytest
 import torch
 
 import tie_rule
-from svt_av1_tpu.codec import constants as cc
-
 from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec.decoder import Decoder
 from svt_av1_tpu_torch.ops import fused_txq, quant
 from svt_av1_tpu_torch.ops import transforms as tf
@@ -48,6 +47,30 @@ def test_kernel_matches_plain_on_cuda(b):
         tie_rule.tie_mismatches(coef.cpu().numpy(), pc.cpu().numpy(), exact)
         q_ref, d_ref = quant.quantize(coef, qp, cc.TX_16X16)
         assert torch.equal(qc, q_ref) and torch.equal(dq, d_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2112, 1920, 100, 1])
+def test_kernel_bit_identical_to_first_kernel(b):
+    """The redesigned kernel and the first one (svt_fused_txq16_v1) sum in
+    the same order, so every coeff, qcoeff and dqcoeff is equal."""
+    _need_card()
+    rng = np.random.default_rng(b + 1)
+    resid = torch.from_numpy(
+        rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)).cuda()
+    for qindex in (140, 255):
+        qp = quant.to_device(quant.make_quant_params(qindex), "cuda")
+        got = torch.stack(fused_txq.fused_txq(resid, qp))
+        ref = torch.empty_like(got)
+        fv, fh = tf.fwd_matrices_on(cc.DCT_DCT, cc.TX_16X16, resid.device)
+        rc = fused_txq.entry("svt_fused_txq16_v1")(
+            resid.data_ptr(), b, fv.data_ptr(), fh.data_ptr(),
+            *(a.data_ptr() for a in qp), ref[0].data_ptr(),
+            ref[1].data_ptr(), ref[2].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
 
 
 def _frames(n, w, h):

@@ -34,7 +34,7 @@ def test_plain_matches_pallas_kernel(b, seed, qindex):
     qp = jquant.make_quant_params(qindex)
     coef_j, qc_j, dq_j = jfused.fwd_txfm_quant_16x16_qp(
         jnp.asarray(resid), qp, interpret=True)
-    tqp = convert.quant_params_from_jax(qp)
+    tqp = convert.quant_params_from_jax(qp, device="cpu")
     coef, qc, dq = fused_txq.fused_txq_plain(torch.from_numpy(resid), tqp)
     n, _ = tie_rule.tie_mismatches(coef.numpy(), np.asarray(coef_j),
                                    _exact(resid))

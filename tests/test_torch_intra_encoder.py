@@ -5,7 +5,8 @@ exact on the agreeing blocks (the forward transform may round a tie the
 other way, which can flip a near-tied mode choice).  Whole slice at
 64x64: the JAX package's Decoder decodes the port's stream to exactly the
 port's recon, so does the port's own decoder, and the port agrees with
-the JAX encoder on >= 99% of blocks, within 0.05 dB Y-PSNR and 1% bytes.
+the JAX encoder on >= 99% of blocks, within 0.05 dB Y-PSNR and 1% bytes;
+on the CPU the two streams are byte-identical.
 """
 import os
 import subprocess
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from svt_av1_tpu.api.config import EncoderConfig
+from svt_av1_tpu.api.config import EncoderConfig as JEncoderConfig
 from svt_av1_tpu.api.encoder import Encoder as JEncoder
 from svt_av1_tpu.codec import constants as cc
 from svt_av1_tpu.codec import rate_est as jrate
@@ -26,7 +27,7 @@ from svt_av1_tpu.ops import quant as jquant
 from svt_av1_tpu.pipeline import intra_encoder as jie
 
 from svt_av1_tpu_torch import convert
-from svt_av1_tpu_torch.api.encoder import Encoder
+from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
 from svt_av1_tpu_torch.codec.decoder import Decoder
 from svt_av1_tpu_torch.pipeline import intra_encoder as tie
 
@@ -86,14 +87,14 @@ def test_rd_step_wave_matches_jax(exact, modes):
         jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
         tr_avail=jnp.zeros(b, bool), bl_avail=jnp.zeros(b, bool),
         rates=(rt[0], rt[2], rt[3], rt[5]))
-    trt = convert.rate_args_from_jax(rt)
+    trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     rec_t = t(recon)[None].clone()
     m_t, q_t, _ = tie._rd_step(
         rec_t, t(src)[None], torch.zeros(b, dtype=torch.int64),
         t(by * 16), t(bx * 16), torch.arange(b), t(by > 0), t(bx > 0),
-        convert.quant_params_from_jax(qp), torch.tensor(lam), modes,
-        (trt[0], trt[2], trt[3], trt[5]))
+        convert.quant_params_from_jax(qp, device="cpu"), torch.tensor(lam),
+        modes, (trt[0], trt[2], trt[3], trt[5]))
     m_j, q_j, r_j = np.asarray(m_j), np.asarray(q_j), np.asarray(r_j)
     agree = m_t.numpy() == m_j
     print(f"luma wave: {agree.sum()} of {b} modes agree")
@@ -119,14 +120,14 @@ def test_rd_step_chroma_wave_matches_jax():
         jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
         tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
         rates=(rt[1], rt[2], rt[4], rt[6]))
-    trt = convert.rate_args_from_jax(rt)
+    trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     ru_t, rv_t = t(rec_u)[None].clone(), t(rec_v)[None].clone()
     um_t, qu_t, qv_t, _, _ = tie._rd_step_chroma(
         ru_t, rv_t, t(src_u)[None], t(src_v)[None],
         torch.zeros(b, dtype=torch.int64), t(by * 8), t(bx * 8),
         torch.arange(b), t(by > 0), t(bx > 0),
-        convert.quant_params_from_jax(qp), torch.tensor(lam),
+        convert.quant_params_from_jax(qp, device="cpu"), torch.tensor(lam),
         (trt[1], trt[2], trt[4], trt[6]))
     agree = um_t.numpy() == np.asarray(um_j)
     print(f"chroma wave: {agree.sum()} of {b} modes agree")
@@ -155,10 +156,10 @@ def _psnr(a, b):
 def test_slice_matches_jax_package():
     frames = _clip(2, 64, 64)
     cfg = dict(source_width=64, source_height=64, qp=35, enc_mode=10)
-    pk_j = _encode(JEncoder(EncoderConfig(**cfg)), frames)
+    pk_j = _encode(JEncoder(JEncoderConfig(**cfg)), frames)
     pk_t = _encode(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
     assert len(pk_t) == len(pk_j) == 2
-    jdec_t, jdec_j, tdec = JDecoder(), JDecoder(), Decoder()
+    jdec_t, jdec_j, tdec = JDecoder(), JDecoder(), Decoder(device="cpu")
     same = total = 0
     for f, a, b in zip(frames, pk_j, pk_t):
         (rec,) = jdec_t.decode_temporal_unit(b.data)
@@ -183,11 +184,23 @@ def test_slice_matches_jax_package():
           f"identical streams: {identical}")
     assert same / total >= MIN_AGREE
     assert abs(nb_t - nb_j) <= MAX_DBYTES * nb_j
+    # on the CPU no forward-transform tie has flipped a decision here: the
+    # port's copies of the host side code the same stream
+    assert identical
 
 
 def test_port_never_imports_jax():
+    """An encode and a decode through the port on the CPU load neither
+    JAX nor any module of the JAX package, and open no file under it."""
     code = textwrap.dedent("""
+        import os
         import sys
+        jax_pkg = os.path.join(os.getcwd(), "svt_av1_tpu") + os.sep
+        opened = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], str):
+                opened.append(os.path.abspath(args[0]))
+        sys.addaudithook(hook)
         import numpy as np
         from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
         from svt_av1_tpu_torch.codec.decoder import Decoder
@@ -198,9 +211,14 @@ def test_port_never_imports_jax():
                       device="cpu")
         enc.send_pictures([(y, u, u)], eos=True)
         pkt = enc.get_packet()
-        (rec,) = Decoder().decode_temporal_unit(pkt.data)
+        (rec,) = Decoder(device="cpu").decode_temporal_unit(pkt.data)
         assert np.array_equal(rec["y"], pkt.recon["y"])
-        assert "jax" not in sys.modules, "jax was imported"
+        bad = sorted(m for m in sys.modules if m == "jax"
+                     or m.startswith("jax.") or m == "svt_av1_tpu"
+                     or m.startswith("svt_av1_tpu."))
+        assert not bad, f"loaded: {bad}"
+        read = sorted({p for p in opened if p.startswith(jax_pkg)})
+        assert not read, f"opened under svt_av1_tpu/: {read}"
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

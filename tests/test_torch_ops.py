@@ -44,7 +44,7 @@ def test_make_quant_params_matches(qindex):
     got = tquant.make_quant_params(qindex)
     for a, b in zip(ref, got):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    t = convert.quant_params_from_jax(ref)
+    t = convert.quant_params_from_jax(ref, device="cpu")
     assert all(x.dtype == torch.int32 and np.array_equal(x.numpy(), a)
                for x, a in zip(t, ref))
 
@@ -179,8 +179,9 @@ def test_txb_bits_exact_matches(tx_size, plane):
     q[20:40, 1:] = 0                # DC-only blocks
     t = jrate._default_exact_tables(140, tx_size, plane)
     ref = np.asarray(jcoef.txb_bits_exact(jnp.asarray(q), t, n))
-    got = tcoef.txb_bits_exact(torch.from_numpy(q),
-                               convert.coef_tables_from_jax(t), n)
+    got = tcoef.txb_bits_exact(
+        torch.from_numpy(q), convert.coef_tables_from_jax(t, device="cpu"),
+        n)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
 
 
@@ -193,7 +194,7 @@ def test_txb_bits_analytic_matches():
     pos = jie._scan_pos(cc.TX_16X16)
     ref = np.asarray(jie._txb_bits(jnp.asarray(q), rt[0], rt[2][0], rt[5],
                                    jnp.asarray(pos)))
-    trt = convert.rate_args_from_jax(rt)
+    trt = convert.rate_args_from_jax(rt, device="cpu")
     got = tie._txb_bits(torch.from_numpy(q), trt[0], trt[2][0], trt[5],
                         torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
@@ -203,8 +204,9 @@ def test_txb_bits_analytic_matches():
 def test_md_rate_args_and_convert_round_trip(exact):
     modes = tie.MODES if exact else tie.MODES[:4]
     ref = jrate.md_rate_args(140, modes, tie.UV_MODES, exact=exact)
-    got = trate.md_rate_args(140, modes, tie.UV_MODES, exact=exact)
-    conv = convert.rate_args_from_jax(ref)
+    got = trate.md_rate_args(140, modes, tie.UV_MODES, exact=exact,
+                            device="cpu")
+    conv = convert.rate_args_from_jax(ref, device="cpu")
     assert len(ref) == len(got) == len(conv) == 9
     for r, g, c in zip(ref, got, conv):
         if hasattr(r, "_fields"):

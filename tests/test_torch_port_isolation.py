@@ -1,0 +1,260 @@
+"""The port stands alone: it imports nothing of the JAX package, its
+copies of the reference's host modules and data files have not drifted
+from their sources, and its entry points run on the card unless asked
+for the CPU.
+
+The copies are the reference's numpy/C host side (OBU syntax, CDFs, the
+range coder, rate control, presets, configuration) and its data files,
+kept verbatim in svt_av1_tpu_torch/ with the package name rewritten.
+"""
+import ast
+import filecmp
+import importlib
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import golden_defs
+from svt_av1_tpu_torch import device as device_mod
+from svt_av1_tpu_torch import goldens, native
+from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+from svt_av1_tpu_torch.codec import rate_est
+from svt_av1_tpu_torch.codec.decoder import Decoder
+from svt_av1_tpu_torch.ops import fused_txq, quant
+from svt_av1_tpu_torch.pipeline import intra_encoder as tie
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(REPO, "svt_av1_tpu")
+PORT = os.path.join(REPO, "svt_av1_tpu_torch")
+
+# host modules copied verbatim (package name rewritten)
+HOST_COPIES = (
+    "codec/constants.py", "codec/tables.py", "codec/cdf.py",
+    "codec/entropy.py", "codec/coeff.py", "codec/mv.py", "codec/mv_pred.py",
+    "codec/segmentation.py", "codec/subexp.py", "codec/palette.py",
+    "codec/lr.py", "codec/film_grain.py", "codec/syntax.py",
+    "codec/fast_ec.py", "codec/obu.py", "utils/bitio.py",
+    "utils/profiling.py", "api/config.py", "pipeline/presets.py",
+    "pipeline/rate_control.py", "pipeline/rc_onepass.py",
+    "native/ec_native.c")
+DATA_FILES = (
+    "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
+    "av1_quant_tables", "av1_scan_tables", "md_rate_fit",
+    "md_rate_fit_adapted", "av1_sgr_tables", "av1_gaussian_sequence")
+# the numpy half of codec/rate_est.py, copied by name
+RATE_EST_NAMES = (
+    "MAX_LEVEL", "_sym_bits", "_R_GRID", "_R_WEIGHTS", "_avg_bits",
+    "_fitted", "_fitted_adapted", "rdoq_tables_for_qindex",
+    "_eob_table_from_cls", "_analytic_eob_table", "_level_curve",
+    "true_tables_for_qindex", "tables_for_qindex")
+GOLDEN_NAMES = ("INTRA_SIZES", "legal_tx_types", "inv_txfm_input",
+                "inv_txfm_cases", "intra_input")
+
+_PKG_NAME = re.compile(r"\bsvt_av1_tpu\b")
+
+
+def _port_sources():
+    out = []
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _jax_package_imports(path):
+    """(line, module) of every import of svt_av1_tpu or svt_av1_tpu.*."""
+    tree = ast.parse(open(path).read(), filename=path)
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        hits += [(node.lineno, n) for n in names
+                 if n == "svt_av1_tpu" or n.startswith("svt_av1_tpu.")]
+    return hits
+
+
+def test_no_import_of_the_jax_package():
+    files = _port_sources() + [os.path.join(REPO, "chip_smoke.py"),
+                               os.path.join(REPO, "tests",
+                                            "test_torch_cuda.py")]
+    bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
+           for line, mod in _jax_package_imports(f)]
+    assert len(files) > 30
+    assert not bad, "imports of the JAX package:\n" + "\n".join(bad)
+
+
+def test_port_imports_resolve():
+    """Every import of a port module, lazy ones included, names a module
+    or an attribute that exists in the port."""
+    missing = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.ImportFrom) and node.level == 0 and (
+                    node.module or "").startswith("svt_av1_tpu_torch"):
+                mod = importlib.import_module(node.module)
+                for a in node.names:
+                    if not (hasattr(mod, a.name) or importlib.util.find_spec(
+                            f"{node.module}.{a.name}")):
+                        missing.append(f"{path}:{node.lineno} "
+                                       f"{node.module}.{a.name}")
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    if (a.name.startswith("svt_av1_tpu_torch")
+                            and importlib.util.find_spec(a.name) is None):
+                        missing.append(f"{path}:{node.lineno} {a.name}")
+    assert not missing, "\n".join(missing)
+
+
+def _first_difference(got, ref):
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if a != b:
+            return f"line {k + 1}: {a!r} != {b!r}"
+    return f"lengths differ: {len(got)} vs {len(ref)} lines"
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copy_matches_source(rel):
+    src = open(os.path.join(JAX_PKG, rel)).read()
+    got = open(os.path.join(PORT, rel)).read().splitlines()
+    ref = _PKG_NAME.sub("svt_av1_tpu_torch", src).splitlines()
+    assert got == ref, f"{rel} drifted from svt_av1_tpu/{rel}: " \
+        + _first_difference(got, ref)
+
+
+@pytest.mark.parametrize("name", DATA_FILES)
+def test_data_file_identical(name):
+    rel = os.path.join("codec", "data", f"{name}.npz")
+    assert filecmp.cmp(os.path.join(PORT, rel), os.path.join(JAX_PKG, rel),
+                       shallow=False), f"{rel} differs from its source"
+
+
+def _top_level_sources(path, names):
+    """{name: source text} of top-level functions and assignments."""
+    text = open(path).read()
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            keys = [node.name]
+        elif isinstance(node, ast.Assign):
+            keys = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign):
+            keys = [node.target.id]
+        else:
+            continue
+        for k in keys:
+            if k in names:
+                seg = ast.get_source_segment(text, node, padded=True)
+                lines = seg.splitlines()
+                if getattr(node, "decorator_list", None):
+                    lines = [ast.get_source_segment(text, d)
+                             for d in node.decorator_list] + lines
+                out[k] = [ln for ln in lines
+                          if not ln.strip().startswith(("from ", "import "))]
+    return out
+
+
+@pytest.mark.parametrize("path,ref,names", [
+    ("svt_av1_tpu_torch/codec/rate_est.py", "svt_av1_tpu/codec/rate_est.py",
+     RATE_EST_NAMES),
+    ("svt_av1_tpu_torch/goldens.py", "tests/golden_defs.py", GOLDEN_NAMES)])
+def test_copied_definitions_match_source(path, ref, names):
+    """Definitions copied one by one (the numpy half of rate_est.py, the
+    golden input generators) equal their sources, import lines aside."""
+    got = _top_level_sources(os.path.join(REPO, path), names)
+    want = _top_level_sources(os.path.join(REPO, ref), names)
+    assert set(got) == set(want) == set(names)
+    for k in names:
+        assert got[k] == want[k], f"{path}: {k} drifted from {ref}: " \
+            + _first_difference(got[k], want[k])
+    if path.endswith("goldens.py"):
+        assert goldens.GOLDEN_DIR == golden_defs.GOLDEN_DIR
+
+
+def _frames(n, w, h):
+    y = np.full((h, w), 100, np.uint8)
+    u = np.full((h // 2, w // 2), 128, np.uint8)
+    return [(y, u, u)] * n
+
+
+ENTRY_POINTS = {
+    "Encoder": lambda: Encoder(EncoderConfig(source_width=32,
+                                             source_height=32)),
+    "Decoder": lambda: Decoder(),
+    "encode_intra_frames_launch": lambda: tie.encode_intra_frames_launch(
+        _frames(1, 32, 32), 140),
+    "reconstruct_from_decisions": lambda: tie.reconstruct_from_decisions(
+        {}, 32, 32, 140),
+    "md_rate_args": lambda: rate_est.md_rate_args(140, tie.MODES,
+                                                  tie.UV_MODES),
+    "convert": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.convert").quant_params_from_jax(
+            quant.make_quant_params(140)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_cuda_raises(name, monkeypatch):
+    """With no device given the port runs on the card; without CUDA that
+    raises and names device="cpu" (no silent fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name]()
+
+
+def test_resolve_defaults_to_the_current_cuda_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert device_mod.resolve(None) == torch.device("cuda", 0)
+    assert device_mod.resolve("cpu") == torch.device("cpu")
+
+
+def test_quant_constants_packed_for_the_kernel():
+    qp_np = quant.make_quant_params(140)
+    qp = quant.to_device(qp_np, "cpu")
+    packed = fused_txq.packed_constants(qp)
+    assert packed.data_ptr() == qp.zbin.data_ptr()
+    flat = torch.from_numpy(np.stack(qp_np).reshape(-1))
+    assert torch.equal(torch.as_strided(packed, (10,), (1,)), flat)
+    loose = quant.QuantParams(*(a.clone() for a in qp))
+    assert torch.equal(fused_txq.packed_constants(loose).flatten(), flat)
+    assert quant.params_on(140, torch.device("cpu")) is quant.params_on(
+        140, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "offset",
+                                 "qp"])
+def test_wrapper_check_refuses(bad):
+    resid = torch.zeros((4, 16, 16), dtype=torch.int32)
+    qp = quant.to_device(quant.make_quant_params(140), "cpu")
+    if bad == "dtype":
+        resid = resid.long()
+    elif bad == "shape":
+        resid = torch.zeros((4, 8, 8), dtype=torch.int32)
+    elif bad == "strides":
+        resid = resid.transpose(1, 2)
+    elif bad == "offset":
+        resid = torch.zeros(4 * 256 + 1, dtype=torch.int32)[1:].view(4, 16,
+                                                                      16)
+    else:
+        qp = qp._replace(quant=qp.quant.long())
+    with pytest.raises((TypeError, ValueError)):
+        fused_txq._check(resid, qp)
+
+
+def test_native_loader_raises_with_compiler_output(tmp_path, monkeypatch):
+    bad = tmp_path / "ec_native.c"
+    bad.write_text("this is not C\n")
+    monkeypatch.setattr(native, "SRC", str(bad))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "SO", str(tmp_path / "build" / "ec.so"))
+    monkeypatch.setattr(native, "_mod", None)
+    with pytest.raises(RuntimeError, match="did not build") as e:
+        native.get_ec()
+    assert "error" in str(e.value)
