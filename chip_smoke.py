@@ -9,8 +9,9 @@ Phases, one line each; any failure raises and exits non-zero:
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
      into build/kernels/;
   3. the fused transform+quantize kernel (K1) on the card, at B = 2112
-     (the CIF wave batch), 1920 (the 720p one) and 100, qindex 140 and
-     255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
+     and 1920 (the CIF and 720p wave batches at M10), 100, and 2816 and
+     2560 (the same at M5-M9: 8 luma modes), qindex 140 and 255:
+     bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; at each size
      the device time per launch of the kernel, the first kernel and the
@@ -29,7 +30,29 @@ Phases, one line each; any failure raises and exits non-zero:
   6. the same encode and decode check at 1280x720, 8 frames;
   7. the first 4 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
-     |dbytes| <= 1%.
+     |dbytes| <= 1%;
+  8. the zone-1/zone-3 directional predictors, the CfL AC buffer and
+     prediction (exact) and the 16x16 ADST_ADST/ADST_DCT/DCT_ADST forward
+     transforms (tie rule) on the card against the port's CPU run;
+  9. preset M6 (tx-type search, angle deltas, CfL, palette) through
+     Encoder(cfg).send_picture / flush on the default device: CIF, 4
+     frames of the bench clip and 1 screen-content frame, one warm frame
+     then timed; every packet decoded on the card and equal to
+     Packet.recon; seconds per frame, bytes, Y-PSNR, the counts of blocks
+     with a non-DCT tx type, a non-zero angle delta, CfL and palette
+     (each must be > 0) and the host_ec seconds;
+ 10. the same at 1280x720, 1 clip frame and 1 screen-content frame;
+ 11. M6 through send_pictures (the batched program with the preset's 8
+     plain luma modes): CIF x32 and 720p x8, hot fps, bytes, PSNR, K1
+     launches > 0, decoder exact;
+ 12. 1 clip frame and 1 screen-content CIF frame at M6 on the CPU against
+     the card's: >= 99% of blocks equal (mode, tx type, delta, uv mode,
+     alphas, palette, levels), |dPSNR| <= 0.05 dB, |dbytes| <= 1%.
+
+K1's launch count is set to 0 before each encode path and read after it;
+the send_pictures paths must have launched it, the M6 send_picture path
+does not run it (its luma step searches four tx types, as the
+reference's does without its kernel).
 
 Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
@@ -94,6 +117,9 @@ def psnr(a, b):
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published datasheet rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 GRAPH_LAUNCHES = 20
+# K1's batch on the main paths: frames x wave slots x luma modes at CIF
+# x32 / 720p x8 with 6 modes (M10) and 8 modes (M5-M9); 100 is a small one
+K1_BATCHES = (2112, 1920, 100, 2816, 2560)
 GRAPH_REPLAYS = 50
 
 
@@ -271,7 +297,7 @@ def phase_kernel(card):
     fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
     rng = np.random.default_rng(7)
     rec = dict(max_abs_err=0, by_batch=[])
-    for b in (2112, 1920, 100):
+    for b in K1_BATCHES:
         resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
         exact = tie_rule.exact_coeffs(resid_np, fv, fh)
         resid = torch.from_numpy(resid_np).cuda()
@@ -348,11 +374,18 @@ def phase_goldens():
         f"{n_pred} cases bit-exact vs the C goldens on cuda")
 
 
-def encode(frames, w, h, device):
+def encode(frames, w, h, device, preset=10, batched=True):
+    """Packets of ``frames`` at ``preset``, qp 35: one send_pictures call,
+    or (not ``batched``) one send_picture per frame and a flush."""
     from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
     enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
-                                enc_mode=10), device=device)
-    enc.send_pictures(frames, eos=True)
+                                enc_mode=preset), device=device)
+    if batched:
+        enc.send_pictures(frames, eos=True)
+    else:
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
     pkts = []
     while (p := enc.get_packet()) is not None:
         pkts.append(p)
@@ -379,14 +412,14 @@ def decode_check(pkts, device):
     return decisions
 
 
-def phase_encode(tag, frames, w, h, card):
+def phase_encode(tag, frames, w, h, card, preset=10):
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
-    encode(frames, w, h, None)                       # warm
+    encode(frames, w, h, None, preset)               # warm
     torch.cuda.synchronize()
     fused_txq.launches = 0
     t0 = time.perf_counter()
-    pkts = encode(frames, w, h, None)
+    pkts = encode(frames, w, h, None, preset)
     dt = time.perf_counter() - t0
     launches = fused_txq.launches
     if launches <= 0:
@@ -396,8 +429,9 @@ def phase_encode(tag, frames, w, h, card):
                            for f, p in zip(frames, pkts)]))
     t1 = time.perf_counter()
     decisions = decode_check(pkts, None)
-    log(f"phase {tag}: {w}x{h} x{len(frames)} M10 qp35 on the default "
-        f"device ({torch.cuda.get_device_name(0)}): "
+    log(f"phase {tag}: {w}x{h} x{len(frames)} M{preset} qp35 through "
+        f"send_pictures on the default device "
+        f"({torch.cuda.get_device_name(0)}): "
         f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s), {nbytes} bytes, "
         f"mean Y-PSNR {mpsnr:.4f} dB, fused_txq launches {launches} "
         f"({card}); decoder on the default device matches recon "
@@ -405,17 +439,156 @@ def phase_encode(tag, frames, w, h, card):
     return pkts, decisions, launches
 
 
+def tool_counts(decisions):
+    """Blocks with a non-DCT tx type, a non-zero angle delta, CfL and a
+    palette over the frames' parsed decisions."""
+    from svt_av1_tpu_torch.codec import constants as cc
+    blocks = [b for d in decisions for b in d.values()]
+    return dict(
+        blocks=len(blocks),
+        tx=sum(b.tx_type != cc.DCT_DCT for b in blocks),
+        delta=sum(b.angle_delta_y != 0 for b in blocks),
+        cfl=sum(b.uv_mode == cc.UV_CFL_PRED for b in blocks),
+        palette=sum(b.palette is not None for b in blocks))
+
+
+def phase_key_frames(tag, frames, w, h, card):
+    """M6 through send_picture / flush on the default device: one warm
+    frame, then the timed run; every packet decoded on the card."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    encode(frames[:1], w, h, None, 6, batched=False)  # warm
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode(frames, w, h, None, 6, batched=False)
+    dt = time.perf_counter() - t0
+    launches = fused_txq.launches
+    stages = profiling.stage_stats()
+    nbytes = sum(len(p.data) for p in pkts)
+    mpsnr = float(np.mean([psnr(f[0], p.recon["y"])
+                           for f, p in zip(frames, pkts)]))
+    t1 = time.perf_counter()
+    decisions = decode_check(pkts, None)
+    dec_s = time.perf_counter() - t1
+    n = tool_counts(decisions)
+    sec = {k: stages.get(k, (0.0, 0))[0]
+           for k in ("palette_md", "device_md_intra", "host_ec")}
+    log(f"phase {tag}: {w}x{h} x{len(frames)} M6 qp35 through send_picture "
+        f"on the default device ({torch.cuda.get_device_name(0)}): "
+        f"{dt / len(frames):.3f} s per frame ({dt:.3f} s; per frame "
+        f"{[len(p.data) for p in pkts]} bytes), {nbytes} bytes, mean "
+        f"Y-PSNR {mpsnr:.4f} dB; of {n['blocks']} blocks {n['tx']} with a "
+        f"non-DCT tx type, {n['delta']} with an angle delta, {n['cfl']} CfL, "
+        f"{n['palette']} palette; host seconds: palette_md "
+        f"{sec['palette_md']:.3f}, device_md_intra "
+        f"{sec['device_md_intra']:.3f}, host_ec {sec['host_ec']:.3f} "
+        f"({sec['host_ec'] / dt:.1%} of the wall time); fused_txq launches "
+        f"{launches} ({card}); decoder on the default device matches recon "
+        f"({dec_s:.1f} s)")
+    for k in ("tx", "delta", "cfl", "palette"):
+        if n[k] <= 0:
+            raise AssertionError(f"phase {tag}: no block uses the tool "
+                                 f"'{k}' at M6")
+    return pkts, decisions, launches
+
+
+def same_block(a, b):
+    pal = ((a.palette is None) == (b.palette is None)
+           and (a.palette is None
+                or (np.array_equal(a.palette, b.palette)
+                    and np.array_equal(a.palette_map, b.palette_map))))
+    return (a.y_mode == b.y_mode and a.uv_mode == b.uv_mode
+            and a.tx_type == b.tx_type
+            and a.angle_delta_y == b.angle_delta_y
+            and a.cfl_alpha_u == b.cfl_alpha_u
+            and a.cfl_alpha_v == b.cfl_alpha_v and pal
+            and np.array_equal(a.qcoeff_y, b.qcoeff_y)
+            and np.array_equal(a.qcoeff_u, b.qcoeff_u)
+            and np.array_equal(a.qcoeff_v, b.qcoeff_v))
+
+
 def block_agreement(da, db):
     same = tot = 0
     for fa, fb in zip(da, db):
         for k, a in fa.items():
-            b = fb[k]
             tot += 1
-            same += (a.y_mode == b.y_mode and a.uv_mode == b.uv_mode
-                     and np.array_equal(a.qcoeff_y, b.qcoeff_y)
-                     and np.array_equal(a.qcoeff_u, b.qcoeff_u)
-                     and np.array_equal(a.qcoeff_v, b.qcoeff_v))
+            same += same_block(a, fb[k])
     return same / max(tot, 1)
+
+
+def phase_tools():
+    """The predictors and forward transforms that M5-M8 use for the first
+    time, on the card against the port's CPU run."""
+    import torch
+    import tie_rule
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.ops import intra
+    from svt_av1_tpu_torch.ops import transforms as tf
+    rng = np.random.default_rng(8)
+    n, b = 16, 2816
+    ext = rng.integers(0, 256, (b, 2 * n + 1)).astype(np.int32)
+    ext[:, -1] = ext[:, -2]
+    ext_c, ext_g = torch.from_numpy(ext), torch.from_numpy(ext).cuda()
+    n_pred = 0
+    for angle in (81, 84, 87, 183, 186, 189):
+        fn = intra.z1_pred if angle < 90 else intra.z3_pred
+        if not torch.equal(fn(ext_g, n, n, angle).cpu(),
+                           fn(ext_c, n, n, angle)):
+            raise AssertionError(f"directional predictor at {angle} degrees "
+                                 "differs between cuda and cpu")
+        n_pred += 1
+    luma = rng.integers(0, 256, (b, 16, 16)).astype(np.int32)
+    dc = rng.integers(0, 256, (b, 8, 8)).astype(np.int32)
+    alpha = rng.integers(-16, 17, b).astype(np.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        to = lambda a: torch.from_numpy(a).to(dev)
+        ac = intra.cfl_ac_420(to(luma), 8, 8)
+        outs.append((ac.cpu(), intra.cfl_predict(to(dc), ac,
+                                                 to(alpha)).cpu()))
+    if not (torch.equal(outs[0][0], outs[1][0])
+            and torch.equal(outs[0][1], outs[1][1])):
+        raise AssertionError("CfL AC buffer or prediction differs between "
+                             "cuda and cpu")
+    resid = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
+    ties = {}
+    for name, t in (("ADST_ADST", cc.ADST_ADST), ("ADST_DCT", cc.ADST_DCT),
+                    ("DCT_ADST", cc.DCT_ADST)):
+        fv, fh, _, _ = tf._fwd_matrices(t, cc.TX_16X16)
+        exact = tie_rule.exact_coeffs(resid, fv, fh)
+        got = tf.fwd_txfm2d(torch.from_numpy(resid).cuda(), t,
+                            cc.TX_16X16).cpu().numpy()
+        ref = tf.fwd_txfm2d(torch.from_numpy(resid), t,
+                            cc.TX_16X16).numpy()
+        ties[name] = tie_rule.tie_mismatches(got, ref, exact)[0]
+    log(f"phase 8: z1/z3 predictors at {n_pred} angles and CfL (AC buffer, "
+        f"prediction) exact cuda vs cpu at B={b}; 16x16 forward transforms "
+        f"cuda vs cpu, coefficients off by one on rounding ties of "
+        f"{resid.size}: {ties}")
+
+
+def phase_cpu_vs_cuda_m6(frames, pkts_cuda, dec_cuda):
+    pkts_cpu = encode(frames, *CIF, "cpu", 6, batched=False)
+    dec_cpu = decode_check(pkts_cpu, "cpu")
+    agree = block_agreement(dec_cpu, dec_cuda)
+    p_cpu = np.mean([psnr(f[0], p.recon["y"])
+                     for f, p in zip(frames, pkts_cpu)])
+    p_gpu = np.mean([psnr(f[0], p.recon["y"])
+                     for f, p in zip(frames, pkts_cuda)])
+    b_cpu = sum(len(p.data) for p in pkts_cpu)
+    b_gpu = sum(len(p.data) for p in pkts_cuda)
+    same_bytes = all(a.data == b.data for a, b in zip(pkts_cpu, pkts_cuda))
+    log(f"phase 12: {len(frames)} CIF frames at M6 (send_picture) cpu vs "
+        f"cuda: {agree:.4%} blocks equal, Y-PSNR {p_cpu:.4f} vs "
+        f"{p_gpu:.4f} dB, bytes {b_cpu} vs {b_gpu}, streams identical: "
+        f"{same_bytes}")
+    if (agree < MIN_BLOCK_AGREE or abs(p_cpu - p_gpu) > MAX_DPSNR
+            or abs(b_cpu - b_gpu) > MAX_DBYTES * b_gpu):
+        raise AssertionError("cpu and cuda M6 encodes disagree beyond the "
+                             "slice's parity thresholds")
 
 
 def phase_cpu_vs_cuda(frames, pkts_cuda, dec_cuda):
@@ -474,10 +647,29 @@ def main():
     krec = phase_kernel(card)
     phase_goldens()
 
+    import clips
     cif = synth_frames(32, *CIF)
-    pkts_cif, dec_cif, launches = phase_encode("5", cif, *CIF, card)
-    phase_encode("6", synth_frames(8, *HD), *HD, card)
+    hd = synth_frames(8, *HD)
+    by_path = {}
+    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x32"] = phase_encode(
+        "5", cif, *CIF, card)
+    by_path["M10 send_pictures 720p x8"] = phase_encode(
+        "6", hd, *HD, card)[2]
     phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
+    del pkts_cif, dec_cif
+
+    phase_tools()
+    key_cif = cif[:4] + [clips.screen_frame(*CIF, seed=1)]
+    pk_m6, dec_m6, by_path["M6 send_picture CIF x5"] = phase_key_frames(
+        "9", key_cif, *CIF, card)
+    by_path["M6 send_picture 720p x2"] = phase_key_frames(
+        "10", [hd[0], clips.screen_frame(*HD, seed=1)], *HD, card)[2]
+    launches = by_path["M6 send_pictures CIF x32"] = phase_encode(
+        "11a", cif, *CIF, card, preset=6)[2]
+    by_path["M6 send_pictures 720p x8"] = phase_encode(
+        "11b", hd, *HD, card, preset=6)[2]
+    phase_cpu_vs_cuda_m6([key_cif[0], key_cif[4]], [pk_m6[0], pk_m6[4]],
+                         [dec_m6[0], dec_m6[4]])
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
@@ -485,7 +677,9 @@ def main():
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
-    b0 = krec["by_batch"][0]
+    # the line's top-level numbers are K1's at this slice's main-path
+    # batch (M6 send_pictures, CIF x32); every size is under by_batch
+    b0 = next(r for r in krec["by_batch"] if r["b"] == 2816)
     log(smi)
     log(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
@@ -496,7 +690,7 @@ def main():
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],
         host_issue_ms=b0["host_issue_ms"], v1_ms=b0["v1_us"] / 1000,
-        by_batch=krec["by_batch"])]}))
+        launches_by_path=by_path, by_batch=krec["by_batch"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,17 +2,26 @@
 svt_av1_tpu/api/encoder.py.
 
   Encoder(config, device)   ~ svt_av1_enc_init_handle + init
+  enc.send_picture(y, u, v) ~ svt_av1_enc_send_picture
+  enc.flush()               ~ send_picture(NULL, eos)
   enc.send_pictures(frames) ~ batched svt_av1_enc_send_picture
   enc.get_packet()          ~ svt_av1_enc_get_packet
   enc.stream_header()       ~ svt_av1_enc_stream_header
 
 Slice: 8-bit 4:2:0, all-intra (intra_period_length -2 or 0), CQP/CRF,
-presets M10-M13, one tile, no AQ, and DLF, CDEF, LR, superres and film
+presets M5-M13, one tile, no AQ, and DLF, CDEF, LR, superres and film
 grain off.  Any other configuration raises NotImplementedError naming the
 ROADMAP.md item that brings it; nothing falls back to the JAX package.
-Mode decision runs on ``device`` (pipeline/intra_encoder.py; default:
-the current CUDA device); entropy coding is the port's copy of the
-native C tile coder (native/ec_native.c), on the host.
+
+``send_picture`` codes one key frame at a time with the preset's whole
+tool set (at M5-M8: tx-type search, angle deltas, CfL, palette on screen
+content) and packetizes the per-block decisions with the object tile
+coder.  ``send_pictures`` runs the batched frame program with the
+preset's plain luma modes (as the reference's does) and the array-native
+C tile coder.  Mode decision runs on ``device``
+(pipeline/intra_encoder.py; default: the current CUDA device); entropy
+coding is the port's copy of the host coder (codec/syntax.py,
+native/ec_native.c).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from svt_av1_tpu_torch.pipeline import intra_encoder
 from svt_av1_tpu_torch.pipeline.presets import features_for
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
                                                      qp_to_qindex)
+from svt_av1_tpu_torch.utils import profiling
 from svt_av1_tpu_torch.utils.profiling import stage
 
 __all__ = ["Encoder", "EncoderConfig", "Packet", "qp_to_qindex"]
@@ -61,9 +71,9 @@ def _unsupported(cfg: EncoderConfig):
         (cfg.rate_control_mode != 0 or cfg.max_bit_rate > 0
          or cfg.pass_ != 0, "VBR/CBR, capped CRF and multi-pass",
          "queue A item 7"),
-        (not 10 <= cfg.enc_mode <= 13,
-         f"preset M{cfg.enc_mode} (tx search, CfL, angle deltas, "
-         "filter-intra, palette, varpart)", "queue A item 2 at M6, item 7"),
+        (not 5 <= cfg.enc_mode <= 13,
+         f"preset M{cfg.enc_mode} (varpart, filter-intra, the D45/D67/D203 "
+         "modes, per-SB CDEF)", "queue A item 7"),
         (cfg.tile_columns > 0 or cfg.tile_rows > 0, "tiles",
          "queue A item 7"),
         (cfg.enable_adaptive_quantization != 0, "adaptive quantization",
@@ -101,10 +111,24 @@ class Encoder:
         self.sp = obu.SequenceParams(width=self.coded_w, height=self.coded_h,
                                      bit_depth=8)
         self._feat = features_for(config.enc_mode)
+        # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
+        # sequence header; a frame turns the tools on when it has
+        # palette candidates
+        self.sp.enable_screen_content = bool(self._feat.palette)
+        # the other sequence flags the preset sets in the reference (no
+        # key frame of the slice uses the tools they announce)
+        self.sp.enable_filter_intra = self._feat.filter_intra
+        self.sp.enable_interintra_compound = self._feat.interintra
         self._packets: Deque[Packet] = deque()
+        self._la: Deque = deque()      # submitted, not yet coded
         self._pts = 0
         self._eos_sent = False
         self._seq_hdr_sent = False
+        # last recon and end-of-frame CDF state (what an inter frame
+        # would predict from; kept as the reference keeps them)
+        self._ref: Optional[Dict[str, np.ndarray]] = None
+        self._ref_cdfs = None
+        self._ref_nmv = None
         fps = (config.frame_rate_numerator
                / max(config.frame_rate_denominator, 1))
         self._rc = RateControlState.create(config, fps)
@@ -114,16 +138,81 @@ class Encoder:
         return obu.write_sequence_header(self.sp)
 
     def send_picture(self, y, u, v, eos: bool = False):
-        raise NotImplementedError(
-            "send_picture (GOP / lookahead path): ROADMAP.md queue A items "
-            "4-6; use send_pictures for all-intra batches")
+        """Feed one frame (planar uint8 numpy).  All-intra has no
+        lookahead, so the frame is coded before this returns."""
+        self._la.append(self._checked(y, u, v))
+        self._drain()
+        if eos:
+            self._eos_sent = True
+
+    def flush(self):
+        """Signal EOS without a new picture."""
+        self._drain()
+        self._eos_sent = True
+
+    def _drain(self):
+        while self._la:
+            y, u, v = self._la.popleft()
+            self._packets.append(self._encode_frame(y, u, v, self._pts))
+            self._pts += 1
+
+    def _encode_frame(self, y, u, v, pts) -> Packet:
+        """One key frame: palette candidates, the frame program with the
+        preset's tools, object packetization."""
+        qindex = self._rc.frame_qindex()
+        y, u, v = self._pad(y, u, v)
+        pal_cands = None
+        if self.sp.enable_screen_content:
+            with stage("palette_md"):
+                pal_cands = intra_encoder.palette_md_candidates(
+                    y, qindex, device=self.device)
+        with stage("device_md_intra"):
+            decisions, recon = intra_encoder.encode_intra_frame(
+                y, u, v, qindex, modes=self._feat.intra_modes,
+                rdoq=self._feat.rdoq, tx_search=self._feat.tx_search,
+                angle_deltas=self._feat.angle_deltas, cfl=self._feat.cfl,
+                exact_rates=(self._feat.exact_rates
+                             and self._feat.exact_rates_intra),
+                palette_cands=pal_cands, device=self.device)
+        pkt = self._packetize(decisions, recon, qindex, pts,
+                              allow_sct=pal_cands is not None)
+        self._rc.feedback(len(pkt.data) * 8, qindex, True)
+        return pkt
+
+    def _packetize(self, decisions, recon, qindex, pts,
+                   allow_sct: bool) -> Packet:
+        """Entropy coding + OBU assembly for one key frame from per-block
+        decisions (in-loop filters are off in the slice).  allow_sct: the
+        frame has palette candidates, so it turns the screen-content
+        tools on."""
+        fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
+                             base_q_idx=qindex,
+                             render_width=self.render_w,
+                             render_height=self.render_h)
+        fp.allow_screen_content_tools = allow_sct
+        self._ref = {k: recon[k] for k in ("y", "u", "v")}
+        tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
+                           reduced_tx_set=fp.reduced_tx_set,
+                           update_cdfs=not fp.disable_cdf_update,
+                           frame_is_intra=True)
+        tenc.enable_filter_intra = self.sp.enable_filter_intra
+        tenc.allow_palette = bool(fp.allow_screen_content_tools)
+        tenc.bit_depth = 8
+        with stage("host_ec"):
+            tile_data = tenc.encode(decisions)
+        if not fp.disable_frame_end_update_cdf:
+            self._ref_cdfs = tenc.cdfs
+            self._ref_nmv = tenc.nmv
+        return self._assemble(fp, tile_data, recon, pts)
 
     def send_pictures(self, frames, eos: bool = False):
         """Batched submit: frames = [(y, u, v), ...] uint8 planes.  Each
-        chunk of up to 32 frames runs as one device batch; the host
-        entropy-codes chunk k while the device works on chunk k+1."""
+        chunk of up to 32 frames runs as one device batch with the
+        preset's plain luma modes; the host entropy-codes chunk k while
+        the device works on chunk k+1."""
         qindex = self._rc.frame_qindex()
-        padded = [self._pad(y, u, v) for (y, u, v) in frames]
+        padded = [self._pad(*self._checked(y, u, v))
+                  for (y, u, v) in frames]
         pending = None
         for i in range(0, len(padded), CHUNK):
             chunk = padded[i:i + CHUNK]
@@ -159,10 +248,18 @@ class Encoder:
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
+        self._ref = {k: recon[k] for k in ("y", "u", "v")}
         tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
                            update_cdfs=True, frame_is_intra=True)
         tile_data = fast_ec.encode_intra_tile_arrays(tenc, ym, um, qy, qu,
                                                      qv)
+        self._ref_cdfs = tenc.cdfs
+        self._ref_nmv = tenc.nmv
+        return self._assemble(fp, tile_data, recon, pts)
+
+    def _assemble(self, fp, tile_data, recon, pts) -> Packet:
+        """The temporal unit (with the sequence header on the first) and
+        the recon cropped to the render size."""
         tu = obu.temporal_delimiter()
         if not self._seq_hdr_sent:
             tu += obu.write_sequence_header(self.sp)
@@ -189,9 +286,14 @@ class Encoder:
     def done(self) -> bool:
         return self._eos_sent and not self._packets
 
+    def stage_stats(self):
+        """Per-stage host timing accumulated since process start."""
+        return profiling.stage_stats()
+
     # -- internals -----------------------------------------------------------
-    def _pad(self, y, u, v):
-        """Edge-replicate to the coded (16-aligned) size."""
+    def _checked(self, y, u, v):
+        """The planes as numpy arrays, after the geometry and dtype
+        checks."""
         y, u, v = np.asarray(y), np.asarray(u), np.asarray(v)
         eh, ew = self.render_h, self.render_w
         ch, cw = (eh + 1) // 2, (ew + 1) // 2
@@ -201,7 +303,13 @@ class Encoder:
                 f"match the configured {ew}x{eh} 4:2:0 geometry")
         if y.dtype != np.uint8 or u.dtype != np.uint8 or v.dtype != np.uint8:
             raise ValueError(f"picture dtype {y.dtype}/{u.dtype}/{v.dtype} "
-                             "is not uint8")
+                             "does not match encoder_bit_depth=8 (expected "
+                             "uint8)")
+        return y, u, v
+
+    def _pad(self, y, u, v):
+        """Edge-replicate to the coded (16-aligned) size."""
+        eh, ew = self.render_h, self.render_w
         if self.coded_w == ew and self.coded_h == eh:
             return y, u, v
         py = self.coded_h - eh

@@ -3,9 +3,10 @@
 The key-frame, single-tile subset of svt_av1_tpu/codec/decoder.py.  OBU
 parsing, the frame header and the tile syntax are the port's copies of
 the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
-``TileDecoder``); reconstruction is the port's
-``reconstruct_from_decisions`` on ``device`` (default: the current CUDA
-device).
+``TileDecoder``), so streams with screen-content tools, tx types, angle
+deltas, CfL alphas and palette blocks parse as they do there;
+reconstruction is the port's ``reconstruct_from_decisions`` on ``device``
+(default: the current CUDA device).
 """
 from __future__ import annotations
 

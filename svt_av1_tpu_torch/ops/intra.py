@@ -1,10 +1,11 @@
 """AV1 intra predictors (PyTorch, batched over blocks).
 
-Port of svt_av1_tpu/ops/intra.py for the modes the all-intra M10-M13
+Port of svt_av1_tpu/ops/intra.py for the modes the all-intra M5-M13
 slice codes — DC (with its top / left / 128 variants), V, H, SMOOTH,
-PAETH and the zone-2 directional path (D135) — and SMOOTH_V/SMOOTH_H.
-Normative per AV1 spec §7.11.2; every predictor works on prepared
-neighbor arrays:
+PAETH, the three directional zones (zone 2 for D135/D113/D157, zones 1
+and 3 for the angle-delta refinements of V and H) and chroma-from-luma
+— and SMOOTH_V/SMOOTH_H.  Normative per AV1 spec §7.11.2; every
+predictor works on prepared neighbor arrays:
 
   above:      (B, W) int32 — reconstructed row above the block
   left:       (B, H) int32 — reconstructed column left of the block
@@ -192,6 +193,82 @@ def z2_pred(above, left, above_left, h: int, w: int, angle: int):
     return torch.where(use_above, av, lv)
 
 
+@functools.lru_cache(maxsize=None)
+def _z13_maps(h: int, w: int, d: int, zone3: bool, device):
+    """Static gather index, shift and past-the-end mask of the zone-1
+    predictor (derivative ``d`` = dx) or, transposed, the zone-3 one
+    (``d`` = dy), as device tensors."""
+    max_base = w + h - 1
+    r = np.arange(h)[:, None]
+    c = np.arange(w)[None, :]
+    if zone3:
+        step = (c + 1) * d
+        base = (step >> 6) + r
+        shift = ((step & 63) >> 1) * np.ones_like(r)
+    else:
+        step = (r + 1) * d
+        base = (step >> 6) + c
+        shift = ((step & 63) >> 1) * np.ones_like(c)
+    as_t = lambda v, dt: torch.as_tensor(np.asarray(v), dtype=dt,
+                                         device=device)
+    return (as_t(np.minimum(base, max_base), torch.int64),
+            as_t(shift, torch.int32), as_t(base >= max_base, torch.bool))
+
+
+def _z13_pred(ext, h: int, w: int, d: int, zone3: bool):
+    idx, shift, past = _z13_maps(h, w, d, zone3, ext.device)
+    val = (ext[:, idx] * (32 - shift) + ext[:, idx + 1] * shift + 16) >> 5
+    return torch.where(past, ext[:, w + h - 1][:, None, None], val)
+
+
+def z1_pred(above_ext, h: int, w: int, angle: int):
+    """Directional zone 1 (angle < 90), upsample off.
+
+    above_ext: (B, w+h+1) — the above row extended across the top-right
+    (prepared with availability replication); the last entry repeats
+    above_ext[w+h-1] so that idx+1 gathers stay in range."""
+    if not 0 < angle < 90:
+        raise ValueError(f"zone-1 angle expected, got {angle}")
+    return _z13_pred(above_ext, h, w, get_dx(angle), False)
+
+
+def z3_pred(left_ext, h: int, w: int, angle: int):
+    """Directional zone 3 (angle > 180), upsample off.
+
+    left_ext: (B, w+h+1) — the left column extended across the
+    bottom-left."""
+    if not 180 < angle < 270:
+        raise ValueError(f"zone-3 angle expected, got {angle}")
+    return _z13_pred(left_ext, h, w, get_dy(angle), True)
+
+
+def cfl_ac_420(luma, h: int, w: int):
+    """CfL luma AC buffer for 4:2:0 (spec cfl_luma_subsampling_420 +
+    subtract_average): 2x2 box sum << 1 (q3), minus the rounded block
+    average.
+
+    luma: (B, 2h, 2w) int32 reconstructed luma.  Returns (B, h, w) q3."""
+    sub = ((luma[:, 0::2, 0::2] + luma[:, 0::2, 1::2]
+            + luma[:, 1::2, 0::2] + luma[:, 1::2, 1::2]) << 1)
+    npel_log2 = int(np.log2(h * w))
+    ro = (h * w) // 2
+    avg = (sub.sum(dim=(1, 2), dtype=torch.int32) + ro) >> npel_log2
+    return sub - avg[:, None, None]
+
+
+def cfl_predict(dc_pred, ac_q3, alpha_q3, bd: int = 8):
+    """CfL prediction: dc + round(alpha_q3 * ac_q3 / 64), signed
+    rounding, clipped.
+
+    alpha_q3: int, or a (B,) or (B,1,1) int32 tensor, in [-16, 16]."""
+    a = alpha_q3
+    if isinstance(a, torch.Tensor) and a.dim() == 1:
+        a = a[:, None, None]
+    v = a * ac_q3
+    scaled = torch.where(v < 0, -((-v + 32) >> 6), (v + 32) >> 6)
+    return torch.clamp(dc_pred + scaled, 0, (1 << bd) - 1)
+
+
 def predict(mode: int, above, left, above_left, h: int, w: int,
             have_above=None, have_left=None, bd: int = 8):
     """One intra mode (static) over a batch.
@@ -226,5 +303,5 @@ def predict(mode: int, above, left, above_left, h: int, w: int,
     if mode in (cc.D135_PRED, cc.D113_PRED, cc.D157_PRED):
         return z2_pred(above, left, above_left, h, w, MODE_TO_ANGLE[mode])
     raise NotImplementedError(
-        f"intra mode {mode} is not ported yet (ROADMAP.md queue A, "
-        "item 2 at M6: z1/z3, filter-intra, CfL)")
+        f"intra mode {mode} is not ported yet (ROADMAP.md queue A item 7: "
+        "D45/D67/D203 and filter-intra come with presets M0-M4)")

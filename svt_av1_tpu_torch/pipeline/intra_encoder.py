@@ -1,25 +1,29 @@
 """Intra (key) frame encoder: wave-batched mode decision + reconstruction.
 
 Port of svt_av1_tpu/pipeline/intra_encoder.py for the all-intra slice
-(presets M10-M13: fixed 16x16 luma / 8x8 chroma blocks, luma modes
-DC/V/H/SMOOTH/PAETH/D135 with DCT_DCT, chroma DC/V/H/SMOOTH with their
-implied transform types, no tx search, angle deltas, CfL, filter-intra,
-palette, RDOQ or AQ).
+(presets M5-M13: fixed 16x16 luma / 8x8 chroma blocks; luma modes
+DC/V/H/SMOOTH/PAETH/D135/D113/D157, at M5-M8 crossed with the tx-type
+search set and the angle-delta refinements of the directional modes;
+chroma DC/V/H/SMOOTH with their implied transform types plus the CfL
+candidate; exact palettes on screen content; no filter-intra, varpart,
+RDOQ or AQ).
 
 The frame's 16x16 blocks are batched along 2:1 wavefronts (wave
 k = 2*by + bx): every neighbor a block reads lies in an earlier wave.
-Each wave runs one luma step (gather neighbors -> predict every mode ->
-transform + quantize -> rate + distortion -> pick -> normative inverse
--> scatter) and one joint U+V chroma step.  The reference vmaps its
-frame program over a batch of frames; here the frame axis is written
-out, so a wave's batch is F frames x maxb slots (x modes), and the wave
-loop is a plain Python loop of eager PyTorch ops.  Slots past a wave's
-end are computed like the reference's and never written back.
+Each wave runs one luma step (gather neighbors -> predict every
+candidate -> transform + quantize -> rate + distortion -> pick ->
+normative inverse -> scatter) and one joint U+V chroma step.  The
+reference vmaps its frame program over a batch of frames; here the frame
+axis is written out, so a wave's batch is F frames x maxb slots (x
+candidates), and the wave loop is a plain Python loop of eager PyTorch
+ops.  Slots past a wave's end are computed like the reference's and never
+written back.
 
 Recon planes are updated in place (``_scatter_blocks``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -28,22 +32,31 @@ import torch
 
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.codec import palette as pal
 from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
-from svt_av1_tpu_torch.codec.syntax import _chroma_tx_type
+from svt_av1_tpu_torch.codec.syntax import BlockDecision, _chroma_tx_type
 from svt_av1_tpu_torch.ops import fused_txq, intra, quant
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
 
-# luma candidates the slice supports (presets M10/M11 use all six,
-# M12/M13 the first four)
+# luma candidates the slice supports (presets M5-M8 use all eight,
+# M9-M11 the first six, M12/M13 the first four)
 MODES = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED, cc.PAETH_PRED,
-         cc.D135_PRED)
+         cc.D135_PRED, cc.D113_PRED, cc.D157_PRED)
 # chroma mode set; each uses its implied (unsignaled) transform type
 UV_MODES = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED)
 UV_TX_TYPES = (cc.DCT_DCT, cc.ADST_DCT, cc.DCT_ADST, cc.ADST_ADST)
+# luma tx-type search set for 16x16 intra: the DTT4 members of the
+# signalable EXT_TX_SET_DTT4_IDTX set (all share the default scan)
+TX_SEARCH_SET = (cc.DCT_DCT, cc.ADST_ADST, cc.ADST_DCT, cc.DCT_ADST)
+# angle-delta refinement per directional mode (spec MAX_ANGLE_DELTA=3,
+# step 3 degrees); evaluated with DCT_DCT
+ANGLE_DELTAS = (-3, -2, -1, 1, 2, 3)
 BLK = 16
 CBLK = 8
+# cost added to a candidate that a block must not take
+FORBID = 1e18
 
 
 def cand_angle(mode: int, delta: int) -> int:
@@ -53,18 +66,44 @@ def cand_angle(mode: int, delta: int) -> int:
     return 0
 
 
-def _predict_cand(mode, delta, n, above, left, corner, have_above,
-                  have_left, bd):
+def expand_tx_cands(modes, angle_deltas=False):
+    """Candidate expansion for luma 16x16 MD: (cand_modes, cand_txs)
+    where each cand_mode is (mode, angle_delta).  Tx search crosses the
+    search set with the delta-0 modes; angle-delta refinements run with
+    DCT_DCT only."""
+    reg = [m for m in modes if m < cc.FI_MODE_BASE]
+    fi = [m for m in modes if m >= cc.FI_MODE_BASE]
+    cand_modes = [(m, 0) for t in TX_SEARCH_SET for m in reg]
+    cand_txs = [t for t in TX_SEARCH_SET for _ in reg]
+    # filter-intra candidates run once, DCT only
+    cand_modes += [(m, 0) for m in fi]
+    cand_txs += [cc.DCT_DCT for _ in fi]
+    modes = reg
+    if angle_deltas:
+        for m in modes:
+            if not (cc.V_PRED <= m <= cc.D67_PRED):
+                continue
+            for d in ANGLE_DELTAS:
+                cand_modes.append((m, d))
+                cand_txs.append(cc.DCT_DCT)
+    return tuple(cand_modes), tuple(cand_txs)
+
+
+def _predict_cand(mode, delta, n, above, left, corner, above_ext, left_ext,
+                  have_above, have_left, bd):
     """Prediction for one (mode, angle_delta) candidate; the zone comes
-    from the final angle (spec §7.11.2).  Zones 1 and 3, filter-intra and
-    angle deltas are not in this slice."""
-    angle = cand_angle(mode, delta)
-    if mode >= cc.FI_MODE_BASE or delta or (
-            angle and (angle < 90 or angle > 180)):
+    from the final angle (spec §7.11.2).  Filter-intra is not in this
+    slice."""
+    if mode >= cc.FI_MODE_BASE:
         raise NotImplementedError(
-            f"candidate (mode {mode}, delta {delta}) needs zone-1/3, "
-            "filter-intra or angle deltas: ROADMAP.md queue A item 2 (M6)")
+            f"candidate mode {mode} is a filter-intra mode: ROADMAP.md "
+            "queue A item 7 (presets M0-M4)")
+    angle = cand_angle(mode, delta)
     if angle and angle != 90 and angle != 180:
+        if angle < 90:
+            return intra.z1_pred(above_ext, n, n, angle)
+        if angle > 180:
+            return intra.z3_pred(left_ext, n, n, angle)
         return intra.z2_pred(above, left, corner, n, n, angle)
     return intra.predict(mode, above, left, corner, n, n,
                          have_above=have_above, have_left=have_left, bd=bd)
@@ -86,14 +125,16 @@ def _scan_pos_on(tx_size: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _ids_on(ids: tuple, device) -> torch.Tensor:
-    """Mode ids as an int32 tensor (built once per device)."""
-    return torch.as_tensor(ids, dtype=torch.int32, device=device)
+def _ids_on(ids: tuple, device, dtype=torch.int32) -> torch.Tensor:
+    """A tuple of constants (mode ids, candidate indices, flags) as a
+    tensor, built once per device."""
+    return torch.as_tensor(ids, dtype=dtype, device=device)
 
 
 def _txb_bits(qcoeff_abs, coef_bits, base, eob_tbl, pos):
     """Transform-block rate: the context-exact model when ``coef_bits``
-    is a CoefTables bundle (M10), else the analytic curve (M11-M13):
+    is a CoefTables bundle (presets with exact_rates: M5-M10), else the
+    analytic curve (M11-M13):
     2*log2(1+l) + 1 per nonzero level, the zero-symbol cost for zeros
     before eob, the eob-position cost and the txb flag."""
     if isinstance(coef_bits, CoefTables):
@@ -184,14 +225,18 @@ def _schedule_arrays(gh, gw, maxb):
 class WaveSlots(NamedTuple):
     """One wave's batch over F frames (batch element b = f*maxb + j), as
     device tensors: frame index ``fi``, block coordinates ``by``/``bx``
-    (in 16x16 units), neighbor availability ``ha``/``hl``, the batch
-    indices ``sel`` of the slots that hold a block, and their raster ids
-    ``rid`` (f*gh*gw + by*gw + bx)."""
+    (in 16x16 units), neighbor availability ``ha``/``hl`` (above, left)
+    and ``tr``/``bl`` (top-right, bottom-left), the raster id ``bid``
+    (f*gh*gw + by*gw + bx) of every slot, the batch indices ``sel`` of
+    the slots that hold a block, and their raster ids ``rid``."""
     fi: torch.Tensor
     by: torch.Tensor
     bx: torch.Tensor
     ha: torch.Tensor
     hl: torch.Tensor
+    tr: torch.Tensor
+    bl: torch.Tensor
+    bid: torch.Tensor
     sel: torch.Tensor
     rid: torch.Tensor
 
@@ -200,7 +245,7 @@ class WaveSlots(NamedTuple):
 def _device_schedule(gh: int, gw: int, nf: int, device):
     """The static wave schedule for an F-frame batch, as WaveSlots."""
     maxb = _natural_maxb(gh, gw)
-    _, bys, bxs, valid, _, _, hls = _schedule_arrays(gh, gw, maxb)
+    _, bys, bxs, valid, trs, bls, hls = _schedule_arrays(gh, gw, maxb)
     t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a),
                                                   dtype=dt, device=device)
     fi = np.repeat(np.arange(nf), maxb)
@@ -210,11 +255,12 @@ def _device_schedule(gh: int, gw: int, nf: int, device):
         bx = np.tile(bxs[i], nf)
         va = np.tile(valid[i], nf)
         sel = np.nonzero(va)[0]
-        rid = fi[sel] * gh * gw + by[sel] * gw + bx[sel]
+        bid = fi * gh * gw + by * gw + bx
+        flag = lambda a: t(np.tile(a, nf) & va, torch.bool)
         out.append(WaveSlots(t(fi), t(by), t(bx), t((by > 0) & va,
                                                       torch.bool),
-                             t(np.tile(hls[i], nf) & va, torch.bool),
-                             t(sel), t(rid)))
+                             flag(hls[i]), flag(trs[i]), flag(bls[i]),
+                             t(bid), t(sel), t(bid[sel])))
     return out
 
 
@@ -273,66 +319,170 @@ def _gather_neighbors(recon, fi, ys, xs, n, have_above, have_left, bd=8):
     return above, left, corner
 
 
+def _gather_ext_neighbors(recon, fi, ys, xs, n, above, left, tr_avail,
+                          bl_avail):
+    """Extended (2n+1) above/left arrays for the zone-1/3 directional
+    candidates: the second half is read from recon where the top-right /
+    bottom-left block is available, else it repeats the last sample.  At
+    the right and bottom frame edges ``_gather_block`` clamps the window
+    into the plane; the flag is false there, so the shifted samples are
+    never used."""
+    ay = (ys - 1).clamp(min=0)
+    lx = (xs - 1).clamp(min=0)
+    tr = _gather_block(recon, fi, ay, xs + n, 1, n)[:, 0, :]
+    tr = torch.where(tr_avail[:, None], tr, above[:, n - 1:n])
+    above_ext = torch.cat([above, tr, tr[:, -1:]], dim=1)
+    bl = _gather_block(recon, fi, ys + n, lx, n, 1)[:, :, 0]
+    bl = torch.where(bl_avail[:, None], bl, left[:, n - 1:n])
+    left_ext = torch.cat([left, bl, bl[:, -1:]], dim=1)
+    return above_ext, left_ext
+
+
 def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
-             modes, rates, bd=8):
-    """One luma wave step over 16x16 blocks: every candidate mode of every
-    slot through
-    predict -> transform + quantize -> rate + distortion, the cheapest
-    per slot kept, its normative reconstruction written into ``recon``
-    (in place) for the slots ``sel``.
+             modes, rates, bd=8, tx_types=None, tr_avail=None,
+             bl_avail=None, inter=None, return_index=False):
+    """One luma wave step over 16x16 blocks: every candidate of every
+    slot through predict -> transform + quantize -> rate + distortion,
+    the cheapest per slot kept, its normative reconstruction written
+    into ``recon`` (in place) for the slots ``sel``.
 
     recon/src: (F, H, W) int32; fi/ys/xs: (B,) frame index and pixel
     coordinates; qp: QuantParams tensors; lam: float32 scalar tensor;
-    rates: (coef_bits, txb_base, mode_bits, eob_tbl).  Returns
-    (best_mode (B,) int32, best_q (B, n, n) int32, recon).
+    modes: mode ids or (mode, angle_delta) pairs; rates: (coef_bits,
+    txb_base, mode_bits, eob_tbl), mode_bits one per candidate.
+    tx_types: optional tx type per candidate (DCT_DCT when None).
+    tr_avail/bl_avail: (B,) bool, needed when a candidate's angle lies
+    in zone 1 or 3.  inter: optional (cost (B,), rec (B, n, n)) of a
+    precomputed alternative per block (the palette candidate), taken
+    wherever its cost beats the best intra candidate.  Returns
+    (best_mode (B,) int32 — the candidate index when ``return_index`` —,
+    best_q (B, n, n) int32, recon[, choose (B,) bool when ``inter``]).
 
-    The 16x16 DCT_DCT transform + quantizer runs through
+    With one tx type, DCT_DCT, the transform + quantizer runs through
     ops/fused_txq: the hand-written CUDA kernel for tensors on the card,
     its plain version on the CPU (the reference takes its Pallas kernel
-    under the same conditions on the TPU)."""
+    under the same conditions on the TPU).  With mixed tx types the
+    candidates are grouped by type: one forward/quantize pass per
+    distinct type over all its candidates, one inverse per distinct type
+    on the winners."""
     n, tx_size = BLK, cc.TX_16X16
+    dev = recon.device
     b = ys.shape[0]
+    cands = [m if isinstance(m, tuple) else (m, 0) for m in modes]
+    nm = len(cands)
     above, left, corner = _gather_neighbors(recon, fi, ys, xs, n,
                                             have_above, have_left, bd=bd)
+    angles = [cand_angle(m, d) for m, d in cands]
+    above_ext = left_ext = None
+    if any(a and (a < 90 or a > 180) for a in angles):
+        above_ext, left_ext = _gather_ext_neighbors(
+            recon, fi, ys, xs, n, above, left, tr_avail, bl_avail)
     src_blk = _gather_block(src, fi, ys, xs, n, n)
-    preds = [_predict_cand(m, 0, n, above, left, corner, have_above,
-                           have_left, bd) for m in modes]
-    nm = len(modes)
-    pred_all = torch.cat(preds, dim=0)                 # (nm*B, n, n)
-    src_all = src_blk.repeat(nm, 1, 1)
-    resid_all = (src_all - pred_all).contiguous()
-    coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(resid_all, qp)
-    # transform-domain distortion: pixel SSE ~ s2 * coeff-error SSE; the
-    # normative inverse runs only for the winner below
-    s2 = float(np.float32(tf.coeff_sse_scale(tx_size, cc.DCT_DCT)))
-    err = coeffs.to(torch.float32) - dq_all.to(torch.float32)
-    dist = s2 * (err * err).sum(dim=(1, 2))
+    pred_cache = {}
+    for key in cands:
+        if key not in pred_cache:
+            pred_cache[key] = _predict_cand(
+                key[0], key[1], n, above, left, corner, above_ext,
+                left_ext, have_above, have_left, bd)
+    # every candidate stacked on the batch axis: (nm, B, n, n)
+    pred_all = torch.stack([pred_cache[key] for key in cands])
+    resid_all = src_blk[None] - pred_all
+    same_tx = tx_types is None or len(set(tx_types)) == 1
+    if same_tx:
+        tx0 = cc.DCT_DCT if tx_types is None else tx_types[0]
+        flat = resid_all.reshape(nm * b, n, n)
+        if tx0 == cc.DCT_DCT:
+            coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(flat, qp)
+        else:
+            coeffs = tf.fwd_txfm2d(flat, tx0, tx_size)
+            qcoeff_all, dq_all = quant.quantize(coeffs, qp, tx_size)
+        # transform-domain distortion: pixel SSE ~ s2 * coeff-error SSE;
+        # the normative inverse runs only for the winner below
+        s2 = float(np.float32(tf.coeff_sse_scale(tx_size, tx0)))
+        err = coeffs.to(torch.float32) - dq_all.to(torch.float32)
+        dist = s2 * (err * err).sum(dim=(1, 2))
+    else:
+        uniq_tx = list(dict.fromkeys(tx_types))
+        qcoeff_all = torch.empty((nm, b, n, n), dtype=torch.int32,
+                                 device=dev)
+        dq_all = torch.empty_like(qcoeff_all)
+        dist = torch.empty((nm, b), dtype=torch.float32, device=dev)
+        for t in uniq_tx:
+            idx = _ids_on(tuple(i for i, tt in enumerate(tx_types)
+                                if tt == t), dev, torch.int64)
+            g = idx.shape[0]
+            coeffs_t = tf.fwd_txfm2d(resid_all[idx].reshape(g * b, n, n),
+                                     t, tx_size)
+            qc_t, dq_t = quant.quantize(coeffs_t, qp, tx_size)
+            s2 = float(np.float32(tf.coeff_sse_scale(tx_size, t)))
+            err = coeffs_t.to(torch.float32) - dq_t.to(torch.float32)
+            qcoeff_all[idx] = qc_t.reshape(g, b, n, n)
+            dq_all[idx] = dq_t.reshape(g, b, n, n)
+            dist[idx] = (s2 * (err * err).sum(dim=(1, 2))).reshape(g, b)
+        dist = dist.reshape(-1)
+    qcoeff_all = qcoeff_all.reshape(nm, b, n, n)
+    dq_all = dq_all.reshape(nm, b, n, n)
     coef_bits, txb_base, mode_bits, eob_tbl = rates
-    bits = (_txb_bits(qcoeff_all.abs(), coef_bits, txb_base[0], eob_tbl,
-                      _scan_pos_on(tx_size, recon.device))
+    bits = (_txb_bits(qcoeff_all.abs().reshape(nm * b, n, n), coef_bits,
+                      txb_base[0], eob_tbl, _scan_pos_on(tx_size, dev))
             + mode_bits[:, None].expand(nm, b).reshape(-1))
     cost = (dist + lam * bits).reshape(nm, b)
+    # zone-3 candidates (angle > 180) read bottom-left recon, which the
+    # wavefront has not written yet where the spec marks it available:
+    # they stay legal only where encoder and decoder both repeat the
+    # last left sample instead
+    if bl_avail is not None and any(a > 180 for a in angles):
+        z3 = _ids_on(tuple(a > 180 for a in angles), dev, torch.bool)
+        cost = cost + torch.where(z3[:, None] & bl_avail[None, :],
+                                  FORBID, 0.0)
     mi_best = cost.argmin(dim=0)                        # first minimum
-    ar = torch.arange(b, device=recon.device)
-    best_mode = _ids_on(tuple(modes), recon.device)[mi_best]
-    best_q = qcoeff_all.reshape(nm, b, n, n)[mi_best, ar]
-    best_dq = dq_all.reshape(nm, b, n, n)[mi_best, ar]
-    best_pred = pred_all.reshape(nm, b, n, n)[mi_best, ar]
-    best_rec = tf.inv_txfm2d_add(best_dq, best_pred, cc.DCT_DCT, tx_size,
-                                 bd=bd)
+    ar = torch.arange(b, device=dev)
+    best_q = qcoeff_all[mi_best, ar]
+    best_dq = dq_all[mi_best, ar]
+    best_pred = pred_all[mi_best, ar]
+    if same_tx:
+        best_rec = tf.inv_txfm2d_add(best_dq, best_pred, tx0, tx_size,
+                                     bd=bd)
+    else:
+        best_tx = _ids_on(tuple(tx_types), dev)[mi_best]
+        best_rec = None
+        for t in uniq_tx:
+            r = tf.inv_txfm2d_add(best_dq, best_pred, t, tx_size, bd=bd)
+            best_rec = r if best_rec is None else torch.where(
+                (best_tx == t)[:, None, None], r, best_rec)
+    if return_index:
+        best_mode = mi_best.to(torch.int32)
+    else:
+        best_mode = _ids_on(tuple(m for m, _ in cands), dev)[mi_best]
+    choose = None
+    if inter is not None:
+        inter_cost, inter_rec = inter
+        choose = inter_cost < cost.amin(dim=0)
+        best_rec = torch.where(choose[:, None, None], inter_rec, best_rec)
     _scatter_blocks(recon, best_rec, fi, ys, xs, sel)
+    if inter is not None:
+        return best_mode, best_q, recon, choose
     return best_mode, best_q, recon
 
 
 def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
-                    have_above, have_left, qp, lam, rates, bd=8):
+                    have_above, have_left, qp, lam, rates, bd=8,
+                    luma_rec=None, cfl=False):
     """Joint U+V mode decision for one wave (uv_mode is signaled once per
     block; the chroma transform type is implied by the mode).  Every
     (mode, plane) pair runs its forward transform, quantizer and the
     normative inverse; distortion is the true pixel SSE.  Writes the
     winners into recon_u/recon_v in place for the slots ``sel``.
-    Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v)."""
+
+    cfl (with luma_rec, the (B, 16, 16) reconstructed luma of the same
+    blocks): a chroma-from-luma candidate — a least-squares alpha fit per
+    plane, refined over alpha-1, alpha, alpha+1 by true RD cost —
+    competes with the regular modes.
+
+    Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v) and, with cfl,
+    (alpha_u, alpha_v) (B,) int32, signed q3, zero where CfL lost."""
     n, tx_size = CBLK, cc.TX_8X8
+    dev = recon_u.device
     nb_u = _gather_neighbors(recon_u, fi, ys, xs, n, have_above, have_left,
                              bd=bd)
     nb_v = _gather_neighbors(recon_v, fi, ys, xs, n, have_above, have_left,
@@ -348,7 +498,8 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
                                        have_above=have_above,
                                        have_left=have_left, bd=bd))
     pred_all = torch.cat(preds, dim=0)                 # (nm*2*B, n, n)
-    src_all = torch.cat([src_ub, src_vb], dim=0).repeat(nm, 1, 1)
+    src_pair = torch.cat([src_ub, src_vb], dim=0)
+    src_all = src_pair.repeat(nm, 1, 1)
     resid_all = src_all - pred_all
     qcs, recs = [], []
     for mi, tx_type in enumerate(UV_TX_TYPES):
@@ -363,34 +514,105 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     d = rec_all - src_all
     dist = (d * d).sum(dim=(1, 2)).to(torch.float32)
     coef_bits, txb_base, uv_bits, eob_tbl = rates
-    bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl,
-                     _scan_pos_on(tx_size, recon_u.device))
+    pos = _scan_pos_on(tx_size, dev)
+    bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl, pos)
     cost_uv = (dist + lam * bits).reshape(nm, 2, b).sum(dim=1)
     cost_uv = cost_uv + lam * uv_bits[:, None]
     mi_best = cost_uv.argmin(dim=0)
-    ar = torch.arange(b, device=recon_u.device)
+    ar = torch.arange(b, device=dev)
     qall = qcoeff_all.reshape(nm, 2, b, n, n)
     rall = rec_all.reshape(nm, 2, b, n, n)
-    um = _ids_on(UV_MODES, recon_u.device)[mi_best]
+    um = _ids_on(UV_MODES, dev)[mi_best]
     qu, qv = qall[mi_best, 0, ar], qall[mi_best, 1, ar]
-    _scatter_blocks(recon_u, rall[mi_best, 0, ar], fi, ys, xs, sel)
-    _scatter_blocks(recon_v, rall[mi_best, 1, ar], fi, ys, xs, sel)
+    rec_u, rec_v = rall[mi_best, 0, ar], rall[mi_best, 1, ar]
+    alpha_u = alpha_v = None
+    if cfl:
+        ac = intra.cfl_ac_420(luma_rec, n, n)                # (B,n,n) q3
+        dc_pair = torch.cat([preds[0], preds[1]], dim=0)     # DC preds
+        acf = ac.to(torch.float32)
+        den = (acf * acf).sum(dim=(1, 2)) + 1e-6
+
+        def fit(src_blk, dc):
+            # least squares in float32: the sum passes 2^24, so its last
+            # bits depend on the order of summation (a counted tie)
+            resid = (src_blk - dc).to(torch.float32)
+            a = torch.round(64.0 * (resid * acf).sum(dim=(1, 2)) / den)
+            return a.to(torch.int32).clamp(-16, 16)
+
+        a0_pair = torch.cat([fit(src_ub, preds[0]), fit(src_vb, preds[1])])
+        ac_pair = torch.cat([ac, ac], dim=0)
+        # the three refinements stacked on the batch axis: (3, 2B, ...)
+        offs = _ids_on((-1, 0, 1), dev)[:, None]
+        a_try = (a0_pair[None] + offs).clamp(-16, 16)        # (3, 2B)
+        pred_c = intra.cfl_predict(dc_pair[None], ac_pair[None],
+                                   a_try[:, :, None, None], bd=bd)
+        flat_pred = pred_c.reshape(3 * 2 * b, n, n)
+        coeffs_c = tf.fwd_txfm2d(
+            (src_pair[None] - pred_c).reshape(3 * 2 * b, n, n),
+            cc.DCT_DCT, tx_size)
+        qc_c, dq_c = quant.quantize(coeffs_c, qp, tx_size)
+        rec_c = tf.inv_txfm2d_add(dq_c, flat_pred, cc.DCT_DCT, tx_size,
+                                  bd=bd)
+        dd = rec_c.reshape(3, 2 * b, n, n) - src_pair[None]
+        d_c = (dd * dd).sum(dim=(2, 3)).to(torch.float32)    # (3, 2B)
+        bits_c = _txb_bits(qc_c.abs(), coef_bits, txb_base[1], eob_tbl,
+                           pos).reshape(3, 2 * b)
+        co = d_c + lam * bits_c
+        oi = co.argmin(dim=0)                                # (2B,)
+        ar2 = torch.arange(2 * b, device=dev)
+        cost_c = co[oi, ar2]
+        q_sel = qc_c.reshape(3, 2 * b, n, n)[oi, ar2]
+        rec_sel = rec_c.reshape(3, 2 * b, n, n)[oi, ar2]
+        a_sel = a_try[oi, ar2]
+        au_s, av_s = a_sel[:b], a_sel[b:]
+        cfl_cost = cost_c[:b] + cost_c[b:]
+        # joint sign (0, 0) is not codable; DC_PRED covers that case
+        cfl_cost = cfl_cost + torch.where((au_s == 0) & (av_s == 0),
+                                          FORBID, 0.0)
+        take_c = cfl_cost < cost_uv.amin(dim=0)
+        t3c = take_c[:, None, None]
+        um = torch.where(take_c, cc.UV_CFL_PRED, um)
+        qu = torch.where(t3c, q_sel[:b], qu)
+        qv = torch.where(t3c, q_sel[b:], qv)
+        rec_u = torch.where(t3c, rec_sel[:b], rec_u)
+        rec_v = torch.where(t3c, rec_sel[b:], rec_v)
+        alpha_u = torch.where(take_c, au_s, 0)
+        alpha_v = torch.where(take_c, av_s, 0)
+    _scatter_blocks(recon_u, rec_u, fi, ys, xs, sel)
+    _scatter_blocks(recon_v, rec_v, fi, ys, xs, sel)
+    if cfl:
+        return um, qu, qv, recon_u, recon_v, alpha_u, alpha_v
     return um, qu, qv, recon_u, recon_v
 
 
-def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8):
+def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
+                  angle_deltas=False, cfl=False, palette=None):
     """Whole-frame MD for a batch of F frames: a Python loop over the
     waves, each running the luma and the chroma step on F x maxb slots.
 
     sy: (F, H, W), su/sv: (F, H/2, W/2) uint8 tensors; rates: the
-    md_rate_args tuple on the same device.  Returns (recon_y, recon_u,
-    recon_v) uint8 and, in raster block order, y modes / uv modes
-    (F, gh*gw) uint8 and levels qy (F, gh*gw, 256), qu/qv (F, gh*gw, 64)
-    int16 (levels of 16x16/8x8 transforms fit: |level| <= 32767 /
-    dequant_min <= 16384)."""
+    md_rate_args tuple on the same device, its mode_bits one per luma
+    candidate.  tx_search/angle_deltas: the luma candidates are
+    ``expand_tx_cands(modes, angle_deltas)`` and the returned y modes
+    are indices into that list.  cfl: the chroma step gets the CfL
+    candidate.  palette: optional (cost (F*nb,) float32, rec (F*nb, 16,
+    16) int32, qy (F*nb, 256) int16) tensors in raster block order — a
+    precomputed palette alternative per block, taken where it beats the
+    best intra candidate.
+
+    Returns (recon_y, recon_u, recon_v) uint8 and, in raster block order,
+    y modes / uv modes (F, gh*gw) uint8, levels qy (F, gh*gw, 256),
+    qu/qv (F, gh*gw, 64) int16 (levels of 16x16/8x8 transforms fit:
+    |level| <= 32767 / dequant_min <= 16384), CfL alphas au/av (F, gh*gw)
+    int8 and, with ``palette``, the (F, gh*gw) bool palette choice (such
+    blocks carry y mode DC_PRED and the palette's levels)."""
     nf, h, w = sy.shape
     gh, gw = h // BLK, w // BLK
     dev = sy.device
+    if tx_search:
+        cand_modes, cand_txs = expand_tx_cands(modes, angle_deltas)
+    else:
+        cand_modes, cand_txs = modes, None
     src_y = sy.to(torch.int32)
     src_u = su.to(torch.int32)
     src_v = sv.to(torch.int32)
@@ -404,24 +626,50 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8):
     qy = torch.zeros((nbk, BLK * BLK), dtype=torch.int16, device=dev)
     qu = torch.zeros((nbk, CBLK * CBLK), dtype=torch.int16, device=dev)
     qv = torch.zeros_like(qu)
+    au = torch.zeros(nbk, dtype=torch.int8, device=dev)
+    av = torch.zeros_like(au)
+    pchoose = torch.zeros(nbk, dtype=torch.bool, device=dev)
     cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rates[:7]
     for ws in _device_schedule(gh, gw, nf, dev):
-        m, q, _ = _rd_step(recon_y, src_y, ws.fi, ws.by * BLK, ws.bx * BLK,
-                           ws.sel, ws.ha, ws.hl, qp, lam, modes,
-                           (cy_t, txbb, modeb, eoby), bd=bd)
-        uvm, q_u, q_v, _, _ = _rd_step_chroma(
+        inter = None
+        if palette is not None:
+            inter = (palette[0][ws.bid], palette[1][ws.bid])
+        out = _rd_step(recon_y, src_y, ws.fi, ws.by * BLK, ws.bx * BLK,
+                       ws.sel, ws.ha, ws.hl, qp, lam, cand_modes,
+                       (cy_t, txbb, modeb, eoby), bd=bd, tx_types=cand_txs,
+                       tr_avail=ws.tr, bl_avail=ws.bl, inter=inter,
+                       return_index=tx_search)
+        m, q = out[0], out[1]
+        if palette is not None:
+            pchoose[ws.rid] = out[3][ws.sel]
+        luma_rec = None
+        if cfl:
+            luma_rec = _gather_block(recon_y, ws.fi, ws.by * BLK,
+                                     ws.bx * BLK, BLK, BLK)
+        cout = _rd_step_chroma(
             recon_u, recon_v, src_u, src_v, ws.fi, ws.by * CBLK,
             ws.bx * CBLK, ws.sel, ws.ha, ws.hl, qp, lam,
-            (cuv_t, txbb, uvb, eobuv), bd=bd)
+            (cuv_t, txbb, uvb, eobuv), bd=bd, luma_rec=luma_rec, cfl=cfl)
+        uvm, q_u, q_v = cout[0], cout[1], cout[2]
+        if cfl:
+            au[ws.rid] = cout[5][ws.sel].to(torch.int8)
+            av[ws.rid] = cout[6][ws.sel].to(torch.int8)
         ym[ws.rid] = m[ws.sel].to(torch.uint8)
         um[ws.rid] = uvm[ws.sel].to(torch.uint8)
         qy[ws.rid] = q[ws.sel].reshape(-1, BLK * BLK).to(torch.int16)
         qu[ws.rid] = q_u[ws.sel].reshape(-1, CBLK * CBLK).to(torch.int16)
         qv[ws.rid] = q_v[ws.sel].reshape(-1, CBLK * CBLK).to(torch.int16)
-    return (recon_y.to(torch.uint8), recon_u.to(torch.uint8),
-            recon_v.to(torch.uint8), ym.reshape(nf, -1),
-            um.reshape(nf, -1), qy.reshape(nf, gh * gw, -1),
-            qu.reshape(nf, gh * gw, -1), qv.reshape(nf, gh * gw, -1))
+    if palette is not None:
+        ym = torch.where(pchoose, cc.DC_PRED, ym).to(torch.uint8)
+        qy = torch.where(pchoose[:, None], palette[2], qy)
+    out = (recon_y.to(torch.uint8), recon_u.to(torch.uint8),
+           recon_v.to(torch.uint8), ym.reshape(nf, -1),
+           um.reshape(nf, -1), qy.reshape(nf, gh * gw, -1),
+           qu.reshape(nf, gh * gw, -1), qv.reshape(nf, gh * gw, -1),
+           au.reshape(nf, -1), av.reshape(nf, -1))
+    if palette is not None:
+        out += (pchoose.reshape(nf, -1),)
+    return out
 
 
 @functools.lru_cache(maxsize=32)
@@ -435,24 +683,29 @@ def frame_lambda(qindex: int, bd: int = 8) -> np.float32:
     return np.float32(0.7 * qstep * qstep)
 
 
-def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
-                               bd: int = 8, exact_rates: bool = False,
-                               device=None):
-    """Enqueue the batched frame program for frames = [(y, u, v), ...]
-    (numpy, same dims, multiples of 16) on ``device`` (default: the
-    current CUDA device).  On CUDA the work runs asynchronously; pair
-    with encode_intra_frames_finish, so the host can entropy-code the
-    previous batch meanwhile."""
+def _check_slice(modes, bd, h, w):
     if bd != 8:
         raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
     bad = [m for m in modes if m not in MODES]
     if bad:
         raise NotImplementedError(
-            f"luma modes {bad} are not in the M10-M13 slice: ROADMAP.md "
-            "queue A item 2 (M6)")
-    h, w = frames[0][0].shape
+            f"luma modes {bad} are not in the M5-M13 slice (D45/D67/D203 "
+            "and filter-intra come with presets M0-M4): ROADMAP.md queue A "
+            "item 7")
     if h % BLK or w % BLK:
         raise ValueError(f"frame {w}x{h} is not a multiple of {BLK}")
+
+
+def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
+                               bd: int = 8, exact_rates: bool = False,
+                               device=None):
+    """Enqueue the batched frame program (plain luma modes, DCT_DCT) for
+    frames = [(y, u, v), ...] (numpy, same dims, multiples of 16) on
+    ``device`` (default: the current CUDA device).  On CUDA the work runs
+    asynchronously; pair with encode_intra_frames_finish, so the host can
+    entropy-code the previous batch meanwhile."""
+    h, w = frames[0][0].shape
+    _check_slice(modes, bd, h, w)
     dev = device_mod.resolve(device)
     qp = quant.params_on(int(qindex), dev, bd)
     lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
@@ -470,9 +723,158 @@ def encode_intra_frames_finish(pending):
     gw), recon), ...] per frame, the array bundle the native tile coder
     takes, with recon = dict(y, u, v) uint8."""
     out, gh, gw, nf = pending
-    ry, ru, rv, ym, um, qy, qu, qv = (o.cpu().numpy() for o in out)
+    ry, ru, rv, ym, um, qy, qu, qv = (o.cpu().numpy() for o in out[:8])
     return [((ym[i], um[i], qy[i], qu[i], qv[i], gh, gw),
              dict(y=ry[i], u=ru[i], v=rv[i])) for i in range(nf)]
+
+
+def split_fi_mode(m: int):
+    """(y_mode, filter_intra_mode) from an MD mode id (pseudo-modes
+    >= FI_MODE_BASE signal as DC + filter_intra_mode)."""
+    if m >= cc.FI_MODE_BASE:
+        return cc.DC_PRED, m - cc.FI_MODE_BASE
+    return m, -1
+
+
+def _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv_, cands=None,
+                             au=None, av=None):
+    """Per-block BlockDecisions from dense raster (gh*gw) arrays.
+
+    cands: optional [(mode, angle_delta, tx_type)] list — ym then holds
+    candidate indices (tx-search programs) rather than modes."""
+    qy = qy.astype(np.int32).reshape(gh * gw, BLK, BLK)
+    qu = qu.astype(np.int32).reshape(gh * gw, CBLK, CBLK)
+    qv_ = qv_.astype(np.int32).reshape(gh * gw, CBLK, CBLK)
+    decisions = {}
+    for by in range(gh):
+        for bx in range(gw):
+            bid = by * gw + bx
+            r4, c4 = by * (BLK >> 2), bx * (BLK >> 2)
+            if cands is not None:
+                y_mode, adelta, tx_type = cands[int(ym[bid])]
+            else:
+                y_mode, adelta, tx_type = int(ym[bid]), 0, cc.DCT_DCT
+            y_mode, fi = split_fi_mode(int(y_mode))
+            decisions[(r4, c4)] = BlockDecision(
+                r4=r4, c4=c4, bsize=cc.BLOCK_16X16,
+                y_mode=int(y_mode), uv_mode=int(um[bid]),
+                tx_type=int(tx_type), qcoeff_y=qy[bid],
+                qcoeff_u=qu[bid], qcoeff_v=qv_[bid],
+                angle_delta_y=int(adelta), filter_intra_mode=fi,
+                cfl_alpha_u=(int(au[bid]) if au is not None else 0),
+                cfl_alpha_v=(int(av[bid]) if av is not None else 0),
+                qindex=0)
+    return decisions
+
+
+def palette_md_candidates(src_y: np.ndarray, qindex: int, bd: int = 8,
+                          max_colors: int = 8, device=None):
+    """Per-16x16 palette candidates for screen content: blocks whose
+    pixels use <= max_colors distinct values get an exact palette, the
+    index map, and a batched RD evaluation on ``device`` (default: the
+    current CUDA device): pred -> DCT -> quant -> dist + rate + a
+    header-bits estimate.
+
+    Returns None when no block qualifies, else (cost (nb,) float32, rec
+    (nb, 16, 16) int32, qy (nb, 256) int16 — tensors on ``device`` —,
+    info {bid: (colors, cmap)} on the host)."""
+    dev = device_mod.resolve(device)
+    h, w = src_y.shape
+    gh, gw = h // BLK, w // BLK
+    nb = gh * gw
+    src = np.asarray(src_y)
+    info = {}
+    preds = np.zeros((nb, BLK, BLK), np.int32)
+    use = np.zeros(nb, bool)
+    hdr_bits = np.zeros(nb, np.float32)
+    for by in range(gh):
+        for bx in range(gw):
+            blk = src[by * BLK:(by + 1) * BLK, bx * BLK:(bx + 1) * BLK]
+            colors = np.unique(blk)
+            if not (pal.PALETTE_MIN_SIZE <= len(colors) <= max_colors):
+                continue
+            bid = by * gw + bx
+            cmap = np.searchsorted(colors, blk).astype(np.uint8)
+            info[bid] = (colors.astype(np.uint16), cmap)
+            preds[bid] = colors[cmap].astype(np.int32)
+            use[bid] = True
+            hdr_bits[bid] = (4.0 + len(colors) * (bd - 2)
+                             + pal.map_bits_estimate(cmap, len(colors)))
+    if not use.any():
+        return None
+    qp = quant.params_on(int(qindex), dev, bd)
+    lam = float(frame_lambda(qindex, bd))
+    blocks = (src.reshape(gh, BLK, gw, BLK).transpose(0, 2, 1, 3)
+              .reshape(nb, BLK, BLK).astype(np.int32))
+    pred_t = torch.from_numpy(preds).to(dev)
+    resid = torch.from_numpy(blocks).to(dev) - pred_t
+    cf = tf.fwd_txfm2d(resid, cc.DCT_DCT, cc.TX_16X16)
+    qc, dq = quant.quantize(cf, qp, cc.TX_16X16)
+    s2 = float(np.float32(tf.coeff_sse_scale(cc.TX_16X16, cc.DCT_DCT)))
+    err = cf.to(torch.float32) - dq.to(torch.float32)
+    dist = s2 * (err * err).sum(dim=(1, 2))
+    af = qc.abs().to(torch.float32)
+    coef_bits = (2.0 * torch.log2(1.0 + af).sum(dim=(1, 2))
+                 + (af > 0).sum(dim=(1, 2)) + 4.0)
+    rec = tf.inv_txfm2d_add(dq, pred_t, cc.DCT_DCT, cc.TX_16X16, bd=bd)
+    cost = dist + lam * (coef_bits + torch.from_numpy(hdr_bits).to(dev))
+    cost = torch.where(torch.from_numpy(use).to(dev), cost, 3.0e38)
+    return (cost, rec, qc.to(torch.int16).reshape(nb, BLK * BLK), info)
+
+
+def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
+                       src_v: np.ndarray, qindex: int, modes=MODES,
+                       bd: int = 8, qmap=None, rdoq=False,
+                       tx_search=False, angle_deltas=False, cfl=False,
+                       exact_rates=False, palette_cands=None, device=None):
+    """Encode one key frame on ``device`` (default: the current CUDA
+    device): the frame program at F = 1.  Returns ({(r4, c4):
+    BlockDecision}, recon dict(y, u, v) uint8).
+
+    palette_cands: the tuple ``palette_md_candidates`` returned for this
+    frame, or None.  qmap (adaptive quantization) and rdoq are outside
+    the slice."""
+    if qmap is not None or rdoq:
+        raise NotImplementedError(
+            "adaptive quantization and RDOQ: ROADMAP.md queue A item 7")
+    h, w = src_y.shape
+    _check_slice(modes, bd, h, w)
+    gh, gw = h // BLK, w // BLK
+    dev = device_mod.resolve(device)
+    qp = quant.params_on(int(qindex), dev, bd)
+    lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
+                       device=dev)
+    mode_ids, cands = tuple(modes), None
+    if tx_search:
+        # one rate-table entry per candidate: the mode ids repeat
+        cand_modes, cand_txs = expand_tx_cands(tuple(modes), angle_deltas)
+        cands = [(m, d, t) for (m, d), t in zip(cand_modes, cand_txs)]
+        mode_ids = tuple(m for m, _ in cand_modes)
+    rt = _rate_args(int(qindex), mode_ids, bool(exact_rates), dev)
+    palette = pinfo = None
+    if palette_cands is not None:
+        pc, prc, pqy, pinfo = palette_cands
+        palette = (pc.to(dev), prc.to(dev), pqy.to(dev))
+    planes = [torch.from_numpy(np.asarray(p, np.uint8)[None]).to(dev)
+              for p in (src_y, src_u, src_v)]
+    out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
+                        tx_search=tx_search, angle_deltas=angle_deltas,
+                        cfl=cfl, palette=palette)
+    (ry, ru, rv, ym, um, qy, qu, qv, au, av) = (
+        o[0].cpu().numpy() for o in out[:10])
+    decisions = _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv,
+                                         cands=cands, au=au, av=av)
+    if palette is not None:
+        pchoose = out[10][0].cpu().numpy()
+        for bid, (colors, cmap) in pinfo.items():
+            if not pchoose[bid]:
+                continue
+            k = ((bid // gw) * 4, (bid % gw) * 4)
+            decisions[k] = dataclasses.replace(
+                decisions[k], y_mode=cc.DC_PRED, tx_type=cc.DCT_DCT,
+                angle_delta_y=0, filter_intra_mode=-1,
+                palette=colors, palette_map=cmap)
+    return decisions, dict(y=ry, u=ru, v=rv)
 
 
 def apply_loop_filter(recon, fp):
@@ -483,42 +885,72 @@ def apply_loop_filter(recon, fp):
     return recon
 
 
+def _select_by(keys, make):
+    """Per-block tensors picked by a host-side key: ``make(key)`` is
+    computed once per distinct key over the whole batch and kept for the
+    blocks that carry it."""
+    out = None
+    for k in dict.fromkeys(keys):
+        val = make(k)
+        if out is None:
+            out = val
+            continue
+        take = torch.as_tensor(np.array([x == k for x in keys]),
+                               device=val.device)[:, None, None]
+        out = torch.where(take, val, out)
+    return out
+
+
 def reconstruct_from_decisions(decisions, width: int, height: int,
                                qindex: int, bd: int = 8, device=None):
     """Decoder-side reconstruction from parsed BlockDecisions of a key
-    frame coded on the uniform 16x16 grid (the slice's streams).
+    frame coded on the uniform 16x16 grid (the slice's streams): luma
+    modes with angle deltas and tx types, palette blocks, chroma modes
+    and CfL.
 
     The reference walks superblocks in z-order block by block; on this
     grid the encoder's 2:1 wave order is a valid order too (every sample
-    a block predicts from lies in an earlier wave, and availability
-    depends on position only), so the blocks of one wave are
-    reconstructed as one batch, with the decoded modes and levels, on
-    ``device`` (default: the current CUDA device).  Returns dict(y, u, v)
-    uint8 numpy planes."""
+    a block predicts from lies in an earlier wave, availability depends
+    on position only, and zone-3 candidates are coded only where
+    bottom-left is unavailable), so the blocks of one wave are
+    reconstructed as one batch on ``device`` (default: the current CUDA
+    device), grouped by (mode, delta) for prediction and by tx type for
+    the inverse, with the encoder's top-right/bottom-left flags.  CfL
+    chroma of a wave reads that wave's reconstructed luma.  Returns
+    dict(y, u, v) uint8 numpy planes."""
     dev = device_mod.resolve(device)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
-    ym = np.zeros(nb, np.int64)
+    ymode = [None] * nb        # (mode, delta), or "pal"
+    ytx = np.zeros(nb, np.int64)
     um = np.zeros(nb, np.int64)
+    alpha = np.zeros((2, nb), np.int32)
     qy = np.zeros((nb, BLK, BLK), np.int32)
     qu = np.zeros((nb, CBLK, CBLK), np.int32)
     qv = np.zeros((nb, CBLK, CBLK), np.int32)
-    seen = np.zeros(nb, bool)
+    pal_pred = None
     for (r4, c4), d in decisions.items():
-        if (d.bsize != cc.BLOCK_16X16 or d.tx_type != cc.DCT_DCT
-                or d.filter_intra_mode >= 0 or d.angle_delta_y
-                or getattr(d, "palette", None) is not None
-                or d.uv_mode == cc.UV_CFL_PRED
+        if (d.bsize != cc.BLOCK_16X16 or d.filter_intra_mode >= 0
+                or d.angle_delta_uv or d.is_inter
                 or d.qindex not in (0, qindex) or r4 % 4 or c4 % 4):
             raise NotImplementedError(
                 f"block at ({r4}, {c4}) uses a tool outside the all-intra "
-                "M10-M13 slice (varpart, tx types, angle deltas, CfL, "
-                "filter-intra, palette or AQ): ROADMAP.md queue A")
+                "M5-M13 slice (varpart, filter-intra, chroma angle deltas "
+                "or AQ): ROADMAP.md queue A item 7")
         bid = (r4 // 4) * gw + c4 // 4
-        ym[bid], um[bid] = d.y_mode, d.uv_mode
+        if d.palette is not None:
+            if pal_pred is None:
+                pal_pred = np.zeros((nb, BLK, BLK), np.int32)
+            pal_pred[bid] = np.asarray(d.palette, np.int32)[
+                np.asarray(d.palette_map, np.int32)]
+            ymode[bid], ytx[bid] = "pal", cc.DCT_DCT
+        else:
+            ymode[bid], ytx[bid] = (int(d.y_mode),
+                                    int(d.angle_delta_y)), d.tx_type
+        um[bid] = d.uv_mode
+        alpha[:, bid] = d.cfl_alpha_u, d.cfl_alpha_v
         qy[bid], qu[bid], qv[bid] = d.qcoeff_y, d.qcoeff_u, d.qcoeff_v
-        seen[bid] = True
-    if not seen.all():
+    if any(m is None for m in ymode):
         raise ValueError("decisions do not cover the 16x16 grid")
     qp = quant.params_on(int(qindex), dev, bd)
     rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
@@ -529,35 +961,52 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     lvl = dict(y=torch.as_tensor(qy, device=dev),
                u=torch.as_tensor(qu, device=dev),
                v=torch.as_tensor(qv, device=dev))
+    alpha_t = torch.as_tensor(alpha, device=dev)
+    if pal_pred is not None:
+        pal_pred = torch.as_tensor(pal_pred, device=dev)
     for ws in _device_schedule(gh, gw, 1, dev):
         rid = ws.rid.cpu().numpy()
         sel = ws.sel
+        fi, ha, hl = ws.fi[sel], ws.ha[sel], ws.hl[sel]
+        ar = torch.arange(len(rid), device=dev)
         for p in ("y", "u", "v"):
             luma = p == "y"
             n = BLK if luma else CBLK
             tx = cc.TX_16X16 if luma else cc.TX_8X8
-            modes = ym[rid] if luma else um[rid]
-            above, left, corner = _gather_neighbors(
-                rec[p], ws.fi[sel], ws.by[sel] * n, ws.bx[sel] * n, n,
-                ws.ha[sel], ws.hl[sel], bd=bd)
+            ys, xs = ws.by[sel] * n, ws.bx[sel] * n
+            above, left, corner = _gather_neighbors(rec[p], fi, ys, xs, n,
+                                                    ha, hl, bd=bd)
+            if luma:
+                keys = [ymode[i] for i in rid]
+                ext = (None, None)
+                if any(k != "pal" and (a := cand_angle(*k))
+                       and (a < 90 or a > 180) for k in keys):
+                    ext = _gather_ext_neighbors(rec[p], fi, ys, xs, n,
+                                                above, left, ws.tr[sel],
+                                                ws.bl[sel])
+                pred = _select_by(keys, lambda k: (
+                    pal_pred[ws.rid] if k == "pal" else _predict_cand(
+                        k[0], k[1], n, above, left, corner, ext[0], ext[1],
+                        ha, hl, bd)))
+                tx_types = [int(t) for t in ytx[rid]]
+            else:
+                keys = [int(m) for m in um[rid]]
+                if cc.UV_CFL_PRED in keys:
+                    ac = intra.cfl_ac_420(_gather_block(
+                        rec["y"], fi, ys * 2, xs * 2, BLK, BLK), n, n)
+                    a_q3 = alpha_t[0 if p == "u" else 1][ws.rid]
+                dc = lambda: intra.predict(
+                    cc.DC_PRED, above, left, corner, n, n, have_above=ha,
+                    have_left=hl, bd=bd)
+                pred = _select_by(keys, lambda m: (
+                    intra.cfl_predict(dc(), ac, a_q3, bd=bd)
+                    if m == cc.UV_CFL_PRED else _predict_cand(
+                        m, 0, n, above, left, corner, None, None, ha, hl,
+                        bd)))
+                tx_types = [_chroma_tx_type(m, tx) for m in keys]
             dq = quant.dequantize(lvl[p][ws.rid], qp, tx)
-            pred = None
-            recon = None
-            for m in np.unique(modes):
-                take = torch.as_tensor(modes == m, device=dev)[:, None,
-                                                               None]
-                pm = _predict_cand(int(m), 0, n, above, left, corner,
-                                   ws.ha[sel], ws.hl[sel], bd)
-                pred = pm if pred is None else torch.where(take, pm, pred)
-            tx_types = ([cc.DCT_DCT] * len(rid) if luma else
-                        [_chroma_tx_type(int(m), tx) for m in modes])
-            for t in sorted(set(tx_types)):
-                take = torch.as_tensor(np.array(tx_types) == t,
-                                       device=dev)[:, None, None]
-                r = tf.inv_txfm2d_add(dq, pred, t, tx, bd=bd)
-                recon = r if recon is None else torch.where(take, r, recon)
-            ar = torch.arange(len(rid), device=dev)
-            _scatter_blocks(rec[p], recon, ws.fi[sel], ws.by[sel] * n,
-                            ws.bx[sel] * n, ar)
+            recon = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
+                dq, pred, t, tx, bd=bd))
+            _scatter_blocks(rec[p], recon, fi, ys, xs, ar)
     return {p: rec[p][0].to(torch.uint8).cpu().numpy()
             for p in ("y", "u", "v")}

@@ -1,6 +1,8 @@
 """The port on an NVIDIA GPU: the fused transform+quantize kernel against
 its plain version and against the first form of the kernel, and a small
-all-intra encode on the card against the same encode on the CPU.
+all-intra encode on the card against the same encode on the CPU, at M10
+through send_pictures and at M6 (tx-type search, angle deltas, CfL,
+palette) through send_picture.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import clips
 import tie_rule
 from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
 from svt_av1_tpu_torch.codec import constants as cc
@@ -87,12 +90,17 @@ def _frames(n, w, h):
     return out
 
 
-def _encode_decode(frames, w, h, device):
+def _encode_decode(frames, w, h, device, preset=10, batched=True):
     """(packets, decoded decisions per frame); the port's decoder on
     ``device`` must reproduce every packet's recon."""
     enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
-                                enc_mode=10), device=device)
-    enc.send_pictures(frames, eos=True)
+                                enc_mode=preset), device=device)
+    if batched:
+        enc.send_pictures(frames, eos=True)
+    else:
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
     pkts = []
     while (p := enc.get_packet()) is not None:
         pkts.append(p)
@@ -112,6 +120,32 @@ def _psnr(a, b):
     return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
 
 
+def _same_block(a, b):
+    return (a.y_mode == b.y_mode and a.uv_mode == b.uv_mode
+            and a.tx_type == b.tx_type
+            and a.angle_delta_y == b.angle_delta_y
+            and a.cfl_alpha_u == b.cfl_alpha_u
+            and a.cfl_alpha_v == b.cfl_alpha_v
+            and (a.palette is None) == (b.palette is None)
+            and all(np.array_equal(getattr(a, q), getattr(b, q))
+                    for q in ("qcoeff_y", "qcoeff_u", "qcoeff_v")))
+
+
+def _parity(frames, pk_g, dec_g, pk_c, dec_c):
+    same = total = 0
+    for dg, dc in zip(dec_g, dec_c):
+        for key, a in dg.items():
+            total += 1
+            same += _same_block(a, dc[key])
+    assert same / total >= MIN_AGREE
+    for f, a, b in zip(frames, pk_g, pk_c):
+        assert abs(_psnr(f[0], a.recon["y"])
+                   - _psnr(f[0], b.recon["y"])) <= MAX_DPSNR
+    nb_g = sum(len(p.data) for p in pk_g)
+    nb_c = sum(len(p.data) for p in pk_c)
+    assert abs(nb_g - nb_c) <= MAX_DBYTES * nb_c
+
+
 @pytest.mark.cuda
 def test_slice_on_cuda_matches_cpu():
     _need_card()
@@ -121,18 +155,20 @@ def test_slice_on_cuda_matches_cpu():
     pk_g, dec_g = _encode_decode(frames, w, h, "cuda")
     assert fused_txq.launches > before
     pk_c, dec_c = _encode_decode(frames, w, h, "cpu")
-    same = total = 0
-    for dg, dc in zip(dec_g, dec_c):
-        for key, a in dg.items():
-            b = dc[key]
-            total += 1
-            same += (a.y_mode == b.y_mode and a.uv_mode == b.uv_mode
-                     and all(np.array_equal(getattr(a, q), getattr(b, q))
-                             for q in ("qcoeff_y", "qcoeff_u", "qcoeff_v")))
-    assert same / total >= MIN_AGREE
-    for f, a, b in zip(frames, pk_g, pk_c):
-        assert abs(_psnr(f[0], a.recon["y"])
-                   - _psnr(f[0], b.recon["y"])) <= MAX_DPSNR
-    nb_g = sum(len(p.data) for p in pk_g)
-    nb_c = sum(len(p.data) for p in pk_c)
-    assert abs(nb_g - nb_c) <= MAX_DBYTES * nb_c
+    _parity(frames, pk_g, dec_g, pk_c, dec_c)
+
+
+@pytest.mark.cuda
+def test_m6_key_frames_on_cuda_match_cpu():
+    """send_picture at M6 on a natural and a screen-content frame: the
+    card against the CPU under the parity rule, every tool in use."""
+    _need_card()
+    w, h = 96, 64
+    frames = [clips.natural_clip(1, w, h)[0], clips.screen_frame(w, h, 1)]
+    pk_g, dec_g = _encode_decode(frames, w, h, "cuda", 6, batched=False)
+    pk_c, dec_c = _encode_decode(frames, w, h, "cpu", 6, batched=False)
+    _parity(frames, pk_g, dec_g, pk_c, dec_c)
+    blocks = [b for d in dec_g for b in d.values()]
+    assert any(b.tx_type != cc.DCT_DCT for b in blocks)
+    assert any(b.uv_mode == cc.UV_CFL_PRED for b in blocks)
+    assert any(b.palette is not None for b in blocks)

@@ -13,6 +13,7 @@ import subprocess
 import sys
 import textwrap
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,13 +81,15 @@ def test_rd_step_wave_matches_jax(exact, modes):
     lam = tie.frame_lambda(qindex)
     rt = jrate.md_rate_args(qindex, modes, tie.UV_MODES, exact=exact)
     b = by.size
-    m_j, q_j, r_j = jie._rd_step(
-        jnp.asarray(recon), jnp.asarray(src), jnp.asarray(by * 16),
+    # jitted, as the JAX package runs it (and quicker than op by op)
+    m_j, q_j, r_j = jax.jit(lambda rec, s, rates: jie._rd_step(
+        rec, s, jnp.asarray(by * 16),
         jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
         jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
         jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
         tr_avail=jnp.zeros(b, bool), bl_avail=jnp.zeros(b, bool),
-        rates=(rt[0], rt[2], rt[3], rt[5]))
+        rates=rates))(jnp.asarray(recon), jnp.asarray(src),
+                      (rt[0], rt[2], rt[3], rt[5]))
     trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     rec_t = t(recon)[None].clone()
@@ -114,12 +117,14 @@ def test_rd_step_chroma_wave_matches_jax():
     lam = tie.frame_lambda(qindex)
     rt = jrate.md_rate_args(qindex, tie.MODES, tie.UV_MODES, exact=True)
     b = by.size
-    um_j, qu_j, qv_j, ru_j, rv_j = jie._rd_step_chroma(
-        jnp.asarray(rec_u), jnp.asarray(rec_v), jnp.asarray(src_u),
-        jnp.asarray(src_v), jnp.asarray(by * 8), jnp.asarray(bx * 8),
-        jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
-        tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
-        rates=(rt[1], rt[2], rt[4], rt[6]))
+    um_j, qu_j, qv_j, ru_j, rv_j = jax.jit(
+        lambda ru, rv, su, sv, rates: jie._rd_step_chroma(
+            ru, rv, su, sv, jnp.asarray(by * 8), jnp.asarray(bx * 8),
+            jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
+            tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
+            rates=rates))(
+                jnp.asarray(rec_u), jnp.asarray(rec_v), jnp.asarray(src_u),
+                jnp.asarray(src_v), (rt[1], rt[2], rt[4], rt[6]))
     trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     ru_t, rv_t = t(rec_u)[None].clone(), t(rec_v)[None].clone()
@@ -213,6 +218,15 @@ def test_port_never_imports_jax():
         pkt = enc.get_packet()
         (rec,) = Decoder(device="cpu").decode_temporal_unit(pkt.data)
         assert np.array_equal(rec["y"], pkt.recon["y"])
+        y[:, 16:] = y[:, 16:] // 128 * 90       # two-color blocks: palette
+        enc = Encoder(EncoderConfig(source_width=32, source_height=32,
+                                    enc_mode=6), device="cpu")
+        enc.send_picture(y, u, u)
+        enc.flush()
+        pkt = enc.get_packet()
+        (rec,) = Decoder(device="cpu").decode_temporal_unit(pkt.data)
+        assert np.array_equal(rec["y"], pkt.recon["y"])
+        assert any(d.palette is not None for d in rec["decisions"].values())
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax.") or m == "svt_av1_tpu"
                      or m.startswith("svt_av1_tpu."))
@@ -229,7 +243,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("enc_mode", 6), ("intra_period_length", 15), ("rate_control_mode", 1),
+    ("enc_mode", 4), ("intra_period_length", 15), ("rate_control_mode", 1),
     ("encoder_bit_depth", 10), ("enable_dlf_flag", True),
     ("tile_columns", 1), ("enable_adaptive_quantization", 2),
     ("superres_mode", 1)])
@@ -241,11 +255,18 @@ def test_out_of_slice_configs_raise(field, value):
 
 
 def test_send_picture_raises():
+    """send_picture codes all-intra frames; what it still raises on is a
+    picture that does not match the configured geometry or bit depth."""
     enc = Encoder(EncoderConfig(source_width=32, source_height=32),
                   device="cpu")
     plane = np.zeros((32, 32), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        enc.send_picture(plane, plane[:16, :16], plane[:16, :16])
+    with pytest.raises(ValueError, match="geometry"):
+        enc.send_picture(plane, plane, plane[:16, :16])
+    with pytest.raises(ValueError, match="dtype"):
+        enc.send_picture(plane.astype(np.uint16), plane[:16, :16],
+                         plane[:16, :16])
+    enc.send_picture(plane, plane[:16, :16], plane[:16, :16], eos=True)
+    assert len(enc.get_packet().data) > 0 and enc.done
 
 
 @pytest.mark.parametrize("gh,gw", [(4, 4), (18, 22), (45, 80)])
