@@ -47,12 +47,35 @@ Phases, one line each; any failure raises and exits non-zero:
      launches > 0, decoder exact;
  12. 1 clip frame and 1 screen-content CIF frame at M6 on the CPU against
      the card's: >= 99% of blocks equal (mode, tx type, delta, uv mode,
-     alphas, palette, levels), |dPSNR| <= 0.05 dB, |dbytes| <= 1%.
+     alphas, palette, levels), |dPSNR| <= 0.05 dB, |dbytes| <= 1%;
+ 13. the in-loop filter ops on the card against the port's CPU run, exact:
+     filter_lines for every filter length at levels 4, 12, 32 and 63 over
+     the CIF luma edge count of lines, loop_filter_plane_uniform on a
+     blocky CIF luma plane (step 16, length 14) and its chroma plane (step
+     8, length 6), cdef_find_dir on random and high-contrast blocks (cost
+     above 2^24), cdef_filter_block for n = 8 and n = 4 over a strength
+     and damping grid with CDEF_VERY_LARGE borders;
+ 14. M6 with DLF and CDEF on through send_picture / flush: the phase 9 and
+     10 frames, timed (phases 9-10 warmed the frame program); seconds per
+     frame, the dlf and cdef stage seconds, the chosen levels and
+     strengths, bytes, Y-PSNR and the device kernels of one frame's filter
+     stage (torch.profiler);
+     every packet decoded on the card and equal to Packet.recon, and the
+     filtered recon's SSE over Y+U+V not above the unfiltered recon's of
+     phases 9-10 (the same decisions: key-frame MD does not see the
+     filters, and both searches include "off");
+ 15. M10 through send_pictures, CIF x32, with DLF only (array route) and
+     with DLF + CDEF (per-block route, CDEF signaled at strength 0 as in
+     the reference): hot fps, bytes, PSNR, K1 launches > 0, decoder exact;
+ 16. the first clip frame and the screen-content frame at M6 with both
+     filters on the CPU against the card's: >= 99% of blocks equal, the
+     same filter levels and CDEF strengths, |dPSNR| <= 0.05 dB,
+     |dbytes| <= 1%.
 
 K1's launch count is set to 0 before each encode path and read after it;
-the send_pictures paths must have launched it, the M6 send_picture path
-does not run it (its luma step searches four tx types, as the
-reference's does without its kernel).
+the send_pictures paths (with and without the filters) must have launched
+it, the M6 send_picture paths do not run it (their luma step searches
+four tx types, as the reference's does without its kernel).
 
 Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
@@ -374,12 +397,16 @@ def phase_goldens():
         f"{n_pred} cases bit-exact vs the C goldens on cuda")
 
 
-def encode(frames, w, h, device, preset=10, batched=True):
+FILTERS = dict(enable_dlf_flag=1, cdef_level=1)
+
+
+def encode(frames, w, h, device, preset=10, batched=True, **filters):
     """Packets of ``frames`` at ``preset``, qp 35: one send_pictures call,
-    or (not ``batched``) one send_picture per frame and a flush."""
+    or (not ``batched``) one send_picture per frame and a flush.
+    ``filters``: the in-loop filter settings of EncoderConfig."""
     from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
     enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
-                                enc_mode=preset), device=device)
+                                enc_mode=preset, **filters), device=device)
     if batched:
         enc.send_pictures(frames, eos=True)
     else:
@@ -394,9 +421,10 @@ def encode(frames, w, h, device, preset=10, batched=True):
     return pkts
 
 
-def decode_check(pkts, device):
+def decode_check(pkts, device, headers=None):
     """Port decoder on ``device``; every frame must equal Packet.recon.
-    Returns the parsed decisions per frame."""
+    Returns the parsed decisions per frame; appends each frame header to
+    ``headers`` when given."""
     from svt_av1_tpu_torch.codec.decoder import Decoder
     dec = Decoder(device=device)
     decisions = []
@@ -409,17 +437,19 @@ def decode_check(pkts, device):
                 raise AssertionError(f"decoder recon differs (plane {k}, "
                                      f"frame {p.pts})")
         decisions.append(frames[0]["decisions"])
+        if headers is not None:
+            headers.append(dec.last_frame_header)
     return decisions
 
 
-def phase_encode(tag, frames, w, h, card, preset=10):
+def phase_encode(tag, frames, w, h, card, preset=10, **filters):
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
-    encode(frames, w, h, None, preset)               # warm
+    encode(frames, w, h, None, preset, **filters)    # warm
     torch.cuda.synchronize()
     fused_txq.launches = 0
     t0 = time.perf_counter()
-    pkts = encode(frames, w, h, None, preset)
+    pkts = encode(frames, w, h, None, preset, **filters)
     dt = time.perf_counter() - t0
     launches = fused_txq.launches
     if launches <= 0:
@@ -429,7 +459,9 @@ def phase_encode(tag, frames, w, h, card, preset=10):
                            for f, p in zip(frames, pkts)]))
     t1 = time.perf_counter()
     decisions = decode_check(pkts, None)
-    log(f"phase {tag}: {w}x{h} x{len(frames)} M{preset} qp35 through "
+    what = ("" if not filters else
+            " with DLF" + (" + CDEF" if filters.get("cdef_level") else ""))
+    log(f"phase {tag}: {w}x{h} x{len(frames)} M{preset} qp35{what} through "
         f"send_pictures on the default device "
         f"({torch.cuda.get_device_name(0)}): "
         f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s), {nbytes} bytes, "
@@ -612,6 +644,194 @@ def phase_cpu_vs_cuda(frames, pkts_cuda, dec_cuda):
                              "slice's parity thresholds")
 
 
+def _edge_lines(rng, n):
+    """(n, 14) int32 lines across an edge: smooth with a small step (the
+    flat/wide paths), smooth with a large step, and rough, in turns."""
+    base = rng.integers(20, 236, (n, 1))
+    smooth = np.cumsum(rng.integers(-1, 2, (n, 14)), axis=1) // 2
+    step = np.where(np.arange(14) >= 7, 1, 0)[None]
+    kind = (np.arange(n) % 3)[:, None]
+    x = base + np.where(kind == 0, smooth + step * rng.integers(-6, 7, (n, 1)),
+                        np.where(kind == 1,
+                                 smooth + step * rng.integers(-60, 61, (n, 1)),
+                                 rng.integers(-25, 26, (n, 14))))
+    return np.clip(x, 0, 255).astype(np.int32)
+
+
+def _blocky(h, w, step, rng):
+    """A smooth ramp with a per-block offset, so the deblocker engages."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    off = rng.integers(-4, 5, (h // step + 1, w // step + 1))
+    return (90 + xx // 5 + yy // 6 + off[yy // step, xx // step]
+            + rng.integers(0, 2, (h, w))).astype(np.int32)
+
+
+def phase_filter_ops():
+    """DLF and CDEF ops on the card against the port's CPU run, exact, at
+    the CIF frame's batch sizes."""
+    import torch
+    from svt_av1_tpu_torch.ops import cdef, dlf
+    rng = np.random.default_rng(13)
+    both = lambda a: (torch.from_numpy(a), torch.from_numpy(a).cuda())
+    n_lines = CIF[1] * (CIF[0] // 16 - 1)           # CIF luma vertical edges
+    counts = {}
+    for flen in (4, 6, 8, 14):
+        for level in (4, 12, 32, 63):
+            c, g = both(_edge_lines(rng, n_lines))
+            thr = dlf.loop_filter_thresholds(level, 0)
+            ref = dlf.filter_lines(c, *thr, flen)
+            if not torch.equal(dlf.filter_lines(g, *thr, flen).cpu(), ref):
+                raise AssertionError(f"filter_lines len {flen} level {level}"
+                                     " differs between cuda and cpu")
+            counts[f"{flen}/{level}"] = int((ref != c).any(1).sum())
+    planes = {}
+    for name, (h, w), step, flen, level in (
+            ("luma", CIF[::-1], 16, 14, 20),
+            ("chroma", (CIF[1] // 2, CIF[0] // 2), 8, 6, 10)):
+        c, g = both(_blocky(h, w, step, rng))
+        ref = dlf.loop_filter_plane_uniform(c, step, level, 0, flen)
+        got = dlf.loop_filter_plane_uniform(g, step, level, 0, flen).cpu()
+        if not torch.equal(got, ref) or torch.equal(ref, c):
+            raise AssertionError(f"loop_filter_plane_uniform ({name}) differs "
+                                 "between cuda and cpu, or did not filter")
+        planes[name] = int((ref != c).sum())
+    nb = (CIF[0] // 8) * (CIF[1] // 8)
+    ii, jj = np.mgrid[0:8, 0:8]
+    pats = np.stack([(ii + k * jj) // 2 % 2 for k in range(-3, 4)]
+                    + [(jj + k * ii) // 2 % 2 for k in range(-3, 4)]) * 255
+    blocks = rng.integers(0, 256, (nb, 8, 8))
+    hi = np.repeat(pats, 8, 0)[:nb // 2]
+    blocks[:len(hi)] = np.clip(hi + rng.integers(-3, 4, hi.shape), 0, 255)
+    c, g = both(blocks.astype(np.int32))
+    d_ref, v_ref = cdef.cdef_find_dir(c)
+    d_got, v_got = cdef.cdef_find_dir(g)
+    if not (torch.equal(d_got.cpu(), d_ref) and torch.equal(v_got.cpu(), v_ref)):
+        raise AssertionError("cdef_find_dir differs between cuda and cpu")
+    x = blocks.reshape(nb, 64).astype(np.int64) - 128
+    part = np.einsum("dpi,bi->bdp",
+                     cdef._partial_projections().astype(np.int64), x)
+    n_big = int(((part * part * cdef._cost_weights().astype(np.int64))
+                 .sum(2).max(1) > 2 ** 24).sum())
+    grid = [(p, s) for p in (0, 1, 2, 3, 4, 6, 8, 12, 15) for s in (0, 1, 2, 4)]
+    for n in (8, 4):
+        wins = rng.integers(0, 256, (nb, n + 4, n + 4)).astype(np.int32)
+        wins[::3, :2] = cdef.CDEF_VERY_LARGE
+        wins[1::3, :, -2:] = cdef.CDEF_VERY_LARGE
+        pri = np.array([grid[i % len(grid)][0] for i in range(nb)], np.int32)
+        sec = np.array([grid[i % len(grid)][1] for i in range(nb)], np.int32)
+        dirs = rng.integers(0, 8, nb).astype(np.int32)
+        args_c = [torch.from_numpy(a) for a in (wins, pri, sec, dirs)]
+        args_g = [a.cuda() for a in args_c]
+        for damping in (3, 4, 5, 6):
+            ref = cdef.cdef_filter_block(*args_c, damping, damping, n=n)
+            got = cdef.cdef_filter_block(*args_g, damping, damping, n=n)
+            if not torch.equal(got.cpu(), ref):
+                raise AssertionError(f"cdef_filter_block n={n} damping "
+                                     f"{damping} differs between cuda and cpu")
+    log(f"phase 13: DLF and CDEF ops exact cuda vs cpu: filter_lines over "
+        f"{n_lines} lines at 4 lengths x levels 4/12/32/63 (lines changed "
+        f"{counts}); loop_filter_plane_uniform CIF luma and chroma "
+        f"(pixels changed {planes}); cdef_find_dir on {nb} blocks ({n_big} "
+        f"with a direction cost above 2^24); cdef_filter_block "
+        f"n=8 and n=4 on {nb} blocks x {len(grid)} strength pairs x "
+        f"damping 3-6 with CDEF_VERY_LARGE borders")
+
+
+def _sse(pkts, frames):
+    """Total SSE of the packets' recon against the source, Y+U+V."""
+    return sum(int(((p.recon[k].astype(np.int64) - f[i]) ** 2).sum())
+               for p, f in zip(pkts, frames) for i, k in enumerate("yuv"))
+
+
+def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered):
+    """M6 with DLF and CDEF through send_picture / flush on the default
+    device, timed (the unfiltered phase of the same size warmed the frame
+    program; the filters are eager ops of fixed shapes); every packet
+    decoded on the card; the filtered SSE against ``unfiltered`` (the same
+    frames without filters); the filter stage of the first frame under
+    torch.profiler."""
+    import torch
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import kernel_profile, profiling
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode(frames, w, h, None, 6, batched=False, **FILTERS)
+    dt = time.perf_counter() - t0
+    launches = fused_txq.launches
+    stages = profiling.stage_stats()
+    headers = []
+    t1 = time.perf_counter()
+    decisions = decode_check(pkts, None, headers)
+    dec_s = time.perf_counter() - t1
+    sse_f, sse_u = _sse(pkts, frames), _sse(unfiltered, frames)
+    if sse_f > sse_u:
+        raise AssertionError(f"phase {tag}: the filtered recon's SSE {sse_f} "
+                             f"is above the unfiltered {sse_u}")
+    enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
+                                enc_mode=6, **FILTERS))
+    y, u, v = enc._pad(*frames[0])
+    qindex = enc._rc.frame_qindex()
+    dec0, rec0, _ = enc._mode_decision(y, u, v, qindex)
+    fp = obu.FrameParams(base_q_idx=qindex)
+    prof = kernel_profile.device_kernels(
+        lambda: enc._filter(dec0, rec0, fp, qindex, dict(y=y, u=u, v=v)))
+    sec = {k: stages.get(k, (0.0, 0))[0]
+           for k in ("device_md_intra", "dlf", "cdef", "host_ec")}
+    chosen = [(f.filter_level[0], f.filter_level_uv, f.cdef_strengths)
+              for f in headers]
+    nbytes = sum(len(p.data) for p in pkts)
+    mpsnr = float(np.mean([psnr(f[0], p.recon["y"])
+                           for f, p in zip(frames, pkts)]))
+    log(f"phase {tag}: {w}x{h} x{len(frames)} M6 qp35 DLF + CDEF through "
+        f"send_picture on the default device "
+        f"({torch.cuda.get_device_name(0)}): {dt / len(frames):.3f} s per "
+        f"frame ({dt:.3f} s), stage seconds dlf {sec['dlf']:.3f}, cdef "
+        f"{sec['cdef']:.3f}, device_md_intra {sec['device_md_intra']:.3f}, "
+        f"host_ec {sec['host_ec']:.3f}; (luma level, chroma levels, CDEF "
+        f"strengths) per frame {chosen}; {nbytes} bytes (per frame "
+        f"{[len(p.data) for p in pkts]}), mean Y-PSNR {mpsnr:.4f} dB; SSE "
+        f"Y+U+V filtered {sse_f} vs unfiltered {sse_u} "
+        f"({(sse_f - sse_u) / sse_u:+.3%}); filter stage of frame 0: "
+        f"{prof['launches']} device kernels ({prof['copies']} copies), "
+        f"device time {prof['device_ms']} ms, {prof['wall_s']:.3f} s wall "
+        f"under the profiler, levels {fp.filter_level[0]}/"
+        f"{fp.filter_level_uv}, strengths {fp.cdef_strengths}; fused_txq "
+        f"launches {launches} ({card}); decoder on the default device "
+        f"matches recon ({dec_s:.1f} s)")
+    return pkts, decisions, headers, launches, prof
+
+
+def phase_cpu_vs_cuda_filters(frames, pkts_cuda, dec_cuda, hdr_cuda):
+    pkts_cpu = encode(frames, *CIF, "cpu", 6, batched=False, **FILTERS)
+    hdr_cpu = []
+    dec_cpu = decode_check(pkts_cpu, "cpu", hdr_cpu)
+    agree = block_agreement(dec_cpu, dec_cuda)
+    key = lambda f: (f.filter_level, f.filter_level_uv, f.cdef_damping,
+                     f.cdef_strengths)
+    same_filters = [key(a) for a in hdr_cpu] == [key(b) for b in hdr_cuda]
+    p_cpu = np.mean([psnr(f[0], p.recon["y"])
+                     for f, p in zip(frames, pkts_cpu)])
+    p_gpu = np.mean([psnr(f[0], p.recon["y"])
+                     for f, p in zip(frames, pkts_cuda)])
+    b_cpu = sum(len(p.data) for p in pkts_cpu)
+    b_gpu = sum(len(p.data) for p in pkts_cuda)
+    same_bytes = all(a.data == b.data for a, b in zip(pkts_cpu, pkts_cuda))
+    log(f"phase 16: {len(frames)} CIF frames at M6 with DLF + CDEF "
+        f"(send_picture) cpu vs cuda: {agree:.4%} blocks equal, filters "
+        f"{[key(a) for a in hdr_cpu]} vs {[key(b) for b in hdr_cuda]}, "
+        f"Y-PSNR {p_cpu:.4f} vs {p_gpu:.4f} dB, bytes {b_cpu} vs {b_gpu}, "
+        f"streams identical: {same_bytes}")
+    if (agree < MIN_BLOCK_AGREE or not same_filters
+            or abs(p_cpu - p_gpu) > MAX_DPSNR
+            or abs(b_cpu - b_gpu) > MAX_DBYTES * b_gpu):
+        raise AssertionError("cpu and cuda filtered M6 encodes disagree "
+                             "beyond the slice's parity thresholds")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -662,14 +882,28 @@ def main():
     key_cif = cif[:4] + [clips.screen_frame(*CIF, seed=1)]
     pk_m6, dec_m6, by_path["M6 send_picture CIF x5"] = phase_key_frames(
         "9", key_cif, *CIF, card)
-    by_path["M6 send_picture 720p x2"] = phase_key_frames(
-        "10", [hd[0], clips.screen_frame(*HD, seed=1)], *HD, card)[2]
+    key_hd = [hd[0], clips.screen_frame(*HD, seed=1)]
+    pk_m6_hd, _, by_path["M6 send_picture 720p x2"] = phase_key_frames(
+        "10", key_hd, *HD, card)
     launches = by_path["M6 send_pictures CIF x32"] = phase_encode(
         "11a", cif, *CIF, card, preset=6)[2]
     by_path["M6 send_pictures 720p x8"] = phase_encode(
         "11b", hd, *HD, card, preset=6)[2]
     phase_cpu_vs_cuda_m6([key_cif[0], key_cif[4]], [pk_m6[0], pk_m6[4]],
                          [dec_m6[0], dec_m6[4]])
+
+    phase_filter_ops()
+    pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
+        "14a", key_cif, *CIF, card, pk_m6)
+    by_path["M6 send_picture DLF+CDEF CIF x5"] = n
+    n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
+    by_path["M6 send_picture DLF+CDEF 720p x2"] = n
+    by_path["M10 send_pictures DLF CIF x32"] = phase_encode(
+        "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
+    by_path["M10 send_pictures DLF+CDEF CIF x32"] = phase_encode(
+        "15b", cif, *CIF, card, **FILTERS)[2]
+    phase_cpu_vs_cuda_filters([key_cif[0], key_cif[4]], [pk_f[0], pk_f[4]],
+                              [dec_f[0], dec_f[4]], [hdr_f[0], hdr_f[4]])
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

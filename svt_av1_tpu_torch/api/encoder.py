@@ -9,18 +9,25 @@ svt_av1_tpu/api/encoder.py.
   enc.stream_header()       ~ svt_av1_enc_stream_header
 
 Slice: 8-bit 4:2:0, all-intra (intra_period_length -2 or 0), CQP/CRF,
-presets M5-M13, one tile, no AQ, and DLF, CDEF, LR, superres and film
-grain off.  Any other configuration raises NotImplementedError naming the
-ROADMAP.md item that brings it; nothing falls back to the JAX package.
+presets M5-M13, one tile, no AQ, DLF and frame-uniform CDEF on or off,
+and LR, superres and film grain off.  Any other configuration raises
+NotImplementedError naming the ROADMAP.md item that brings it; nothing
+falls back to the JAX package.
 
 ``send_picture`` codes one key frame at a time with the preset's whole
 tool set (at M5-M8: tx-type search, angle deltas, CfL, palette on screen
-content) and packetizes the per-block decisions with the object tile
-coder.  ``send_pictures`` runs the batched frame program with the
-preset's plain luma modes (as the reference's does) and the array-native
-C tile coder.  Mode decision runs on ``device``
-(pipeline/intra_encoder.py; default: the current CUDA device); entropy
-coding is the port's copy of the host coder (codec/syntax.py,
+content), runs the in-loop filters as the reference's stage path does
+(DLF level search at M5-M8, the qindex heuristic level at M9-M13; CDEF
+strength search over the preset's candidates) and packetizes the
+per-block decisions with the object tile coder.  ``send_pictures`` runs
+the batched frame program with the preset's plain luma modes (as the
+reference's does) and the array-native C tile coder, or with CDEF on the
+object coder and no source for the filters: the heuristic DLF level and
+CDEF signaled with zero strengths, as the reference does.  Mode decision
+and the filters run on ``device`` (pipeline/intra_encoder.py,
+pipeline/dlf_stage.py, pipeline/cdef_stage.py; default: the current CUDA
+device); recon stays there until the filtered planes are copied out.
+Entropy coding is the port's copy of the host coder (codec/syntax.py,
 native/ec_native.c).
 """
 from __future__ import annotations
@@ -30,12 +37,15 @@ from collections import deque
 from typing import Deque, Dict, Optional
 
 import numpy as np
+import torch
 
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.config import EncoderConfig
 from svt_av1_tpu_torch.codec import fast_ec, obu
+from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
-from svt_av1_tpu_torch.pipeline import intra_encoder
+from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage, intra_encoder
+from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
                                                      qp_to_qindex)
@@ -78,8 +88,6 @@ def _unsupported(cfg: EncoderConfig):
          "queue A item 7"),
         (cfg.enable_adaptive_quantization != 0, "adaptive quantization",
          "queue A item 7"),
-        (bool(cfg.enable_dlf_flag) or cfg.cdef_level > 0,
-         "DLF and CDEF", "queue A item 3"),
         (cfg.enable_restoration_filtering > 0 or cfg.superres_mode > 0
          or cfg.film_grain_denoise_strength > 0,
          "loop restoration, superres and film grain", "queue A item 7"),
@@ -93,6 +101,31 @@ def _unsupported(cfg: EncoderConfig):
         if bad:
             return what, item
     return None
+
+
+def _skip_map(decisions, gh: int, gw: int) -> np.ndarray:
+    """(gh, gw) bool: skip flag per 16x16 cell, filled from each leaf
+    decision's true block size."""
+    m = np.zeros((gh, gw), bool)
+    for d in decisions.values():
+        by, bx = d.r4 // 4, d.c4 // 4
+        nw = max(1, int(cc.block_size_wide[d.bsize]) >> 4)
+        nh = max(1, int(cc.block_size_high[d.bsize]) >> 4)
+        m[by:by + nh, bx:bx + nw] = d.skip
+    return m
+
+
+def _skip_map8(decisions, gh8: int, gw8: int) -> np.ndarray:
+    """(gh8, gw8) bool: skip flag per 8x8 CDEF unit from each leaf's
+    true extent — the spec granularity (an 8x8 unit is skipped iff all
+    its mi are skip)."""
+    m = np.zeros((gh8, gw8), bool)
+    for d in decisions.values():
+        nw = max(1, int(cc.block_size_wide[d.bsize]) >> 3)
+        nh = max(1, int(cc.block_size_high[d.bsize]) >> 3)
+        by, bx = d.r4 // 2, d.c4 // 2
+        m[by:by + nh, bx:bx + nw] = d.skip
+    return m
 
 
 class Encoder:
@@ -109,7 +142,8 @@ class Encoder:
         self.coded_w = _align16(config.source_width)
         self.coded_h = _align16(config.source_height)
         self.sp = obu.SequenceParams(width=self.coded_w, height=self.coded_h,
-                                     bit_depth=8)
+                                     bit_depth=8,
+                                     enable_cdef=config.cdef_level > 0)
         self._feat = features_for(config.enc_mode)
         # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
         # sequence header; a frame turns the tools on when it has
@@ -124,9 +158,10 @@ class Encoder:
         self._pts = 0
         self._eos_sent = False
         self._seq_hdr_sent = False
-        # last recon and end-of-frame CDF state (what an inter frame
-        # would predict from; kept as the reference keeps them)
-        self._ref: Optional[Dict[str, np.ndarray]] = None
+        # last (filtered) recon on the device and end-of-frame CDF state
+        # (what an inter frame would predict from; kept as the reference
+        # keeps them)
+        self._ref: Optional[Dict[str, torch.Tensor]] = None
         self._ref_cdfs = None
         self._ref_nmv = None
         fps = (config.frame_rate_numerator
@@ -157,10 +192,20 @@ class Encoder:
             self._pts += 1
 
     def _encode_frame(self, y, u, v, pts) -> Packet:
-        """One key frame: palette candidates, the frame program with the
-        preset's tools, object packetization."""
+        """One key frame: mode decision, then the filters and object
+        packetization."""
         qindex = self._rc.frame_qindex()
         y, u, v = self._pad(y, u, v)
+        decisions, recon, allow_sct = self._mode_decision(y, u, v, qindex)
+        pkt = self._packetize(decisions, recon, qindex, pts,
+                              allow_sct=allow_sct, src=dict(y=y, u=u, v=v))
+        self._rc.feedback(len(pkt.data) * 8, qindex, True)
+        return pkt
+
+    def _mode_decision(self, y, u, v, qindex):
+        """Palette candidates and the frame program with the preset's
+        tools for one padded frame: (decisions, recon on the device,
+        whether the frame turns the screen-content tools on)."""
         pal_cands = None
         if self.sp.enable_screen_content:
             with stage("palette_md"):
@@ -174,23 +219,23 @@ class Encoder:
                 exact_rates=(self._feat.exact_rates
                              and self._feat.exact_rates_intra),
                 palette_cands=pal_cands, device=self.device)
-        pkt = self._packetize(decisions, recon, qindex, pts,
-                              allow_sct=pal_cands is not None)
-        self._rc.feedback(len(pkt.data) * 8, qindex, True)
-        return pkt
+        return decisions, recon, pal_cands is not None
 
     def _packetize(self, decisions, recon, qindex, pts,
-                   allow_sct: bool) -> Packet:
-        """Entropy coding + OBU assembly for one key frame from per-block
-        decisions (in-loop filters are off in the slice).  allow_sct: the
-        frame has palette candidates, so it turns the screen-content
-        tools on."""
+                   allow_sct: bool = False, src=None) -> Packet:
+        """In-loop filters + entropy coding + OBU assembly for one key
+        frame from per-block decisions.  allow_sct: the frame has palette
+        candidates, so it turns the screen-content tools on.  src: the
+        padded source planes (numpy) the filter searches measure against;
+        without it DLF takes the heuristic level and CDEF is signaled with
+        zero strengths, as in the reference."""
         fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
         fp.allow_screen_content_tools = allow_sct
-        self._ref = {k: recon[k] for k in ("y", "u", "v")}
+        recon = self._filter(decisions, recon, fp, qindex, src)
+        self._ref = recon
         tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
                            update_cdfs=not fp.disable_cdf_update,
@@ -205,12 +250,55 @@ class Encoder:
             self._ref_nmv = tenc.nmv
         return self._assemble(fp, tile_data, recon, pts)
 
+    def _filter(self, decisions, recon, fp, qindex, src):
+        """The reference's stage path for a key frame on the uniform 16x16
+        grid: DLF (level search at M5-M8 when the source is at hand, else
+        the heuristic level), then frame-uniform CDEF (strength search
+        over the preset's candidates, then apply) when the source is at
+        hand.  Sets the header fields; recon stays on the device."""
+        searches = ((self.cfg.enable_dlf_flag and self._feat.dlf_search)
+                    or self.sp.enable_cdef)
+        if src is not None and searches:
+            src = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in src.items()}
+        if self.cfg.enable_dlf_flag:
+            with stage("dlf"):
+                if self._feat.dlf_search and src is not None:
+                    # per-plane level search (dlf_process.c:106-131)
+                    recon = dlf_stage.search_and_apply(src, recon, fp)
+                else:
+                    self._heuristic_dlf_levels(fp, qindex)
+                    recon = intra_encoder.apply_loop_filter(recon, fp)
+        if self.sp.enable_cdef and src is not None:
+            skip16 = _skip_map(decisions, self.coded_h // 16,
+                               self.coded_w // 16)
+            fp.cdef_damping = cdef_stage.cdef_damping(qindex)
+            with stage("cdef"):
+                fp.cdef_strengths = cdef_stage.cdef_search(
+                    src, recon, skip16, qindex,
+                    max_candidates=self._feat.cdef_candidates)
+                recon = cdef_stage.cdef_apply(recon, skip16,
+                                              fp.cdef_strengths,
+                                              fp.cdef_damping)
+        return recon
+
+    @staticmethod
+    def _heuristic_dlf_levels(fp, qindex: int):
+        lvl_y = default_filter_level(qindex)
+        fp.filter_level = (lvl_y, lvl_y)
+        lvl_uv = max(0, lvl_y - 2)
+        fp.filter_level_uv = (lvl_uv, lvl_uv)
+
     def send_pictures(self, frames, eos: bool = False):
         """Batched submit: frames = [(y, u, v), ...] uint8 planes.  Each
         chunk of up to 32 frames runs as one device batch with the
         preset's plain luma modes; the host entropy-codes chunk k while
-        the device works on chunk k+1."""
+        the device works on chunk k+1.  As in the reference, frames take
+        the array tile coder unless CDEF is on (or qindex is 0): then the
+        per-block route, whose packetization has no source, so DLF takes
+        the heuristic level and CDEF is signaled with zero strengths."""
         qindex = self._rc.frame_qindex()
+        arrays_ok = qindex > 0 and not self.sp.enable_cdef
         padded = [self._pad(*self._checked(y, u, v))
                   for (y, u, v) in frames]
         pending = None
@@ -223,20 +311,23 @@ class Encoder:
                                  and self._feat.exact_rates_intra),
                     device=self.device)
             if pending is not None:
-                self._emit(pending, qindex)
+                self._emit(pending, qindex, arrays_ok)
             pending = launched
         if pending is not None:
-            self._emit(pending, qindex)
+            self._emit(pending, qindex, arrays_ok)
         if eos:
             self._eos_sent = True
 
-    def _emit(self, pending, qindex: int):
+    def _emit(self, pending, qindex: int, arrays_ok: bool):
         with stage("device_wait_transfer"):
-            results = intra_encoder.encode_intra_frames_finish(pending)
-        for bundle, recon in results:
-            with stage("host_ec"):
-                pkt = self._packetize_arrays(bundle, recon, qindex,
+            results = intra_encoder.encode_intra_frames_finish(
+                pending, as_arrays=arrays_ok)
+        for decisions, recon in results:
+            if arrays_ok:
+                pkt = self._packetize_arrays(decisions, recon, qindex,
                                              self._pts)
+            else:
+                pkt = self._packetize(decisions, recon, qindex, self._pts)
             self._packets.append(pkt)
             self._rc.feedback(len(pkt.data) * 8, qindex, True)
             self._pts += 1
@@ -248,29 +339,34 @@ class Encoder:
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
-        self._ref = {k: recon[k] for k in ("y", "u", "v")}
+        if self.cfg.enable_dlf_flag:
+            self._heuristic_dlf_levels(fp, qindex)
+            with stage("dlf"):
+                recon = intra_encoder.apply_loop_filter(recon, fp)
+        self._ref = recon
         tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
                            update_cdfs=True, frame_is_intra=True)
-        tile_data = fast_ec.encode_intra_tile_arrays(tenc, ym, um, qy, qu,
-                                                     qv)
+        with stage("host_ec"):
+            tile_data = fast_ec.encode_intra_tile_arrays(tenc, ym, um, qy,
+                                                         qu, qv)
         self._ref_cdfs = tenc.cdfs
         self._ref_nmv = tenc.nmv
         return self._assemble(fp, tile_data, recon, pts)
 
     def _assemble(self, fp, tile_data, recon, pts) -> Packet:
         """The temporal unit (with the sequence header on the first) and
-        the recon cropped to the render size."""
+        the recon (device tensors) cropped to the render size and copied
+        to the host."""
         tu = obu.temporal_delimiter()
         if not self._seq_hdr_sent:
             tu += obu.write_sequence_header(self.sp)
             self._seq_hdr_sent = True
         tu += obu.write_frame_obu(self.sp, fp, tile_data)
+        ch, cw = (self.render_h + 1) // 2, (self.render_w + 1) // 2
         recon_out = dict(
-            y=recon["y"][:self.render_h, :self.render_w],
-            u=recon["u"][:(self.render_h + 1) // 2,
-                         :(self.render_w + 1) // 2],
-            v=recon["v"][:(self.render_h + 1) // 2,
-                         :(self.render_w + 1) // 2])
+            y=recon["y"][:self.render_h, :self.render_w].cpu().numpy(),
+            u=recon["u"][:ch, :cw].cpu().numpy(),
+            v=recon["v"][:ch, :cw].cpu().numpy())
         return Packet(data=tu, pts=pts, frame_type=obu.KEY_FRAME,
                       recon=recon_out)
 

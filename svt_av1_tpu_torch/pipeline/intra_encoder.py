@@ -36,7 +36,7 @@ from svt_av1_tpu_torch.codec import palette as pal
 from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
 from svt_av1_tpu_torch.codec.syntax import BlockDecision, _chroma_tx_type
-from svt_av1_tpu_torch.ops import fused_txq, intra, quant
+from svt_av1_tpu_torch.ops import dlf, fused_txq, intra, quant
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
 
@@ -718,14 +718,26 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
     return (out, h // BLK, w // BLK, len(frames))
 
 
-def encode_intra_frames_finish(pending):
-    """Bring a launched batch to the host: [((ym, um, qy, qu, qv, gh,
-    gw), recon), ...] per frame, the array bundle the native tile coder
-    takes, with recon = dict(y, u, v) uint8."""
+def encode_intra_frames_finish(pending, as_arrays: bool = True):
+    """Bring a launched batch's decisions to the host: [(decisions,
+    recon), ...] per frame, recon = dict(y, u, v) of uint8 tensors left on
+    the device (the in-loop filters run there; the caller copies out the
+    final planes).  With ``as_arrays`` the decisions are the array bundle
+    the native tile coder takes, (ym, um, qy, qu, qv, gh, gw); without,
+    per-block BlockDecisions for the object tile coder."""
     out, gh, gw, nf = pending
-    ry, ru, rv, ym, um, qy, qu, qv = (o.cpu().numpy() for o in out[:8])
-    return [((ym[i], um[i], qy[i], qu[i], qv[i], gh, gw),
-             dict(y=ry[i], u=ru[i], v=rv[i])) for i in range(nf)]
+    ym, um, qy, qu, qv, au, av = (o.cpu().numpy() for o in out[3:10])
+    results = []
+    for i in range(nf):
+        recon = dict(y=out[0][i], u=out[1][i], v=out[2][i])
+        if as_arrays:
+            decisions = (ym[i], um[i], qy[i], qu[i], qv[i], gh, gw)
+        else:
+            decisions = _collect_decisions_dense(gh, gw, ym[i], um[i], qy[i],
+                                                 qu[i], qv[i], au=au[i],
+                                                 av=av[i])
+        results.append((decisions, recon))
+    return results
 
 
 def split_fi_mode(m: int):
@@ -829,7 +841,8 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                        exact_rates=False, palette_cands=None, device=None):
     """Encode one key frame on ``device`` (default: the current CUDA
     device): the frame program at F = 1.  Returns ({(r4, c4):
-    BlockDecision}, recon dict(y, u, v) uint8).
+    BlockDecision}, recon dict(y, u, v) of uint8 tensors on ``device``,
+    where the in-loop filters take them).
 
     palette_cands: the tuple ``palette_md_candidates`` returned for this
     frame, or None.  qmap (adaptive quantization) and rdoq are outside
@@ -860,8 +873,7 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
     out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
                         tx_search=tx_search, angle_deltas=angle_deltas,
                         cfl=cfl, palette=palette)
-    (ry, ru, rv, ym, um, qy, qu, qv, au, av) = (
-        o[0].cpu().numpy() for o in out[:10])
+    (ym, um, qy, qu, qv, au, av) = (o[0].cpu().numpy() for o in out[3:10])
     decisions = _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv,
                                          cands=cands, au=au, av=av)
     if palette is not None:
@@ -874,15 +886,24 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                 decisions[k], y_mode=cc.DC_PRED, tx_type=cc.DCT_DCT,
                 angle_delta_y=0, filter_intra_mode=-1,
                 palette=colors, palette_map=cmap)
-    return decisions, dict(y=ry, u=ru, v=rv)
+    return decisions, dict(y=out[0][0], u=out[1][0], v=out[2][0])
 
 
 def apply_loop_filter(recon, fp):
-    """In-loop deblocking.  The slice codes with DLF off (level 0), where
-    this returns its input; DLF is ROADMAP.md queue A item 3."""
-    if fp.filter_level[0] or fp.filter_level[1] or any(fp.filter_level_uv):
-        raise NotImplementedError("DLF: ROADMAP.md queue A item 3")
-    return recon
+    """In-loop deblocking for the uniform grid (16x16 luma / 8x8 chroma)
+    at the frame header's levels; the encoder and the decoder share it.
+    recon: dict of y/u/v tensors; the result keeps their device and dtype.
+    Bit depth follows the dtype (uint8 -> 8, else 10)."""
+    out = dict(recon)
+    bd = 8 if recon["y"].dtype == torch.uint8 else 10
+    for p, lvl in (("y", fp.filter_level[0]), ("u", fp.filter_level_uv[0]),
+                   ("v", fp.filter_level_uv[1])):
+        if lvl > 0:
+            luma = p == "y"
+            out[p] = dlf.loop_filter_plane_uniform(
+                recon[p], BLK if luma else CBLK, lvl, fp.sharpness,
+                14 if luma else 6, bd).to(recon[p].dtype)
+    return out
 
 
 def _select_by(keys, make):
@@ -917,7 +938,8 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     device), grouped by (mode, delta) for prediction and by tx type for
     the inverse, with the encoder's top-right/bottom-left flags.  CfL
     chroma of a wave reads that wave's reconstructed luma.  Returns
-    dict(y, u, v) uint8 numpy planes."""
+    dict(y, u, v) of uint8 planes on ``device`` (the decoder filters them
+    there before it copies them out)."""
     dev = device_mod.resolve(device)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
@@ -1008,5 +1030,4 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
             recon = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
                 dq, pred, t, tx, bd=bd))
             _scatter_blocks(rec[p], recon, fi, ys, xs, ar)
-    return {p: rec[p][0].to(torch.uint8).cpu().numpy()
-            for p in ("y", "u", "v")}
+    return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}

@@ -2,7 +2,8 @@
 its plain version and against the first form of the kernel, and a small
 all-intra encode on the card against the same encode on the CPU, at M10
 through send_pictures and at M6 (tx-type search, angle deltas, CfL,
-palette) through send_picture.
+palette) through send_picture, without and with the in-loop filters
+(whose ops are also held to their CPU run, exactly).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -18,7 +19,7 @@ import tie_rule
 from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
 from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec.decoder import Decoder
-from svt_av1_tpu_torch.ops import fused_txq, quant
+from svt_av1_tpu_torch.ops import cdef, dlf, fused_txq, quant
 from svt_av1_tpu_torch.ops import transforms as tf
 
 MIN_AGREE = 0.99
@@ -90,11 +91,13 @@ def _frames(n, w, h):
     return out
 
 
-def _encode_decode(frames, w, h, device, preset=10, batched=True):
+def _encode_decode(frames, w, h, device, preset=10, batched=True,
+                   **filters):
     """(packets, decoded decisions per frame); the port's decoder on
-    ``device`` must reproduce every packet's recon."""
+    ``device`` must reproduce every packet's recon.  ``filters``: the
+    in-loop filter settings of EncoderConfig."""
     enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
-                                enc_mode=preset), device=device)
+                                enc_mode=preset, **filters), device=device)
     if batched:
         enc.send_pictures(frames, eos=True)
     else:
@@ -172,3 +175,71 @@ def test_m6_key_frames_on_cuda_match_cpu():
     assert any(b.tx_type != cc.DCT_DCT for b in blocks)
     assert any(b.uv_mode == cc.UV_CFL_PRED for b in blocks)
     assert any(b.palette is not None for b in blocks)
+
+
+@pytest.mark.cuda
+def test_filter_ops_on_cuda_match_cpu():
+    """filter_lines, loop_filter_plane_uniform, cdef_find_dir and
+    cdef_filter_block: the card's results equal the CPU's exactly."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    both = lambda a: (torch.from_numpy(a), torch.from_numpy(a).cuda())
+    c, g = both(np.clip(rng.integers(60, 70, (500, 1))
+                        + rng.integers(-2, 3, (500, 14)) + np.where(
+                            np.arange(14) >= 7, rng.integers(-9, 10, (500, 1)),
+                            0), 0, 255).astype(np.int32))
+    for flen in (4, 6, 8, 14):
+        for level in (4, 12, 32, 63):
+            thr = dlf.loop_filter_thresholds(level)
+            assert torch.equal(dlf.filter_lines(g, *thr, flen).cpu(),
+                               dlf.filter_lines(c, *thr, flen))
+    yy, xx = np.mgrid[0:64, 0:96]
+    off = rng.integers(-4, 5, (8, 12))
+    c, g = both((90 + xx // 3 + off[yy // 8, xx // 8]).astype(np.int32))
+    for step, flen in ((16, 14), (8, 6)):
+        ref = dlf.loop_filter_plane_uniform(c, step, 20, 0, flen)
+        assert not torch.equal(ref, c)
+        assert torch.equal(
+            dlf.loop_filter_plane_uniform(g, step, 20, 0, flen).cpu(), ref)
+    c, g = both(np.where(rng.random((300, 8, 8)) < 0.5, 0, 255)
+                .astype(np.int32))
+    for a, b in zip(cdef.cdef_find_dir(g), cdef.cdef_find_dir(c)):
+        assert torch.equal(a.cpu(), b)
+    for n in (8, 4):
+        wins = rng.integers(0, 256, (300, n + 4, n + 4)).astype(np.int32)
+        wins[::3, :2] = cdef.CDEF_VERY_LARGE
+        args = [torch.from_numpy(a) for a in (
+            wins, rng.integers(0, 16, 300).astype(np.int32),
+            rng.choice([0, 1, 2, 4], 300).astype(np.int32),
+            rng.integers(0, 8, 300).astype(np.int32))]
+        for damping in (3, 6):
+            ref = cdef.cdef_filter_block(*args, damping, damping, n=n)
+            got = cdef.cdef_filter_block(*(a.cuda() for a in args), damping,
+                                         damping, n=n)
+            assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_m6_filtered_key_frames_on_cuda_match_cpu():
+    """send_picture at M6 with DLF and CDEF on at 96x64: the card against
+    the CPU under the parity rule, with the same filter levels and CDEF
+    strengths, and every packet decoded exactly on its device."""
+    _need_card()
+    w, h = 96, 64
+    frames = [clips.natural_clip(1, w, h)[0], clips.screen_frame(w, h, 1)]
+    filt = dict(enable_dlf_flag=1, cdef_level=1)
+    pk_g, dec_g = _encode_decode(frames, w, h, "cuda", 6, batched=False,
+                                 **filt)
+    pk_c, dec_c = _encode_decode(frames, w, h, "cpu", 6, batched=False,
+                                 **filt)
+    _parity(frames, pk_g, dec_g, pk_c, dec_c)
+    headers = []
+    for pkts in (pk_g, pk_c):
+        dec = Decoder(device="cpu")
+        for p in pkts:
+            dec.decode_temporal_unit(p.data)
+            f = dec.last_frame_header
+            headers.append((f.filter_level, f.filter_level_uv,
+                            f.cdef_strengths))
+    assert headers[:2] == headers[2:]
+    assert headers[0][0][0] > 0

@@ -2,7 +2,8 @@
 
 Wave steps: best modes agree on >= 99% of blocks; levels and recon are
 exact on the agreeing blocks (the forward transform may round a tie the
-other way, which can flip a near-tied mode choice).  Whole slice at
+other way, which can flip a near-tied mode choice).  The JAX package's
+wave outputs are stored (tests/port_refs.py).  Whole slice at
 64x64: the JAX package's Decoder decodes the port's stream to exactly the
 port's recon, so does the port's own decoder, and the port agrees with
 the JAX encoder on >= 99% of blocks, within 0.05 dB Y-PSNR and 1% bytes;
@@ -19,12 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+import port_refs
 from svt_av1_tpu.api.config import EncoderConfig as JEncoderConfig
 from svt_av1_tpu.api.encoder import Encoder as JEncoder
 from svt_av1_tpu.codec import constants as cc
 from svt_av1_tpu.codec import rate_est as jrate
 from svt_av1_tpu.codec.decoder import Decoder as JDecoder
 from svt_av1_tpu.ops import quant as jquant
+from svt_av1_tpu.pipeline import dlf_stage as jdlf_stage
 from svt_av1_tpu.pipeline import intra_encoder as jie
 
 from svt_av1_tpu_torch import convert
@@ -81,15 +84,18 @@ def test_rd_step_wave_matches_jax(exact, modes):
     lam = tie.frame_lambda(qindex)
     rt = jrate.md_rate_args(qindex, modes, tie.UV_MODES, exact=exact)
     b = by.size
-    # jitted, as the JAX package runs it (and quicker than op by op)
-    m_j, q_j, r_j = jax.jit(lambda rec, s, rates: jie._rd_step(
-        rec, s, jnp.asarray(by * 16),
-        jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
-        jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
-        jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
-        tr_avail=jnp.zeros(b, bool), bl_avail=jnp.zeros(b, bool),
-        rates=rates))(jnp.asarray(recon), jnp.asarray(src),
-                      (rt[0], rt[2], rt[3], rt[5]))
+    # the JAX package's step, jitted as it runs it (stored: port_refs)
+    m_j, q_j, r_j = port_refs.jax_ref(
+        f"rd_step_wave_{exact}_{len(modes)}",
+        lambda: jax.jit(lambda rec, s, rates: jie._rd_step(
+            rec, s, jnp.asarray(by * 16),
+            jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
+            jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
+            jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
+            tr_avail=jnp.zeros(b, bool), bl_avail=jnp.zeros(b, bool),
+            rates=rates))(jnp.asarray(recon), jnp.asarray(src),
+                          (rt[0], rt[2], rt[3], rt[5])),
+        src, recon, np.array(modes), qindex)
     trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     rec_t = t(recon)[None].clone()
@@ -117,14 +123,17 @@ def test_rd_step_chroma_wave_matches_jax():
     lam = tie.frame_lambda(qindex)
     rt = jrate.md_rate_args(qindex, tie.MODES, tie.UV_MODES, exact=True)
     b = by.size
-    um_j, qu_j, qv_j, ru_j, rv_j = jax.jit(
-        lambda ru, rv, su, sv, rates: jie._rd_step_chroma(
-            ru, rv, su, sv, jnp.asarray(by * 8), jnp.asarray(bx * 8),
-            jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
-            tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
-            rates=rates))(
-                jnp.asarray(rec_u), jnp.asarray(rec_v), jnp.asarray(src_u),
-                jnp.asarray(src_v), (rt[1], rt[2], rt[4], rt[6]))
+    um_j, qu_j, qv_j, ru_j, rv_j = port_refs.jax_ref(
+        "rd_step_chroma_wave", lambda: jax.jit(
+            lambda ru, rv, su, sv, rates: jie._rd_step_chroma(
+                ru, rv, su, sv, jnp.asarray(by * 8), jnp.asarray(bx * 8),
+                jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
+                tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
+                rates=rates))(
+                    jnp.asarray(rec_u), jnp.asarray(rec_v),
+                    jnp.asarray(src_u), jnp.asarray(src_v),
+                    (rt[1], rt[2], rt[4], rt[6])),
+        src_u, rec_u, src_v, rec_v, qindex)
     trt = convert.rate_args_from_jax(rt, device="cpu")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
     ru_t, rv_t = t(rec_u)[None].clone(), t(rec_v)[None].clone()
@@ -194,6 +203,36 @@ def test_slice_matches_jax_package():
     assert identical
 
 
+@pytest.mark.parametrize("filters", ["dlf", "dlf+cdef"])
+def test_send_pictures_filters_match_jax(filters):
+    """M10 send_pictures with the in-loop filters, on the frames (and so
+    the JAX package's compiled programs) of the slice test above.  DLF
+    alone keeps the array route with the heuristic level; with CDEF both
+    packages take the per-block route, which has no source: the heuristic
+    DLF level, and CDEF signaled with strengths (0, 0, 0, 0) at damping 3
+    (a behaviour of the reference, ROADMAP.md queue C)."""
+    frames = _clip(2, 64, 64)
+    cfg = dict(source_width=64, source_height=64, qp=35, enc_mode=10,
+               enable_dlf_flag=1, cdef_level=int(filters == "dlf+cdef"))
+    pk_j = _encode(JEncoder(JEncoderConfig(**cfg)), frames)
+    pk_t = _encode(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
+    assert len(pk_t) == len(pk_j) == 2
+    assert all(a.data == b.data for a, b in zip(pk_j, pk_t))
+    jdec, tdec = JDecoder(), Decoder(device="cpu")
+    for b in pk_t:
+        (rec,) = jdec.decode_temporal_unit(b.data)
+        (rec2,) = tdec.decode_temporal_unit(b.data)
+        for k in "yuv":
+            assert np.array_equal(rec[k], b.recon[k]), k
+            assert np.array_equal(rec2[k], b.recon[k]), k
+        fp = tdec.last_frame_header
+        level = jdlf_stage.default_filter_level(fp.base_q_idx)
+        assert fp.filter_level == (level, level) and level > 0
+        assert fp.filter_level_uv == (level - 2, level - 2)
+        assert tdec.sp.enable_cdef == (filters == "dlf+cdef")
+        assert fp.cdef_strengths == (0, 0, 0, 0) and fp.cdef_damping == 3
+
+
 def test_port_never_imports_jax():
     """An encode and a decode through the port on the CPU load neither
     JAX nor any module of the JAX package, and open no file under it."""
@@ -220,7 +259,8 @@ def test_port_never_imports_jax():
         assert np.array_equal(rec["y"], pkt.recon["y"])
         y[:, 16:] = y[:, 16:] // 128 * 90       # two-color blocks: palette
         enc = Encoder(EncoderConfig(source_width=32, source_height=32,
-                                    enc_mode=6), device="cpu")
+                                    enc_mode=6, enable_dlf_flag=1,
+                                    cdef_level=1), device="cpu")
         enc.send_picture(y, u, u)
         enc.flush()
         pkt = enc.get_packet()
@@ -244,7 +284,7 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("enc_mode", 4), ("intra_period_length", 15), ("rate_control_mode", 1),
-    ("encoder_bit_depth", 10), ("enable_dlf_flag", True),
+    ("encoder_bit_depth", 10), ("enable_restoration_filtering", 1),
     ("tile_columns", 1), ("enable_adaptive_quantization", 2),
     ("superres_mode", 1)])
 def test_out_of_slice_configs_raise(field, value):

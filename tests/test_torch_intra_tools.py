@@ -13,6 +13,7 @@ whose sum passes 2^24: a block's alphas (and with them its chroma
 decision) may differ from JAX only where the float64 value of
 64 * sum / den lies within 1e-3 of a half-integer for one of its planes;
 every such block is counted and printed.  Palette costs: 1e-3 relative.
+The JAX package's wave outputs are stored (tests/port_refs.py).
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 import clips
+import port_refs
 import tie_rule
 from svt_av1_tpu.codec import constants as cc
 from svt_av1_tpu.codec import rate_est as jrate
@@ -154,16 +156,18 @@ def test_luma_wave_62_candidates_matches_jax():
     qp = jquant.make_quant_params(QINDEX)
     lam = tie.frame_lambda(QINDEX)
     rt = jrate.md_rate_args(QINDEX, mode_ids, tie.UV_MODES, exact=True)
-    # jitted, as the JAX package runs it (and quicker than op by op)
-    m_j, q_j, r_j = jax.jit(lambda rec, s, rates: jie._rd_step(
-        rec, s, jnp.asarray(by * 16),
-        jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
-        jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
-        jnp.float32(lam), 16, cc.TX_16X16, cand_modes, 0,
-        tx_types=cand_txs, tr_avail=jnp.asarray(tr),
-        bl_avail=jnp.asarray(bl), rates=rates, return_index=True))(
-            jnp.asarray(recon), jnp.asarray(src),
-            (rt[0], rt[2], rt[3], rt[5]))
+    # the JAX package's step, jitted as it runs it (stored: port_refs)
+    m_j, q_j, r_j = port_refs.jax_ref(
+        "luma_wave_62", lambda: jax.jit(lambda rec, s, rates: jie._rd_step(
+            rec, s, jnp.asarray(by * 16),
+            jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
+            jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
+            jnp.float32(lam), 16, cc.TX_16X16, cand_modes, 0,
+            tx_types=cand_txs, tr_avail=jnp.asarray(tr),
+            bl_avail=jnp.asarray(bl), rates=rates, return_index=True))(
+                jnp.asarray(recon), jnp.asarray(src),
+                (rt[0], rt[2], rt[3], rt[5])),
+        src, recon, tr, bl, np.array(cand_modes), np.array(cand_txs), QINDEX)
     trt = convert.rate_args_from_jax(rt, device="cpu")
     rec_t = t_(recon)[None].clone()
     m_t, q_t, _ = tie._rd_step(
@@ -203,16 +207,19 @@ def test_luma_wave_palette_override_matches_jax():
     lam = tie.frame_lambda(QINDEX)
     modes = tie.MODES
     rt = jrate.md_rate_args(QINDEX, modes, tie.UV_MODES, exact=True)
-    _, _, r_j, ch_j = jax.jit(lambda rec, s, rates, alt: jie._rd_step(
-        rec, s, jnp.asarray(by * 16),
-        jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
-        jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
-        jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
-        tr_avail=jnp.asarray(tr), bl_avail=jnp.asarray(bl),
-        rates=rates, inter=alt))(
-            jnp.asarray(recon), jnp.asarray(src),
-            (rt[0], rt[2], rt[3], rt[5]),
-            (jnp.asarray(alt_cost), jnp.asarray(alt_rec)))
+    _, _, r_j, ch_j = port_refs.jax_ref(
+        "luma_wave_palette_override",
+        lambda: jax.jit(lambda rec, s, rates, alt: jie._rd_step(
+            rec, s, jnp.asarray(by * 16),
+            jnp.asarray(bx * 16), jnp.ones(b, bool), jnp.asarray(by > 0),
+            jnp.asarray(bx > 0), tuple(jnp.asarray(a) for a in qp),
+            jnp.float32(lam), 16, cc.TX_16X16, modes, 0,
+            tr_avail=jnp.asarray(tr), bl_avail=jnp.asarray(bl),
+            rates=rates, inter=alt))(
+                jnp.asarray(recon), jnp.asarray(src),
+                (rt[0], rt[2], rt[3], rt[5]),
+                (jnp.asarray(alt_cost), jnp.asarray(alt_rec))),
+        src, recon, tr, bl, alt_rec, alt_cost, np.array(modes), QINDEX)
     trt = convert.rate_args_from_jax(rt, device="cpu")
     rec_t = t_(recon)[None].clone()
     _, _, _, ch_t = tie._rd_step(
@@ -265,14 +272,17 @@ def test_chroma_wave_cfl_matches_jax():
     qp = jquant.make_quant_params(QINDEX)
     lam = tie.frame_lambda(QINDEX)
     rt = jrate.md_rate_args(QINDEX, tie.MODES, tie.UV_MODES, exact=True)
-    out_j = jax.jit(lambda ru, rv, su, sv, lb, rates: jie._rd_step_chroma(
-        ru, rv, su, sv, jnp.asarray(by * 8), jnp.asarray(bx * 8),
-        jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
-        tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
-        rates=rates, luma_rec=lb, cfl=True))(
-            jnp.asarray(rec_u), jnp.asarray(rec_v), jnp.asarray(src_u),
-            jnp.asarray(src_v), jnp.asarray(lblk),
-            (rt[1], rt[2], rt[4], rt[6]))
+    out_j = port_refs.jax_ref(
+        "chroma_wave_cfl",
+        lambda: jax.jit(lambda ru, rv, su, sv, lb, rates: jie._rd_step_chroma(
+            ru, rv, su, sv, jnp.asarray(by * 8), jnp.asarray(bx * 8),
+            jnp.ones(b, bool), jnp.asarray(by > 0), jnp.asarray(bx > 0),
+            tuple(jnp.asarray(a) for a in qp), jnp.float32(lam),
+            rates=rates, luma_rec=lb, cfl=True))(
+                jnp.asarray(rec_u), jnp.asarray(rec_v), jnp.asarray(src_u),
+                jnp.asarray(src_v), jnp.asarray(lblk),
+                (rt[1], rt[2], rt[4], rt[6])),
+        src_u, rec_u, src_v, rec_v, lblk, QINDEX)
     um_j, qu_j, qv_j, ru_j, rv_j, au_j, av_j = (np.asarray(o)
                                                 for o in out_j)
     trt = convert.rate_args_from_jax(rt, device="cpu")

@@ -1,21 +1,26 @@
 """The key-frame encode of presets M5-M9 through the port's entry points
 vs the JAX package, on the CPU at 64x64.
 
-``send_picture`` at M6 (tx-type search, angle deltas, CfL, palette): the
-JAX package's Decoder decodes the port's stream to exactly the port's
-recon, so does the port's own decoder, and against the JAX Encoder on
-the same frames the parity rule holds: >= 99% of blocks equal (mode,
-angle delta, tx type, uv mode, CfL alphas, palette, levels), Y-PSNR
-within 0.05 dB, bytes within 1%.  Where the streams are byte-identical
-(they are in every CPU run so far) that is asserted too.
+``send_picture`` at M6 (tx-type search, angle deltas, CfL, palette) with
+both in-loop filters on (DLF level search, CDEF strength search over the
+preset's six candidates): the JAX package's Decoder decodes the port's
+stream to exactly the port's recon, so does the port's own decoder, and
+against the JAX Encoder on the same frames the parity rule holds: >= 99%
+of blocks equal (mode, angle delta, tx type, uv mode, CfL alphas,
+palette, levels), Y-PSNR within 0.05 dB, bytes within 1%.  Where the
+streams are byte-identical (they are in every CPU run so far) that is
+asserted too.
 ``send_pictures`` at M6 runs the batched program with the preset's eight
 plain modes, as the reference's does.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 import clips
+import port_refs
 from svt_av1_tpu.api.config import EncoderConfig as JEncoderConfig
 from svt_av1_tpu.api.encoder import Encoder as JEncoder
 from svt_av1_tpu.codec import constants as cc
@@ -33,6 +38,7 @@ MIN_AGREE = 0.99
 MAX_DPSNR = 0.05
 MAX_DBYTES = 0.01
 CFG = dict(source_width=W, source_height=H, qp=35, enc_mode=6)
+FILTERS = dict(enable_dlf_flag=1, cdef_level=1)
 
 
 def _frames():
@@ -86,10 +92,12 @@ def _same_block(d, e):
 @pytest.fixture(scope="module")
 def m6():
     """Both packages' M6 encodes of a natural and a screen-content frame
-    through send_picture, and what three decoders make of them."""
+    through send_picture with DLF and CDEF on, and what three decoders make
+    of them."""
     frames = _frames()
-    pk_j = _send_each(JEncoder(JEncoderConfig(**CFG)), frames)
-    pk_t = _send_each(Encoder(EncoderConfig(**CFG), device="cpu"), frames)
+    cfg = dict(CFG, **FILTERS)
+    pk_j = _send_each(JEncoder(JEncoderConfig(**cfg)), frames)
+    pk_t = _send_each(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
     jdec_t, jdec_j, tdec = JDecoder(), JDecoder(), Decoder(device="cpu")
     dec = []
     for a, b in zip(pk_j, pk_t):
@@ -98,8 +106,27 @@ def m6():
         jdec_j.decode_temporal_unit(a.data)
         dec.append(dict(by_jax=by_jax, by_port=by_port,
                         port_decisions=dict(jdec_t.last_decisions),
-                        jax_decisions=dict(jdec_j.last_decisions)))
+                        jax_decisions=dict(jdec_j.last_decisions),
+                        header=tdec.last_frame_header))
     return dict(frames=frames, pk_j=pk_j, pk_t=pk_t, dec=dec)
+
+
+def test_m6_filters_engage(m6):
+    """The searches picked filter levels and CDEF strengths, and the
+    filters lowered the SSE of the natural frame against the unfiltered
+    reconstruction of the same decisions."""
+    fp = m6["dec"][0]["header"]
+    levels = [(d["header"].filter_level, d["header"].filter_level_uv,
+               d["header"].cdef_strengths) for d in m6["dec"]]
+    print(f"M6 filters (level y, levels uv, CDEF strengths): {levels}")
+    assert fp.filter_level[0] > 0 and fp.cdef_strengths != (0, 0, 0, 0)
+    assert fp.cdef_damping == 3 + (fp.base_q_idx >> 6) and fp.cdef_bits == 0
+    unfiltered = tie.reconstruct_from_decisions(
+        m6["dec"][0]["port_decisions"], W, H, fp.base_q_idx, device="cpu")
+    sse = lambda a, b: int(((a.astype(np.int64) - b) ** 2).sum())
+    src, rec = m6["frames"][0], m6["pk_t"][0].recon
+    assert sum(sse(rec[k], s) for k, s in zip("yuv", src)) < sum(
+        sse(unfiltered[k].numpy(), s) for k, s in zip("yuv", src))
 
 
 @pytest.mark.parametrize("i,kind", [(0, "natural"), (1, "screen")])
@@ -148,11 +175,17 @@ def test_m6_streams_use_the_tools(m6):
 
 def test_send_pictures_m6_matches_jax():
     """The batched program at M6: eight plain luma modes, the array tile
-    coder, screen-content tools signaled in the sequence header only."""
+    coder, screen-content tools signaled in the sequence header only.  The
+    JAX package's stream is stored (tests/port_refs.py)."""
     frames = clips.natural_clip(2, W, H, seed=4)
-    je = JEncoder(JEncoderConfig(**CFG))
-    je.send_pictures(frames, eos=True)
-    pk_j = _drain(je)
+
+    def jax_stream():
+        je = JEncoder(JEncoderConfig(**CFG))
+        je.send_pictures(frames, eos=True)
+        return [np.frombuffer(p.data, np.uint8) for p in _drain(je)]
+    pk_j = [SimpleNamespace(data=a.tobytes()) for a in port_refs.jax_ref(
+        "send_pictures_m6", jax_stream, np.array(repr(sorted(CFG.items()))),
+        *(p for f in frames for p in f))]
     te = Encoder(EncoderConfig(**CFG), device="cpu")
     te.send_pictures(frames, eos=True)
     pk_t = _drain(te)
@@ -202,10 +235,38 @@ def test_presets_of_the_slice_encode(preset):
         assert ref.get_packet().data == pkt.data
 
 
+@pytest.mark.parametrize("preset", [5, 9, 12, 13])
+def test_presets_encode_with_filters(preset):
+    """DLF and CDEF through send_picture and send_pictures at the presets
+    whose filter settings differ from M6's: DLF search at M5-M8, the
+    heuristic level from M9; 4, 3 and 2 CDEF candidates at M9-M11, M12
+    and M13.  The port's decoder reproduces every recon."""
+    f = features_for(preset)
+    assert f.dlf_search == (preset <= 8) and not f.cdef_sb
+    assert f.cdef_candidates == {5: 6, 9: 4, 12: 3, 13: 2}[preset]
+    frames = [clips.screen_frame(32, 32, seed=2),
+              clips.natural_clip(1, 32, 32, seed=6)[0]]
+    cfg = EncoderConfig(source_width=32, source_height=32, qp=35,
+                        enc_mode=preset, **FILTERS)
+    one = Encoder(cfg, device="cpu")
+    pk = _send_each(one, frames)
+    batch = Encoder(cfg, device="cpu")
+    batch.send_pictures(frames, eos=True)
+    pk += _drain(batch)
+    dec = Decoder(device="cpu")
+    for i, p in enumerate(pk):
+        if i == len(frames):
+            dec = Decoder(device="cpu")
+        (rec,) = dec.decode_temporal_unit(p.data)
+        for k in "yuv":
+            assert np.array_equal(rec[k], p.recon[k]), (i, k)
+        assert dec.sp.enable_cdef and dec.last_frame_header.filter_level[0]
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("intra_period_length", 15, "items 4-6"),
-    ("enable_dlf_flag", True, "item 3"),
-    ("cdef_level", 1, "item 3"),
+    ("enable_restoration_filtering", 1, "item 7"),
+    ("film_grain_denoise_strength", 8, "item 7"),
     ("enable_adaptive_quantization", 1, "item 7"),
     ("enc_mode", 4, "item 7"),
     ("enc_mode", 0, "item 7")])
