@@ -3,14 +3,20 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and exits non-zero:
+Phases, one line each (ending with the seconds since the start); any
+failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
      into build/kernels/;
-  3. the fused transform+quantize kernel (K1) on the card, at B = 2112
-     and 1920 (the CIF and 720p wave batches at M10), 100, and 2816 and
-     2560 (the same at M5-M9: 8 luma modes), qindex 140 and 255:
+  3. the fused transform+quantize kernel (K1) on the card, at every batch
+     size B that the paths below give it (frames in one program x wave
+     slots x luma modes, k1_batches: 528 and 480 for M10 send_pictures at
+     CIF x8 and 720p x2, 704 and 640 for M6; 66, 44 and 240 for a
+     send_picture key frame or the pass B of one inter frame at CIF M10,
+     CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs),
+     then at the comparison sizes 2112 and 2816 (a full 32-frame chunk at
+     CIF, M10 and M6) and 100, qindex 140 and 255:
      bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; at each size
@@ -22,12 +28,12 @@ Phases, one line each; any failure raises and exits non-zero:
      the L2 (bound by device memory);
   4. the inverse transform and the DC/V/H/SMOOTH/PAETH predictors on the
      card against the C-reference goldens in tests/golden/ (bit-exact);
-  5. the main path: CIF 352x288, 32 frames, preset M10, qp 35, through
+  5. the all-intra batch: CIF 352x288, 8 frames, preset M10, qp 35, through
      Encoder(cfg).send_pictures on the default device (the card), once to
      warm and once timed; the kernel's launch count over the timed run
      must be > 0; every packet is decoded by the port's decoder on the
      card and must equal Packet.recon exactly;
-  6. the same encode and decode check at 1280x720, 8 frames;
+  6. the same encode and decode check at 1280x720, 2 frames;
   7. the first 4 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
      |dbytes| <= 1%;
@@ -35,15 +41,16 @@ Phases, one line each; any failure raises and exits non-zero:
      prediction (exact) and the 16x16 ADST_ADST/ADST_DCT/DCT_ADST forward
      transforms (tie rule) on the card against the port's CPU run;
   9. preset M6 (tx-type search, angle deltas, CfL, palette) through
-     Encoder(cfg).send_picture / flush on the default device: CIF, 4
+     Encoder(cfg).send_picture / flush on the default device: CIF, 2
      frames of the bench clip and 1 screen-content frame, one warm frame
      then timed; every packet decoded on the card and equal to
      Packet.recon; seconds per frame, bytes, Y-PSNR, the counts of blocks
      with a non-DCT tx type, a non-zero angle delta, CfL and palette
      (each must be > 0) and the host_ec seconds;
- 10. the same at 1280x720, 1 clip frame and 1 screen-content frame;
+ 10. the same at 1280x720, 1 clip frame and 1 screen-content frame (no
+     warm frame);
  11. M6 through send_pictures (the batched program with the preset's 8
-     plain luma modes): CIF x32 and 720p x8, hot fps, bytes, PSNR, K1
+     plain luma modes): CIF x8 and 720p x2, hot fps, bytes, PSNR, K1
      launches > 0, decoder exact;
  12. 1 clip frame and 1 screen-content CIF frame at M6 on the CPU against
      the card's: >= 99% of blocks equal (mode, tx type, delta, uv mode,
@@ -64,18 +71,53 @@ Phases, one line each; any failure raises and exits non-zero:
      filtered recon's SSE over Y+U+V not above the unfiltered recon's of
      phases 9-10 (the same decisions: key-frame MD does not see the
      filters, and both searches include "off");
- 15. M10 through send_pictures, CIF x32, with DLF only (array route) and
+ 15. M10 through send_pictures, CIF x8, with DLF only (array route) and
      with DLF + CDEF (per-block route, CDEF signaled at strength 0 as in
      the reference): hot fps, bytes, PSNR, K1 launches > 0, decoder exact;
  16. the first clip frame and the screen-content frame at M6 with both
      filters on the CPU against the card's: >= 99% of blocks equal, the
      same filter levels and CDEF strengths, |dPSNR| <= 0.05 dB,
-     |dbytes| <= 1%.
+     |dbytes| <= 1%;
+ 17. the GOP slice's device ops on the card against the port's CPU run,
+     exact: ssd_search, hme_core, the four convolves, _clamp_cands,
+     mc_blocks (luma, chroma), mc_blocks_compound(_diffwtd), warp_core;
+     _gm_fit under its tie rule (a differing model only where a float64
+     value lies within 1e-3 of a rounding boundary) and the wedge pick
+     under its own (a differing option only where the float64 SSEs of the
+     two picks lie within 1e-6 relative), ties counted;
+ 18. the main path of this slice: the hierarchical GOP through
+     send_picture / flush on the default device, CIF x17 (key, 15, key),
+     hierarchical_levels 3, keyint 15, M10, qp 35, MCTF and TPL off, DLF +
+     CDEF; a warm run, then the timed run: fps, host dispatch seconds per
+     inter frame, the host stage seconds, the inter blocks by kind (inter,
+     intra, compound, wedge, diffwtd, warp, merged), K1 launches > 0;
+     every shown frame (show-existing ones included) decoded on the card
+     equal to Packet.recon; one inter frame alone: P1 + P2 host seconds,
+     collect seconds and its device kernels under torch.profiler (device
+     busy share);
+ 19. the same GOP at 1280x720 x9 (warmed on its first 3 frames), the
+     decode check over the first 5 shown frames;
+ 20. 5-frame GOPs (hierarchical_levels 2) on the CPU against the card's,
+     each decoded on its device and equal to Packet.recon: the natural
+     clip at 96x96 (keyint 4), and the clips that code one tool each —
+     the wipe (64x64, wedge), the iris (80x80, diffwtd; order hints off
+     and wedge priced out, as in the reference's test) and a zoom +
+     rotate clip (128x96, warped blocks) — where the card's stream must
+     code that tool at least once: >= 99% of blocks equal (modes,
+     references, MVs, warp, compound type, wedge option, qcoeff),
+     |dPSNR| <= 0.05 dB, |dbytes| <= 1%, identity, and the GM / interp /
+     wedge-pick ties printed;
+ 21. M12 (no subpel ring, 4 intra modes): CIF x9 GOP, timed (no warm
+     run), decoded;
+ 22. K1 at any batch size the paths launched that phase 3 did not check
+     (checked and timed the same way); the sizes are recorded by the
+     wrapper (fused_txq.batches) from the end of phase 4 on.
 
 K1's launch count is set to 0 before each encode path and read after it;
-the send_pictures paths (with and without the filters) must have launched
-it, the M6 send_picture paths do not run it (their luma step searches
-four tx types, as the reference's does without its kernel).
+the send_pictures paths (with and without the filters) and the GOP paths
+(pass B of every inter frame, and the key frames) must have launched it,
+the M6 send_picture paths do not run it (their luma step searches four tx
+types, as the reference's does without its kernel).
 
 Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
@@ -110,8 +152,12 @@ MAX_DPSNR = 0.05
 MAX_DBYTES = 0.01
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(f"{msg} [t={time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 def synth_frames(n, w, h):
@@ -140,10 +186,38 @@ def psnr(a, b):
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published datasheet rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 GRAPH_LAUNCHES = 20
-# K1's batch on the main paths: frames x wave slots x luma modes at CIF
-# x32 / 720p x8 with 6 modes (M10) and 8 modes (M5-M9); 100 is a small one
-K1_BATCHES = (2112, 1920, 100, 2816, 2560)
 GRAPH_REPLAYS = 50
+# the depth of the all-intra send_pictures paths of the earlier slices
+CIF_FRAMES, HD_FRAMES = 8, 2
+
+
+def k1_batch(nframes, size, preset):
+    """K1's batch B on a path: frames in one program x wave slots (the
+    natural wave size of the 16x16 grid) x the preset's luma modes.  A
+    send_pictures chunk holds all its frames; a send_picture key frame
+    and the pass B of an inter frame hold one."""
+    from svt_av1_tpu_torch.pipeline import intra_encoder
+    from svt_av1_tpu_torch.pipeline.presets import features_for
+    w, h = size
+    return (nframes * intra_encoder._natural_maxb(-(-h // 16), -(-w // 16))
+            * len(features_for(preset).intra_modes))
+
+
+def k1_batches():
+    """(the batch sizes of the paths this script drives, extra sizes timed
+    only for comparison with earlier runs: a full 32-frame send_pictures
+    chunk at CIF with 6 and 8 modes, and a small batch)."""
+    driven = [k1_batch(CIF_FRAMES, CIF, 10), k1_batch(HD_FRAMES, HD, 10),
+              k1_batch(CIF_FRAMES, CIF, 6), k1_batch(HD_FRAMES, HD, 6),
+              k1_batch(1, CIF, 10), k1_batch(1, CIF, 12),
+              k1_batch(1, HD, 10)]
+    # the small GOPs of phase 20 (natural 96x96, wipe 64x64, iris 80x80,
+    # rotzoom 128x96)
+    driven += [k1_batch(1, size, 10)
+               for size in ((96, 96), (64, 64), (80, 80), (128, 96))]
+    extra = [b for b in (k1_batch(32, CIF, 10), k1_batch(32, CIF, 6), 100)
+             if b not in driven]
+    return list(dict.fromkeys(driven)), extra
 
 
 def graph_us(launch, n=GRAPH_LAUNCHES, replays=GRAPH_REPLAYS):
@@ -271,7 +345,7 @@ def v2_launcher(resid, qp):
     return launch
 
 
-def time_txq(resid, card, plain=True):
+def time_txq(resid, card, plain=True, tag="3"):
     """Device time per launch of the kernel, the first kernel and (when
     ``plain``) the plain version at qindex 140, three rounds in turns, and
     the host issue time of the wrapper and of the first wrapper."""
@@ -291,7 +365,7 @@ def time_txq(resid, card, plain=True):
     issue = host_issue_ms(lambda: fused_txq.fused_txq(resid, qp))
     issue_v1 = host_issue_ms(v1.call)
     plain_txt = (f"plain {med['plain']:.3f} us; " if plain else "")
-    log(f"phase 3: fused_txq B={b} qindex=140 device time per launch "
+    log(f"phase {tag}: fused_txq B={b} qindex=140 device time per launch "
         f"(CUDA graph of {GRAPH_LAUNCHES} launches x {GRAPH_REPLAYS} "
         f"replays, median of 3 rounds in turns): kernel {med['v2']:.3f} us,"
         f" first kernel {med['v1']:.3f} us, {plain_txt}{nbytes} bytes, "
@@ -307,47 +381,61 @@ def time_txq(resid, card, plain=True):
                 rounds=times)
 
 
-def phase_kernel(card):
-    """K1 (fused_txq16): bit-identity with the first kernel, the tie rule
-    against the plain version, exact quantizer on the kernel's own
-    coefficients; device time per launch of both kernels and the plain
-    version in turns; host issue time of the wrapper."""
+def check_txq(b, card, rng, rec, driven=True, tag="3"):
+    """K1 (fused_txq16) at batch b: bit-identity with the first kernel,
+    the tie rule against the plain version, exact quantizer on the
+    kernel's own coefficients, at qindex 140 and 255; then its timing
+    (time_txq) appended to rec["by_batch"], marked ``driven`` (a size the
+    script's paths give K1) or not (timed for comparison only)."""
     import torch
     import tie_rule
     from svt_av1_tpu_torch.codec import constants as cc
     from svt_av1_tpu_torch.ops import fused_txq, quant
     from svt_av1_tpu_torch.ops import transforms as tf
     fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
+    resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
+    exact = tie_rule.exact_coeffs(resid_np, fv, fh)
+    resid = torch.from_numpy(resid_np).cuda()
+    for qindex in (140, 255):
+        qp = quant.to_device(quant.make_quant_params(qindex), "cuda")
+        ck, qk, dk = fused_txq.fused_txq(resid, qp)
+        v1 = V1(resid, qp).launch()
+        cp, _, _ = fused_txq.fused_txq_plain(resid, qp)
+        torch.cuda.synchronize()
+        n_v1 = sum(int((a != o).sum()) for a, o in zip((ck, qk, dk), v1))
+        if n_v1:
+            raise AssertionError(f"B={b} qindex={qindex}: {n_v1} values "
+                                 "differ between the kernel and the first "
+                                 "kernel")
+        q_ref, d_ref = quant.quantize(ck, qp, cc.TX_16X16)
+        if not (torch.equal(qk, q_ref) and torch.equal(dk, d_ref)):
+            raise AssertionError("kernel qcoeff/dqcoeff differ from the "
+                                 "quantizer on its own coefficients")
+        nmis, maxd = tie_rule.tie_mismatches(ck.cpu().numpy(),
+                                             cp.cpu().numpy(), exact)
+        rec["max_abs_err"] = max(rec["max_abs_err"], maxd)
+        log(f"phase {tag}: fused_txq B={b} qindex={qindex}"
+            f"{'' if driven else ' (comparison size)'}: 0 of "
+            f"{3 * resid.numel()} coeff/qcoeff/dqcoeff values differ from "
+            f"the first kernel; {nmis} of {resid.numel()} coefficients "
+            f"differ from the plain version (all on rounding ties, max "
+            f"|diff| {maxd}); qcoeff/dqcoeff exact")
+    rec["by_batch"].append(dict(time_txq(resid, card, tag=tag),
+                                driven=driven))
+
+
+def phase_kernel(card):
+    """K1 at the batch sizes of the driven paths and at the comparison
+    sizes (check_txq), then at a batch far beyond the L2."""
+    import torch
+    from svt_av1_tpu_torch.ops import quant
     rng = np.random.default_rng(7)
     rec = dict(max_abs_err=0, by_batch=[])
-    for b in K1_BATCHES:
-        resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
-        exact = tie_rule.exact_coeffs(resid_np, fv, fh)
-        resid = torch.from_numpy(resid_np).cuda()
-        for qindex in (140, 255):
-            qp = quant.to_device(quant.make_quant_params(qindex), "cuda")
-            ck, qk, dk = fused_txq.fused_txq(resid, qp)
-            v1 = V1(resid, qp).launch()
-            cp, _, _ = fused_txq.fused_txq_plain(resid, qp)
-            torch.cuda.synchronize()
-            n_v1 = sum(int((a != o).sum()) for a, o in zip((ck, qk, dk), v1))
-            if n_v1:
-                raise AssertionError(f"B={b} qindex={qindex}: {n_v1} values "
-                                     "differ between the kernel and the "
-                                     "first kernel")
-            q_ref, d_ref = quant.quantize(ck, qp, cc.TX_16X16)
-            if not (torch.equal(qk, q_ref) and torch.equal(dk, d_ref)):
-                raise AssertionError("kernel qcoeff/dqcoeff differ from the "
-                                     "quantizer on its own coefficients")
-            nmis, maxd = tie_rule.tie_mismatches(ck.cpu().numpy(),
-                                                 cp.cpu().numpy(), exact)
-            rec["max_abs_err"] = max(rec["max_abs_err"], maxd)
-            log(f"phase 3: fused_txq B={b} qindex={qindex}: 0 of "
-                f"{3 * resid.numel()} coeff/qcoeff/dqcoeff values differ "
-                f"from the first kernel; {nmis} of {resid.numel()} "
-                f"coefficients differ from the plain version (all on "
-                f"rounding ties, max |diff| {maxd}); qcoeff/dqcoeff exact")
-        rec["by_batch"].append(time_txq(resid, card))
+    driven, extra = k1_batches()
+    for b in driven:
+        check_txq(b, card, rng, rec)
+    for b in extra:
+        check_txq(b, card, rng, rec, driven=False)
     # a batch far beyond the L2: bound by device memory
     resid = torch.randint(-255, 256, (135168, 16, 16), dtype=torch.int32,
                           device="cuda")
@@ -356,7 +444,8 @@ def phase_kernel(card):
     if n_v1:
         raise AssertionError(f"B=135168: {n_v1} values differ between the "
                              "kernel and the first kernel")
-    rec["by_batch"].append(time_txq(resid, card, plain=False))
+    rec["by_batch"].append(dict(time_txq(resid, card, plain=False),
+                                driven=False))
     return rec
 
 
@@ -398,6 +487,10 @@ def phase_goldens():
 
 
 FILTERS = dict(enable_dlf_flag=1, cdef_level=1)
+# the bench's GOP structure at this slice's presets: 3-level mini-GoPs,
+# keyint 15, MCTF and TPL off
+GOP = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=0,
+           enable_tpl_la=0, **FILTERS)
 
 
 def encode(frames, w, h, device, preset=10, batched=True, **filters):
@@ -484,13 +577,15 @@ def tool_counts(decisions):
         palette=sum(b.palette is not None for b in blocks))
 
 
-def phase_key_frames(tag, frames, w, h, card):
+def phase_key_frames(tag, frames, w, h, card, warm=True):
     """M6 through send_picture / flush on the default device: one warm
-    frame, then the timed run; every packet decoded on the card."""
+    frame (unless ``warm`` is off: a smaller size warmed the program),
+    then the timed run; every packet decoded on the card."""
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
     from svt_av1_tpu_torch.utils import profiling
-    encode(frames[:1], w, h, None, 6, batched=False)  # warm
+    if warm:
+        encode(frames[:1], w, h, None, 6, batched=False)
     torch.cuda.synchronize()
     profiling.reset_stages()
     fused_txq.launches = 0
@@ -832,6 +927,386 @@ def phase_cpu_vs_cuda_filters(frames, pkts_cuda, dec_cuda, hdr_cuda):
                              "beyond the slice's parity thresholds")
 
 
+# ------------------------------------------------- the GOP slice (17-21) ---
+
+def encode_gop(frames, w, h, device, preset=10, clip=None, **cfg):
+    """Packets of a GOP encode through send_picture / flush (qp 35 unless
+    ``cfg`` sets it), under the setting of the tool clip ``clip``
+    (clips.tool_setting: the iris clip's order hints off and wedge
+    priced out, as in the reference's test)."""
+    import clips
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    enc = Encoder(EncoderConfig(**dict(dict(source_width=w, source_height=h,
+                                            qp=35, enc_mode=preset),
+                                       **dict(GOP, **cfg))),
+                  device=device)
+    with clips.tool_setting(clip, enc, gop_fast):
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
+    pkts = []
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    if sum(p.displayed for p in pkts) != len(frames):
+        raise AssertionError(f"{len(pkts)} packets do not display "
+                             f"{len(frames)} frames")
+    return pkts
+
+
+def gop_decode_check(pkts, device, shown_limit=None):
+    """The port's decoder on ``device`` over a GOP stream: every shown
+    frame (show-existing ones included) must equal Packet.recon.  Returns
+    (frame headers and decisions of the coded frames, shown count)."""
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.codec.decoder import Decoder
+    dec = Decoder(device=device)
+    coded, shown = [], 0
+    for p in pkts:
+        out = dec.decode_temporal_unit(p.data)
+        if len(out) != int(p.displayed):
+            raise AssertionError(f"poc {p.pts}: {len(out)} frames shown")
+        for rec in out:
+            for k in ("y", "u", "v"):
+                if not np.array_equal(rec[k], p.recon[k]):
+                    raise AssertionError(f"decoder recon differs (plane {k},"
+                                         f" poc {p.pts})")
+            shown += 1
+        if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(p.data)]:
+            coded.append((dec.last_frame_header, dec.last_decisions))
+        if shown_limit is not None and shown >= shown_limit:
+            break
+    return coded, shown
+
+
+def gop_block_counts(coded):
+    """Blocks of the coded inter frames by kind."""
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.codec import obu
+    n = dict(blocks=0, inter=0, intra=0, compound=0, wedge=0, diffwtd=0,
+             warp=0, merged=0)
+    for fp, dec in coded:
+        if fp.frame_type != obu.INTER_FRAME:
+            continue
+        for b in dec.values():
+            n["blocks"] += 1
+            n["inter" if b.is_inter else "intra"] += 1
+            n["compound"] += bool(b.is_inter and b.ref2)
+            n["wedge"] += bool(b.ref2 and b.comp_type == 1)
+            n["diffwtd"] += bool(b.ref2 and b.comp_type == 2)
+            n["warp"] += bool(b.use_warp)
+            n["merged"] += b.bsize != cc.BLOCK_16X16
+    return n
+
+
+def inter_frame_profile(frames, w, h, preset=10):
+    """One inter frame (the middle frame coded from the first and the
+    last, LAST + ALTREF) run alone: host seconds of P1 + P2 dispatch, to
+    device idle, and of the collect, and the device kernels of the whole
+    frame under torch.profiler (device busy share = device time / wall
+    time)."""
+    import torch
+    from svt_av1_tpu_torch.utils import kernel_profile
+    dispatch, collect = kernel_profile.inter_frame(frames, w, h, preset)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pend = dispatch()
+    t_dispatch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    collect(pend)
+    t_collect = time.perf_counter() - t1
+    prof = kernel_profile.device_kernels(lambda: collect(dispatch()), top=8)
+    busy = (prof["device_ms"] / 1000.0 / prof["wall_s"]
+            if isinstance(prof["device_ms"], float) else "not measured")
+    return dict(dispatch_s=t_dispatch, dispatch_and_device_s=t_all,
+                collect_s=t_collect, prof=prof, busy=busy)
+
+
+def phase_gop(tag, frames, w, h, card, preset=10, warm=None,
+              shown_limit=None, profile=True):
+    """A GOP through send_picture / flush on the default device: a warm
+    run over the first ``warm`` frames (all by default; 0: none), then the
+    timed hot run with K1's count set to 0 before and read after; the
+    port's decoder on the card over the stream; one inter frame profiled
+    alone."""
+    import torch
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    warm = len(frames) if warm is None else warm
+    if warm:
+        encode_gop(frames[:warm], w, h, None, preset)
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode_gop(frames, w, h, None, preset)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fused_txq.launches
+    stages = profiling.stage_stats()
+    if launches <= 0:
+        raise AssertionError(f"phase {tag}: the GOP path never launched "
+                             "fused_txq")
+    t1 = time.perf_counter()
+    coded, shown = gop_decode_check(pkts, None, shown_limit)
+    dec_s = time.perf_counter() - t1
+    n = gop_block_counts(coded)
+    for k in ("inter", "compound"):
+        if n[k] <= 0:
+            raise AssertionError(f"phase {tag}: no {k} block")
+    n_inter = sum(1 for p in pkts if p.frame_type == obu.INTER_FRAME
+                  and len(p.data) > 8)
+    n_key = sum(1 for p in pkts if p.frame_type == obu.KEY_FRAME)
+    disp = sorted((p for p in pkts if p.displayed), key=lambda p: p.pts)
+    mpsnr = float(np.mean([psnr(frames[p.pts][0], p.recon["y"])
+                           for p in disp]))
+    nbytes = sum(len(p.data) for p in pkts)
+    sec = {k: round(v[0], 3) for k, v in sorted(stages.items())}
+    per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / max(n_inter, 1)
+    prof_txt = ""
+    prof = None
+    if profile:
+        prof = inter_frame_profile(frames, w, h, preset)
+        busy = prof["busy"]
+        prof_txt = (
+            f"; one inter frame alone (LAST + ALTREF): P1 + P2 dispatch "
+            f"{prof['dispatch_s']:.3f} s host, "
+            f"{prof['dispatch_and_device_s']:.3f} s to device idle, collect "
+            f"{prof['collect_s']:.4f} s; "
+            f"{prof['prof']['launches']} device kernels, device time "
+            f"{prof['prof']['device_ms']} ms in {prof['prof']['wall_s']:.3f} "
+            f"s under the profiler (device busy "
+            f"{busy if isinstance(busy, str) else f'{busy:.1%}'}); top "
+            f"{[(k['name'], k['count'], round(k['ms'], 3))
+                for k in prof['prof']['top_kernels']]}")
+    log(f"phase {tag}: GOP {w}x{h} x{len(frames)} M{preset} qp35 "
+        f"hierarchical_levels 3 keyint 15 DLF + CDEF through send_picture "
+        f"/ flush on the default device ({torch.cuda.get_device_name(0)}): "
+        f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s; {n_key} key, "
+        f"{n_inter} inter, {len(pkts) - n_key - n_inter} show-existing "
+        f"packets), {per_inter:.3f} s host dispatch per inter frame, "
+        f"{nbytes} bytes, mean Y-PSNR {mpsnr:.4f} dB; host stage seconds "
+        f"{sec}; inter-frame blocks {n}; fused_txq launches {launches} "
+        f"({card}); decoder on the default device matches recon over "
+        f"{shown} shown frames ({dec_s:.1f} s){prof_txt}")
+    return pkts, coded, launches, prof
+
+
+def _headers_key(coded):
+    return [(fp.gm_trans, fp.interpolation_filter) for fp, _ in coded]
+
+
+def _same_inter_block(a, b):
+    return (b is not None and a.bsize == b.bsize and a.is_inter == b.is_inter
+            and a.y_mode == b.y_mode and a.mv == b.mv and a.ref == b.ref
+            and a.ref2 == b.ref2 and a.mv2 == b.mv2
+            and a.use_warp == b.use_warp and a.comp_type == b.comp_type
+            and a.wedge_idx == b.wedge_idx and a.wedge_sign == b.wedge_sign
+            and np.array_equal(a.qcoeff_y, b.qcoeff_y))
+
+
+def gop_cpu_vs_cuda(name, frames, need=None, **kw):
+    """One GOP encoded on the CPU and on the card, each decoded by the
+    port's decoder on its device (every shown frame equal to
+    Packet.recon): block agreement, bytes, identity; the frames whose GM
+    model or interp pick differ and the wedge blocks whose option differs
+    are the counted ties.  ``need``: a block kind of gop_block_counts that
+    the card's stream must code at least once (the tool of a tool clip,
+    whose setting the encodes take)."""
+    h, w = frames[0][0].shape
+    clip = name if need else None
+    pc = encode_gop(frames, w, h, "cpu", clip=clip, **kw)
+    pg = encode_gop(frames, w, h, None, clip=clip, **kw)
+    cc_, _ = gop_decode_check(pc, "cpu")
+    cg, _ = gop_decode_check(pg, None)
+    same = tot = wedge_ties = 0
+    for (_, a), (_, b) in zip(cc_, cg):
+        for k, blk in a.items():
+            tot += 1
+            o = b.get(k)
+            same += _same_inter_block(blk, o)
+            wedge_ties += bool(o is not None and blk.comp_type == 1
+                               and o.comp_type == 1
+                               and (blk.wedge_idx, blk.wedge_sign)
+                               != (o.wedge_idx, o.wedge_sign))
+    ties = sum(a != b for a, b in zip(_headers_key(cc_), _headers_key(cg)))
+    bc, bg = sum(len(p.data) for p in pc), sum(len(p.data) for p in pg)
+    agree = same / max(tot, 1)
+    dps = abs(np.mean([psnr(frames[p.pts][0], p.recon["y"]) for p in pc
+                       if p.displayed])
+              - np.mean([psnr(frames[p.pts][0], p.recon["y"]) for p in pg
+                         if p.displayed]))
+    identical = [p.data for p in pc] == [p.data for p in pg]
+    n_c, n_g = gop_block_counts(cc_), gop_block_counts(cg)
+    log(f"phase 20: GOP {name} {w}x{h} x{len(frames)} M10 {kw}"
+        f"{' (order hints off, wedge priced out)' if name == 'iris' else ''}"
+        f" cpu vs cuda:"
+        f" {agree:.4%} of {tot} blocks equal, bytes {bc} vs {bg}, "
+        f"|dY-PSNR| {dps:.4f} dB, streams identical: {identical}; counted "
+        f"ties: frames whose GM model or interp pick differ {ties}, wedge "
+        f"blocks whose option differs {wedge_ties}; inter-frame blocks cpu "
+        f"{n_c}, cuda {n_g}; both decoders match recon")
+    if (agree < MIN_BLOCK_AGREE or dps > MAX_DPSNR
+            or abs(bc - bg) > MAX_DBYTES * bg):
+        raise AssertionError(f"cpu and cuda GOP encodes of {name} disagree "
+                             "beyond the slice's parity thresholds")
+    if need is not None and n_g[need] <= 0:
+        raise AssertionError(f"the card's {name} stream codes no {need} "
+                             "block")
+
+
+def phase_gop_cpu_vs_cuda():
+    """A 5-frame GOP (hierarchical_levels 2, keyint 4) of the natural clip
+    at 96x96, then the wedge, diffwtd and warp clips, on the CPU and on the
+    card (gop_cpu_vs_cuda)."""
+    import clips
+    gop_cpu_vs_cuda("natural", clips.natural_clip(5, 96, 96, seed=2),
+                    hierarchical_levels=2, intra_period_length=4)
+    for name, (clip, kw, need) in clips.TOOL_CLIPS.items():
+        gop_cpu_vs_cuda(name, clip(), need=need, hierarchical_levels=2,
+                        **kw)
+
+
+def phase_motion_ops():
+    """The GOP slice's device ops on the card against the port's CPU run
+    on the same seeded inputs at CIF shapes: exact, apart from the GM fit
+    (float32 least squares) under its tie rule."""
+    import torch
+    from svt_av1_tpu_torch.ops import convolve, mc, me, warp
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    from svt_av1_tpu_torch.pipeline import me as me_pipe
+    rng = np.random.default_rng(17)
+    both = lambda a: (torch.from_numpy(np.ascontiguousarray(a, np.int32)),
+                      torch.from_numpy(np.ascontiguousarray(
+                          a, np.int32)).cuda())
+    eq = lambda c, g, what: None if torch.equal(c, g.cpu()) else (
+        _fail(f"{what} differs between cuda and cpu"))
+    nb = 396 * 5                  # CIF blocks x the five level-0 seeds
+    s = both(rng.integers(0, 256, (nb, 16, 16)))
+    wdw = both(rng.integers(0, 256, (nb, 24, 24)))
+    eq(me.ssd_search(s[0], wdw[0]), me.ssd_search(s[1], wdw[1]),
+       "ssd_search")
+    f0, f1 = synth_frames(2, 384, 320)
+    src, ref = both(f1[0]), both(f0[0])
+    run = me_pipe.hme_core(320, 384, 6, 8, 4)
+    hc, hg = run(src[0], ref[0]), run(src[1], ref[1])
+    for a, b in zip(hc, hg):
+        eq(a, b, "hme_core")
+    gm_ties = 0
+    for dy, dx in ((0, 0), (3, -2)):
+        mvy, mvx = hc[0] + dy, hc[1] + dx
+        gc = gop_fast._gm_fit(mvy, mvx, 20, 24)
+        gg = gop_fast._gm_fit(mvy.cuda(), mvx.cuda(), 20, 24)
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(gc, gg)):
+            raw = gop_fast._gm_fit(mvy, mvx, 20, 24, dtype=torch.float64,
+                                   raw=True)[3].numpy()
+            if np.min(np.abs(np.abs(raw - np.floor(raw)) - 0.5)) >= 1e-3:
+                _fail("_gm_fit differs between cuda and cpu off a tie")
+            gm_ties += 1
+    win = [both(rng.integers(0, 256, (nb, 23, 23))) for _ in range(2)]
+    ph = [both(rng.integers(0, 16, nb)) for _ in range(4)]
+    for k in (0, 1, 2):
+        eq(convolve.convolve_2d_sr(win[0][0], ph[0][0], ph[1][0], 16, 16, k,
+                                   k),
+           convolve.convolve_2d_sr(win[0][1], ph[0][1], ph[1][1], 16, 16, k,
+                                   k), f"convolve_2d_sr kind {k}")
+    a_c = [win[0][0], win[1][0]] + [p[0] for p in ph]
+    a_g = [win[0][1], win[1][1]] + [p[1] for p in ph]
+    eq(convolve.convolve_2d_compound_avg(*a_c, 16, 16),
+       convolve.convolve_2d_compound_avg(*a_g, 16, 16), "compound avg")
+    inv = both(np.arange(nb) % 2)
+    dc = convolve.convolve_2d_compound_diffwtd(*a_c, 16, 16, inv[0])
+    dg = convolve.convolve_2d_compound_diffwtd(*a_g, 16, 16, inv[1])
+    eq(dc[0], dg[0], "compound diffwtd")
+    eq(dc[1], dg[1], "diffwtd mask")
+    m = both(rng.integers(0, 65, (nb, 16, 16)))
+    eq(convolve.convolve_2d_compound_masked(*a_c, 16, 16, m[0]),
+       convolve.convolve_2d_compound_masked(*a_g, 16, 16, m[1]),
+       "compound masked")
+    h, w = CIF[1], CIF[0]
+    ys = np.arange(396) // 22 * 16
+    xs = np.arange(396) % 22 * 16
+    mvs = rng.integers(-600, 600, (396, 2, 2))
+    yy, xx, mv0, mv1 = both(ys), both(xs), both(mvs[:, 0]), both(mvs[:, 1])
+    cand = [gop_fast._clamp_cands(mv[i][:, None], yy[i], xx[i], 16, h,
+                                  w)[:, 0] for mv in (mv0, mv1)
+            for i in (0, 1)]
+    eq(cand[0], cand[1], "_clamp_cands")
+    refp = [mc.pad_plane(t, mc.PAD) for t in both(f0[0][:h, :w])]
+    for kind in (0, 2):
+        eq(mc.mc_blocks(refp[0], yy[0], xx[0], cand[0], 16, mc.PAD,
+                        kind=kind),
+           mc.mc_blocks(refp[1], yy[1], xx[1], cand[1], 16, mc.PAD,
+                        kind=kind), f"mc_blocks kind {kind}")
+    refc = [mc.pad_plane(t, mc.PAD // 2) for t in both(f0[1][:h // 2,
+                                                              :w // 2])]
+    eq(mc.mc_blocks(refc[0], yy[0] // 2, xx[0] // 2, cand[0], 8, mc.PAD, 1),
+       mc.mc_blocks(refc[1], yy[1] // 2, xx[1] // 2, cand[1], 8, mc.PAD, 1),
+       "mc_blocks chroma")
+    eq(mc.mc_blocks_compound(refp[0], refp[0].flip(0), yy[0], xx[0], cand[0],
+                             cand[2], 16, mc.PAD),
+       mc.mc_blocks_compound(refp[1], refp[1].flip(0), yy[1], xx[1], cand[1],
+                             cand[3], 16, mc.PAD), "mc_blocks_compound")
+    inv = both(np.arange(396) % 2)
+    dc = mc.mc_blocks_compound_diffwtd(refp[0], refp[0].flip(0), yy[0], xx[0],
+                                       cand[0], cand[2], 16, mc.PAD, inv[0])
+    dg = mc.mc_blocks_compound_diffwtd(refp[1], refp[1].flip(0), yy[1], xx[1],
+                                       cand[1], cand[3], 16, mc.PAD, inv[1])
+    eq(dc[0], dg[0], "mc_blocks_compound_diffwtd")
+    n_warp = 0
+    for mat in ((-3000, 5000, 65536 + 900, 700, -700, 65536 + 900),
+                (12000, -7000, 65536 - 1500, -1200, 1200, 65536 - 1500)):
+        for ss, plane in ((0, f0[0][:h, :w]), (1, f0[1][:h // 2, :w // 2])):
+            pc, pg = both(plane)
+            ph_, pw_ = plane.shape
+            eq(warp.warp_plane(pc, mat, pw_, ph_, subsampling=ss),
+               warp.warp_plane(pg, mat, pw_, ph_, subsampling=ss),
+               "warp_core")
+            n_warp += 1
+    wedge_ties = wedge_pick_ties(rng)
+    log(f"phase 17: GOP device ops exact cuda vs cpu: ssd_search on {nb} "
+        f"16x16 blocks, hme_core 384x320 (M10 radii), convolve_2d_sr x3 "
+        f"kinds, compound avg / diffwtd / masked on {nb} blocks, "
+        f"_clamp_cands, mc_blocks (luma x2 kinds, chroma), "
+        f"mc_blocks_compound, mc_blocks_compound_diffwtd on the CIF grid, "
+        f"warp_core on {n_warp} planes; _gm_fit cuda vs cpu ties "
+        f"(float64 value within 1e-3 of a rounding boundary): {gm_ties}; "
+        f"_wedge_pick on 396 CIF blocks cuda vs cpu ties (float64 SSEs of "
+        f"the two picks within 1e-6 relative): {wedge_ties}")
+
+
+def wedge_pick_ties(rng):
+    """The wedge pick of _eval_pair (float32 SSE algebra over the 32
+    options) on the card and on the CPU for the CIF grid's 396 blocks:
+    a differing pick is a tie when the two picks' float64 SSEs lie within
+    1e-6 relative.  Returns the number of ties."""
+    import torch
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    src, pA, pB = (rng.integers(0, 256, (396, 256)) for _ in range(3))
+    pA[::4] = pB[::4]                       # e = 0: all 32 options tie
+    d1 = torch.from_numpy((src - pB).astype(np.float32))
+    e = torch.from_numpy((pA - pB).astype(np.float32))
+    pick = lambda d, x: gop_fast._wedge_pick(
+        d, x, *gop_fast._wedge_masks_on(d.device)[:2]).cpu().numpy()
+    got_c, got_g = pick(d1, e), pick(d1.cuda(), e.cuda())
+    m = gop_fast._wedge_masks_on(d1.device)[0].numpy().astype(np.float64)
+    sse = ((d1.numpy().astype(np.float64)[:, None] - m[None]
+            * e.numpy().astype(np.float64)[:, None]) ** 2).sum(2)
+    rows = np.arange(396)
+    diff = got_c != got_g
+    a, b = sse[rows, got_c], sse[rows, got_g]
+    if np.any(np.abs(a - b)[diff] > 1e-6 * np.maximum(a, b)[diff]):
+        _fail("_wedge_pick differs between cuda and cpu off a tie")
+    return int(diff.sum())
+
+
+def _fail(msg):
+    raise AssertionError(msg)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -848,7 +1323,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     device_mod.resolve("cuda")
-    log(smi)
+    print(smi, flush=True)
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), python "
         f"{sys.version.split()[0]}")
@@ -866,44 +1341,74 @@ def main():
     card = smi
     krec = phase_kernel(card)
     phase_goldens()
+    from svt_av1_tpu_torch.ops import fused_txq
+    fused_txq.batches.clear()           # from here on: the paths' batches
 
     import clips
-    cif = synth_frames(32, *CIF)
-    hd = synth_frames(8, *HD)
+    # the all-intra paths of the earlier slices at a cut depth (8 CIF / 2
+    # 720p frames a batch, 3 CIF key frames at M6), so that the GOP phases
+    # fit the time limit
+    cif = synth_frames(CIF_FRAMES, *CIF)
+    hd = synth_frames(HD_FRAMES, *HD)
     by_path = {}
-    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x32"] = phase_encode(
+    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x8"] = phase_encode(
         "5", cif, *CIF, card)
-    by_path["M10 send_pictures 720p x8"] = phase_encode(
+    by_path["M10 send_pictures 720p x2"] = phase_encode(
         "6", hd, *HD, card)[2]
     phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
     del pkts_cif, dec_cif
 
     phase_tools()
-    key_cif = cif[:4] + [clips.screen_frame(*CIF, seed=1)]
-    pk_m6, dec_m6, by_path["M6 send_picture CIF x5"] = phase_key_frames(
+    key_cif = cif[:2] + [clips.screen_frame(*CIF, seed=1)]
+    pk_m6, dec_m6, by_path["M6 send_picture CIF x3"] = phase_key_frames(
         "9", key_cif, *CIF, card)
     key_hd = [hd[0], clips.screen_frame(*HD, seed=1)]
     pk_m6_hd, _, by_path["M6 send_picture 720p x2"] = phase_key_frames(
-        "10", key_hd, *HD, card)
-    launches = by_path["M6 send_pictures CIF x32"] = phase_encode(
+        "10", key_hd, *HD, card, warm=False)
+    by_path["M6 send_pictures CIF x8"] = phase_encode(
         "11a", cif, *CIF, card, preset=6)[2]
-    by_path["M6 send_pictures 720p x8"] = phase_encode(
+    by_path["M6 send_pictures 720p x2"] = phase_encode(
         "11b", hd, *HD, card, preset=6)[2]
-    phase_cpu_vs_cuda_m6([key_cif[0], key_cif[4]], [pk_m6[0], pk_m6[4]],
-                         [dec_m6[0], dec_m6[4]])
+    phase_cpu_vs_cuda_m6([key_cif[0], key_cif[2]], [pk_m6[0], pk_m6[2]],
+                         [dec_m6[0], dec_m6[2]])
 
     phase_filter_ops()
     pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
         "14a", key_cif, *CIF, card, pk_m6)
-    by_path["M6 send_picture DLF+CDEF CIF x5"] = n
+    by_path["M6 send_picture DLF+CDEF CIF x3"] = n
     n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
     by_path["M6 send_picture DLF+CDEF 720p x2"] = n
-    by_path["M10 send_pictures DLF CIF x32"] = phase_encode(
+    by_path["M10 send_pictures DLF CIF x8"] = phase_encode(
         "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
-    by_path["M10 send_pictures DLF+CDEF CIF x32"] = phase_encode(
+    by_path["M10 send_pictures DLF+CDEF CIF x8"] = phase_encode(
         "15b", cif, *CIF, card, **FILTERS)[2]
-    phase_cpu_vs_cuda_filters([key_cif[0], key_cif[4]], [pk_f[0], pk_f[4]],
-                              [dec_f[0], dec_f[4]], [hdr_f[0], hdr_f[4]])
+    phase_cpu_vs_cuda_filters([key_cif[0], key_cif[2]], [pk_f[0], pk_f[2]],
+                              [dec_f[0], dec_f[2]], [hdr_f[0], hdr_f[2]])
+
+    # the GOP slice: the bench's structure at M10-M13, MCTF and TPL off
+    phase_motion_ops()
+    cif17 = synth_frames(17, *CIF)
+    _, _, launches, prof_cif = phase_gop("18", cif17, *CIF, card)
+    by_path["M10 GOP CIF x17"] = launches
+    by_path["M10 GOP 720p x9"] = phase_gop(
+        "19", synth_frames(9, *HD), *HD, card, warm=3, shown_limit=5,
+        profile=False)[2]
+    phase_gop_cpu_vs_cuda()
+    by_path["M12 GOP CIF x9"] = phase_gop("21", cif17[:9], *CIF, card,
+                                          preset=12, warm=0,
+                                          profile=False)[2]
+
+    # every batch size that a path gave K1 must have been checked against
+    # the plain version; a size that phase 3 did not foresee is checked now
+    unchecked = sorted(fused_txq.batches
+                       - {r["b"] for r in krec["by_batch"]})
+    rng = np.random.default_rng(22)
+    for b in unchecked:
+        check_txq(b, card, rng, krec, tag="22")
+    log(f"phase 22: K1 batch sizes launched by the paths "
+        f"{sorted(fused_txq.batches)}; checked in phase 3 "
+        f"{[r['b'] for r in krec['by_batch'] if r['driven']]}; checked "
+        f"now {unchecked}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
@@ -911,11 +1416,13 @@ def main():
     if leaked:
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
-    # the line's top-level numbers are K1's at this slice's main-path
-    # batch (M6 send_pictures, CIF x32); every size is under by_batch
-    b0 = next(r for r in krec["by_batch"] if r["b"] == 2816)
-    log(smi)
-    log(json.dumps({"kernels": [dict(
+    # the line's top-level numbers are K1's on this slice's main path: the
+    # launches of the M10 GOP at CIF, the time at its pass-B batch (one
+    # frame x 11 wave slots x 6 modes); every size is under by_batch
+    b0 = next(r for r in krec["by_batch"]
+              if r["b"] == k1_batch(1, CIF, 10))
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
         source="svt_av1_tpu_torch/csrc/fused_txq.cu",
         replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
@@ -925,7 +1432,7 @@ def main():
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],
         host_issue_ms=b0["host_issue_ms"], v1_ms=b0["v1_us"] / 1000,
         launches_by_path=by_path, by_batch=krec["by_batch"])]}))
-    log(json.dumps({"ok": True, "device": {
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

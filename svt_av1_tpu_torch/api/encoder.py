@@ -8,11 +8,23 @@ svt_av1_tpu/api/encoder.py.
   enc.get_packet()          ~ svt_av1_enc_get_packet
   enc.stream_header()       ~ svt_av1_enc_stream_header
 
-Slice: 8-bit 4:2:0, all-intra (intra_period_length -2 or 0), CQP/CRF,
-presets M5-M13, one tile, no AQ, DLF and frame-uniform CDEF on or off,
-and LR, superres and film grain off.  Any other configuration raises
+Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and frame-uniform CDEF
+on or off, and LR, superres and film grain off; either all-intra
+(intra_period_length -2 or 0) at presets M5-M13, or the hierarchical
+(random-access) GOP of the reference's fast path at presets M10-M13 with
+hierarchical_levels 1-3, intra_period_length > 0 and MCTF and TPL off
+(enable_tf=0, enable_tpl_la=0).  Any other configuration raises
 NotImplementedError naming the ROADMAP.md item that brings it; nothing
 falls back to the JAX package.
+
+In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
+``flush``), then codes it in decode order: the base frame, the mid
+layers, and show-existing packets for hidden frames.  Key frames take the
+intra path above (their filters as the reference's GOP key frames take
+them); each inter frame runs the two device programs of
+pipeline/gop_fast.py, every frame of the mini-GoP dispatched before the
+first is entropy-coded.  The DPB's recon stays on the device; a slot is
+freed after its last use in the mini-GoP.
 
 ``send_picture`` codes one key frame at a time with the preset's whole
 tool set (at M5-M8: tx-type search, angle deltas, CfL, palette on screen
@@ -43,8 +55,10 @@ from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.config import EncoderConfig
 from svt_av1_tpu_torch.codec import fast_ec, obu
 from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.codec import mv_pred
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
-from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage, intra_encoder
+from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
+                                        intra_encoder)
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
@@ -63,6 +77,7 @@ class Packet:
     pts: int               # display order of the content (poc)
     frame_type: int
     recon: Optional[Dict[str, np.ndarray]] = None
+    displayed: bool = True  # False for hidden (show_frame=0) frames
 
 
 def _align16(x: int) -> int:
@@ -72,12 +87,25 @@ def _align16(x: int) -> int:
 def _unsupported(cfg: EncoderConfig):
     """(reason, ROADMAP.md item) of the first setting outside the slice,
     or None."""
+    gop = cfg.intra_period_length not in (-2, 0)
     checks = (
         (cfg.encoder_bit_depth != 8, "10-bit input", "queue A item 7"),
         (cfg.encoder_color_format != 1, "chroma formats other than 4:2:0",
          "queue A item 7"),
-        (cfg.intra_period_length not in (-2, 0),
-         "GOPs with inter frames", "queue A items 4-6"),
+        (gop and (cfg.pred_structure != 2 or cfg.hierarchical_levels == 0),
+         "low-delay and IPPP GOPs (pred_structure != 2 or "
+         "hierarchical_levels 0)", "queue A item 7"),
+        (gop and (cfg.hierarchical_levels > 3
+                  or cfg.intra_period_length < 0),
+         "GOPs with hierarchical_levels 4-5 or intra_period_length -1",
+         "queue A item 7"),
+        (gop and cfg.enable_tf > 0, "MCTF (enable_tf)", "queue A item 5"),
+        (gop and cfg.enable_tpl_la > 0, "TPL (enable_tpl_la)",
+         "queue A item 5"),
+        (gop and 5 <= cfg.enc_mode < 10,
+         f"GOPs at preset M{cfg.enc_mode} (OBMC, inter-intra, the 8x8 "
+         "split, TMVP, the inter tx search and the third reference)",
+         "queue A item 6"),
         (cfg.rate_control_mode != 0 or cfg.max_bit_rate > 0
          or cfg.pass_ != 0, "VBR/CBR, capped CRF and multi-pass",
          "queue A item 7"),
@@ -167,6 +195,29 @@ class Encoder:
         fps = (config.frame_rate_numerator
                / max(config.frame_rate_denominator, 1))
         self._rc = RateControlState.create(config, fps)
+        # scene-cut detector state (all GOP modes)
+        self._prev_hist = None
+        self._ahd_running = None
+        self._scene_cut = False
+        self._last_ahd = 0.0
+        # hierarchical (random access) GOP: the fast path's state
+        self._hier = 0
+        if config.intra_period_length not in (-2, 0):
+            self._hier = config.hierarchical_levels
+            self._h_frames: Dict[int, tuple] = {}  # poc -> (y, u, v)
+            self._h_next_in = 0       # next arriving poc
+            self._h_sched = 0         # first unscheduled poc
+            self._h_anchor = None     # display poc of the last coded anchor
+            self._h_cuts = set()      # scene-cut pocs
+            self._h_activity = {}     # poc -> mean AHD (dynamic mini-GoP)
+            self._dpb: Dict[int, int] = {}         # stored poc -> slot
+            self._slot_free = set(range(8))
+            self._slot_recon: Dict[int, Dict] = {}  # slot -> device planes
+            self._slot_state: Dict[int, tuple] = {}  # slot -> (cdfs, nmv)
+            self._slot_hint = [0] * 8
+            # order hints let skip mode pick the (fwd, bwd) pair
+            self.sp.enable_order_hint = True
+            self.sp.enable_ref_frame_mvs = bool(self._feat.tmvp)
 
     # -- API surface ---------------------------------------------------------
     def stream_header(self) -> bytes:
@@ -174,15 +225,29 @@ class Encoder:
 
     def send_picture(self, y, u, v, eos: bool = False):
         """Feed one frame (planar uint8 numpy).  All-intra has no
-        lookahead, so the frame is coded before this returns."""
-        self._la.append(self._checked(y, u, v))
-        self._drain()
+        lookahead, so the frame is coded before this returns; in a GOP the
+        frame waits until its mini-GoP is complete."""
+        y, u, v = self._checked(y, u, v)
+        if self._hier:
+            self._detect_scene_cut(y)
+            if self._scene_cut:
+                self._h_cuts.add(self._h_next_in)
+            self._h_activity[self._h_next_in] = self._last_ahd
+            self._h_frames[self._h_next_in] = (y, u, v)
+            self._h_next_in += 1
+            self._drain_hier(flush=eos)
+        else:
+            self._la.append((y, u, v))
+            self._drain()
         if eos:
             self._eos_sent = True
 
     def flush(self):
         """Signal EOS without a new picture."""
-        self._drain()
+        if self._hier:
+            self._drain_hier(flush=True)
+        else:
+            self._drain()
         self._eos_sent = True
 
     def _drain(self):
@@ -222,19 +287,30 @@ class Encoder:
         return decisions, recon, pal_cands is not None
 
     def _packetize(self, decisions, recon, qindex, pts,
-                   allow_sct: bool = False, src=None) -> Packet:
+                   allow_sct: bool = False, src=None, prefilt=None,
+                   return_state: bool = False) -> Packet:
         """In-loop filters + entropy coding + OBU assembly for one key
         frame from per-block decisions.  allow_sct: the frame has palette
         candidates, so it turns the screen-content tools on.  src: the
         padded source planes (numpy) the filter searches measure against;
         without it DLF takes the heuristic level and CDEF is signaled with
-        zero strengths, as in the reference."""
+        zero strengths, as in the reference.  prefilt: the (recon,
+        deblocked, header fields, cdef map) of gop_fast.run_key_filters,
+        which has filtered the frame already.  return_state: also return
+        the filtered recon and the tile encoder (its end-of-frame CDFs)."""
         fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
         fp.allow_screen_content_tools = allow_sct
-        recon = self._filter(decisions, recon, fp, qindex, src)
+        if self.sp.enable_order_hint:
+            fp.order_hint = pts & ((1 << self.sp.order_hint_bits) - 1)
+        if prefilt is not None:
+            recon, _, fpu, _ = prefilt
+            for k, val in fpu.items():
+                setattr(fp, k, val)
+        else:
+            recon = self._filter(decisions, recon, fp, qindex, src)
         self._ref = recon
         tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
@@ -248,7 +324,10 @@ class Encoder:
         if not fp.disable_frame_end_update_cdf:
             self._ref_cdfs = tenc.cdfs
             self._ref_nmv = tenc.nmv
-        return self._assemble(fp, tile_data, recon, pts)
+        pkt = self._assemble(fp, tile_data, recon, pts)
+        if return_state:
+            return pkt, recon, tenc
+        return pkt
 
     def _filter(self, decisions, recon, fp, qindex, src):
         """The reference's stage path for a key frame on the uniform 16x16
@@ -297,6 +376,13 @@ class Encoder:
         the array tile coder unless CDEF is on (or qindex is 0): then the
         per-block route, whose packetization has no source, so DLF takes
         the heuristic level and CDEF is signaled with zero strengths."""
+        if self._hier:
+            # a GOP with inter frames: the sequential path
+            for (y, u, v) in frames:
+                self.send_picture(y, u, v)
+            if eos:
+                self._eos_sent = True
+            return
         qindex = self._rc.frame_qindex()
         arrays_ok = qindex > 0 and not self.sp.enable_cdef
         padded = [self._pad(*self._checked(y, u, v))
@@ -362,13 +448,304 @@ class Encoder:
             tu += obu.write_sequence_header(self.sp)
             self._seq_hdr_sent = True
         tu += obu.write_frame_obu(self.sp, fp, tile_data)
+        return Packet(data=tu, pts=pts, frame_type=fp.frame_type,
+                      recon=self._host_recon(recon))
+
+    def _host_recon(self, recon):
+        """Device planes cropped to the render size, copied to the host."""
         ch, cw = (self.render_h + 1) // 2, (self.render_w + 1) // 2
-        recon_out = dict(
+        return dict(
             y=recon["y"][:self.render_h, :self.render_w].cpu().numpy(),
             u=recon["u"][:ch, :cw].cpu().numpy(),
             v=recon["v"][:ch, :cw].cpu().numpy())
-        return Packet(data=tu, pts=pts, frame_type=obu.KEY_FRAME,
-                      recon=recon_out)
+
+    # -- hierarchical (random access) GOP ------------------------------------
+    def _is_key_poc(self, poc: int) -> bool:
+        period = self.cfg.intra_period_length
+        return poc == 0 or poc in self._h_cuts or poc % (period + 1) == 0
+
+    def _drain_hier(self, flush: bool):
+        """Schedule complete mini-GoPs from the lookahead (pd_process.c
+        mini-GoP assembly)."""
+        N = 1 << self._hier
+        while True:
+            p0 = self._h_sched
+            if p0 not in self._h_frames:
+                return
+            if self._h_anchor is None or self._is_key_poc(p0):
+                self._encode_key_job(p0)
+                self._h_sched = p0 + 1
+                continue
+            avail = 0
+            while p0 + avail in self._h_frames:
+                avail += 1
+            # dynamic mini-GoP sizing: high-activity windows halve the
+            # pyramid
+            N_eff = N
+            if N >= 4:
+                win = [self._h_activity.get(p0 + i, 0.0)
+                       for i in range(min(N, max(avail, 1)))]
+                if win and max(win) > 0.5 * self._SCENE_TH:
+                    N_eff = N // 2
+            n = 0
+            while n < min(N_eff, avail):
+                if self._is_key_poc(p0 + n):
+                    break
+                n += 1
+            if (n < N_eff and n == avail and not flush
+                    and not self._is_key_poc(p0 + n)):
+                return  # the mini-GoP may still grow
+            self._encode_minigop(p0, n)
+            self._h_sched = p0 + n
+
+    def _finish_packet(self, pkt: Packet, qindex: int, layer: int = 0):
+        self._packets.append(pkt)
+        self._rc.feedback(len(pkt.data) * 8, qindex,
+                          pkt.frame_type == obu.KEY_FRAME, layer)
+
+    def _encode_key_job(self, poc: int):
+        """A GOP key frame: the preset's intra MD, the filters (the fused
+        key-filter program when DLF is off and CDEF on, else the stage
+        path), packetization; the frame becomes the only DPB entry."""
+        y, u, v = self._pad(*self._h_frames.pop(poc))
+        qindex = self._rc.frame_qindex()
+        qindex = max(1, qindex - qindex // self._feat.kf_boost_div)
+        decisions, recon, allow_sct = self._mode_decision(y, u, v, qindex)
+        prefilt = None
+        dlf_wants = bool(self.cfg.enable_dlf_flag)
+        if ((dlf_wants or self.sp.enable_cdef)
+                and (not dlf_wants or self._feat.dlf_search)):
+            skip16 = _skip_map(decisions, self.coded_h // 16,
+                               self.coded_w // 16)
+            with stage("key_filters"):
+                prefilt = gop_fast.run_key_filters(
+                    dict(y=y, u=u, v=v), recon, skip16, qindex,
+                    cdef_cands=cdef_stage.SEARCH_SET[
+                        :self._feat.cdef_candidates],
+                    dlf_on=dlf_wants, cdef_on=self.sp.enable_cdef,
+                    max_bits=3 if self._feat.cdef_sb else 0)
+        with stage("key_packetize"):
+            pkt, full, tenc = self._packetize(
+                decisions, recon, qindex, poc, allow_sct=allow_sct,
+                src=dict(y=y, u=u, v=v), prefilt=prefilt, return_state=True)
+        # key refresh: the map keeps the key in slot 0 only
+        self._dpb = {poc: 0}
+        self._slot_free = set(range(1, 8))
+        self._slot_recon = {0: full}
+        self._slot_state = {0: (tenc.cdfs, tenc.nmv)}
+        self._slot_hint = [poc & ((1 << self.sp.order_hint_bits) - 1)] * 8
+        self._h_anchor = poc
+        self._finish_packet(pkt, qindex)
+
+    def _encode_minigop(self, p0: int, n: int):
+        """Code the mini-GoP after the anchor: every inter frame's device
+        programs are dispatched first (the recon chain stays on the
+        device), then each is collected and entropy-coded in decode
+        order.  A DPB slot is freed after its last use."""
+        anchor = self._h_anchor
+        assert anchor == p0 - 1
+        events = gop.minigop_schedule(anchor, n)
+        end_poc = anchor + n
+        last_use: Dict[int, int] = {}
+        for i, ev in enumerate(events):
+            if isinstance(ev, gop.CodeEvent):
+                last_use[ev.last_poc] = i
+                if ev.bwd_poc is not None:
+                    last_use[ev.bwd_poc] = i
+            else:
+                last_use[ev.poc] = i
+        base_q = self._rc.frame_qindex()
+        records = []
+        for i, ev in enumerate(events):
+            if isinstance(ev, gop.CodeEvent):
+                q = gop.layer_qindex(base_q, ev.layer, self._hier + 1)
+                with stage("dispatch_inter"):
+                    records.append(self._dispatch_inter_fast(ev, q))
+            else:
+                slot = self._dpb[ev.poc]
+                records.append(("show", ev.poc, slot,
+                                self._slot_recon[slot]))
+            for poc, li in list(last_use.items()):
+                if li == i and poc != end_poc and poc in self._dpb:
+                    slot = self._dpb.pop(poc)
+                    self._slot_free.add(slot)
+                    self._slot_recon.pop(slot, None)
+        for rec in records:
+            if rec[0] == "show":
+                self._emit_show_existing_fast(rec[1], rec[2], rec[3])
+            else:
+                self._collect_inter_fast(rec)
+        self._h_anchor = end_poc
+
+    def _dispatch_inter_fast(self, ev, qindex: int):
+        """Run P1 + P2 of one inter frame and register its device recon as
+        its DPB slot; no host copy is waited for here."""
+        y, u, v = self._pad(*self._h_frames.pop(ev.poc))
+        last_slot = self._dpb[ev.last_poc]
+        refs = {mv_pred.LAST_FRAME: self._slot_recon[last_slot]}
+        bwd_slot = None
+        if ev.bwd_poc is not None:
+            bwd_slot = self._dpb[ev.bwd_poc]
+            refs[mv_pred.ALTREF_FRAME] = self._slot_recon[bwd_slot]
+        src_pack = np.concatenate(
+            [y, np.concatenate([u, v], axis=1)], axis=0)
+        pend = gop_fast.run_inter_frame(
+            src_pack, refs, qindex, self.coded_h, self.coded_w,
+            modes=self._feat.intra_modes, ring=self._feat.subpel_ring,
+            rad2=self._feat.hme_rad2, rad0=self._feat.hme_rad0,
+            cdef_cands=cdef_stage.SEARCH_SET[:self._feat.cdef_candidates],
+            dlf_on=bool(self.cfg.enable_dlf_flag),
+            cdef_on=self.sp.enable_cdef, hp=self._feat.hp_mv,
+            obmc=self._feat.obmc, interintra=self._feat.interintra,
+            exact_rates=self._feat.exact_rates,
+            skip_mode=self.sp.enable_order_hint,
+            tx_search=self._feat.tx_search, split8=self._feat.part8,
+            device=self.device)
+        slot = min(self._slot_free) if ev.store else None
+        # the reference order hints in decode order (later dispatches may
+        # overwrite slot hints before this frame is collected)
+        idx = [last_slot] * 7
+        if bwd_slot is not None:
+            # the backward ref maps only to ALTREF, so that the skip-mode
+            # derivation picks (LAST, ALTREF), the pair compound signals
+            idx[mv_pred.ALTREF_FRAME - 1] = bwd_slot
+        ref_hints = tuple(self._slot_hint[i] for i in idx)
+        if ev.store:
+            self._slot_free.remove(slot)
+            self._dpb[ev.poc] = slot
+            self._slot_recon[slot] = pend.recon
+            self._slot_hint[slot] = \
+                ev.poc & ((1 << self.sp.order_hint_bits) - 1)
+        return ("code", ev, pend, qindex, last_slot, slot, tuple(idx),
+                ref_hints)
+
+    def _collect_inter_fast(self, rec):
+        """The bundled host copy, entropy coding and the packet."""
+        _, ev, pend, qindex, last_slot, slot, idx, ref_hints = rec
+        with stage("device_md_inter"):
+            decisions, recon_dev, header = gop_fast.collect_inter_frame(pend)
+        pkt, tenc = self._packetize_fast(decisions, header, qindex, ev,
+                                         last_slot, slot, idx, ref_hints)
+        if ev.store:
+            self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
+        pkt.displayed = ev.shown
+        if ev.shown:
+            pkt.recon = self._host_recon(recon_dev)
+        self._finish_packet(pkt, qindex, ev.layer)
+
+    def _emit_show_existing_fast(self, poc: int, slot: int, recon_dev):
+        data = obu.temporal_delimiter() + obu.write_show_existing(slot)
+        self._packets.append(Packet(data=data, pts=poc,
+                                    frame_type=obu.INTER_FRAME,
+                                    recon=self._host_recon(recon_dev)))
+
+    def _packetize_fast(self, decisions, header, qindex, ev, last_slot,
+                        slot, idx, ref_hints):
+        """OBU assembly of an inter frame: the filter decisions arrive in
+        ``header`` (P2 ran them on the device)."""
+        fp = obu.FrameParams(frame_type=obu.INTER_FRAME,
+                             show_frame=ev.shown, base_q_idx=qindex,
+                             render_width=self.render_w,
+                             render_height=self.render_h)
+        fp.showable_frame = not ev.shown
+        fp.refresh_frame_flags = (1 << slot) if ev.store else 0
+        fp.ref_frame_idx = idx
+        fp.primary_ref_frame = 0
+        gm = header["gm"]
+        fp.gm_trans = tuple(gm.get(i + 1) for i in range(7))
+        fp.interpolation_filter = header["interp"]
+        if self.cfg.enable_dlf_flag:
+            ly, lu, lv = header["dlf_levels"]
+            fp.filter_level = (ly, ly)
+            fp.filter_level_uv = (lu, lv)
+        if header["cdef"] is not None:
+            fp.cdef_damping = cdef_stage.cdef_damping(qindex)
+            fp.cdef_bits = header["cdef"]["bits"]
+            fp.cdef_strengths = header["cdef"]["sets"][0]
+        fp.reference_select = any(
+            d.ref2 for d in decisions.values() if d.is_inter)
+        fp.allow_high_precision_mv = self._feat.hp_mv
+        fp.is_motion_mode_switchable = self._feat.obmc
+        bits = self.sp.order_hint_bits
+        fp.order_hint = ev.poc & ((1 << bits) - 1)
+        fp.ref_hints = ref_hints
+        sm_pair = (obu.skip_mode_refs(fp.order_hint, fp.ref_hints, bits)
+                   if fp.reference_select and self.sp.enable_order_hint
+                   else None)
+        fp.skip_mode_present = sm_pair is not None
+        fp.use_ref_frame_mvs = bool(self.sp.enable_ref_frame_mvs
+                                    and not fp.error_resilient_mode)
+        init = self._slot_state[last_slot]
+        tenc = TileEncoder(self.coded_w, self.sp.height, qindex,
+                           reduced_tx_set=fp.reduced_tx_set,
+                           update_cdfs=not fp.disable_cdf_update,
+                           frame_is_intra=False, init_cdfs=init[0],
+                           init_nmv=init[1])
+        if fp.skip_mode_present:
+            tenc.skip_mode_present = True
+            tenc.skip_mode_frames = sm_pair
+            tenc.interp_filter = fp.interpolation_filter
+        tenc.enable_filter_intra = self.sp.enable_filter_intra
+        tenc.enable_masked_compound = self.sp.enable_masked_compound
+        tenc.enable_interintra = self.sp.enable_interintra_compound
+        tenc.is_motion_mode_switchable = fp.is_motion_mode_switchable
+        tenc.reference_select = fp.reference_select
+        tenc.set_gm(fp.gm_trans)
+        tenc.cur_hint = fp.order_hint
+        tenc.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}
+        tenc.order_hint_bits = bits
+        with stage("host_ec"):
+            tile_data = tenc.encode(decisions)
+        tu = obu.temporal_delimiter()
+        if not self._seq_hdr_sent:
+            tu += obu.write_sequence_header(self.sp)
+            self._seq_hdr_sent = True
+        tu += obu.write_frame_obu(self.sp, fp, tile_data)
+        return Packet(data=tu, pts=ev.poc, frame_type=obu.INTER_FRAME), tenc
+
+    # region-vote scene-change detector (pd_process.c:274-365): per-region
+    # 256-bin histogram AHD against a running average, with fade
+    # suppression; a cut when >= 50% of the regions vote
+    _SCENE_TH = 3000.0 / 4096.0
+    _FADE_TH = 3
+
+    def _detect_scene_cut(self, y: np.ndarray) -> None:
+        yy = np.asarray(y).astype(np.int64)
+        h, w = yy.shape
+        R = 4 if h >= 64 else 1
+        C = 4 if w >= 64 else 1
+        rid = (np.minimum(np.arange(h) * R // h, R - 1)[:, None] * C
+               + np.minimum(np.arange(w) * C // w, C - 1)[None, :])
+        flat_id = rid.reshape(-1)
+        hist = np.bincount(flat_id * 256 + yy.reshape(-1),
+                           minlength=R * C * 256) \
+            .reshape(R * C, 256).astype(np.float64)
+        npix = hist.sum(axis=1)
+        hist /= npix[:, None]
+        means = (np.bincount(flat_id, weights=yy.reshape(-1),
+                             minlength=R * C) / npix)
+        self._last_ahd = 0.0
+        if self._prev_hist is None:
+            self._scene_cut = False
+            self._ahd_running = None
+        else:
+            prev_hist, prev_means = self._prev_hist
+            ahd = np.abs(hist - prev_hist).sum(axis=1)
+            if self._ahd_running is None:
+                self._ahd_running = ahd.copy()
+            ahd_err = np.abs(self._ahd_running - ahd)
+            abrupt = (ahd_err > self._SCENE_TH) & (ahd >= ahd_err)
+            aid = np.abs(means - prev_means)
+            scene = abrupt & (aid >= self._FADE_TH)
+            self._ahd_running = np.where(
+                abrupt, self._ahd_running,
+                (3.0 * self._ahd_running + ahd) / 4.0)
+            vote_th = (R * C + 1) // 2
+            self._scene_cut = int(scene.sum()) >= vote_th
+            self._last_ahd = float(ahd.mean())
+            if int(abrupt.sum()) >= vote_th:
+                self._ahd_running = ahd.copy()
+        self._prev_hist = (hist, means)
 
     def send_eos(self):
         self._eos_sent = True

@@ -1,14 +1,18 @@
-"""Verification decoder for the port's streams: key frames, one tile.
+"""Verification decoder for the port's streams: key and inter frames, one
+tile, the port of svt_av1_tpu/codec/decoder.py for that subset.
 
-The key-frame, single-tile subset of svt_av1_tpu/codec/decoder.py.  OBU
-parsing, the frame header and the tile syntax are the port's copies of
+OBU parsing, the frame header and the tile syntax are the port's copies of
 the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
-``TileDecoder``), so streams with screen-content tools, tx types, angle
-deltas, CfL alphas and palette blocks parse as they do there;
-reconstruction is the port's ``reconstruct_from_decisions`` on ``device``
-(default: the current CUDA device), followed there by the in-loop filters
-of the uniform 16x16 grid: DLF at the header's levels, then frame-uniform
-CDEF (cdef_bits = 0); the planes are copied out once, filtered.
+``TileDecoder``).  The 8 DPB slots keep their frame's planes on ``device``
+(default: the current CUDA device) with its saved CDFs, MV context and
+order hint; show_existing_frame outputs a slot.  Key frames reconstruct
+through ``reconstruct_from_decisions``, inter frames through
+``reconstruct_inter_from_decisions`` (translational, GLOBALMV warp,
+compound average / wedge / diffwtd, skip mode, the merged skip leaves),
+followed by DLF at the header's levels (mask-aware where block sizes are
+mixed) and frame-uniform CDEF (cdef_bits = 0).  Shown planes are copied
+out once, filtered.  OBMC, inter-intra, TMVP and per-SB CDEF raise,
+naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -20,7 +24,10 @@ from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.encoder import _skip_map, _skip_map8
 from svt_av1_tpu_torch.codec import obu
 from svt_av1_tpu_torch.codec.syntax import TileDecoder
-from svt_av1_tpu_torch.pipeline import cdef_stage
+from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage
+from svt_av1_tpu_torch.pipeline.inter_encoder import (
+    reconstruct_inter_from_decisions)
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
     apply_loop_filter, reconstruct_from_decisions)
 from svt_av1_tpu_torch.utils.bitio import BitReader
@@ -30,6 +37,12 @@ class Decoder:
     def __init__(self, device=None):
         self.device = device_mod.resolve(device)
         self.sp: Optional[obu.SequenceParams] = None
+        # decoded-picture buffer: 8 slots of device planes, each with its
+        # saved CDF state, MV context and order hint (spec 7.20)
+        self.slots: list = [None] * 8
+        self.slot_cdfs: list = [None] * 8
+        self.slot_nmv: list = [None] * 8
+        self.slot_hints: list = [0] * 8
         # most recent frame's parsed leaf decisions and frame header (test
         # introspection)
         self.last_decisions: dict = None
@@ -37,7 +50,8 @@ class Decoder:
 
     def decode_temporal_unit(self, data: bytes
                              ) -> List[Dict[str, np.ndarray]]:
-        """The displayed frames of this temporal unit."""
+        """The displayed frames of this temporal unit (shown frames and
+        show_existing_frame outputs; hidden frames decode silently)."""
         frames = []
         for obu_type, payload in obu.parse_obus(data):
             if obu_type in (obu.OBU_TEMPORAL_DELIMITER, obu.OBU_PADDING):
@@ -50,23 +64,34 @@ class Decoder:
                 recon, shown = self._decode_frame(payload)
                 if shown:
                     frames.append(recon)
+            elif obu_type == obu.OBU_FRAME_HEADER:
+                idx = obu.parse_show_existing(payload)
+                if idx is None:
+                    raise NotImplementedError(
+                        "frame-header OBUs other than show_existing_frame")
+                if self.slots[idx] is None:
+                    raise ValueError(
+                        f"show_existing_frame of empty slot {idx}")
+                frames.append({k: v.cpu().numpy()
+                               for k, v in self.slots[idx].items()})
             else:
                 raise NotImplementedError(
-                    f"OBU type {obu_type}: the port decodes key frames "
-                    "only (ROADMAP.md queue A items 3-7)")
+                    f"OBU type {obu_type}: metadata OBUs come with HDR "
+                    "metadata (ROADMAP.md queue A item 7)")
         return frames
 
     def _decode_frame(self, payload: bytes):
         r = BitReader(payload)
-        fp = obu.read_frame_header(r, self.sp)
+        fp = obu.read_frame_header(r, self.sp,
+                                   ref_hints_by_slot=self.slot_hints)
         r.byte_align()
         tile_data = payload[r.byte_pos:]
+        is_intra = fp.frame_type in (obu.KEY_FRAME, obu.INTRA_ONLY_FRAME)
         coded_w = fp.coded_width(self.sp.width)
         n_tiles = len(obu.tile_cols_layout(coded_w, fp.log2_tile_cols)) \
             * (1 << fp.log2_tile_rows)
-        if fp.frame_type != obu.KEY_FRAME or n_tiles > 1:
-            raise NotImplementedError(
-                "inter frames and tiles: ROADMAP.md queue A items 6-7")
+        if n_tiles > 1:
+            raise NotImplementedError("tiles: ROADMAP.md queue A item 7")
         if (self.sp.bit_depth != 8 or self.sp.enable_restoration
                 or fp.superres_denom != 8 or fp.segmentation is not None
                 or fp.delta_q_present):
@@ -76,28 +101,94 @@ class Decoder:
         if fp.cdef_bits:
             raise NotImplementedError(
                 "per-SB CDEF strengths (cdef_bits > 0): ROADMAP.md queue A "
-                "items 6-7")
+                "item 7")
+        if not is_intra and (fp.use_ref_frame_mvs
+                             or fp.is_motion_mode_switchable
+                             or fp.allow_high_precision_mv):
+            raise NotImplementedError(
+                "TMVP, OBMC and 1/8-pel MVs come with the M5-M9 inter tools "
+                "(ROADMAP.md queue A item 6)")
+        chain = (not is_intra
+                 and fp.primary_ref_frame != obu.PRIMARY_REF_NONE)
+        init_cdfs = init_nmv = None
+        if chain:
+            pslot = fp.ref_frame_idx[fp.primary_ref_frame]
+            init_cdfs = self.slot_cdfs[pslot]
+            init_nmv = self.slot_nmv[pslot]
         tdec = TileDecoder(coded_w, self.sp.height, fp.base_q_idx,
                            reduced_tx_set=fp.reduced_tx_set,
                            update_cdfs=not fp.disable_cdf_update,
-                           frame_is_intra=True)
+                           frame_is_intra=is_intra, init_cdfs=init_cdfs,
+                           init_nmv=init_nmv)
         tdec.enable_filter_intra = self.sp.enable_filter_intra
         tdec.allow_palette = bool(fp.allow_screen_content_tools)
         tdec.bit_depth = self.sp.bit_depth
+        tdec.enable_masked_compound = self.sp.enable_masked_compound
+        tdec.enable_interintra = self.sp.enable_interintra_compound
+        tdec.is_motion_mode_switchable = fp.is_motion_mode_switchable
+        tdec.reference_select = fp.reference_select
+        if not is_intra:
+            tdec.set_gm(fp.gm_trans)
+            if fp.skip_mode_present:
+                tdec.skip_mode_present = True
+                tdec.skip_mode_frames = obu.skip_mode_refs(
+                    fp.order_hint, fp.ref_hints, self.sp.order_hint_bits)
+                tdec.interp_filter = fp.interpolation_filter
+            tdec.cur_hint = fp.order_hint
+            tdec.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}
+            tdec.order_hint_bits = self.sp.order_hint_bits
         decisions = tdec.decode(tile_data)
-        # mixed block sizes (varpart leaves) raise here, naming their item
-        recon = reconstruct_from_decisions(decisions, coded_w,
-                                           self.sp.height, fp.base_q_idx,
-                                           device=self.device)
-        recon = apply_loop_filter(recon, fp)
+        if is_intra:
+            # mixed block sizes (varpart leaves) raise here, naming their
+            # item
+            recon = reconstruct_from_decisions(decisions, coded_w,
+                                               self.sp.height,
+                                               fp.base_q_idx,
+                                               device=self.device)
+        else:
+            refs = {e: self.slots[fp.ref_frame_idx[e - 1]]
+                    for e in range(1, 8)
+                    if self.slots[fp.ref_frame_idx[e - 1]] is not None}
+            if not refs:
+                raise ValueError("inter frame with an empty DPB")
+            gm_models = {i + 1: m for i, m in enumerate(fp.gm_trans)
+                         if m is not None}
+            recon = reconstruct_inter_from_decisions(
+                decisions, refs, coded_w, self.sp.height, fp.base_q_idx,
+                gm=gm_models, interp=fp.interpolation_filter,
+                device=self.device)
+        if any(d.bsize != cc.BLOCK_16X16 for d in decisions.values()):
+            flens = dlf_stage.flens_from_maps(
+                dlf_stage.maps_from_decisions(decisions, self.sp.height // 4,
+                                              coded_w // 4),
+                device=self.device)
+            recon = dlf_stage.apply_masked(recon, fp, flens)
+        else:
+            recon = apply_loop_filter(recon, fp)
         if self.sp.enable_cdef:
             skip16 = _skip_map(decisions, self.sp.height // 16, coded_w // 16)
             skip8 = _skip_map8(decisions, self.sp.height // 8, coded_w // 8)
             recon = cdef_stage.cdef_apply(recon, skip16, fp.cdef_strengths,
                                           fp.cdef_damping,
                                           bd=self.sp.bit_depth, skip8=skip8)
-        recon = {k: v.cpu().numpy() for k, v in recon.items()}
-        recon["decisions"] = decisions
+        refresh = fp.refresh_frame_flags
+        if fp.frame_type == obu.KEY_FRAME and fp.show_frame:
+            refresh = 0xFF
+        end_cdfs = (tdec.cdfs if not fp.disable_frame_end_update_cdf
+                    else init_cdfs)
+        end_nmv = (tdec.nmv if not fp.disable_frame_end_update_cdf
+                   else init_nmv)
+        stored = {k: recon[k] for k in ("y", "u", "v")}
+        for i in range(8):
+            if refresh & (1 << i):
+                self.slots[i] = stored
+                self.slot_cdfs[i] = end_cdfs
+                self.slot_nmv[i] = end_nmv
+                self.slot_hints[i] = fp.order_hint
         self.last_decisions = decisions
         self.last_frame_header = fp
-        return recon, fp.show_frame
+        if not fp.show_frame:
+            return None, False
+        out = {k: v.cpu().numpy() for k, v in stored.items()}
+        out["decisions"] = decisions
+        return out, True

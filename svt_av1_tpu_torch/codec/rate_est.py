@@ -246,22 +246,32 @@ def _default_exact_tables(qindex: int, tx_size: int, plane: int,
                              luma_skip_ctx)
 
 
-def md_rate_args(qindex: int, modes, uv_modes, exact: bool = False,
+def md_rate_args(qindex: int, modes, uv_modes, cdf_state=None,
+                 inter_frame: bool = False, exact: bool = False,
                  device=None) -> tuple:
     """(coef_y, coef_uv, txb_base (2,), mode_bits (len(modes),),
     uv_bits (len(uv_modes),), eob_y (257,), eob_uv (65,), rq_y, rq_uv)
     as float32 tensors on ``device`` (default: the current CUDA device),
-    for the intra MD programs.
+    for the MD programs.
 
     exact: context-exact CoefTables in the coef_y / coef_uv slots instead
-    of the (64,) level curves.  The key-frame subset of the reference's
-    md_rate_args: default CDF state, intra-frame mode pricing."""
+    of the (64,) level curves.  inter_frame: intra modes priced with
+    their true signaling cost plus the intra_inter flag (an inter frame's
+    choice is intra against inter).  cdf_state: the reference's adapted
+    decision tables (``adapted_rates``), off at every preset; it is not
+    ported and raises."""
+    if cdf_state is not None:
+        raise NotImplementedError(
+            "adapted MD rate tables (cdf_state, presets with "
+            "adapted_rates): not ported (ROADMAP.md queue A item 7)")
     t = tables_for_qindex(int(qindex))
+    ykey = "y_mode_bits_true" if inter_frame else "y_mode_bits"
+    ukey = "uv_mode_bits_true" if inter_frame else "uv_mode_bits"
+    intra_flag = 1.5 if inter_frame else 0.0   # intra_inter symbol
     mode_bits = np.array(
-        [t["y_mode_bits"][m if m < cc.INTRA_MODES else cc.DC_PRED]
+        [t[ykey][m if m < cc.INTRA_MODES else cc.DC_PRED] + intra_flag
          for m in modes], np.float32)
-    uv_bits = np.array([t["uv_mode_bits"][m] for m in uv_modes],
-                       np.float32)
+    uv_bits = np.array([t[ukey][m] for m in uv_modes], np.float32)
     rq = rdoq_tables_for_qindex(int(qindex))
     coef_y, coef_uv = t["coef_y"], t["coef_uv"]
     if exact:

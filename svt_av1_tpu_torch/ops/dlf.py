@@ -1,5 +1,5 @@
-"""Deblocking (loop) filter, AV1 spec 7.14: the uniform-grid half of
-svt_av1_tpu/ops/dlf.py in PyTorch.
+"""Deblocking (loop) filter, AV1 spec 7.14: svt_av1_tpu/ops/dlf.py in
+PyTorch.
 
 Behavioral reference: deblocking_common.c (filter4/6/8/14 + masks) and
 deblocking_filter.c (level/threshold derivation).  As in the reference,
@@ -10,13 +10,14 @@ edges independent.  The ops run on the plane's device; nothing loops over
 edges or blocks in Python.
 
 The mask-aware filter for mixed block sizes (``edge_flens``,
-``loop_filter_plane_masked``) serves varpart (M0-M4) and the inter merges
-and comes with those slices.
+``loop_filter_plane_masked``) serves the merged 32x32 / 64x64 / rect skip
+leaves of inter frames.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -199,4 +200,92 @@ def loop_filter_plane_uniform(plane: torch.Tensor, step: int, level: int,
         f = filter_lines(lines, blimit, limit, thresh, filter_len, bd)
         d = (f - lines).reshape(len(redges), w, 14).permute(0, 2, 1)
         x.index_add_(0, rows.reshape(-1), d.reshape(-1, w))
+    return x
+
+
+# --------------------------------------------------------------------------
+# mask-aware (mixed tx/block size) plane filtering
+# --------------------------------------------------------------------------
+
+def edge_flens(tx_ext, blk_ext, skip, is_luma: bool) -> torch.Tensor:
+    """Per-mi filter length of the edge at each mi's leading (left for
+    vertical / top for horizontal) boundary along one direction
+    (set_lpf_parameters, deblocking_filter.c:160-280, with a uniform
+    nonzero level).
+
+    tx_ext / blk_ext: (n_r, n_c) transform / prediction-block extents
+    along the direction in mi units (pass transposed maps, and transpose
+    the result, for horizontal edges); skip: coded skip AND inter.
+    Returns (n_r, n_c) int32 in {0, 4, 6, 8, 14}; column 0 (the frame
+    edge) is 0."""
+    tx_ext = torch.as_tensor(tx_ext).to(torch.int32)
+    blk_ext = torch.as_tensor(blk_ext, device=tx_ext.device).to(torch.int32)
+    skip = torch.as_tensor(skip, device=tx_ext.device).to(torch.bool)
+    c = torch.arange(tx_ext.shape[1], dtype=torch.int32,
+                     device=tx_ext.device)[None, :]
+    tx_edge = (c % tx_ext) == 0
+    pu_edge = (c % blk_ext) == 0
+    prev_tx = torch.cat([tx_ext[:, :1], tx_ext[:, :-1]], dim=1)
+    prev_skip = torch.cat([skip[:, :1], skip[:, :-1]], dim=1)
+    # both-skip (inter) edges filter only on a prediction-block boundary
+    on = tx_edge & (~(skip & prev_skip) | pu_edge) & (c > 0)
+    min_t = torch.minimum(tx_ext, prev_tx)
+    if is_luma:
+        flen = torch.where(min_t <= 1, 4, torch.where(min_t == 2, 8, 14))
+    else:
+        flen = torch.where(min_t <= 1, 4, 6)
+    return torch.where(on, flen, 0).to(torch.int32)
+
+
+def _filter_edges_masked(x, epos, flen_line, blimit, limit, thresh, lens,
+                         bd):
+    """Filter the vertical edges at column positions ``epos`` with
+    per-line filter lengths (0 = off).  Exact under overlap: only the span
+    a filter modifies adds a nonzero delta, and the spec's flen <= min(tx
+    extents) rule keeps modified spans of adjacent edges disjoint."""
+    h, w = x.shape
+    dev = x.device
+    cols = (torch.as_tensor(np.asarray(epos), device=dev)[None, :, None]
+            + torch.arange(-7, 7, device=dev)[None, None, :]).clamp(0, w - 1)
+    rows = torch.arange(h, device=dev)[:, None, None]
+    lines = x[rows, cols]                      # (h, nE, 14)
+    flat = lines.reshape(-1, 14)
+    sel = flen_line.reshape(-1, 1)
+    out = flat
+    for fl in lens:
+        out = torch.where(sel == fl, filter_lines(flat, blimit, limit,
+                                                  thresh, fl, bd), out)
+    delta = (out - flat).reshape(h, -1, 14)
+    ci = cols.expand(h, -1, -1)
+    x = x.clone()
+    x.index_put_((rows.expand_as(ci), ci), delta, accumulate=True)
+    return x
+
+
+def loop_filter_plane_masked(plane, flen_v, flen_h, level: int,
+                             sharpness: int, is_luma: bool, bd: int = 8,
+                             mi: int = 4) -> torch.Tensor:
+    """Mask-aware plane deblock for mixed tx/block sizes.
+
+    flen_v / flen_h: (h//mi, w//mi) per-mi filter lengths of the vertical
+    edge at each mi's left boundary / the horizontal edge at its top
+    (edge_flens), on the plane's device.  Vertical edges first over the
+    whole plane, then horizontal (spec order).  Returns a new int32
+    plane; level 0 returns the input."""
+    if level == 0:
+        return plane
+    blimit, limit, thresh = loop_filter_thresholds(level, sharpness)
+    lens = (4, 8, 14) if is_luma else (4, 6)
+    x = plane.to(torch.int32)
+    n_r, n_c = flen_v.shape
+    epos_v = np.arange(1, n_c) * mi
+    if len(epos_v):
+        fl = flen_v[:, 1:].repeat_interleave(mi, 0)
+        x = _filter_edges_masked(x, epos_v, fl, blimit, limit, thresh, lens,
+                                 bd)
+    epos_h = np.arange(1, n_r) * mi
+    if len(epos_h):
+        fl = flen_h[1:, :].repeat_interleave(mi, 1).T
+        x = _filter_edges_masked(x.T.contiguous(), epos_h, fl, blimit,
+                                 limit, thresh, lens, bd).T.contiguous()
     return x

@@ -36,6 +36,7 @@ from svt_av1_tpu_torch.ops import quant, transforms as tf
 N = 16
 
 launches = 0   # kernel launches made by fused_txq (the wrapper only)
+batches = set()   # the batch sizes B those launches had
 
 _P = ctypes.c_void_p
 
@@ -126,4 +127,5 @@ def fused_txq(resid: torch.Tensor, qp: quant.QuantParams):
     if rc != 0:
         raise RuntimeError(f"fused_txq16 launch failed: CUDA error {rc}")
     launches += 1
+    batches.add(int(resid.shape[0]))
     return out.unbind(0)

@@ -9,8 +9,9 @@ Signaling: cdef_bits = 0 (one frame-uniform strength set per plane, no
 per-SB index bits).  Skip rule (enc_cdef.c:267): an 8x8 block filters iff
 ANY of its four 4x4 MIs is non-skip; damping = 3 + (base_q_idx >> 6),
 chroma damping one less (cdef.c:filter_fb).  The per-SB search
-(``cdef_search_sb``, cdef_bits > 0) serves presets M0-M4 and the GOP key
-frames and comes with those slices.
+(``cdef_search_sb``, cdef_bits > 0) serves presets M0-M4 and comes with
+them; its host subset selection (``coded_sb_map``, ``select_sb_sets``)
+also picks the GOP key frames' frame-uniform set (gop_fast.run_key_filters).
 """
 from __future__ import annotations
 
@@ -157,3 +158,36 @@ def cdef_search(src: Dict[str, torch.Tensor],
         filt = cdef_apply(recon, skip16, cand, damping, bd)
         sses.append(sum(_sse(filt[p], src[p]) for p in ("y", "u", "v")))
     return cands[int(torch.stack(sses).argmin())]
+
+
+def coded_sb_map(skip16: np.ndarray) -> np.ndarray:
+    """(sb_rows, sb_cols) bool: SBs that code a cdef_idx (>= 1 non-skip
+    16x16 block)."""
+    gr, gc = (skip16.shape[0] + 3) // 4, (skip16.shape[1] + 3) // 4
+    pad = np.ones((gr * 4, gc * 4), bool)
+    pad[:skip16.shape[0], :skip16.shape[1]] = skip16
+    return ~pad.reshape(gr, 4, gc, 4).all(axis=(1, 3))
+
+
+def select_sb_sets(sse: np.ndarray, coded: np.ndarray, lam: float,
+                   cands, max_bits: int = 3):
+    """finish_cdef_search analog: from the per-SB / per-candidate SSE
+    matrix, pick cdef_bits (0..max_bits) and the strength subset that
+    minimize SSE + lambda * signaling bits.  Returns (cdef_bits,
+    strength_list, sb_idx_map)."""
+    from itertools import combinations
+    ncoded = int(coded.sum())
+    best = None
+    for bits in range(max_bits + 1):
+        n_sets = 1 << bits
+        if n_sets > len(cands):
+            break
+        for sub in combinations(range(len(cands)), n_sets):
+            pick = sse[:, list(sub)]
+            total = float(pick.min(axis=1).sum())
+            cost = total + lam * (ncoded * bits + 12 * n_sets)
+            if best is None or cost < best[0]:
+                best = (cost, bits, sub, pick.argmin(axis=1).astype(np.int32))
+    _, bits, sub, idx = best
+    idx_map = np.where(coded, idx.reshape(coded.shape), -1).astype(np.int32)
+    return bits, tuple(cands[i] for i in sub), idx_map

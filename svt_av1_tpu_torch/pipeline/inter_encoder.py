@@ -1,0 +1,252 @@
+"""Inter frames, decoder side: reconstruction from parsed decisions, the
+PyTorch port of the decoder half of svt_av1_tpu/pipeline/inter_encoder.py
+(``reconstruct_inter_from_decisions`` and its helpers), plus the two
+pieces of its encoder half that the fast GOP path uses (the subpel ring
+and the MV rate estimate).
+
+The reference's stage-path encoder (``encode_inter_frame``, ``_pass_a_fn``
+and the rest) is not ported: the port runs inter frames through its fast
+path (pipeline/gop_fast.py).  OBMC and inter-intra blocks (presets M5-M9)
+raise until the slice that brings those tools.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from svt_av1_tpu_torch import device as device_mod
+from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.codec.syntax import _chroma_tx_type_inter
+from svt_av1_tpu_torch.ops import mc, quant, transforms as tf
+from svt_av1_tpu_torch.ops import warp as warp_ops
+from svt_av1_tpu_torch.ops import wedge as wedge_ops
+
+BLK = 16
+CBLK = 8
+
+# candidate MV offsets around the HME winner (1/8 pel): the fullpel
+# winner plus its quarter-pel ring
+_SUBPEL_RING = np.array(
+    [(0, 0), (0, 2), (0, -2), (2, 0), (-2, 0),
+     (2, 2), (2, -2), (-2, 2), (-2, -2)], np.int32)
+
+
+def _mv_bits(mvs: torch.Tensor) -> torch.Tensor:
+    """Rough NEWMV signaling cost in bits (non-normative RD estimate)."""
+    a = mvs.to(torch.float32).abs()
+    return 4.0 + 1.4 * (torch.log2(1.0 + a[:, 0]) + torch.log2(1.0 + a[:, 1]))
+
+
+def _signaled_tx_type(d):
+    """Luma tx type as a decoder derives it: read only for a non-skip luma
+    txb with coefficients, else DCT_DCT (and chroma inherits that)."""
+    if not np.any(d.qcoeff_y):
+        return cc.DCT_DCT
+    return d.tx_type
+
+
+def _inv_add_mixed(dq, pred, txts, tx_size, bd):
+    """Batched inv_txfm2d_add with a per-block tx type: one inverse per
+    distinct type present, selected per block."""
+    types = sorted(set(int(t) for t in txts))
+    out = tf.inv_txfm2d_add(dq, pred, types[0], tx_size, bd=bd)
+    sel = np.asarray(txts)
+    for t in types[1:]:
+        rec_t = tf.inv_txfm2d_add(dq, pred, t, tx_size, bd=bd)
+        out = torch.where(torch.as_tensor(sel == t, device=dq.device)
+                          [:, None, None], rec_t, out)
+    return out
+
+
+def _put(plane, blocks, ys, xs):
+    """Write (B, n, n) blocks into an (H, W) plane in place."""
+    n = blocks.shape[-1]
+    ar = torch.arange(n, device=plane.device)
+    plane[ys[:, None, None] + ar[:, None], xs[:, None, None] + ar] = blocks
+
+
+def _stack_levels(decs, field, dev):
+    return torch.as_tensor(np.stack([getattr(d, field) for d in decs]),
+                           device=dev).to(torch.int32)
+
+
+def _recon_inter_blocks_for_ref(decisions, renum, ref, refp, recon, qp, bd,
+                                gm_model=None, interp=0):
+    """Single-reference translational (and GLOBALMV warped) 16x16 blocks
+    predicting from ``renum``: one MC batch per plane, then the inverse."""
+    keys = [k for k, d in decisions.items()
+            if d.is_inter and d.ref == renum and not d.ref2
+            and int(cc.block_size_wide[d.bsize]) == BLK]
+    if not keys:
+        return
+    dev = recon["y"].device
+    decs = [decisions[k] for k in keys]
+    ys = torch.as_tensor([k[0] * 4 for k in keys], device=dev)
+    xs = torch.as_tensor([k[1] * 4 for k in keys], device=dev)
+    mvs = torch.as_tensor([d.mv for d in decs], dtype=torch.int32,
+                          device=dev)
+    wsel = torch.as_tensor([bool(d.use_warp) for d in decs], device=dev)
+    wplanes = None
+    if any(d.use_warp for d in decs):
+        # GLOBALMV + ROTZOOM: the whole-frame warp, sliced per block
+        assert gm_model is not None and len(gm_model) == 6
+        h, w = recon["y"].shape
+        wplanes = dict(
+            y=warp_ops.warp_plane(ref["y"].to(torch.int32), gm_model, w, h,
+                                  bd=bd),
+            u=warp_ops.warp_plane(ref["u"].to(torch.int32), gm_model,
+                                  w // 2, h // 2, bd=bd, subsampling=1),
+            v=warp_ops.warp_plane(ref["v"].to(torch.int32), gm_model,
+                                  w // 2, h // 2, bd=bd, subsampling=1))
+    txts_y = [_signaled_tx_type(d) for d in decs]
+    for p in ("y", "u", "v"):
+        luma = p == "y"
+        n = BLK if luma else CBLK
+        tx = cc.TX_16X16 if luma else cc.TX_8X8
+        py, px = (ys, xs) if luma else (ys // 2, xs // 2)
+        pred = mc.mc_blocks(refp[p], py, px, mvs, n, mc.PAD, 0 if luma else 1,
+                            bd, kind=interp)
+        if wplanes is not None:
+            ar = torch.arange(n, device=dev)
+            wsl = wplanes[p][py[:, None, None] + ar[:, None],
+                             px[:, None, None] + ar]
+            pred = torch.where(wsel[:, None, None], wsl, pred)
+        dq = quant.dequantize(_stack_levels(decs, f"qcoeff_{p}", dev), qp, tx)
+        txts = (txts_y if luma else
+                [_chroma_tx_type_inter(t, tx, False) for t in txts_y])
+        _put(recon[p], _inv_add_mixed(dq, pred, txts, tx, bd), py, px)
+
+
+def _recon_compound_blocks(decisions, refps, recon, qp, bd, interp=0):
+    """Two-reference blocks: COMPOUND_AVERAGE, wedge and diffwtd."""
+    keys = [k for k, d in decisions.items() if d.is_inter and d.ref2]
+    if not keys:
+        return
+    dev = recon["y"].device
+    for (r0, r1) in sorted({(decisions[k].ref, decisions[k].ref2)
+                            for k in keys}):
+        pk = [k for k in keys
+              if (decisions[k].ref, decisions[k].ref2) == (r0, r1)]
+        decs = [decisions[k] for k in pk]
+        ys = torch.as_tensor([k[0] * 4 for k in pk], device=dev)
+        xs = torch.as_tensor([k[1] * 4 for k in pk], device=dev)
+        mv0 = torch.as_tensor([d.mv for d in decs], dtype=torch.int32,
+                              device=dev)
+        mv1 = torch.as_tensor([d.mv2 for d in decs], dtype=torch.int32,
+                              device=dev)
+        wsel_np = np.array([d.comp_type == 1 for d in decs])
+        dsel_np = np.array([d.comp_type == 2 for d in decs])
+        wsel = torch.as_tensor(wsel_np, device=dev)[:, None, None]
+        dsel = torch.as_tensor(dsel_np, device=dev)[:, None, None]
+        mask_y = mask_uv = mask_uv_d = None
+        if wsel_np.any():
+            assert all(d.bsize == cc.BLOCK_16X16 for d in decs
+                       if d.comp_type == 1), "wedge masks only for 16x16"
+            idx = np.array([d.wedge_idx for d in decs])
+            sgn = np.array([d.wedge_sign for d in decs])
+            mask_y = torch.as_tensor(wedge_ops.masks_16[sgn, idx].astype(
+                np.int32), device=dev)
+            mask_uv = torch.as_tensor(wedge_ops.masks_16_uv[sgn, idx].astype(
+                np.int32), device=dev)
+        p0, p1 = refps[r0], refps[r1]
+        comp = lambda p, yy, xx, n, ss, mask=None: mc.mc_blocks_compound(
+            p0[p], p1[p], yy, xx, mv0, mv1, n, mc.PAD, ss, bd, kind=interp,
+            mask=mask)
+        pred_y = comp("y", ys, xs, BLK, 0)
+        if wsel_np.any():
+            pred_y = torch.where(wsel, comp("y", ys, xs, BLK, 0, mask_y),
+                                 pred_y)
+        if dsel_np.any():
+            inv = torch.as_tensor([d.wedge_sign for d in decs],
+                                  dtype=torch.int32, device=dev)
+            pred_d, m16 = mc.mc_blocks_compound_diffwtd(
+                p0["y"], p1["y"], ys, xs, mv0, mv1, BLK, mc.PAD, inv, bd,
+                kind=interp)
+            pred_y = torch.where(dsel, pred_d, pred_y)
+            mask_uv_d = (m16[:, ::2, ::2] + m16[:, 1::2, ::2]
+                         + m16[:, ::2, 1::2] + m16[:, 1::2, 1::2] + 2) >> 2
+        dq = quant.dequantize(_stack_levels(decs, "qcoeff_y", dev), qp,
+                              cc.TX_16X16)
+        _put(recon["y"], tf.inv_txfm2d_add(dq, pred_y, cc.DCT_DCT,
+                                           cc.TX_16X16, bd=bd), ys, xs)
+        cys, cxs = ys // 2, xs // 2
+        for p in ("u", "v"):
+            pred_c = comp(p, cys, cxs, CBLK, 1)
+            if wsel_np.any():
+                pred_c = torch.where(wsel, comp(p, cys, cxs, CBLK, 1,
+                                                mask_uv), pred_c)
+            if dsel_np.any():
+                pred_c = torch.where(dsel, comp(p, cys, cxs, CBLK, 1,
+                                                mask_uv_d), pred_c)
+            dqc = quant.dequantize(_stack_levels(decs, f"qcoeff_{p}", dev),
+                                   qp, cc.TX_8X8)
+            _put(recon[p], tf.inv_txfm2d_add(dqc, pred_c, cc.DCT_DCT,
+                                             cc.TX_8X8, bd=bd), cys, cxs)
+
+
+def reconstruct_inter_from_decisions(decisions: Dict, refs, width: int,
+                                     height: int, qindex: int, bd: int = 8,
+                                     gm=None, interp=0, device=None):
+    """Decoder-side reconstruction of an inter frame on ``device``
+    (default: the current CUDA device).
+
+    refs: {ref_enum: dict of y/u/v planes} (tensors or numpy).  Inter
+    blocks have no in-frame dependencies and reconstruct as one batch per
+    reference (merged 32x32 / 64x64 / rect skip leaves as 16x16 tiles with
+    the shared MV: identical pixels, since the MV passed the big block's
+    pad clamp); intra blocks then run in the 2:1 wave order over the
+    mixed recon.  Returns dict(y, u, v) of uint8 planes on ``device``."""
+    from svt_av1_tpu_torch.pipeline.intra_encoder import (
+        reconstruct_from_decisions)
+    dev = device_mod.resolve(device)
+    big = (cc.BLOCK_32X32, cc.BLOCK_64X64, cc.BLOCK_32X16, cc.BLOCK_16X32,
+           cc.BLOCK_64X32, cc.BLOCK_32X64)
+    for d in decisions.values():
+        if d.is_inter and (d.motion_mode or d.interintra_mode >= 0
+                           or d.bsize not in big + (cc.BLOCK_16X16,)):
+            raise NotImplementedError(
+                "OBMC, inter-intra and 8x8 inter leaves come with the M5-M9 "
+                "inter tools (ROADMAP.md queue A)")
+    work = {}
+    for k, d in decisions.items():
+        if d.is_inter and d.bsize in big:
+            assert d.skip, "non-skip merged inter needs big-TX recon"
+            w4 = int(cc.block_size_wide[d.bsize]) >> 2
+            h4 = int(cc.block_size_high[d.bsize]) >> 2
+            for dr in range(0, h4, 4):
+                for dc2 in range(0, w4, 4):
+                    nk = (k[0] + dr, k[1] + dc2)
+                    work[nk] = dataclasses.replace(
+                        d, r4=nk[0], c4=nk[1], bsize=cc.BLOCK_16X16,
+                        qcoeff_y=np.zeros((BLK, BLK), np.int32),
+                        qcoeff_u=np.zeros((CBLK, CBLK), np.int32),
+                        qcoeff_v=np.zeros((CBLK, CBLK), np.int32))
+        else:
+            work[k] = d
+    qp = quant.params_on(int(qindex), dev, bd)
+    recon = dict(y=torch.zeros((height, width), dtype=torch.int32,
+                               device=dev),
+                 u=torch.zeros((height // 2, width // 2), dtype=torch.int32,
+                               device=dev))
+    recon["v"] = torch.zeros_like(recon["u"])
+    refs = {e: {p: torch.as_tensor(np.asarray(r[p]) if not isinstance(
+        r[p], torch.Tensor) else r[p]).to(dev) for p in ("y", "u", "v")}
+        for e, r in refs.items() if r is not None}
+    used = {d.ref for d in work.values() if d.is_inter} | {
+        d.ref2 for d in work.values() if d.is_inter and d.ref2}
+    refps = {e: dict(y=mc.pad_plane(refs[e]["y"], mc.PAD),
+                     u=mc.pad_plane(refs[e]["u"], mc.PAD // 2),
+                     v=mc.pad_plane(refs[e]["v"], mc.PAD // 2))
+             for e in refs if e in used}
+    for renum in refps:
+        _recon_inter_blocks_for_ref(work, renum, refs[renum], refps[renum],
+                                    recon, qp, bd,
+                                    gm_model=(gm or {}).get(renum),
+                                    interp=interp)
+    _recon_compound_blocks(work, refps, recon, qp, bd, interp)
+    intra = {k: d for k, d in work.items() if not d.is_inter}
+    return reconstruct_from_decisions(intra, width, height, qindex, bd=bd,
+                                      device=dev, base=recon)

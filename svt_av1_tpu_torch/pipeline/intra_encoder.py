@@ -467,7 +467,7 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
 
 def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
                     have_above, have_left, qp, lam, rates, bd=8,
-                    luma_rec=None, cfl=False):
+                    luma_rec=None, cfl=False, inter=None):
     """Joint U+V mode decision for one wave (uv_mode is signaled once per
     block; the chroma transform type is implied by the mode).  Every
     (mode, plane) pair runs its forward transform, quantizer and the
@@ -478,6 +478,10 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     blocks): a chroma-from-luma candidate — a least-squares alpha fit per
     plane, refined over alpha-1, alpha, alpha+1 by true RD cost —
     competes with the regular modes.
+
+    inter: optional (choose (B,) bool, rec_u, rec_v) — the blocks whose
+    luma step took the inter candidate (pass B of an inter frame) write
+    its chroma recon instead.
 
     Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v) and, with cfl,
     (alpha_u, alpha_v) (B,) int32, signed q3, zero where CfL lost."""
@@ -578,6 +582,15 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
         rec_v = torch.where(t3c, rec_sel[b:], rec_v)
         alpha_u = torch.where(take_c, au_s, 0)
         alpha_v = torch.where(take_c, av_s, 0)
+    if inter is not None:
+        choose, irec_u, irec_v = inter
+        c3 = choose[:, None, None]
+        rec_u = torch.where(c3, irec_u, rec_u)
+        rec_v = torch.where(c3, irec_v, rec_v)
+        if cfl:
+            alpha_u = torch.where(choose, 0, alpha_u)
+            alpha_v = torch.where(choose, 0, alpha_v)
+            um = torch.where(choose, UV_MODES[0], um)
     _scatter_blocks(recon_u, rec_u, fi, ys, xs, sel)
     _scatter_blocks(recon_v, rec_v, fi, ys, xs, sel)
     if cfl:
@@ -923,7 +936,8 @@ def _select_by(keys, make):
 
 
 def reconstruct_from_decisions(decisions, width: int, height: int,
-                               qindex: int, bd: int = 8, device=None):
+                               qindex: int, bd: int = 8, device=None,
+                               base=None):
     """Decoder-side reconstruction from parsed BlockDecisions of a key
     frame coded on the uniform 16x16 grid (the slice's streams): luma
     modes with angle deltas and tx types, palette blocks, chroma modes
@@ -939,7 +953,11 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     the inverse, with the encoder's top-right/bottom-left flags.  CfL
     chroma of a wave reads that wave's reconstructed luma.  Returns
     dict(y, u, v) of uint8 planes on ``device`` (the decoder filters them
-    there before it copies them out)."""
+    there before it copies them out).
+
+    base: the (H, W) / (H/2, W/2) int32 planes of an inter frame with its
+    inter blocks already reconstructed; ``decisions`` then holds its intra
+    blocks only, which are reconstructed over it in wave order."""
     dev = device_mod.resolve(device)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
@@ -972,23 +990,34 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
         um[bid] = d.uv_mode
         alpha[:, bid] = d.cfl_alpha_u, d.cfl_alpha_v
         qy[bid], qu[bid], qv[bid] = d.qcoeff_y, d.qcoeff_u, d.qcoeff_v
-    if any(m is None for m in ymode):
+    if base is None and any(m is None for m in ymode):
         raise ValueError("decisions do not cover the 16x16 grid")
     qp = quant.params_on(int(qindex), dev, bd)
-    rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
-                             device=dev),
-               u=torch.zeros((1, height // 2, width // 2),
-                             dtype=torch.int32, device=dev))
-    rec["v"] = torch.zeros_like(rec["u"])
+    if base is None:
+        rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
+                                 device=dev),
+                   u=torch.zeros((1, height // 2, width // 2),
+                                 dtype=torch.int32, device=dev))
+        rec["v"] = torch.zeros_like(rec["u"])
+    else:
+        rec = {p: base[p][None] for p in ("y", "u", "v")}
     lvl = dict(y=torch.as_tensor(qy, device=dev),
                u=torch.as_tensor(qu, device=dev),
                v=torch.as_tensor(qv, device=dev))
     alpha_t = torch.as_tensor(alpha, device=dev)
     if pal_pred is not None:
         pal_pred = torch.as_tensor(pal_pred, device=dev)
+    coded = np.array([m is not None for m in ymode])
     for ws in _device_schedule(gh, gw, 1, dev):
         rid = ws.rid.cpu().numpy()
         sel = ws.sel
+        if base is not None:
+            # the inter frame's intra blocks of this wave only
+            keep = coded[rid]
+            if not keep.any():
+                continue
+            rid, sel = rid[keep], sel[torch.as_tensor(keep, device=dev)]
+        rid_t = torch.as_tensor(rid, device=dev)
         fi, ha, hl = ws.fi[sel], ws.ha[sel], ws.hl[sel]
         ar = torch.arange(len(rid), device=dev)
         for p in ("y", "u", "v"):
@@ -1007,7 +1036,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                                                 above, left, ws.tr[sel],
                                                 ws.bl[sel])
                 pred = _select_by(keys, lambda k: (
-                    pal_pred[ws.rid] if k == "pal" else _predict_cand(
+                    pal_pred[rid_t] if k == "pal" else _predict_cand(
                         k[0], k[1], n, above, left, corner, ext[0], ext[1],
                         ha, hl, bd)))
                 tx_types = [int(t) for t in ytx[rid]]
@@ -1016,7 +1045,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                 if cc.UV_CFL_PRED in keys:
                     ac = intra.cfl_ac_420(_gather_block(
                         rec["y"], fi, ys * 2, xs * 2, BLK, BLK), n, n)
-                    a_q3 = alpha_t[0 if p == "u" else 1][ws.rid]
+                    a_q3 = alpha_t[0 if p == "u" else 1][rid_t]
                 dc = lambda: intra.predict(
                     cc.DC_PRED, above, left, corner, n, n, have_above=ha,
                     have_left=hl, bd=bd)
@@ -1026,7 +1055,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                         m, 0, n, above, left, corner, None, None, ha, hl,
                         bd)))
                 tx_types = [_chroma_tx_type(m, tx) for m in keys]
-            dq = quant.dequantize(lvl[p][ws.rid], qp, tx)
+            dq = quant.dequantize(lvl[p][rid_t], qp, tx)
             recon = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
                 dq, pred, t, tx, bd=bd))
             _scatter_blocks(rec[p], recon, fi, ys, xs, ar)

@@ -5,8 +5,11 @@ installed).
 ``natural_clip`` is the bench's clip shape: moving sinusoids plus noise.
 ``screen_frame`` is screen content: flat colored rectangles and text-like
 two-color bars, so that many 16x16 blocks hold 2-8 distinct luma values
-and the palette candidates exist.
+and the palette candidates exist.  ``TOOL_CLIPS`` are the GOP clips that
+code one compound or warp tool each.
 """
+import contextlib
+
 import numpy as np
 
 
@@ -55,3 +58,91 @@ def screen_frame(w, h, seed=0):
             blk = y[ty:ty + 7, tx:tx + 5]
             blk[glyph] = ink
     return y, u, v
+
+
+def _smooth(a):
+    a = np.pad(a, 1, mode="edge")
+    return ((a[:-2, :-2] + a[:-2, 1:-1] + a[:-2, 2:] + a[1:-1, :-2]
+             + a[1:-1, 1:-1] + a[1:-1, 2:] + a[2:, :-2] + a[2:, 1:-1]
+             + a[2:, 2:]) / 9)
+
+
+def _two_scenes(h, w):
+    rng = np.random.default_rng(5)
+    return tuple(_smooth(rng.integers(0, 255, (h, w)).astype(np.float32))
+                 .astype(np.uint8) for _ in range(2))
+
+
+def wipe_clip(n=5, h=64, w=64):
+    """The wedge clip of tests/test_wedge.py: scene B wipes over scene A
+    from the left, 13 px a frame; flat chroma."""
+    a, b = _two_scenes(h, w)
+    out = []
+    for t in range(n):
+        y = a.copy()
+        cut = min(w, 13 * t)
+        y[:, :cut] = b[:, :cut]
+        out.append((y, np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def iris_clip(n=5, h=80, w=80):
+    """The diffwtd clip of tests/test_wedge.py: scene B opens as a disc of
+    radius 14 t px over scene A; flat chroma."""
+    a, b = _two_scenes(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        y = a.copy()
+        m = (yy - 40) ** 2 + (xx - 40) ** 2 <= (14 * t) ** 2
+        y[m] = b[m]
+        out.append((y, np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def rotzoom_clip(n=5, h=96, w=128):
+    """The zoom + rotate content of tests/test_warp.py as a clip: frame t
+    is the smooth pattern seen through a zoom of 0.99^t and a rotation of
+    0.004 t rad about the centre; flat chroma.  The global-motion fit
+    finds a rotation-zoom model and codes warped blocks."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = h / 2, w / 2
+    out = []
+    for t in range(n):
+        s, th = 0.99 ** t, 0.004 * t
+        ys = cy + (yy - cy) * s * np.cos(th) - (xx - cx) * s * np.sin(th)
+        xs = cx + (yy - cy) * s * np.sin(th) + (xx - cx) * s * np.cos(th)
+        y = (110 + 70 * np.sin(xs / 13.0) + 50 * np.cos(ys / 17.0)
+             + 20 * np.sin((xs + ys) / 7.0))
+        out.append((np.clip(np.rint(y), 0, 255).astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+# the GOP clips that code one compound or warp tool each at M10
+# (hierarchical_levels 2): name -> (frames, config fields, the tool)
+TOOL_CLIPS = {
+    "wipe": (wipe_clip, dict(qp=45, intra_period_length=31), "wedge"),
+    "iris": (iris_clip, dict(qp=45, intra_period_length=31), "diffwtd"),
+    "rotzoom": (rotzoom_clip, dict(qp=35, intra_period_length=4), "warp"),
+}
+
+
+@contextlib.contextmanager
+def tool_setting(name, enc, gop_fast):
+    """The setting of the reference's test for the clip ``name`` on the
+    encoder ``enc`` (either package's) and its ``gop_fast`` module: the
+    iris clip turns order hints off, so that skip mode does not out-RD
+    the diffwtd blocks, and prices wedge out; the other clips change
+    nothing."""
+    old = gop_fast._WEDGE_EXTRA_BITS
+    if name == "iris":
+        enc.sp.enable_order_hint = False
+        gop_fast._WEDGE_EXTRA_BITS = 1e7
+    try:
+        yield enc
+    finally:
+        gop_fast._WEDGE_EXTRA_BITS = old

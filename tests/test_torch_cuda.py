@@ -3,7 +3,10 @@ its plain version and against the first form of the kernel, and a small
 all-intra encode on the card against the same encode on the CPU, at M10
 through send_pictures and at M6 (tx-type search, angle deltas, CfL,
 palette) through send_picture, without and with the in-loop filters
-(whose ops are also held to their CPU run, exactly).
+(whose ops are also held to their CPU run, exactly), and a hierarchical
+GOP at M10 and M12 (round trip on the card, parity with the CPU), and
+the GOP clips that code wedge, diffwtd and warped blocks (the card's
+stream codes each tool, round trip, parity with the CPU).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -243,3 +246,103 @@ def test_m6_filtered_key_frames_on_cuda_match_cpu():
                             f.cdef_strengths))
     assert headers[:2] == headers[2:]
     assert headers[0][0][0] > 0
+
+
+def _gop(frames, device, preset, clip=None, **fields):
+    """A hierarchical GOP (levels 2, keyint 4, qp 35 unless ``fields``
+    set them) through send_picture / flush, under the setting of the
+    tool clip ``clip`` (clips.tool_setting)."""
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    h, w = frames[0][0].shape
+    cfg = dict(dict(qp=35, intra_period_length=4), **fields)
+    enc = Encoder(EncoderConfig(source_width=w, source_height=h,
+                                enc_mode=preset, hierarchical_levels=2,
+                                enable_tf=0, enable_tpl_la=0,
+                                enable_dlf_flag=1, cdef_level=1, **cfg),
+                  device=device)
+    with clips.tool_setting(clip, enc, gop_fast):
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
+    pkts = []
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    return pkts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", [10, 12])
+def test_gop_on_cuda_round_trips_and_matches_cpu(preset):
+    """A 5-frame hierarchical GOP (levels 2, keyint 4) at 96x64 on the
+    card: the port's decoder on the card reproduces every shown frame,
+    show-existing ones included, and the stream meets the parity rule
+    against the same encode on the CPU."""
+    _need_card()
+    frames = clips.natural_clip(5, 96, 64, seed=3)
+    pk_g = _gop(frames, "cuda", preset)
+    pk_c = _gop(frames, "cpu", preset)
+    dec = Decoder(device="cuda")
+    shown = []
+    for p in pk_g:
+        shown += dec.decode_temporal_unit(p.data)
+    disp_g = [p for p in pk_g if p.displayed]
+    assert len(shown) == len(disp_g) == len(frames)
+    for rec, p in zip(shown, disp_g):
+        for k in "yuv":
+            assert np.array_equal(rec[k], p.recon[k]), (p.pts, k)
+    disp_c = [p for p in pk_c if p.displayed]
+    p_g = np.mean([_psnr(frames[p.pts][0], p.recon["y"]) for p in disp_g])
+    p_c = np.mean([_psnr(frames[p.pts][0], p.recon["y"]) for p in disp_c])
+    b_g = sum(len(p.data) for p in pk_g)
+    b_c = sum(len(p.data) for p in pk_c)
+    assert abs(p_g - p_c) <= MAX_DPSNR
+    assert abs(b_g - b_c) <= MAX_DBYTES * b_c
+
+
+USES_TOOL = dict(
+    wedge=lambda b: b.is_inter and b.ref2 and b.comp_type == 1,
+    diffwtd=lambda b: b.is_inter and b.ref2 and b.comp_type == 2,
+    warp=lambda b: b.is_inter and b.use_warp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(clips.TOOL_CLIPS))
+def test_gop_tools_on_cuda_round_trip_and_match_cpu(name):
+    """The clips that code one tool each at M10 — wedge (wipe), diffwtd
+    (iris), warped blocks (zoom + rotate) — on the card: the card's stream
+    codes that tool, the port's decoder on the card reproduces every shown
+    frame, and >= 99% of blocks (modes, references, MVs, warp, compound
+    type, wedge option, qcoeff) equal those of the same encode on the
+    CPU."""
+    _need_card()
+    clip, fields, tool = clips.TOOL_CLIPS[name]
+    frames = clip()
+    pk_g = _gop(frames, "cuda", 10, clip=name, **fields)
+    pk_c = _gop(frames, "cpu", 10, clip=name, **fields)
+    blocks = []
+    for pkts, dev in ((pk_g, "cuda"), (pk_c, "cpu")):
+        dec = Decoder(device=dev)
+        coded = []
+        for p in pkts:
+            out = dec.decode_temporal_unit(p.data)
+            for rec in out:
+                for k in "yuv":
+                    assert np.array_equal(rec[k], p.recon[k]), (dev, p.pts)
+            if len(p.data) > 8:
+                coded.append(dec.last_decisions)
+        blocks.append(coded)
+    assert any(USES_TOOL[tool](b) for d in blocks[0] for b in d.values())
+    same = tot = 0
+    for dg, dc in zip(*blocks):
+        for k, a in dc.items():
+            b = dg.get(k)
+            tot += 1
+            same += bool(
+                b is not None and (a.bsize, a.is_inter, a.y_mode, a.ref,
+                                   a.ref2, a.mv, a.mv2, a.use_warp,
+                                   a.comp_type, a.wedge_idx, a.wedge_sign)
+                == (b.bsize, b.is_inter, b.y_mode, b.ref, b.ref2, b.mv,
+                    b.mv2, b.use_warp, b.comp_type, b.wedge_idx,
+                    b.wedge_sign)
+                and np.array_equal(a.qcoeff_y, b.qcoeff_y))
+    assert same >= MIN_AGREE * tot, (name, same, tot)

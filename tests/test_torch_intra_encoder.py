@@ -234,8 +234,9 @@ def test_send_pictures_filters_match_jax(filters):
 
 
 def test_port_never_imports_jax():
-    """An encode and a decode through the port on the CPU load neither
-    JAX nor any module of the JAX package, and open no file under it."""
+    """Encodes and decodes through the port on the CPU (all-intra batch,
+    key frame with the M6 tools, a hierarchical GOP) load neither JAX nor
+    any module of the JAX package, and open no file under it."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -267,6 +268,19 @@ def test_port_never_imports_jax():
         (rec,) = Decoder(device="cpu").decode_temporal_unit(pkt.data)
         assert np.array_equal(rec["y"], pkt.recon["y"])
         assert any(d.palette is not None for d in rec["decisions"].values())
+        # a hierarchical GOP: key, hidden base, inter and show-existing
+        enc = Encoder(EncoderConfig(source_width=32, source_height=32,
+                                    intra_period_length=4,
+                                    hierarchical_levels=1, enable_tf=0,
+                                    enable_dlf_flag=1, cdef_level=1),
+                      device="cpu")
+        for t in range(4):
+            enc.send_picture(np.roll(y, t, axis=1), u, u)
+        enc.flush()
+        dec = Decoder(device="cpu")
+        while (pkt := enc.get_packet()) is not None:
+            for rec in dec.decode_temporal_unit(pkt.data):
+                assert np.array_equal(rec["y"], pkt.recon["y"])
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax.") or m == "svt_av1_tpu"
                      or m.startswith("svt_av1_tpu."))

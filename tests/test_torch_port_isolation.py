@@ -40,11 +40,12 @@ HOST_COPIES = (
     "codec/fast_ec.py", "codec/obu.py", "utils/bitio.py",
     "utils/profiling.py", "api/config.py", "pipeline/presets.py",
     "pipeline/rate_control.py", "pipeline/rc_onepass.py",
-    "native/ec_native.c")
+    "native/ec_native.c", "ops/wedge.py", "pipeline/gop.py")
 DATA_FILES = (
     "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
     "av1_quant_tables", "av1_scan_tables", "md_rate_fit",
-    "md_rate_fit_adapted", "av1_sgr_tables", "av1_gaussian_sequence")
+    "md_rate_fit_adapted", "av1_sgr_tables", "av1_gaussian_sequence",
+    "av1_interp_filters", "av1_warp_filters")
 # the numpy half of codec/rate_est.py, copied by name
 RATE_EST_NAMES = (
     "MAX_LEVEL", "_sym_bits", "_R_GRID", "_R_WEIGHTS", "_avg_bits",
@@ -91,7 +92,10 @@ def test_no_import_of_the_jax_package():
     assert {"pipeline/intra_encoder.py", "ops/intra.py", "api/encoder.py",
             "codec/decoder.py", "convert.py", "codec/palette.py",
             "ops/dlf.py", "ops/cdef.py", "pipeline/dlf_stage.py",
-            "pipeline/cdef_stage.py", "utils/kernel_profile.py"} <= scanned
+            "pipeline/cdef_stage.py", "utils/kernel_profile.py",
+            "ops/me.py", "ops/convolve.py", "ops/mc.py", "ops/warp.py",
+            "pipeline/me.py", "pipeline/gop_fast.py",
+            "pipeline/inter_encoder.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
@@ -216,6 +220,21 @@ ENTRY_POINTS = {
     "convert": lambda: importlib.import_module(
         "svt_av1_tpu_torch.convert").quant_params_from_jax(
             quant.make_quant_params(140)),
+    "Encoder GOP": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, intra_period_length=4,
+        hierarchical_levels=1, enable_tf=0)),
+    "run_inter_frame": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.gop_fast").run_inter_frame(
+            np.zeros((48, 32), np.uint8),
+            {1: {p: torch.zeros(s, dtype=torch.uint8) for p, s in (
+                ("y", (32, 32)), ("u", (16, 16)), ("v", (16, 16)))}},
+            140, 32, 32, (0,)),
+    "reconstruct_inter_from_decisions": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.inter_encoder"
+    ).reconstruct_inter_from_decisions({}, {}, 32, 32, 140),
+    "hierarchical_me": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
+            np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),
 }
 
 

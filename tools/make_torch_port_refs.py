@@ -25,6 +25,9 @@ TESTS = (
     "test_luma_wave_palette_override_matches_jax",
     "tests/test_torch_intra_tools.py::test_chroma_wave_cfl_matches_jax",
     "tests/test_torch_key_frame.py::test_send_pictures_m6_matches_jax",
+    "tests/test_torch_gop.py::test_p1_matches_jax",
+    "tests/test_torch_gop.py::test_p2_matches_jax",
+    "tests/test_torch_gop.py::test_gop_parity_with_jax",
 )
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where a key-frame encode of the PyTorch/CUDA port spends its time.
+"""Where a key-frame encode, or an inter frame, of the PyTorch/CUDA port
+spends its time.
 
     python3 tools/profile_torch_encode.py [--size 352x288] [--preset 6]
-                                          [--filters]
+                                          [--filters] [--gop]
 
 Needs one NVIDIA GPU.  Encodes one frame of the bench clip and one
 screen-content frame through Encoder.send_picture on the card: two warm
@@ -20,6 +21,17 @@ clock (``hot_s``, each ending in a synchronise), then once under
 torch.profiler for the same counts, with the levels and strengths it
 chose; and ``dlf_only``, the same for an encoder with DLF alone (at
 M9-M13 the heuristic level that ``send_pictures`` applies per frame).
+With --gop it profiles one inter frame of the fast GOP path instead (the
+middle frame of a 9-frame clip coded from the first as LAST and the last
+as ALTREF, at qindex 140, DLF and CDEF on, the preset's P1 tools): two
+warm runs, three timed on the host clock (P1 + P2 dispatch, then the
+bundled copy; each ends in a synchronise), then one under torch.profiler,
+and prints one JSON line with, per op family of the two programs (the
+named ranges p1.hme, p1.gm_fit, p1.interp_pick, p1.warp, p1.pass_a,
+p1.compound, p1.pass_b, p1.merges, p2), the host milliseconds inside the
+range, the device milliseconds of the kernels it launched and the span
+of its kernels on the device timeline, beside the frame's kernel count,
+device time and device-busy share.
 The first line is the card's name and power limit.
 """
 import argparse
@@ -37,10 +49,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", default="352x288")
-    ap.add_argument("--preset", type=int, default=6)
+    ap.add_argument("--preset", type=int, default=None,
+                    help="default: 6 for key frames, 10 with --gop")
     ap.add_argument("--filters", action="store_true",
                     help="encode with DLF and CDEF on, and profile the "
                          "filter stage of each frame kind on its own")
+    ap.add_argument("--gop", action="store_true",
+                    help="profile one inter frame of the GOP path by op "
+                         "family")
     args = ap.parse_args()
     w, h = (int(x) for x in args.size.split("x"))
     import torch
@@ -57,6 +73,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
+    if args.gop:
+        return gop_profile(w, h, 10 if args.preset is None else args.preset)
+    args.preset = 6 if args.preset is None else args.preset
     kinds = dict(
         clip=clips.natural_clip(1, w, h, chroma_noise=False)[0],
         screen=clips.screen_frame(w, h, seed=1))
@@ -112,6 +131,63 @@ def main():
                     filter_level_uv=fp.filter_level_uv,
                     cdef_strengths=fp.cdef_strengths)
         print(json.dumps(line), flush=True)
+    return 0
+
+
+FAMILIES = ("p1.hme", "p1.gm_fit", "p1.interp_pick", "p1.warp", "p1.pass_a",
+            "p1.compound", "p1.pass_b", "p1.merges", "p2")
+
+
+def gop_profile(w, h, preset):
+    """One inter frame of the fast GOP path, by op family (see the module
+    doc)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import clips
+    from svt_av1_tpu_torch.utils import kernel_profile
+    dispatch, collect = kernel_profile.inter_frame(
+        clips.natural_clip(9, w, h), w, h, preset)
+    frame = lambda: collect(dispatch())
+    for _ in range(2):
+        frame()
+    torch.cuda.synchronize()
+    hot = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        hot.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    fam = {}
+    for k in prof.key_averages():
+        if k.key not in FAMILIES:
+            continue
+        f = fam.setdefault(k.key, dict(calls=0))
+        dev = getattr(k, "device_time_total",
+                      getattr(k, "cuda_time_total", 0)) / 1000.0
+        if k.device_type == DeviceType.CPU:
+            # the host time inside the range, and the device time of the
+            # kernels its ops launched
+            f.update(calls=int(k.count), host_ms=k.cpu_time_total / 1000.0,
+                     kernel_ms=dev)
+        else:
+            # the range's span on the device timeline
+            f["device_span_ms"] = dev
+    kp = kernel_profile.device_kernels(frame, top=8)
+    med = float(np.median(hot))
+    dev_ms = kp["device_ms"]
+    print(json.dumps(dict(
+        mode="gop inter frame", size=f"{w}x{h}", preset=preset,
+        refs="LAST + ALTREF", hot_s_per_frame=hot,
+        kernel_launches=kp["launches"], copies=kp["copies"],
+        device_ms=dev_ms,
+        device_busy=(dev_ms / 1000.0 / med if dev_ms != "not measured"
+                     else dev_ms),
+        families=fam, top_kernels=kp["top_kernels"])), flush=True)
     return 0
 
 
