@@ -85,18 +85,18 @@ failure raises and exits non-zero:
      value lies within 1e-3 of a rounding boundary) and the wedge pick
      under its own (a differing option only where the float64 SSEs of the
      two picks lie within 1e-6 relative), ties counted;
- 18. the main path of this slice: the hierarchical GOP through
-     send_picture / flush on the default device, CIF x17 (key, 15, key),
-     hierarchical_levels 3, keyint 15, M10, qp 35, MCTF and TPL off, DLF +
-     CDEF; a warm run, then the timed run: fps, host dispatch seconds per
+ 18. the hierarchical GOP of the previous slice through send_picture /
+     flush on the default device, at a cut depth: CIF x9 (key and a
+     mini-GoP of 8), hierarchical_levels 3, keyint 15, M10, qp 35, MCTF
+     and TPL off, DLF + CDEF; no warm run: fps, host dispatch seconds per
      inter frame, the host stage seconds, the inter blocks by kind (inter,
      intra, compound, wedge, diffwtd, warp, merged), K1 launches > 0;
      every shown frame (show-existing ones included) decoded on the card
      equal to Packet.recon; one inter frame alone: P1 + P2 host seconds,
      collect seconds and its device kernels under torch.profiler (device
      busy share);
- 19. the same GOP at 1280x720 x9 (warmed on its first 3 frames), the
-     decode check over the first 5 shown frames;
+ 19. the same GOP at 1280x720 x5 (warmed on its first 2 frames), the
+     decode check over the 5 shown frames;
  20. 5-frame GOPs (hierarchical_levels 2) on the CPU against the card's,
      each decoded on its device and equal to Packet.recon: the natural
      clip at 96x96 (keyint 4), and the clips that code one tool each —
@@ -109,13 +109,36 @@ failure raises and exits non-zero:
      wedge-pick ties printed;
  21. M12 (no subpel ring, 4 intra modes): CIF x9 GOP, timed (no warm
      run), decoded;
- 22. K1 at any batch size the paths launched that phase 3 did not check
+ 22. the lookahead's device ops on the card against the port's CPU run
+     at CIF: satd and TPL's group stats (gop_fast.tpl_group_stats over a
+     key's 9-frame IPP chain and over a 3-level mini-GoP with its IPP
+     tail) exact; the temporal filter on 99 32x32 blocks (F = 3) and
+     mctf_filter_frame (the key's 2 neighbours, the base's 3) under the
+     pixel tie rule below, flips counted;
+ 23. the main path of this slice: the CIF x17 GOP (key, 15, key) of phase
+     18's structure with the reference's default tools, MCTF and TPL on
+     (delta-q key frames), M10, DLF + CDEF; a warm run decoded on the card
+     (every shown frame equal to Packet.recon), then the timed run with
+     recon_enabled off, as bench.py runs it: fps, host dispatch seconds
+     per inter frame, the seconds of the lookahead stages (key_tf,
+     key_tpl, gop_tf, gop_tpl, gop_tpl_synth), the key frames coded with
+     delta-q and their qindex range, its packets equal to the warm run's;
+     K1's launches must equal 56 waves x the frames that are not delta-q
+     key frames (840, 896 or 952), since a delta-q key frame takes the
+     per-block quantizer and the plain transform, as in the reference;
+ 24. the 7-frame 128x96 lookahead GOP of the CPU tests
+     (clips.split_motion_clip, M10, hierarchical_levels 2, keyint 4) on
+     the CPU against the card's, as in phase 20, with every MCTF call's
+     planes compared under the pixel tie rule (flips printed); the card's
+     stream must code a delta-q key frame;
+ 25. K1 at any batch size the paths launched that phase 3 did not check
      (checked and timed the same way); the sizes are recorded by the
      wrapper (fused_txq.batches) from the end of phase 4 on.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
-(pass B of every inter frame, and the key frames) must have launched it,
+(pass B of every inter frame, and the key frames without delta-q) must
+have launched it,
 the M6 send_picture paths do not run it (their luma step searches four tx
 types, as the reference's does without its kernel).
 
@@ -123,7 +146,10 @@ Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
 version's by at most 1, and only where its float64 value lies within 1e-2
 of a half-integer; qcoeff/dqcoeff must equal the plain quantizer applied
-to the kernel's own coefficients, exactly.
+to the kernel's own coefficients, exactly.  Pixel tie rule of MCTF (a
+float32 weighted average with exp weights, which CUDA and the CPU round
+differently in the last bit): a filtered pixel may differ by 1 only where
+its float64 value lies within 1e-3 of a half-integer.
 
 Bound of a K1 launch: the residual, the matrices and the quantizer
 constants read once and the three outputs written once, over 3.35 TB/s,
@@ -487,10 +513,12 @@ def phase_goldens():
 
 
 FILTERS = dict(enable_dlf_flag=1, cdef_level=1)
-# the bench's GOP structure at this slice's presets: 3-level mini-GoPs,
-# keyint 15, MCTF and TPL off
+# the bench's GOP structure at M10-M13: 3-level mini-GoPs, keyint 15,
+# MCTF and TPL off (the earlier slice's path) ...
 GOP = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=0,
            enable_tpl_la=0, **FILTERS)
+# ... and on (the reference's default tools: this slice's main path)
+LOOKAHEAD = dict(enable_tf=1, enable_tpl_la=1)
 
 
 def encode(frames, w, h, device, preset=10, batched=True, **filters):
@@ -929,11 +957,13 @@ def phase_cpu_vs_cuda_filters(frames, pkts_cuda, dec_cuda, hdr_cuda):
 
 # ------------------------------------------------- the GOP slice (17-21) ---
 
-def encode_gop(frames, w, h, device, preset=10, clip=None, **cfg):
+def encode_gop(frames, w, h, device, preset=10, clip=None,
+               recon_enabled=True, **cfg):
     """Packets of a GOP encode through send_picture / flush (qp 35 unless
     ``cfg`` sets it), under the setting of the tool clip ``clip``
     (clips.tool_setting: the iris clip's order hints off and wedge
-    priced out, as in the reference's test)."""
+    priced out, as in the reference's test).  recon_enabled=False: the
+    shown inter frames come without recon (what a benchmark times)."""
     import clips
     from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
     from svt_av1_tpu_torch.pipeline import gop_fast
@@ -941,6 +971,7 @@ def encode_gop(frames, w, h, device, preset=10, clip=None, **cfg):
                                             qp=35, enc_mode=preset),
                                        **dict(GOP, **cfg))),
                   device=device)
+    enc.recon_enabled = recon_enabled
     with clips.tool_setting(clip, enc, gop_fast):
         for f in frames:
             enc.send_picture(*f)
@@ -1108,14 +1139,15 @@ def _same_inter_block(a, b):
             and np.array_equal(a.qcoeff_y, b.qcoeff_y))
 
 
-def gop_cpu_vs_cuda(name, frames, need=None, **kw):
+def gop_cpu_vs_cuda(name, frames, need=None, tag="20", **kw):
     """One GOP encoded on the CPU and on the card, each decoded by the
     port's decoder on its device (every shown frame equal to
     Packet.recon): block agreement, bytes, identity; the frames whose GM
     model or interp pick differ and the wedge blocks whose option differs
     are the counted ties.  ``need``: a block kind of gop_block_counts that
     the card's stream must code at least once (the tool of a tool clip,
-    whose setting the encodes take)."""
+    whose setting the encodes take).  Returns the coded frames' (header,
+    decisions) of the CPU's and the card's stream."""
     h, w = frames[0][0].shape
     clip = name if need else None
     pc = encode_gop(frames, w, h, "cpu", clip=clip, **kw)
@@ -1141,7 +1173,7 @@ def gop_cpu_vs_cuda(name, frames, need=None, **kw):
                          if p.displayed]))
     identical = [p.data for p in pc] == [p.data for p in pg]
     n_c, n_g = gop_block_counts(cc_), gop_block_counts(cg)
-    log(f"phase 20: GOP {name} {w}x{h} x{len(frames)} M10 {kw}"
+    log(f"phase {tag}: GOP {name} {w}x{h} x{len(frames)} M10 {kw}"
         f"{' (order hints off, wedge priced out)' if name == 'iris' else ''}"
         f" cpu vs cuda:"
         f" {agree:.4%} of {tot} blocks equal, bytes {bc} vs {bg}, "
@@ -1156,6 +1188,7 @@ def gop_cpu_vs_cuda(name, frames, need=None, **kw):
     if need is not None and n_g[need] <= 0:
         raise AssertionError(f"the card's {name} stream codes no {need} "
                              "block")
+    return cc_, cg
 
 
 def phase_gop_cpu_vs_cuda():
@@ -1303,6 +1336,225 @@ def wedge_pick_ties(rng):
     return int(diff.sum())
 
 
+# ------------------------------------------- the lookahead slice (22-24) ---
+
+def waves_per_frame(w, h):
+    """The number of 2:1 waves of a w x h frame's 16x16 grid: K1's
+    launches per key frame with a frame quantizer, and per inter frame's
+    pass B."""
+    from svt_av1_tpu_torch.pipeline import intra_encoder
+    gh, gw = -(-h // 16), -(-w // 16)
+    return intra_encoder._schedule_arrays(
+        gh, gw, intra_encoder._natural_maxb(gh, gw))[1].shape[0]
+
+
+def minigop_group(srcs, n):
+    """The encoder's TPL group of the mini-GoP of n frames after anchor 0,
+    with an IPP tail of up to n frames: (sources, deps)."""
+    from svt_av1_tpu_torch.pipeline import gop, tpl
+    order, deps = tpl.minigop_group(0, gop.minigop_schedule(0, n),
+                                    range(n + 1, min(2 * n + 1, len(srcs))))
+    return [srcs[p] for p in order], deps
+
+
+def mctf_flips(center, neighbors, card_out, cpu_out):
+    """Flips of the card's MCTF planes against the CPU's under the pixel
+    tie rule (tests/tie_rule.py; the exact values from a float64 run on
+    the CPU): [luma, chroma]."""
+    import torch
+    import tie_rule
+    from svt_av1_tpu_torch.pipeline import tf_stage
+    exact = tf_stage.mctf_filter_frame(center, neighbors, device="cpu",
+                                       dtype=torch.float64, raw=True)
+    f = [tie_rule.pixel_flips(g, c, e)[0]
+         for g, c, e in zip(card_out, cpu_out, exact)]
+    return [f[0], f[1] + f[2]]
+
+
+def phase_lookahead_ops():
+    """The lookahead's device ops on the card against the port's CPU run
+    at CIF: SATD and TPL's group stats exact (a key's 9-frame IPP chain,
+    a 3-level mini-GoP with its 8-frame IPP tail), the temporal filter on
+    CIF's 99 32x32 blocks (F = 3) and mctf_filter_frame (the key's 2
+    neighbours, the base's 3) under the pixel tie rule, flips counted."""
+    import torch
+    import tie_rule
+    from svt_av1_tpu_torch.ops import satd
+    from svt_av1_tpu_torch.ops import tf as tf_ops
+    from svt_av1_tpu_torch.pipeline import gop_fast, tf_stage
+    rng = np.random.default_rng(23)
+    d = rng.integers(-255, 256, (396 * 4, 8, 8)).astype(np.int32)
+    d[:16] = 255
+    dt = torch.from_numpy(d)
+    if not torch.equal(satd.satd(dt), satd.satd(dt.cuda()).cpu()):
+        _fail("satd differs between cuda and cpu")
+    frames = synth_frames(17, *CIF)
+    srcs = [f[0] for f in frames]
+    groups = dict(key_chain=(srcs[:9], [None] + [[i] for i in range(8)]),
+                  minigop=minigop_group(srcs, 8))
+    t_tpl = {}
+    for name, (group, deps) in groups.items():
+        st_c = gop_fast.tpl_group_stats(group, deps, device="cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_g = gop_fast.tpl_group_stats(group, deps, device=None)
+        t_tpl[name] = time.perf_counter() - t0
+        for a, b in zip(st_c, st_g):
+            for k in ("intra", "inter", "mv", "ref_sel"):
+                if not np.array_equal(a[k], b[k]):
+                    _fail(f"tpl_group_stats {name} {k} differs between "
+                          "cuda and cpu")
+    tiles = lambda y: (y.reshape(9, 32, 11, 32).transpose(0, 2, 1, 3)
+                       .reshape(99, 32, 32).astype(np.int32))
+    center = tiles(srcs[8])
+    preds = np.stack([tiles(srcs[i]) for i in (7, 9, 6)], 1)
+    sq = (center[:, None].astype(np.int64) - preds) ** 2
+    berr = (np.stack([sq[..., :16, :16].sum((-2, -1)),
+                      sq[..., :16, 16:].sum((-2, -1)),
+                      sq[..., 16:, :16].sum((-2, -1)),
+                      sq[..., 16:, 16:].sum((-2, -1))], -1)
+            / 256.0).astype(np.float32)
+    mvs = rng.integers(-6, 7, (99, 3, 4, 2)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (center, preds, berr, mvs)]
+    f_c = tf_ops.temporal_filter(*args, decay_factor=80.0).numpy()
+    f_g = tf_ops.temporal_filter(*(a.cuda() for a in args),
+                                 decay_factor=80.0).cpu().numpy()
+    exact = tf_ops.temporal_filter(*args, decay_factor=80.0,
+                                   dtype=torch.float64, raw=True).numpy()
+    tf_flips = tie_rule.pixel_flips(f_g, f_c, exact)[0]
+    mctf = {}
+    for name, (c, nb) in dict(key=(0, (1, 2)), base=(8, (7, 9, 6))).items():
+        neighbors = [frames[i] for i in nb]
+        out_c = tf_stage.mctf_filter_frame(frames[c], neighbors,
+                                           device="cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_g = tf_stage.mctf_filter_frame(frames[c], neighbors, device=None)
+        t = time.perf_counter() - t0
+        mctf[name] = (mctf_flips(frames[c], neighbors, out_g, out_c), t)
+    log(f"phase 22: lookahead ops cuda vs cpu at CIF: satd on {len(d)} "
+        f"8x8 blocks exact; tpl_group_stats exact over the key chain (9 "
+        f"frames) and the mini-GoP (17 frames, 23 references), "
+        f"{t_tpl['key_chain']:.3f} / {t_tpl['minigop']:.3f} s on the card "
+        f"(first calls); temporal_filter on 99 32x32 blocks F=3 flips "
+        f"(pixel tie rule, exact value within 1e-3 of .5) {tf_flips}; "
+        f"mctf_filter_frame flips [luma, chroma] key (F=2) "
+        f"{mctf['key'][0]}, base (F=3) {mctf['base'][0]}, "
+        f"{mctf['key'][1]:.3f} / {mctf['base'][1]:.3f} s on the card")
+
+
+def phase_lookahead_gop(card, frames):
+    """This slice's main path: the CIF GOP with the lookahead on (MCTF and
+    TPL, delta-q key frames), M10, DLF + CDEF, through send_picture /
+    flush on the default device.  A warm run, decoded on the card (every
+    shown frame equal to Packet.recon); then the timed run with
+    recon_enabled off (as bench.py runs it), K1's count set to 0 before
+    and read after: its packets must equal the warm run's, and K1's
+    launches must equal the waves of every frame that is not a delta-q
+    key frame (such a frame takes the per-block quantizer and the plain
+    transform, as in the reference)."""
+    import torch
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    w, h = CIF
+    warm = encode_gop(frames, w, h, None, **LOOKAHEAD)
+    t1 = time.perf_counter()
+    coded, shown = gop_decode_check(warm, None)
+    dec_s = time.perf_counter() - t1
+    keys = [(fp, dec) for fp, dec in coded if fp.frame_type == obu.KEY_FRAME]
+    dq = [(fp, dec) for fp, dec in keys if fp.delta_q_present]
+    qrange = [(fp.base_q_idx, min(b.qindex for b in dec.values()),
+               max(b.qindex for b in dec.values())) for fp, dec in dq]
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode_gop(frames, w, h, None, recon_enabled=False, **LOOKAHEAD)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fused_txq.launches
+    stages = profiling.stage_stats()
+    if [p.data for p in pkts] != [p.data for p in warm]:
+        _fail("the timed lookahead GOP differs from the warm run")
+    if any(p.recon is not None for p in pkts
+           if p.frame_type == obu.INTER_FRAME):
+        _fail("recon_enabled=False still copied inter-frame recon")
+    waves = waves_per_frame(w, h)
+    want = waves * (len(coded) - len(dq))
+    if launches != want:
+        _fail(f"fused_txq launched {launches} times, {want} predicted "
+              f"({waves} waves x {len(coded)} coded frames, {len(dq)} of "
+              "them delta-q key frames)")
+    n_inter = sum(1 for p in pkts if p.frame_type == obu.INTER_FRAME
+                  and len(p.data) > 8)
+    per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / max(n_inter, 1)
+    sec = {k: round(v[0], 3) for k, v in sorted(stages.items())}
+    la = {k: (round(stages[k][0], 3), stages[k][1])
+          for k in ("key_tf", "key_tpl", "gop_tf", "gop_tpl",
+                    "gop_tpl_synth") if k in stages}
+    nbytes = sum(len(p.data) for p in pkts)
+    disp = sorted((p for p in warm if p.displayed), key=lambda p: p.pts)
+    mpsnr = float(np.mean([psnr(frames[p.pts][0], p.recon["y"])
+                           for p in disp]))
+    log(f"phase 23: the main path: GOP {w}x{h} x{len(frames)} M10 qp35 "
+        f"hierarchical_levels 3 keyint 15 MCTF + TPL DLF + CDEF through "
+        f"send_picture / flush on the default device "
+        f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
+        f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s; {len(keys)} key, "
+        f"{n_inter} inter packets), {per_inter:.3f} s host dispatch per "
+        f"inter frame, {nbytes} bytes, mean Y-PSNR {mpsnr:.4f} dB (warm "
+        f"run); lookahead stage seconds (total, calls) {la}; all host "
+        f"stage seconds {sec}; delta-q key frames {len(dq)} of "
+        f"{len(keys)} (base qindex, qmap min, max) {qrange} (the bench "
+        f"clip moves uniformly, so TPL may find every superblock alike; "
+        f"phase 24 codes delta-q on the card); fused_txq "
+        f"launches {launches} = {waves} waves x {len(coded) - len(dq)} "
+        f"frames without delta-q (of 840 / 896 / 952 for 2 / 1 / 0 "
+        f"delta-q key frames) ({card}); the warm run decoded on the "
+        f"default device matches recon over {shown} shown frames "
+        f"({dec_s:.1f} s); the timed run's packets equal the warm run's")
+    return pkts, launches
+
+
+def phase_lookahead_cpu_vs_cuda():
+    """The 7-frame 128x96 lookahead GOP of tests/test_torch_lookahead.py
+    (clips.split_motion_clip, M10, hierarchical_levels 2, keyint 4, MCTF +
+    TPL) on the CPU and on the card (gop_cpu_vs_cuda), every MCTF call's
+    planes compared under the pixel tie rule; the card's stream must code
+    a delta-q key frame."""
+    import clips
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.pipeline import tf_stage
+    frames = clips.split_motion_clip(7)
+    calls = []
+    orig = tf_stage.mctf_filter_frame
+
+    def record(center, neighbors, *a, **k):
+        out = orig(center, neighbors, *a, **k)
+        calls.append((center, neighbors, out))
+        return out
+
+    tf_stage.mctf_filter_frame = record
+    try:
+        _, coded_g = gop_cpu_vs_cuda(
+            "split_motion", frames, tag="24", hierarchical_levels=2,
+            intra_period_length=4, **LOOKAHEAD)
+    finally:
+        tf_stage.mctf_filter_frame = orig
+    half = len(calls) // 2                  # the CPU's calls, then the card's
+    flips = [mctf_flips(c[0], c[1], g[2], c[2])
+             for c, g in zip(calls[:half], calls[half:])]
+    dq = sum(fp.delta_q_present for fp, _ in coded_g
+             if fp.frame_type == obu.KEY_FRAME)
+    log(f"phase 24: the lookahead GOP's {half} MCTF calls cuda vs cpu, "
+        f"flips [luma, chroma] {flips}; delta-q key frames on the card "
+        f"{dq}")
+    if len(calls) != 2 * half or not dq:
+        _fail("the card's lookahead GOP is not the CPU's (MCTF calls) or "
+              "codes no delta-q key frame")
+
+
 def _fail(msg):
     raise AssertionError(msg)
 
@@ -1385,18 +1637,25 @@ def main():
     phase_cpu_vs_cuda_filters([key_cif[0], key_cif[2]], [pk_f[0], pk_f[2]],
                               [dec_f[0], dec_f[2]], [hdr_f[0], hdr_f[2]])
 
-    # the GOP slice: the bench's structure at M10-M13, MCTF and TPL off
+    # the GOP slice of the earlier PR (MCTF and TPL off) at a cut depth:
+    # CIF x9 and 720p x5, no warm run at CIF
     phase_motion_ops()
     cif17 = synth_frames(17, *CIF)
-    _, _, launches, prof_cif = phase_gop("18", cif17, *CIF, card)
-    by_path["M10 GOP CIF x17"] = launches
-    by_path["M10 GOP 720p x9"] = phase_gop(
-        "19", synth_frames(9, *HD), *HD, card, warm=3, shown_limit=5,
+    by_path["M10 GOP CIF x9"] = phase_gop("18", cif17[:9], *CIF, card,
+                                          warm=0)[2]
+    by_path["M10 GOP 720p x5"] = phase_gop(
+        "19", synth_frames(5, *HD), *HD, card, warm=2, shown_limit=5,
         profile=False)[2]
     phase_gop_cpu_vs_cuda()
     by_path["M12 GOP CIF x9"] = phase_gop("21", cif17[:9], *CIF, card,
                                           preset=12, warm=0,
                                           profile=False)[2]
+
+    # this slice: the lookahead (MCTF, TPL, delta-q key frames)
+    phase_lookahead_ops()
+    _, launches = phase_lookahead_gop(card, cif17)
+    by_path["M10 GOP MCTF+TPL CIF x17"] = launches
+    phase_lookahead_cpu_vs_cuda()
 
     # every batch size that a path gave K1 must have been checked against
     # the plain version; a size that phase 3 did not foresee is checked now
@@ -1404,8 +1663,8 @@ def main():
                        - {r["b"] for r in krec["by_batch"]})
     rng = np.random.default_rng(22)
     for b in unchecked:
-        check_txq(b, card, rng, krec, tag="22")
-    log(f"phase 22: K1 batch sizes launched by the paths "
+        check_txq(b, card, rng, krec, tag="25")
+    log(f"phase 25: K1 batch sizes launched by the paths "
         f"{sorted(fused_txq.batches)}; checked in phase 3 "
         f"{[r['b'] for r in krec['by_batch'] if r['driven']]}; checked "
         f"now {unchecked}")
@@ -1417,8 +1676,9 @@ def main():
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the M10 GOP at CIF, the time at its pass-B batch (one
-    # frame x 11 wave slots x 6 modes); every size is under by_batch
+    # launches of the M10 lookahead GOP at CIF, the time at its pass-B
+    # batch (one frame x 11 wave slots x 6 modes); every size is under
+    # by_batch
     b0 = next(r for r in krec["by_batch"]
               if r["b"] == k1_batch(1, CIF, 10))
     print(smi, flush=True)

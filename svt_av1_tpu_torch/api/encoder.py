@@ -12,10 +12,10 @@ Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and frame-uniform CDEF
 on or off, and LR, superres and film grain off; either all-intra
 (intra_period_length -2 or 0) at presets M5-M13, or the hierarchical
 (random-access) GOP of the reference's fast path at presets M10-M13 with
-hierarchical_levels 1-3, intra_period_length > 0 and MCTF and TPL off
-(enable_tf=0, enable_tpl_la=0).  Any other configuration raises
-NotImplementedError naming the ROADMAP.md item that brings it; nothing
-falls back to the JAX package.
+hierarchical_levels 1-3 and intra_period_length > 0, with or without the
+lookahead (MCTF, enable_tf; TPL, enable_tpl_la).  Any other
+configuration raises NotImplementedError naming the ROADMAP.md item that
+brings it; nothing falls back to the JAX package.
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
@@ -25,6 +25,16 @@ them); each inter frame runs the two device programs of
 pipeline/gop_fast.py, every frame of the mini-GoP dispatched before the
 first is entropy-coded.  The DPB's recon stays on the device; a slot is
 freed after its last use in the mini-GoP.
+
+The lookahead, as in the reference: MCTF (pipeline/tf_stage.py) filters
+each key frame's source against its next two frames and each mini-GoP
+base's against up to three neighbours before they are coded.  With TPL
+a key frame waits until a mini-GoP of frames follows it; TPL
+(gop_fast.tpl_group_stats, pipeline/tpl.py) over the key's IPP chain
+sets its qindex (rate_control.crf_qindex_calc) and a per-64x64 qindex
+map, coded as delta-q where it is not uniform; TPL over each mini-GoP in
+decode order, with an IPP tail into the next one, sets every frame's
+qindex from its r0.
 
 ``send_picture`` codes one key frame at a time with the preset's whole
 tool set (at M5-M8: tx-type search, angle deltas, CfL, palette on screen
@@ -58,10 +68,11 @@ from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import mv_pred
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
 from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
-                                        intra_encoder)
+                                        intra_encoder, tf_stage, tpl)
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
+                                                     crf_qindex_calc,
                                                      qp_to_qindex)
 from svt_av1_tpu_torch.utils import profiling
 from svt_av1_tpu_torch.utils.profiling import stage
@@ -99,9 +110,6 @@ def _unsupported(cfg: EncoderConfig):
                   or cfg.intra_period_length < 0),
          "GOPs with hierarchical_levels 4-5 or intra_period_length -1",
          "queue A item 7"),
-        (gop and cfg.enable_tf > 0, "MCTF (enable_tf)", "queue A item 5"),
-        (gop and cfg.enable_tpl_la > 0, "TPL (enable_tpl_la)",
-         "queue A item 5"),
         (gop and 5 <= cfg.enc_mode < 10,
          f"GOPs at preset M{cfg.enc_mode} (OBMC, inter-intra, the 8x8 "
          "split, TMVP, the inter tx search and the third reference)",
@@ -195,6 +203,10 @@ class Encoder:
         fps = (config.frame_rate_numerator
                / max(config.frame_rate_denominator, 1))
         self._rc = RateControlState.create(config, fps)
+        self._arf_q = None   # base-layer ratio qindex (crf_qindex_calc)
+        # callers that do not read Packet.recon (a benchmark) turn this
+        # off: shown GOP frames then skip the host copy of their recon
+        self.recon_enabled = True
         # scene-cut detector state (all GOP modes)
         self._prev_hist = None
         self._ahd_running = None
@@ -215,6 +227,7 @@ class Encoder:
             self._slot_recon: Dict[int, Dict] = {}  # slot -> device planes
             self._slot_state: Dict[int, tuple] = {}  # slot -> (cdfs, nmv)
             self._slot_hint = [0] * 8
+            self._h_anchor_src = None  # the anchor's padded source luma (TPL)
             # order hints let skip mode pick the (fwd, bwd) pair
             self.sp.enable_order_hint = True
             self.sp.enable_ref_frame_mvs = bool(self._feat.tmvp)
@@ -267,12 +280,14 @@ class Encoder:
         self._rc.feedback(len(pkt.data) * 8, qindex, True)
         return pkt
 
-    def _mode_decision(self, y, u, v, qindex):
+    def _mode_decision(self, y, u, v, qindex, qmap=None):
         """Palette candidates and the frame program with the preset's
         tools for one padded frame: (decisions, recon on the device,
-        whether the frame turns the screen-content tools on)."""
+        whether the frame turns the screen-content tools on).  qmap: the
+        per-64x64 qindex map of a delta-q key frame (no palette then, as
+        in the reference)."""
         pal_cands = None
-        if self.sp.enable_screen_content:
+        if self.sp.enable_screen_content and qmap is None:
             with stage("palette_md"):
                 pal_cands = intra_encoder.palette_md_candidates(
                     y, qindex, device=self.device)
@@ -283,12 +298,13 @@ class Encoder:
                 angle_deltas=self._feat.angle_deltas, cfl=self._feat.cfl,
                 exact_rates=(self._feat.exact_rates
                              and self._feat.exact_rates_intra),
-                palette_cands=pal_cands, device=self.device)
+                palette_cands=pal_cands, qmap=qmap, device=self.device)
         return decisions, recon, pal_cands is not None
 
     def _packetize(self, decisions, recon, qindex, pts,
                    allow_sct: bool = False, src=None, prefilt=None,
-                   return_state: bool = False) -> Packet:
+                   return_state: bool = False,
+                   delta_q: bool = False) -> Packet:
         """In-loop filters + entropy coding + OBU assembly for one key
         frame from per-block decisions.  allow_sct: the frame has palette
         candidates, so it turns the screen-content tools on.  src: the
@@ -297,7 +313,9 @@ class Encoder:
         zero strengths, as in the reference.  prefilt: the (recon,
         deblocked, header fields, cdef map) of gop_fast.run_key_filters,
         which has filtered the frame already.  return_state: also return
-        the filtered recon and the tile encoder (its end-of-frame CDFs)."""
+        the filtered recon and the tile encoder (its end-of-frame CDFs).
+        delta_q: the decisions carry per-block qindex values (a TPL qmap),
+        coded as delta-q at delta_q_res 2."""
         fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
                              base_q_idx=qindex,
                              render_width=self.render_w,
@@ -319,6 +337,10 @@ class Encoder:
         tenc.enable_filter_intra = self.sp.enable_filter_intra
         tenc.allow_palette = bool(fp.allow_screen_content_tools)
         tenc.bit_depth = 8
+        if delta_q:
+            fp.delta_q_present = True
+            fp.delta_q_res = 2
+            tenc.set_delta_q(fp.delta_q_res)
         with stage("host_ec"):
             tile_data = tenc.encode(decisions)
         if not fp.disable_frame_end_update_cdf:
@@ -377,11 +399,12 @@ class Encoder:
         per-block route, whose packetization has no source, so DLF takes
         the heuristic level and CDEF is signaled with zero strengths."""
         if self._hier:
-            # a GOP with inter frames: the sequential path
+            # a GOP with inter frames: the sequential path; eos drains the
+            # last (partial) mini-GoP as send_picture(..., eos=True) does
             for (y, u, v) in frames:
                 self.send_picture(y, u, v)
             if eos:
-                self._eos_sent = True
+                self.flush()
             return
         qindex = self._rc.frame_qindex()
         arrays_ok = qindex > 0 and not self.sp.enable_cdef
@@ -452,7 +475,9 @@ class Encoder:
                       recon=self._host_recon(recon))
 
     def _host_recon(self, recon):
-        """Device planes cropped to the render size, copied to the host."""
+        """Device planes cropped to the render size, copied to the host
+        (key frames always; shown GOP inter and show-existing frames only
+        with ``recon_enabled``, as in the reference)."""
         ch, cw = (self.render_h + 1) // 2, (self.render_w + 1) // 2
         return dict(
             y=recon["y"][:self.render_h, :self.render_w].cpu().numpy(),
@@ -464,6 +489,10 @@ class Encoder:
         period = self.cfg.intra_period_length
         return poc == 0 or poc in self._h_cuts or poc % (period + 1) == 0
 
+    def _tf_active(self) -> bool:
+        return (self.cfg.enable_tf > 0
+                and self.cfg.intra_period_length not in (-2, 0))
+
     def _drain_hier(self, flush: bool):
         """Schedule complete mini-GoPs from the lookahead (pd_process.c
         mini-GoP assembly)."""
@@ -473,6 +502,14 @@ class Encoder:
             if p0 not in self._h_frames:
                 return
             if self._h_anchor is None or self._is_key_poc(p0):
+                if self.cfg.enable_tpl_la and not flush:
+                    # hold the key until its TPL lookahead is in
+                    la = 0
+                    while (p0 + 1 + la in self._h_frames
+                           and not self._is_key_poc(p0 + 1 + la)):
+                        la += 1
+                    if la < N:
+                        return
                 self._encode_key_job(p0)
                 self._h_sched = p0 + 1
                 continue
@@ -504,13 +541,44 @@ class Encoder:
                           pkt.frame_type == obu.KEY_FRAME, layer)
 
     def _encode_key_job(self, poc: int):
-        """A GOP key frame: the preset's intra MD, the filters (the fused
-        key-filter program when DLF is off and CDEF on, else the stage
-        path), packetization; the frame becomes the only DPB entry."""
-        y, u, v = self._pad(*self._h_frames.pop(poc))
-        qindex = self._rc.frame_qindex()
-        qindex = max(1, qindex - qindex // self._feat.kf_boost_div)
-        decisions, recon, allow_sct = self._mode_decision(y, u, v, qindex)
+        """A GOP key frame: MCTF against its next two frames, TPL over its
+        IPP chain (its qindex and delta-q map), the preset's intra MD, the
+        filters (the fused key-filter program when DLF is off and CDEF on,
+        else the stage path), packetization; the frame becomes the only
+        DPB entry."""
+        y, u, v = self._h_frames.pop(poc)
+        if self._tf_active():
+            neighbors = [self._h_frames[p] for p in (poc + 1, poc + 2)
+                         if p in self._h_frames]
+            if neighbors:
+                with stage("key_tf"):
+                    y, u, v = tf_stage.mctf_filter_frame(
+                        (y, u, v), neighbors, device=self.device)
+        y, u, v = self._pad(y, u, v)
+        qindex = self._base_q_for(poc)
+        qmap = None
+        if self.cfg.enable_tpl_la:
+            # TPL over the key + lookahead IPP chain: how much does the
+            # future lean on this key frame (and on which of its SBs)?
+            chain = [y]
+            for p in range(poc + 1, poc + 1 + (1 << self._hier)):
+                if p not in self._h_frames or self._is_key_poc(p):
+                    break
+                chain.append(self._pad(*self._h_frames[p])[0])
+            deps = [None] + [[i - 1] for i in range(1, len(chain))]
+            with stage("key_tpl"):
+                stats = gop_fast.tpl_group_stats(chain, deps,
+                                                 device=self.device)
+            dep0 = tpl.synthesize(stats, deps)[0]
+            qindex, self._arf_q = crf_qindex_calc(
+                qindex, tpl.r0_of(stats[0], dep0), 0, self._hier, True)
+            qmap = tpl.beta_qmap(stats[0], dep0, qindex)
+            if np.all(qmap == qindex):
+                qmap = None
+        else:
+            qindex = max(1, qindex - qindex // self._feat.kf_boost_div)
+        decisions, recon, allow_sct = self._mode_decision(y, u, v, qindex,
+                                                          qmap)
         prefilt = None
         dlf_wants = bool(self.cfg.enable_dlf_flag)
         if ((dlf_wants or self.sp.enable_cdef)
@@ -527,7 +595,9 @@ class Encoder:
         with stage("key_packetize"):
             pkt, full, tenc = self._packetize(
                 decisions, recon, qindex, poc, allow_sct=allow_sct,
-                src=dict(y=y, u=u, v=v), prefilt=prefilt, return_state=True)
+                src=dict(y=y, u=u, v=v), prefilt=prefilt, return_state=True,
+                delta_q=qmap is not None)
+        self._h_anchor_src = y
         # key refresh: the map keeps the key in slot 0 only
         self._dpb = {poc: 0}
         self._slot_free = set(range(1, 8))
@@ -537,15 +607,39 @@ class Encoder:
         self._h_anchor = poc
         self._finish_packet(pkt, qindex)
 
+    def _base_q_for(self, poc: int) -> int:
+        """The configured (CQP/CRF) qindex: the only branch of the
+        reference's per-frame base q that the slice reaches."""
+        return self._rc.frame_qindex()
+
     def _encode_minigop(self, p0: int, n: int):
-        """Code the mini-GoP after the anchor: every inter frame's device
-        programs are dispatched first (the recon chain stays on the
-        device), then each is collected and entropy-coded in decode
-        order.  A DPB slot is freed after its last use."""
+        """Code the mini-GoP after the anchor: MCTF of its base, TPL over
+        it (the frames' qindex), then every inter frame's device programs
+        are dispatched (the recon chain stays on the device), then each
+        is collected and entropy-coded in decode order.  A DPB slot is
+        freed after its last use."""
         anchor = self._h_anchor
         assert anchor == p0 - 1
         events = gop.minigop_schedule(anchor, n)
         end_poc = anchor + n
+        if self._tf_active() and n >= 2:
+            # MCTF of the mini-GoP base (the alt-ref role, pd_process.c,
+            # temporal_filtering.c): every other frame of the pyramid
+            # predicts from it.  Neighbours: the adjacent sources on both
+            # sides still in the lookahead window.
+            neigh = [self._h_frames[p]
+                     for p in (end_poc - 1, end_poc + 1, end_poc - 2,
+                               end_poc + 2)
+                     if p in self._h_frames and not self._is_key_poc(p)]
+            if neigh:
+                with stage("gop_tf"):
+                    self._h_frames[end_poc] = tf_stage.mctf_filter_frame(
+                        self._h_frames[end_poc], neigh[:3],
+                        device=self.device)
+        base_q = self._base_q_for(p0)
+        tpl_r0 = None
+        if self.cfg.enable_tpl_la:
+            tpl_r0 = self._minigop_tpl(anchor, p0, n, events)
         last_use: Dict[int, int] = {}
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
@@ -554,11 +648,22 @@ class Encoder:
                     last_use[ev.bwd_poc] = i
             else:
                 last_use[ev.poc] = i
-        base_q = self._rc.frame_qindex()
         records = []
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
-                q = gop.layer_qindex(base_q, ev.layer, self._hier + 1)
+                if tpl_r0 is not None:
+                    # the reference's CRF model (rc_process.c): the base
+                    # scales its qstep by sqrt(r0), mid layers interpolate
+                    # from the base's q toward cq, leaves code at cq
+                    q, arf = crf_qindex_calc(
+                        base_q, tpl_r0[ev.poc], ev.layer, self._hier,
+                        False, arf_q=self._arf_q,
+                        ref_layer=max(0, ev.layer - 1),
+                        is_leaf=ev.layer >= self._hier)
+                    if ev.layer == 0:
+                        self._arf_q = arf
+                else:
+                    q = gop.layer_qindex(base_q, ev.layer, self._hier + 1)
                 with stage("dispatch_inter"):
                     records.append(self._dispatch_inter_fast(ev, q))
             else:
@@ -576,6 +681,32 @@ class Encoder:
             else:
                 self._collect_inter_fast(rec)
         self._h_anchor = end_poc
+
+    def _minigop_tpl(self, anchor: int, p0: int, n: int, events):
+        """TPL over the anchor and the mini-GoP along both pyramid edges
+        (LAST + ALTREF), in decode order so that the reverse pass sees
+        every child before its reference, extended by an IPP tail into
+        the next mini-GoP so that the next anchor earns its credit (the
+        reference's lad_mg window).  Returns {poc: r0}."""
+        src_of = {anchor: self._h_anchor_src}
+        for p in range(p0, p0 + n):
+            src_of[p] = self._pad(*self._h_frames[p])[0]
+        end_poc = anchor + n
+        tail = []
+        for p in range(end_poc + 1, end_poc + 1 + n):
+            if p not in self._h_frames or self._is_key_poc(p):
+                break
+            src_of[p] = self._pad(*self._h_frames[p])[0]
+            tail.append(p)
+        order, deps = tpl.minigop_group(anchor, events, tail)
+        with stage("gop_tpl"):
+            stats = gop_fast.tpl_group_stats([src_of[p] for p in order],
+                                             deps, device=self.device)
+        with stage("gop_tpl_synth"):
+            mc_dep = tpl.synthesize(stats, deps)
+        self._h_anchor_src = src_of[end_poc]
+        return {p: tpl.r0_of(stats[i], mc_dep[i])
+                for i, p in enumerate(order)}
 
     def _dispatch_inter_fast(self, ev, qindex: int):
         """Run P1 + P2 of one inter frame and register its device recon as
@@ -629,15 +760,16 @@ class Encoder:
         if ev.store:
             self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
         pkt.displayed = ev.shown
-        if ev.shown:
+        if ev.shown and self.recon_enabled:
             pkt.recon = self._host_recon(recon_dev)
         self._finish_packet(pkt, qindex, ev.layer)
 
     def _emit_show_existing_fast(self, poc: int, slot: int, recon_dev):
         data = obu.temporal_delimiter() + obu.write_show_existing(slot)
-        self._packets.append(Packet(data=data, pts=poc,
-                                    frame_type=obu.INTER_FRAME,
-                                    recon=self._host_recon(recon_dev)))
+        self._packets.append(Packet(
+            data=data, pts=poc, frame_type=obu.INTER_FRAME,
+            recon=(self._host_recon(recon_dev) if self.recon_enabled
+                   else None)))
 
     def _packetize_fast(self, decisions, header, qindex, ev, last_slot,
                         slot, idx, ref_hints):

@@ -6,7 +6,8 @@ the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
 ``TileDecoder``).  The 8 DPB slots keep their frame's planes on ``device``
 (default: the current CUDA device) with its saved CDFs, MV context and
 order hint; show_existing_frame outputs a slot.  Key frames reconstruct
-through ``reconstruct_from_decisions``, inter frames through
+through ``reconstruct_from_decisions`` (each block at its own qindex
+where the frame codes delta-q), inter frames through
 ``reconstruct_inter_from_decisions`` (translational, GLOBALMV warp,
 compound average / wedge / diffwtd, skip mode, the merged skip leaves),
 followed by DLF at the header's levels (mask-aware where block sizes are
@@ -93,11 +94,10 @@ class Decoder:
         if n_tiles > 1:
             raise NotImplementedError("tiles: ROADMAP.md queue A item 7")
         if (self.sp.bit_depth != 8 or self.sp.enable_restoration
-                or fp.superres_denom != 8 or fp.segmentation is not None
-                or fp.delta_q_present):
+                or fp.superres_denom != 8 or fp.segmentation is not None):
             raise NotImplementedError(
-                "10-bit, LR, superres, segmentation and delta-q: "
-                "ROADMAP.md queue A item 7")
+                "10-bit, LR, superres and segmentation: ROADMAP.md queue A "
+                "item 7")
         if fp.cdef_bits:
             raise NotImplementedError(
                 "per-SB CDEF strengths (cdef_bits > 0): ROADMAP.md queue A "
@@ -137,6 +137,8 @@ class Decoder:
             tdec.cur_hint = fp.order_hint
             tdec.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}
             tdec.order_hint_bits = self.sp.order_hint_bits
+        if fp.delta_q_present:
+            tdec.set_delta_q(fp.delta_q_res)
         decisions = tdec.decode(tile_data)
         if is_intra:
             # mixed block sizes (varpart leaves) raise here, naming their

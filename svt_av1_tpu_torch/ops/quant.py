@@ -112,7 +112,10 @@ def _dc_select(h: int, w: int, device) -> torch.Tensor:
 
 
 def _pick(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """(2,) DC/AC constants -> (H, W) field."""
+    """(2,) DC/AC constants -> (H, W) field; (B, 2) per-block rows (the
+    adaptive-quantization path) -> (B, H, W)."""
+    if arr.dim() == 2:
+        return torch.where(sel, arr[:, 0, None, None], arr[:, 1, None, None])
     return torch.where(sel, arr[0], arr[1])
 
 
@@ -120,7 +123,8 @@ def quantize(coeffs: torch.Tensor, qp: QuantParams, tx_size: int):
     """Quantize batched coefficient blocks.
 
     coeffs: (B, H, W) int32 in the transform domain (coded region);
-    qp: QuantParams of int32 (2,) tensors on the coeffs' device.
+    qp: QuantParams of int32 (2,) tensors on the coeffs' device, or of
+    (B, 2) rows, one per block.
     Returns (qcoeff, dqcoeff), each (B, H, W) int32; dqcoeff is the
     normative dequantized value, so inv_txfm2d_add(dqcoeff, ...) is the
     decoder's reconstruction.  All products stay below 2^31: |tmp| is

@@ -50,6 +50,7 @@ from svt_av1_tpu_torch.ops import warp as warp_ops
 from svt_av1_tpu_torch.ops import wedge as wedge_ops
 from svt_av1_tpu_torch.pipeline import cdef_stage
 from svt_av1_tpu_torch.pipeline import me as me_pipe
+from svt_av1_tpu_torch.pipeline import tpl as tpl_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import _ladder, default_filter_level
 from svt_av1_tpu_torch.pipeline.inter_encoder import _SUBPEL_RING, _mv_bits
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
@@ -1056,6 +1057,89 @@ def dlf_ladder_params(qindex: int, chroma: bool) -> np.ndarray:
     out = np.zeros((NLVL, 4), np.int32)
     for i, l in enumerate(lvls):
         out[i] = (l,) + tuple(dlf_ops.loop_filter_thresholds(max(l, 1)))
+    return out
+
+
+# --------------------------------------------------------------------------
+# batched TPL (a whole lookahead group, one host copy)
+# --------------------------------------------------------------------------
+
+def tpl_group(srcs, deps):
+    """The TPL dispenser over a lookahead group (the reference's
+    _jit_tpl_group program): srcs (n, h, w) uint8 on a device, deps[i] a
+    tuple of reference indices into the group (empty: an intra anchor).
+    Per dependent frame and reference an HME at the TPL radii, its MVs
+    clamped, the inter SATD at them; per block the cheapest reference
+    wins (first on equal cost).  Returns (n, nb, 5) int32: intra cost,
+    best inter cost (0 for an anchor), MV row / col and the winning
+    reference's position in deps[i]."""
+    ne, h, w = srcs.shape
+    gh, gw = h // BLK, w // BLK
+    nb = gh * gw
+    h64 = (h + 63) & ~63
+    w64 = (w + 63) & ~63
+    hme_run = me_pipe.hme_core(h64, w64, 8, 8, 4)
+    costs = tpl_mod.tpl_costs_core(h, w)
+    dev = srcs.device
+    ar = torch.arange(nb, device=dev)
+    ys, xs = ar // gw * BLK, ar % gw * BLK
+    srcs = srcs.to(torch.int32)
+    zero = torch.zeros(nb, dtype=torch.int32, device=dev)
+    out = []
+    for i, dep in enumerate(deps):
+        src = srcs[i]
+        ic, _ = costs(src)
+        best = (zero, torch.zeros((nb, 2), dtype=torch.int32, device=dev),
+                zero)
+        if dep:
+            src64 = _edge_pad_to(src, h64, w64)
+            for ri, j in enumerate(dep):
+                ref = srcs[j]
+                mvy, mvx, _ = hme_run(src64, _edge_pad_to(ref, h64, w64))
+                mvs = torch.stack([mvy[:gh, :gw].reshape(nb) * 8,
+                                   mvx[:gh, :gw].reshape(nb) * 8], dim=-1)
+                mvs = _clamp_cands(mvs[:, None], ys, xs, BLK, h,
+                                   w)[:, 0].to(torch.int32)
+                _, ec = costs(src, mc.pad_plane(ref, mc.PAD), mvs,
+                              intra=False)
+                if ri == 0:
+                    best = (ec, mvs, zero)
+                else:
+                    take = ec < best[0]
+                    best = (torch.where(take, ec, best[0]),
+                            torch.where(take[:, None], mvs, best[1]),
+                            torch.where(take, ri, best[2]))
+        out.append(torch.cat([ic[:, None], best[0][:, None], best[1],
+                              best[2][:, None]], dim=1).to(torch.int32))
+    return torch.stack(out)
+
+
+def tpl_group_stats(srcs, deps, device=None):
+    """TPL dispenser stats of a lookahead group on ``device`` (default:
+    the current CUDA device): srcs = [(h, w) uint8 arrays], deps[i] a
+    list or None of reference indices.  Returns the per-frame dicts that
+    tpl.synthesize takes, brought to the host in one copy.  The costs are
+    integer SATDs below 2^24; the reference holds them in float32 and
+    returns them as float64, as here."""
+    dev = device_mod.resolve(device)
+    h, w = srcs[0].shape
+    gh, gw = h // BLK, w // BLK
+    key = tuple(tuple(d) if d else () for d in deps)
+    packed = torch.from_numpy(np.stack([np.asarray(s, np.uint8)
+                                        for s in srcs])).to(dev)
+    res = tpl_group(packed, key).cpu().numpy()
+    out = []
+    for i, dep in enumerate(key):
+        st = dict(intra=res[i, :, 0].astype(np.float64), gh=gh, gw=gw)
+        if not dep:
+            st.update(inter=np.full(gh * gw, np.inf),
+                      mv=np.zeros((gh * gw, 2), np.int32),
+                      ref_sel=np.zeros(gh * gw, np.int32))
+        else:
+            st.update(inter=res[i, :, 1].astype(np.float64),
+                      mv=np.ascontiguousarray(res[i, :, 2:4]),
+                      ref_sel=res[i, :, 4].copy())
+        out.append(st)
     return out
 
 

@@ -347,7 +347,9 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     into ``recon`` (in place) for the slots ``sel``.
 
     recon/src: (F, H, W) int32; fi/ys/xs: (B,) frame index and pixel
-    coordinates; qp: QuantParams tensors; lam: float32 scalar tensor;
+    coordinates; qp: QuantParams tensors, (2,) each, or (B, 2) rows of
+    per-block quantizers (adaptive quantization: the delta-q key frame);
+    lam: float32 scalar tensor, or (B,) with per-block rows;
     modes: mode ids or (mode, angle_delta) pairs; rates: (coef_bits,
     txb_base, mode_bits, eob_tbl), mode_bits one per candidate.
     tx_types: optional tx type per candidate (DCT_DCT when None).
@@ -358,10 +360,11 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     (best_mode (B,) int32 — the candidate index when ``return_index`` —,
     best_q (B, n, n) int32, recon[, choose (B,) bool when ``inter``]).
 
-    With one tx type, DCT_DCT, the transform + quantizer runs through
-    ops/fused_txq: the hand-written CUDA kernel for tensors on the card,
-    its plain version on the CPU (the reference takes its Pallas kernel
-    under the same conditions on the TPU).  With mixed tx types the
+    With one tx type, DCT_DCT, and a frame quantizer, the transform +
+    quantizer runs through ops/fused_txq: the hand-written CUDA kernel for
+    tensors on the card, its plain version on the CPU (the reference takes
+    its Pallas kernel under the same conditions on the TPU); per-block
+    quantizers take fwd_txfm2d + quantize, as in the reference.  With mixed tx types the
     candidates are grouped by type: one forward/quantize pass per
     distinct type over all its candidates, one inverse per distinct type
     on the winners."""
@@ -378,6 +381,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
         above_ext, left_ext = _gather_ext_neighbors(
             recon, fi, ys, xs, n, above, left, tr_avail, bl_avail)
     src_blk = _gather_block(src, fi, ys, xs, n, n)
+    per_block_qp = qp.zbin.dim() == 2
+    rows = lambda k: quant.QuantParams(*(a.repeat(k, 1) for a in qp))
     pred_cache = {}
     for key in cands:
         if key not in pred_cache:
@@ -391,11 +396,12 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     if same_tx:
         tx0 = cc.DCT_DCT if tx_types is None else tx_types[0]
         flat = resid_all.reshape(nm * b, n, n)
-        if tx0 == cc.DCT_DCT:
+        if tx0 == cc.DCT_DCT and not per_block_qp:
             coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(flat, qp)
         else:
             coeffs = tf.fwd_txfm2d(flat, tx0, tx_size)
-            qcoeff_all, dq_all = quant.quantize(coeffs, qp, tx_size)
+            qcoeff_all, dq_all = quant.quantize(
+                coeffs, rows(nm) if per_block_qp else qp, tx_size)
         # transform-domain distortion: pixel SSE ~ s2 * coeff-error SSE;
         # the normative inverse runs only for the winner below
         s2 = float(np.float32(tf.coeff_sse_scale(tx_size, tx0)))
@@ -413,7 +419,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
             g = idx.shape[0]
             coeffs_t = tf.fwd_txfm2d(resid_all[idx].reshape(g * b, n, n),
                                      t, tx_size)
-            qc_t, dq_t = quant.quantize(coeffs_t, qp, tx_size)
+            qc_t, dq_t = quant.quantize(
+                coeffs_t, rows(g) if per_block_qp else qp, tx_size)
             s2 = float(np.float32(tf.coeff_sse_scale(tx_size, t)))
             err = coeffs_t.to(torch.float32) - dq_t.to(torch.float32)
             qcoeff_all[idx] = qc_t.reshape(g, b, n, n)
@@ -426,7 +433,9 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     bits = (_txb_bits(qcoeff_all.abs().reshape(nm * b, n, n), coef_bits,
                       txb_base[0], eob_tbl, _scan_pos_on(tx_size, dev))
             + mode_bits[:, None].expand(nm, b).reshape(-1))
-    cost = (dist + lam * bits).reshape(nm, b)
+    # per-block lambdas follow the candidate-major (mode, block) stacking
+    lam_flat = lam.repeat(nm) if per_block_qp else lam
+    cost = (dist + lam_flat * bits).reshape(nm, b)
     # zone-3 candidates (angle > 180) read bottom-left recon, which the
     # wavefront has not written yet where the spec marks it available:
     # they stay legal only where encoder and decoder both repeat the
@@ -483,6 +492,9 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     luma step took the inter candidate (pass B of an inter frame) write
     its chroma recon instead.
 
+    qp/lam: a frame quantizer and lambda, or (B, 2) / (B,) per-block rows
+    (see _rd_step).
+
     Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v) and, with cfl,
     (alpha_u, alpha_v) (B,) int32, signed q3, zero where CfL lost."""
     n, tx_size = CBLK, cc.TX_8X8
@@ -495,6 +507,11 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     src_vb = _gather_block(src_v, fi, ys, xs, n, n)
     b = ys.shape[0]
     nm = len(UV_MODES)
+    lam_pair = lam
+    if qp.zbin.dim() == 2:
+        # per-block rows; each (mode, plane-pair) group is 2*B blocks
+        qp = quant.QuantParams(*(a.repeat(2, 1) for a in qp))
+        lam_pair = lam.repeat(2)
     preds = []
     for mode in UV_MODES:
         for above, left, corner in (nb_u, nb_v):
@@ -520,7 +537,8 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     coef_bits, txb_base, uv_bits, eob_tbl = rates
     pos = _scan_pos_on(tx_size, dev)
     bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl, pos)
-    cost_uv = (dist + lam * bits).reshape(nm, 2, b).sum(dim=1)
+    lam_flat = lam_pair.repeat(nm) if lam_pair.dim() else lam
+    cost_uv = (dist + lam_flat * bits).reshape(nm, 2, b).sum(dim=1)
     cost_uv = cost_uv + lam * uv_bits[:, None]
     mi_best = cost_uv.argmin(dim=0)
     ar = torch.arange(b, device=dev)
@@ -554,14 +572,17 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
         coeffs_c = tf.fwd_txfm2d(
             (src_pair[None] - pred_c).reshape(3 * 2 * b, n, n),
             cc.DCT_DCT, tx_size)
-        qc_c, dq_c = quant.quantize(coeffs_c, qp, tx_size)
+        qp_c = qp
+        if qp.zbin.dim() == 2:
+            qp_c = quant.QuantParams(*(a.repeat(3, 1) for a in qp))
+        qc_c, dq_c = quant.quantize(coeffs_c, qp_c, tx_size)
         rec_c = tf.inv_txfm2d_add(dq_c, flat_pred, cc.DCT_DCT, tx_size,
                                   bd=bd)
         dd = rec_c.reshape(3, 2 * b, n, n) - src_pair[None]
         d_c = (dd * dd).sum(dim=(2, 3)).to(torch.float32)    # (3, 2B)
         bits_c = _txb_bits(qc_c.abs(), coef_bits, txb_base[1], eob_tbl,
                            pos).reshape(3, 2 * b)
-        co = d_c + lam * bits_c
+        co = d_c + lam_pair * bits_c
         oi = co.argmin(dim=0)                                # (2B,)
         ar2 = torch.arange(2 * b, device=dev)
         cost_c = co[oi, ar2]
@@ -603,9 +624,11 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     """Whole-frame MD for a batch of F frames: a Python loop over the
     waves, each running the luma and the chroma step on F x maxb slots.
 
-    sy: (F, H, W), su/sv: (F, H/2, W/2) uint8 tensors; rates: the
-    md_rate_args tuple on the same device, its mode_bits one per luma
-    candidate.  tx_search/angle_deltas: the luma candidates are
+    sy: (F, H, W), su/sv: (F, H/2, W/2) uint8 tensors; qp/lam: the frame
+    quantizer and lambda, or (F*gh*gw, 2) / (F*gh*gw,) per-block rows in
+    raster block order (adaptive quantization), which each wave gathers
+    for its slots; rates: the md_rate_args tuple on the same device, its
+    mode_bits one per luma candidate.  tx_search/angle_deltas: the luma candidates are
     ``expand_tx_cands(modes, angle_deltas)`` and the returned y modes
     are indices into that list.  cfl: the chroma step gets the CfL
     candidate.  palette: optional (cost (F*nb,) float32, rec (F*nb, 16,
@@ -643,12 +666,17 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     av = torch.zeros_like(au)
     pchoose = torch.zeros(nbk, dtype=torch.bool, device=dev)
     cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rates[:7]
+    aq = qp.zbin.dim() == 2
+    qp_w, lam_w = qp, lam
     for ws in _device_schedule(gh, gw, nf, dev):
+        if aq:
+            qp_w = quant.QuantParams(*(f[ws.bid] for f in qp))
+            lam_w = lam[ws.bid]
         inter = None
         if palette is not None:
             inter = (palette[0][ws.bid], palette[1][ws.bid])
         out = _rd_step(recon_y, src_y, ws.fi, ws.by * BLK, ws.bx * BLK,
-                       ws.sel, ws.ha, ws.hl, qp, lam, cand_modes,
+                       ws.sel, ws.ha, ws.hl, qp_w, lam_w, cand_modes,
                        (cy_t, txbb, modeb, eoby), bd=bd, tx_types=cand_txs,
                        tr_avail=ws.tr, bl_avail=ws.bl, inter=inter,
                        return_index=tx_search)
@@ -661,7 +689,7 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
                                      ws.bx * BLK, BLK, BLK)
         cout = _rd_step_chroma(
             recon_u, recon_v, src_u, src_v, ws.fi, ws.by * CBLK,
-            ws.bx * CBLK, ws.sel, ws.ha, ws.hl, qp, lam,
+            ws.bx * CBLK, ws.sel, ws.ha, ws.hl, qp_w, lam_w,
             (cuv_t, txbb, uvb, eobuv), bd=bd, luma_rec=luma_rec, cfl=cfl)
         uvm, q_u, q_v = cout[0], cout[1], cout[2]
         if cfl:
@@ -762,11 +790,13 @@ def split_fi_mode(m: int):
 
 
 def _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv_, cands=None,
-                             au=None, av=None):
+                             au=None, av=None, qmap=None):
     """Per-block BlockDecisions from dense raster (gh*gw) arrays.
 
     cands: optional [(mode, angle_delta, tx_type)] list — ym then holds
-    candidate indices (tx-search programs) rather than modes."""
+    candidate indices (tx-search programs) rather than modes.  qmap:
+    optional per-64x64 qindex map; each block's decision carries its
+    superblock's qindex (0 otherwise: the frame's)."""
     qy = qy.astype(np.int32).reshape(gh * gw, BLK, BLK)
     qu = qu.astype(np.int32).reshape(gh * gw, CBLK, CBLK)
     qv_ = qv_.astype(np.int32).reshape(gh * gw, CBLK, CBLK)
@@ -788,7 +818,8 @@ def _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv_, cands=None,
                 angle_delta_y=int(adelta), filter_intra_mode=fi,
                 cfl_alpha_u=(int(au[bid]) if au is not None else 0),
                 cfl_alpha_v=(int(av[bid]) if av is not None else 0),
-                qindex=0)
+                qindex=(int(qmap[by // 4, bx // 4])
+                        if qmap is not None else 0))
     return decisions
 
 
@@ -847,6 +878,27 @@ def palette_md_candidates(src_y: np.ndarray, qindex: int, bd: int = 8,
     return (cost, rec, qc.to(torch.int16).reshape(nb, BLK * BLK), info)
 
 
+def _qmap_rows(qmap, gh: int, gw: int, device, bd: int = 8):
+    """Per-block quantizer rows (QuantParams of (gh*gw, 2) int32 tensors)
+    and float32 lambdas (gh*gw,) on ``device`` from a per-64x64 qindex
+    map, in raster block order."""
+    nb = gh * gw
+    fields = [np.zeros((nb, 2), np.int32) for _ in range(5)]
+    lam = np.zeros(nb, np.float32)
+    for by in range(gh):
+        for bx in range(gw):
+            q = int(qmap[by // 4, bx // 4])
+            qp_b = quant.make_quant_params(q, bd=bd)
+            bid = by * gw + bx
+            for fi in range(5):
+                fields[fi][bid] = qp_b[fi]
+            qs = quant.dc_q(q, bd=bd) / 8.0
+            lam[bid] = 0.7 * qs * qs
+    return (quant.QuantParams(*(torch.from_numpy(f).to(device)
+                                for f in fields)),
+            torch.from_numpy(lam).to(device))
+
+
 def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                        src_v: np.ndarray, qindex: int, modes=MODES,
                        bd: int = 8, qmap=None, rdoq=False,
@@ -858,18 +910,23 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
     where the in-loop filters take them).
 
     palette_cands: the tuple ``palette_md_candidates`` returned for this
-    frame, or None.  qmap (adaptive quantization) and rdoq are outside
-    the slice."""
-    if qmap is not None or rdoq:
-        raise NotImplementedError(
-            "adaptive quantization and RDOQ: ROADMAP.md queue A item 7")
+    frame, or None.  qmap: optional (sb_rows, sb_cols) int array of
+    per-64x64 qindex values (the TPL delta-q key frame): every block takes
+    its superblock's quantizer and lambda 0.7 * (dc_q / 8)^2; None =
+    uniform ``qindex``, which the rate tables take either way.  RDOQ is
+    outside the slice."""
+    if rdoq:
+        raise NotImplementedError("RDOQ: ROADMAP.md queue A item 7")
     h, w = src_y.shape
     _check_slice(modes, bd, h, w)
     gh, gw = h // BLK, w // BLK
     dev = device_mod.resolve(device)
-    qp = quant.params_on(int(qindex), dev, bd)
-    lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
-                       device=dev)
+    if qmap is not None:
+        qp, lam = _qmap_rows(qmap, gh, gw, dev, bd)
+    else:
+        qp = quant.params_on(int(qindex), dev, bd)
+        lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
+                           device=dev)
     mode_ids, cands = tuple(modes), None
     if tx_search:
         # one rate-table entry per candidate: the mode ids repeat
@@ -888,7 +945,8 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                         cfl=cfl, palette=palette)
     (ym, um, qy, qu, qv, au, av) = (o[0].cpu().numpy() for o in out[3:10])
     decisions = _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv,
-                                         cands=cands, au=au, av=av)
+                                         cands=cands, au=au, av=av,
+                                         qmap=qmap)
     if palette is not None:
         pchoose = out[10][0].cpu().numpy()
         for bid, (colors, cmap) in pinfo.items():
@@ -941,7 +999,8 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     """Decoder-side reconstruction from parsed BlockDecisions of a key
     frame coded on the uniform 16x16 grid (the slice's streams): luma
     modes with angle deltas and tx types, palette blocks, chroma modes
-    and CfL.
+    and CfL; a block whose decision carries a qindex (delta-q) is
+    dequantized at it, the others at ``qindex``.
 
     The reference walks superblocks in z-order block by block; on this
     grid the encoder's 2:1 wave order is a valid order too (every sample
@@ -968,16 +1027,18 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     qy = np.zeros((nb, BLK, BLK), np.int32)
     qu = np.zeros((nb, CBLK, CBLK), np.int32)
     qv = np.zeros((nb, CBLK, CBLK), np.int32)
+    qidx = np.full(nb, int(qindex), np.int64)
     pal_pred = None
     for (r4, c4), d in decisions.items():
         if (d.bsize != cc.BLOCK_16X16 or d.filter_intra_mode >= 0
-                or d.angle_delta_uv or d.is_inter
-                or d.qindex not in (0, qindex) or r4 % 4 or c4 % 4):
+                or d.angle_delta_uv or d.is_inter or r4 % 4 or c4 % 4):
             raise NotImplementedError(
                 f"block at ({r4}, {c4}) uses a tool outside the all-intra "
-                "M5-M13 slice (varpart, filter-intra, chroma angle deltas "
-                "or AQ): ROADMAP.md queue A item 7")
+                "M5-M13 slice (varpart, filter-intra, chroma angle "
+                "deltas): ROADMAP.md queue A item 7")
         bid = (r4 // 4) * gw + c4 // 4
+        if d.qindex:
+            qidx[bid] = d.qindex
         if d.palette is not None:
             if pal_pred is None:
                 pal_pred = np.zeros((nb, BLK, BLK), np.int32)
@@ -993,6 +1054,13 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     if base is None and any(m is None for m in ymode):
         raise ValueError("decisions do not cover the 16x16 grid")
     qp = quant.params_on(int(qindex), dev, bd)
+    qp_rows = None
+    if (qidx != qindex).any():
+        # per-block quantizer rows in raster order, gathered per wave
+        qp_rows = quant.QuantParams(*(
+            torch.as_tensor(np.stack([quant.make_quant_params(
+                int(q), bd=bd)[f] for q in qidx]), device=dev)
+            for f in range(5)))
     if base is None:
         rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
                                  device=dev),
@@ -1020,6 +1088,8 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
         rid_t = torch.as_tensor(rid, device=dev)
         fi, ha, hl = ws.fi[sel], ws.ha[sel], ws.hl[sel]
         ar = torch.arange(len(rid), device=dev)
+        qp_w = qp if qp_rows is None else quant.QuantParams(
+            *(f[rid_t] for f in qp_rows))
         for p in ("y", "u", "v"):
             luma = p == "y"
             n = BLK if luma else CBLK
@@ -1055,7 +1125,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                         m, 0, n, above, left, corner, None, None, ha, hl,
                         bd)))
                 tx_types = [_chroma_tx_type(m, tx) for m in keys]
-            dq = quant.dequantize(lvl[p][rid_t], qp, tx)
+            dq = quant.dequantize(lvl[p][rid_t], qp_w, tx)
             recon = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
                 dq, pred, t, tx, bd=bd))
             _scatter_blocks(rec[p], recon, fi, ys, xs, ar)

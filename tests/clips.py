@@ -6,7 +6,8 @@ installed).
 ``screen_frame`` is screen content: flat colored rectangles and text-like
 two-color bars, so that many 16x16 blocks hold 2-8 distinct luma values
 and the palette candidates exist.  ``TOOL_CLIPS`` are the GOP clips that
-code one compound or warp tool each.
+code one compound or warp tool each; ``split_motion_clip`` is the
+lookahead's clip (its key frames code delta-q).
 """
 import contextlib
 
@@ -119,6 +120,24 @@ def rotzoom_clip(n=5, h=96, w=128):
         out.append((np.clip(np.rint(y), 0, 255).astype(np.uint8),
                     np.full((h // 2, w // 2), 120, np.uint8),
                     np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def split_motion_clip(n=5, h=96, w=128, seed=1):
+    """The natural clip with its left half held still: a fixed sinusoid
+    plus noise there, the moving pattern on the right.  TPL finds the
+    still superblocks far more referenced than the moving ones, so a key
+    frame gets a non-uniform qindex map (delta-q); a frame of one 64x64
+    superblock, or a uniformly moving one, gets a uniform map."""
+    rng = np.random.default_rng(seed + 100)
+    xx = np.mgrid[0:h, 0:w][1]
+    still = np.clip(120 + 40 * np.sin(xx / 9.0)
+                    + rng.integers(-3, 4, (h, w)), 0, 255).astype(np.uint8)
+    out = []
+    for y, u, v in natural_clip(n, w, h, seed=seed):
+        y = y.copy()
+        y[:, :w // 2] = still[:, :w // 2]
+        out.append((y, u, v))
     return out
 
 

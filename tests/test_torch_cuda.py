@@ -4,9 +4,10 @@ all-intra encode on the card against the same encode on the CPU, at M10
 through send_pictures and at M6 (tx-type search, angle deltas, CfL,
 palette) through send_picture, without and with the in-loop filters
 (whose ops are also held to their CPU run, exactly), and a hierarchical
-GOP at M10 and M12 (round trip on the card, parity with the CPU), and
-the GOP clips that code wedge, diffwtd and warped blocks (the card's
-stream codes each tool, round trip, parity with the CPU).
+GOP at M10 and M12 (round trip on the card, parity with the CPU), the
+GOP clips that code wedge, diffwtd and warped blocks (the card's stream
+codes each tool, round trip, parity with the CPU), and a GOP with the
+lookahead (MCTF + TPL, a delta-q key frame) on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -254,10 +255,10 @@ def _gop(frames, device, preset, clip=None, **fields):
     tool clip ``clip`` (clips.tool_setting)."""
     from svt_av1_tpu_torch.pipeline import gop_fast
     h, w = frames[0][0].shape
-    cfg = dict(dict(qp=35, intra_period_length=4), **fields)
+    cfg = dict(dict(qp=35, intra_period_length=4, enable_tf=0,
+                    enable_tpl_la=0), **fields)
     enc = Encoder(EncoderConfig(source_width=w, source_height=h,
                                 enc_mode=preset, hierarchical_levels=2,
-                                enable_tf=0, enable_tpl_la=0,
                                 enable_dlf_flag=1, cdef_level=1, **cfg),
                   device=device)
     with clips.tool_setting(clip, enc, gop_fast):
@@ -346,3 +347,36 @@ def test_gop_tools_on_cuda_round_trip_and_match_cpu(name):
                     b.wedge_sign)
                 and np.array_equal(a.qcoeff_y, b.qcoeff_y))
     assert same >= MIN_AGREE * tot, (name, same, tot)
+
+
+@pytest.mark.cuda
+def test_lookahead_gop_on_cuda_round_trips_and_matches_cpu():
+    """The 7-frame 128x96 GOP of tests/test_torch_lookahead.py with MCTF
+    and TPL on (M10) on the card: a key frame coded with delta-q, the
+    port's decoder on the card reproduces every shown frame, and the
+    stream meets the parity rule against the same encode on the CPU."""
+    _need_card()
+    from svt_av1_tpu_torch.codec import obu
+    frames = clips.split_motion_clip(7)
+    la = dict(enable_tf=1, enable_tpl_la=1)
+    pk_g = _gop(frames, "cuda", 10, **la)
+    pk_c = _gop(frames, "cpu", 10, **la)
+    dec = Decoder(device="cuda")
+    shown, delta_q = [], []
+    for p in pk_g:
+        shown += dec.decode_temporal_unit(p.data)
+        if p.frame_type == obu.KEY_FRAME:
+            delta_q.append(dec.last_frame_header.delta_q_present)
+    disp_g = [p for p in pk_g if p.displayed]
+    assert len(shown) == len(disp_g) == len(frames)
+    for rec, p in zip(shown, disp_g):
+        for k in "yuv":
+            assert np.array_equal(rec[k], p.recon[k]), (p.pts, k)
+    assert any(delta_q)
+    disp_c = [p for p in pk_c if p.displayed]
+    p_g = np.mean([_psnr(frames[p.pts][0], p.recon["y"]) for p in disp_g])
+    p_c = np.mean([_psnr(frames[p.pts][0], p.recon["y"]) for p in disp_c])
+    b_g = sum(len(p.data) for p in pk_g)
+    b_c = sum(len(p.data) for p in pk_c)
+    assert abs(p_g - p_c) <= MAX_DPSNR
+    assert abs(b_g - b_c) <= MAX_DBYTES * b_c

@@ -1,5 +1,5 @@
-"""The port's hierarchical-GOP slice (presets M10-M13, MCTF and TPL off)
-against the JAX package on the CPU.
+"""The port's hierarchical-GOP slice (presets M10-M13) against the JAX
+package on the CPU.
 
 - P1 and P2 of one inter frame (R = 1 and R = 2 references) against the
   JAX programs' outputs, stored in tests/golden/torch_port_refs.npz (a live
@@ -10,12 +10,18 @@ against the JAX package on the CPU.
 - The whole slice through Encoder.send_picture / flush: a 5-frame GOP at
   64x64 (hierarchical_levels 2, keyint 4) at M10 and M12, the wedge
   (wipe) and diffwtd (iris) clips of tests/test_wedge.py at M10, and a
-  96x128 zoom + rotate clip at M10 (warped blocks), against
-  the stored JAX streams and recon by the parity rule (>= 99% of blocks
-  equal, Y-PSNR within 0.05 dB, bytes within 1%; byte identity printed);
-  every stream round-trips through the port's decoder, and the JAX
-  package's decoder decodes the port's M10 stream to the port's recon
-  (one live cross-run).
+  96x128 zoom + rotate clip at M10 (warped blocks), with MCTF and TPL
+  off, and a 7-frame 128x96 GOP at M12 with the lookahead on (MCTF +
+  TPL, a delta-q key frame; tests/test_torch_lookahead.py holds it at
+  M10), against the stored JAX streams and recon by the parity rule
+  (>= 99% of blocks equal, Y-PSNR within 0.05 dB, bytes within 1%; byte
+  identity printed); every stream round-trips through the port's decoder,
+  and the JAX package's decoder decodes the port's M10 stream to the
+  port's recon (one live cross-run).
+- send_pictures(frames, eos=True) shows every frame (the last partial
+  mini-GoP included), in the JAX package's send_picture + flush stream;
+  recon_enabled=False leaves the packets as they were and skips the recon
+  copies of shown inter and show-existing frames.
 - Every setting outside the slice raises NotImplementedError naming its
   ROADMAP.md item.
 """
@@ -187,6 +193,9 @@ CLIPS = {
             dict(qp=35, intra_period_length=4), 10),
     "m12": (lambda: clips.natural_clip(5, 64, 64, seed=1),
             dict(qp=35, intra_period_length=4), 12),
+    "m12_lookahead": (lambda: clips.split_motion_clip(7),
+                      dict(qp=35, intra_period_length=4, enable_tf=1,
+                           enable_tpl_la=1), 12),
     **{name: (clip, fields, 10)
        for name, (clip, fields, _) in clips.TOOL_CLIPS.items()},
 }
@@ -196,8 +205,8 @@ def _config(pkg_cfg, name, frames):
     _, fields, preset = CLIPS[name]
     h, w = frames[0][0].shape
     return pkg_cfg(source_width=w, source_height=h, enc_mode=preset,
-                   hierarchical_levels=2, enable_tf=0, enable_tpl_la=0,
-                   enable_dlf_flag=1, cdef_level=1, **fields)
+                   hierarchical_levels=2, enable_dlf_flag=1, cdef_level=1,
+                   **dict(dict(enable_tf=0, enable_tpl_la=0), **fields))
 
 
 def _run(enc, name, frames, gop_fast):
@@ -298,6 +307,9 @@ def test_gop_round_trip(name):
         assert any(b.comp_type == 2 for b in comp), "no diffwtd block"
     if name == "rotzoom":
         assert any(b.use_warp for b in blocks), "no warped block"
+    if name == "m12_lookahead":
+        assert len({b.qindex for b in decisions[0].values()}) > 1, \
+            "the key frame codes no delta-q"
 
 
 @pytest.mark.parametrize("name", sorted(CLIPS))
@@ -355,6 +367,73 @@ def test_jax_decoder_decodes_port_stream(jax_decoded_m10):
             np.testing.assert_array_equal(rec[k], p.recon[k])
 
 
+# ------------------------------------------- send_pictures, recon copies ---
+
+EOS_CFG = dict(source_width=64, source_height=64, enc_mode=12,
+               hierarchical_levels=2, intra_period_length=15, enable_tf=0,
+               enable_tpl_la=0)
+
+
+def _eos_frames():
+    return clips.natural_clip(6, 64, 64, seed=3)
+
+
+def _eos_jax_stream():
+    """The JAX package's send_picture + flush stream of the 6 frames."""
+    from svt_av1_tpu.api.config import EncoderConfig as JConfig
+    from svt_av1_tpu.api.encoder import Encoder as JEncoder
+    enc = JEncoder(JConfig(**EOS_CFG))
+    for f in _eos_frames():
+        enc.send_picture(*f)
+    enc.flush()
+    pkts = []
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    return [np.array([p.displayed for p in pkts])] + [
+        np.frombuffer(p.data, np.uint8) for p in pkts]
+
+
+@functools.lru_cache(maxsize=None)
+def _send_pictures_eos(recon_enabled):
+    enc = Encoder(EncoderConfig(**EOS_CFG), device="cpu")
+    enc.recon_enabled = recon_enabled
+    enc.send_pictures(_eos_frames(), eos=True)
+    assert enc.done is False
+    pkts = []
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    assert enc.done
+    return pkts
+
+
+def test_send_pictures_eos_shows_every_frame():
+    """send_pictures(frames, eos=True) drains the last partial mini-GoP:
+    all 6 frames are shown, in the JAX package's send_picture + flush
+    stream (whose own send_pictures drops the last partial mini-GoP)."""
+    frames = _eos_frames()
+    ref = port_refs.jax_ref("gop_eos_stream", _eos_jax_stream,
+                            *[a for f in frames for a in f])
+    pkts = _send_pictures_eos(True)
+    assert sum(p.displayed for p in pkts) == len(frames) == 6
+    assert sorted(p.pts for p in pkts if p.displayed) == list(range(6))
+    assert [p.displayed for p in pkts] == list(ref[0])
+    assert [p.data for p in pkts] == [bytes(a) for a in ref[1:]]
+
+
+def test_recon_enabled_off_skips_recon_copies():
+    """recon_enabled=False: the same packets, and no recon on the shown
+    inter and show-existing frames (key frames keep theirs, as in the
+    reference)."""
+    on, off = _send_pictures_eos(True), _send_pictures_eos(False)
+    assert [p.data for p in off] == [p.data for p in on]
+    assert [p.displayed for p in off] == [p.displayed for p in on]
+    inter = [p for p in off if p.frame_type != obu.KEY_FRAME]
+    assert inter and all(p.recon is None for p in inter)
+    assert all(p.recon is not None for p in off
+               if p.frame_type == obu.KEY_FRAME)
+    assert all(p.recon is not None for p in on if p.displayed)
+
+
 # ------------------------------------------------------------ refusals ---
 
 GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
@@ -362,8 +441,8 @@ GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(enable_tf=1), "item 5"),
-    (dict(enable_tpl_la=1), "item 5"),
+    (dict(rate_control_mode=1), "item 7"),
+    (dict(enable_adaptive_quantization=2), "item 7"),
     (dict(enc_mode=6), "item 6"),
     (dict(enc_mode=9), "item 6"),
     (dict(pred_structure=1), "item 7"),

@@ -268,11 +268,13 @@ def test_port_never_imports_jax():
         (rec,) = Decoder(device="cpu").decode_temporal_unit(pkt.data)
         assert np.array_equal(rec["y"], pkt.recon["y"])
         assert any(d.palette is not None for d in rec["decisions"].values())
-        # a hierarchical GOP: key, hidden base, inter and show-existing
+        # a hierarchical GOP with the lookahead (MCTF, TPL): key, hidden
+        # base, inter and show-existing
         enc = Encoder(EncoderConfig(source_width=32, source_height=32,
                                     intra_period_length=4,
-                                    hierarchical_levels=1, enable_tf=0,
-                                    enable_dlf_flag=1, cdef_level=1),
+                                    hierarchical_levels=1, enable_tf=1,
+                                    enable_tpl_la=1, enable_dlf_flag=1,
+                                    cdef_level=1),
                       device="cpu")
         for t in range(4):
             enc.send_picture(np.roll(y, t, axis=1), u, u)

@@ -280,10 +280,12 @@ def test_out_of_slice_still_raises(field, value, item):
 
 
 def test_encode_intra_frame_refuses_aq_and_other_modes():
+    """RDOQ (the qmap of a TPL delta-q key frame is ported) and the luma
+    modes of M0-M4 raise."""
     y, u, v = clips.natural_clip(1, 32, 32)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tie.encode_intra_frame(y, u, v, 140, qmap=np.full((1, 1), 120),
-                               device="cpu")
+                               rdoq=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tie.encode_intra_frame(y, u, v, 140, modes=(cc.DC_PRED,
                                                     cc.D45_PRED),

@@ -54,6 +54,9 @@ RATE_EST_NAMES = (
     "true_tables_for_qindex", "tables_for_qindex")
 GOLDEN_NAMES = ("INTRA_SIZES", "legal_tx_types", "inv_txfm_input",
                 "inv_txfm_cases", "intra_input")
+# the numpy functions of pipeline/tpl.py and ops/satd.py, copied by name
+TPL_NAMES = ("BLK", "synthesize", "r0_of", "beta_qmap")
+SATD_NAMES = ("_h8",)
 
 _PKG_NAME = re.compile(r"\bsvt_av1_tpu\b")
 
@@ -95,7 +98,8 @@ def test_no_import_of_the_jax_package():
             "pipeline/cdef_stage.py", "utils/kernel_profile.py",
             "ops/me.py", "ops/convolve.py", "ops/mc.py", "ops/warp.py",
             "pipeline/me.py", "pipeline/gop_fast.py",
-            "pipeline/inter_encoder.py"} <= scanned
+            "pipeline/inter_encoder.py", "ops/satd.py", "ops/tf.py",
+            "pipeline/tf_stage.py", "pipeline/tpl.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
@@ -175,10 +179,15 @@ def _top_level_sources(path, names):
 @pytest.mark.parametrize("path,ref,names", [
     ("svt_av1_tpu_torch/codec/rate_est.py", "svt_av1_tpu/codec/rate_est.py",
      RATE_EST_NAMES),
-    ("svt_av1_tpu_torch/goldens.py", "tests/golden_defs.py", GOLDEN_NAMES)])
+    ("svt_av1_tpu_torch/goldens.py", "tests/golden_defs.py", GOLDEN_NAMES),
+    ("svt_av1_tpu_torch/pipeline/tpl.py", "svt_av1_tpu/pipeline/tpl.py",
+     TPL_NAMES),
+    ("svt_av1_tpu_torch/ops/satd.py", "svt_av1_tpu/ops/satd.py",
+     SATD_NAMES)])
 def test_copied_definitions_match_source(path, ref, names):
     """Definitions copied one by one (the numpy half of rate_est.py, the
-    golden input generators) equal their sources, import lines aside."""
+    golden input generators, TPL's synthesizer and beta map, the SATD
+    butterfly matrix) equal their sources, import lines aside."""
     got = _top_level_sources(os.path.join(REPO, path), names)
     want = _top_level_sources(os.path.join(REPO, ref), names)
     assert set(got) == set(want) == set(names)
@@ -232,6 +241,12 @@ ENTRY_POINTS = {
     "reconstruct_inter_from_decisions": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.inter_encoder"
     ).reconstruct_inter_from_decisions({}, {}, 32, 32, 140),
+    "mctf_filter_frame": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.tf_stage").mctf_filter_frame(
+            _frames(1, 32, 32)[0], _frames(1, 32, 32)),
+    "tpl_group_stats": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.gop_fast").tpl_group_stats(
+            [np.zeros((32, 32), np.uint8)] * 2, [None, [0]]),
     "hierarchical_me": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
             np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),

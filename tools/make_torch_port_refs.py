@@ -28,6 +28,12 @@ TESTS = (
     "tests/test_torch_gop.py::test_p1_matches_jax",
     "tests/test_torch_gop.py::test_p2_matches_jax",
     "tests/test_torch_gop.py::test_gop_parity_with_jax",
+    "tests/test_torch_gop.py::test_send_pictures_eos_shows_every_frame",
+    "tests/test_torch_lookahead.py::test_temporal_filter_tie_rule",
+    "tests/test_torch_lookahead.py::test_mctf_filter_frame_tie_rule",
+    "tests/test_torch_lookahead.py::test_tpl_group_stats_exact",
+    "tests/test_torch_lookahead.py::test_qmap_key_frame_matches_jax",
+    "tests/test_torch_lookahead.py::test_lookahead_gop_parity_with_jax",
 )
 
 

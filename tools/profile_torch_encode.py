@@ -31,7 +31,15 @@ named ranges p1.hme, p1.gm_fit, p1.interp_pick, p1.warp, p1.pass_a,
 p1.compound, p1.pass_b, p1.merges, p2), the host milliseconds inside the
 range, the device milliseconds of the kernels it launched and the span
 of its kernels on the device timeline, beside the frame's kernel count,
-device time and device-busy share.
+device time and device-busy share; then one JSON line for the lookahead
+stages, each named as the encoder's stage (and run inside a profiler
+range of that name): key_tf (MCTF of a frame against its next 2 frames),
+gop_tf (a mini-GoP base against 3 neighbours), key_tpl (TPL over a key
+and its 8-frame IPP chain) and gop_tpl (TPL over a 3-level mini-GoP of 8
+in decode order with its 8-frame IPP tail), with three host-clock
+seconds each (the call ends with its results on the host), its device
+kernels, device time and device-busy share, and the seconds per frame
+the stage serves (1 frame for MCTF, 9 for key_tpl, 8 for gop_tpl).
 The first line is the card's name and power limit.
 """
 import argparse
@@ -188,7 +196,61 @@ def gop_profile(w, h, preset):
         device_busy=(dev_ms / 1000.0 / med if dev_ms != "not measured"
                      else dev_ms),
         families=fam, top_kernels=kp["top_kernels"])), flush=True)
+    lookahead_profile(w, h)
     return 0
+
+
+def lookahead_profile(w, h):
+    """The lookahead stages of the GOP path on the card (see the module
+    doc), on a 17-frame clip."""
+    import torch
+    import clips
+    from svt_av1_tpu_torch.pipeline import gop, gop_fast, tf_stage, tpl
+    from svt_av1_tpu_torch.utils import kernel_profile
+    frames = clips.natural_clip(17, w, h)
+    srcs = [f[0] for f in frames]
+    order, deps = tpl.minigop_group(0, gop.minigop_schedule(0, 8),
+                                    range(9, 17))
+    stages = dict(
+        key_tf=(lambda: tf_stage.mctf_filter_frame(
+            frames[0], frames[1:3]), 1),
+        gop_tf=(lambda: tf_stage.mctf_filter_frame(
+            frames[8], [frames[7], frames[9], frames[6]]), 1),
+        key_tpl=(lambda: gop_fast.tpl_group_stats(
+            srcs[:9], [None] + [[i] for i in range(8)]), 9),
+        gop_tpl=(lambda: gop_fast.tpl_group_stats(
+            [srcs[p] for p in order], deps), 8))
+    out = {}
+    for name, (fn, per) in stages.items():
+        run = lambda: _in_range(name, fn)
+        run()
+        torch.cuda.synchronize()
+        hot = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            hot.append(time.perf_counter() - t0)
+        kp = kernel_profile.device_kernels(run)
+        med = float(np.median(hot))
+        dev_ms = kp["device_ms"]
+        out[name] = dict(
+            hot_s=hot, frames_served=per, hot_s_per_frame=med / per,
+            kernel_launches=kp["launches"], copies=kp["copies"],
+            device_ms=dev_ms,
+            device_ms_per_frame=(dev_ms / per if dev_ms != "not measured"
+                                 else dev_ms),
+            device_busy=(dev_ms / 1000.0 / med if dev_ms != "not measured"
+                         else dev_ms),
+            top_kernels=kp["top_kernels"])
+    print(json.dumps(dict(mode="gop lookahead", size=f"{w}x{h}",
+                          stages=out)), flush=True)
+
+
+def _in_range(name, fn):
+    import torch
+    with torch.profiler.record_function(name):
+        return fn()
 
 
 if __name__ == "__main__":
