@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero:
+failure raises and exits non-zero.  Phases 27 and 26 (this slice) run
+right after phase 4, in a fresh process; the rest in order:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
@@ -14,10 +15,9 @@ failure raises and exits non-zero:
      slots x luma modes, k1_batches: 528 and 480 for M10 send_pictures at
      CIF x8 and 720p x2, 704 and 640 for M6; 66, 44 and 240 for a
      send_picture key frame or the pass B of one inter frame at CIF M10,
-     CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs),
-     then at the comparison sizes 2112 and 2816 (a full 32-frame chunk at
-     CIF, M10 and M6) and 100, qindex 140 and 255:
-     bit-identical to the first kernel (svt_fused_txq16_v1, kept in
+     CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs;
+     88 for pass B at CIF M6, 16 and 32 for phase 27's), qindex 140 and
+     255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; at each size
      the device time per launch of the kernel, the first kernel and the
@@ -47,8 +47,8 @@ failure raises and exits non-zero:
      Packet.recon; seconds per frame, bytes, Y-PSNR, the counts of blocks
      with a non-DCT tx type, a non-zero angle delta, CfL and palette
      (each must be > 0) and the host_ec seconds;
- 10. the same at 1280x720, 1 clip frame and 1 screen-content frame (no
-     warm frame);
+ 10. the same at 1280x720, 1 clip frame (no warm frame; palette is
+     required of phase 9's screen frame only);
  11. M6 through send_pictures (the batched program with the preset's 8
      plain luma modes): CIF x8 and 720p x2, hot fps, bytes, PSNR, K1
      launches > 0, decoder exact;
@@ -86,17 +86,16 @@ failure raises and exits non-zero:
      under its own (a differing option only where the float64 SSEs of the
      two picks lie within 1e-6 relative), ties counted;
  18. the hierarchical GOP of the previous slice through send_picture /
-     flush on the default device, at a cut depth: CIF x9 (key and a
-     mini-GoP of 8), hierarchical_levels 3, keyint 15, M10, qp 35, MCTF
+     flush on the default device, at a cut depth: CIF x5 (key and a
+     mini-GoP of 4), hierarchical_levels 3, keyint 15, M10, qp 35, MCTF
      and TPL off, DLF + CDEF; no warm run: fps, host dispatch seconds per
      inter frame, the host stage seconds, the inter blocks by kind (inter,
      intra, compound, wedge, diffwtd, warp, merged), K1 launches > 0;
      every shown frame (show-existing ones included) decoded on the card
-     equal to Packet.recon; one inter frame alone: P1 + P2 host seconds,
-     collect seconds and its device kernels under torch.profiler (device
-     busy share);
- 19. the same GOP at 1280x720 x5 (warmed on its first 2 frames), the
-     decode check over the 5 shown frames;
+     equal to Packet.recon (one inter frame's device kernels under
+     torch.profiler: tools/profile_torch_encode.py --gop);
+ 19. the same GOP at 1280x720 x3 (warmed on its first 2 frames), the
+     decode check over the 3 shown frames;
  20. 5-frame GOPs (hierarchical_levels 2) on the CPU against the card's,
      each decoded on its device and equal to Packet.recon: the natural
      clip at 96x96 (keyint 4), and the clips that code one tool each —
@@ -107,7 +106,7 @@ failure raises and exits non-zero:
      references, MVs, warp, compound type, wedge option, qcoeff),
      |dPSNR| <= 0.05 dB, |dbytes| <= 1%, identity, and the GM / interp /
      wedge-pick ties printed;
- 21. M12 (no subpel ring, 4 intra modes): CIF x9 GOP, timed (no warm
+ 21. M12 (no subpel ring, 4 intra modes): CIF x5 GOP, timed (no warm
      run), decoded;
  22. the lookahead's device ops on the card against the port's CPU run
      at CIF: satd and TPL's group stats (gop_fast.tpl_group_stats over a
@@ -115,17 +114,18 @@ failure raises and exits non-zero:
      tail) exact; the temporal filter on 99 32x32 blocks (F = 3) and
      mctf_filter_frame (the key's 2 neighbours, the base's 3) under the
      pixel tie rule below, flips counted;
- 23. the main path of this slice: the CIF x17 GOP (key, 15, key) of phase
-     18's structure with the reference's default tools, MCTF and TPL on
-     (delta-q key frames), M10, DLF + CDEF; a warm run decoded on the card
-     (every shown frame equal to Packet.recon), then the timed run with
-     recon_enabled off, as bench.py runs it: fps, host dispatch seconds
-     per inter frame, the seconds of the lookahead stages (key_tf,
-     key_tpl, gop_tf, gop_tpl, gop_tpl_synth), the key frames coded with
-     delta-q and their qindex range, its packets equal to the warm run's;
-     K1's launches must equal 56 waves x the frames that are not delta-q
-     key frames (840, 896 or 952), since a delta-q key frame takes the
-     per-block quantizer and the plain transform, as in the reference;
+ 23. the previous slice's main path: the CIF x17 GOP (key, 15, key) of
+     phase 18's structure with the reference's default tools, MCTF and
+     TPL on (delta-q key frames), M10, DLF + CDEF, with recon_enabled off
+     as bench.py runs it (phases 18-22 ran every program at CIF, so no
+     separate warm run): fps, host dispatch seconds per inter frame, the
+     seconds of the lookahead stages (key_tf, key_tpl, gop_tf, gop_tpl,
+     gop_tpl_synth), the key frames coded with delta-q and their qindex
+     range; every shown frame decoded on the card equal to the encoder's
+     recon (kept on the card during the run); K1's launches must equal 56
+     waves x the frames that are not delta-q key frames (840, 896 or
+     952), since a delta-q key frame takes the per-block quantizer and
+     the plain transform, as in the reference;
  24. the 7-frame 128x96 lookahead GOP of the CPU tests
      (clips.split_motion_clip, M10, hierarchical_levels 2, keyint 4) on
      the CPU against the card's, as in phase 20, with every MCTF call's
@@ -133,14 +133,32 @@ failure raises and exits non-zero:
      stream must code a delta-q key frame;
  25. K1 at any batch size the paths launched that phase 3 did not check
      (checked and timed the same way); the sizes are recorded by the
-     wrapper (fused_txq.batches) from the end of phase 4 on.
+     wrapper (fused_txq.batches) from the end of phase 4 on;
+ 26. the main path of this slice, bench.py's primary config: the CIF x17
+     GOP (key, 15, key) at M6 with MCTF + TPL, DLF + CDEF, hierarchical
+     levels 3, keyint 15, qp 35 (run after phase 27); a warm run over a
+     3-frame prefix, then the timed run with recon_enabled off: fps, host
+     dispatch seconds per inter frame, the lookahead, tmvp_setup and
+     save_mvfield stage seconds, bytes, mean Y-PSNR, the inter blocks by
+     kind (8x8 split
+     leaves, non-DCT inter tx, OBMC, inter-intra, compound, warp) and the
+     inter frames with use_ref_frame_mvs; K1's launches must equal the
+     waves of the 15 inter frames, all at B = 88 (M6 key frames search
+     four tx types and do not take it); every shown frame decoded on the
+     card equal to the encoder's recon (kept on the card during the run);
+ 27. the M5-M9 clips of the CPU tests on the CPU against the card's, as in
+     phase 20: OBMC (seam texture) and inter-intra (gradient wipe) at M6
+     with part8 and the tx search pinned off as the reference's tests pin
+     them, the 8x8 split + TMVP (boundary clip, M6), M8's full tools and
+     M9 on the natural clip; the card's stream must code the clip's tool,
+     and blocks whose inter tx type alone differs are counted.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
-(pass B of every inter frame, and the key frames without delta-q) must
-have launched it,
-the M6 send_picture paths do not run it (their luma step searches four tx
-types, as the reference's does without its kernel).
+(pass B of every inter frame, and the M9-M13 key frames without delta-q)
+must have launched it; the M6 send_picture paths and the M6 GOP's key
+frames do not run it (their luma step searches four tx types, as the
+reference's does without its kernel).
 
 Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
@@ -230,9 +248,7 @@ def k1_batch(nframes, size, preset):
 
 
 def k1_batches():
-    """(the batch sizes of the paths this script drives, extra sizes timed
-    only for comparison with earlier runs: a full 32-frame send_pictures
-    chunk at CIF with 6 and 8 modes, and a small batch)."""
+    """The batch sizes of the paths this script drives."""
     driven = [k1_batch(CIF_FRAMES, CIF, 10), k1_batch(HD_FRAMES, HD, 10),
               k1_batch(CIF_FRAMES, CIF, 6), k1_batch(HD_FRAMES, HD, 6),
               k1_batch(1, CIF, 10), k1_batch(1, CIF, 12),
@@ -241,9 +257,9 @@ def k1_batches():
     # rotzoom 128x96)
     driven += [k1_batch(1, size, 10)
                for size in ((96, 96), (64, 64), (80, 80), (128, 96))]
-    extra = [b for b in (k1_batch(32, CIF, 10), k1_batch(32, CIF, 6), 100)
-             if b not in driven]
-    return list(dict.fromkeys(driven)), extra
+    # pass B at M6 / M8 (8 modes): CIF (phase 26) and phase 27's clips
+    driven += [k1_batch(1, size, 6) for size in (CIF, (64, 64), (128, 96))]
+    return list(dict.fromkeys(driven))
 
 
 def graph_us(launch, n=GRAPH_LAUNCHES, replays=GRAPH_REPLAYS):
@@ -457,11 +473,8 @@ def phase_kernel(card):
     from svt_av1_tpu_torch.ops import quant
     rng = np.random.default_rng(7)
     rec = dict(max_abs_err=0, by_batch=[])
-    driven, extra = k1_batches()
-    for b in driven:
+    for b in k1_batches():
         check_txq(b, card, rng, rec)
-    for b in extra:
-        check_txq(b, card, rng, rec, driven=False)
     # a batch far beyond the L2: bound by device memory
     resid = torch.randint(-255, 256, (135168, 16, 16), dtype=torch.int32,
                           device="cuda")
@@ -513,11 +526,11 @@ def phase_goldens():
 
 
 FILTERS = dict(enable_dlf_flag=1, cdef_level=1)
-# the bench's GOP structure at M10-M13: 3-level mini-GoPs, keyint 15,
+# the bench's GOP structure: 3-level mini-GoPs, keyint 15,
 # MCTF and TPL off (the earlier slice's path) ...
 GOP = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=0,
            enable_tpl_la=0, **FILTERS)
-# ... and on (the reference's default tools: this slice's main path)
+# ... and on (the reference's default tools)
 LOOKAHEAD = dict(enable_tf=1, enable_tpl_la=1)
 
 
@@ -605,10 +618,12 @@ def tool_counts(decisions):
         palette=sum(b.palette is not None for b in blocks))
 
 
-def phase_key_frames(tag, frames, w, h, card, warm=True):
+def phase_key_frames(tag, frames, w, h, card, warm=True,
+                     need=("tx", "delta", "cfl", "palette")):
     """M6 through send_picture / flush on the default device: one warm
     frame (unless ``warm`` is off: a smaller size warmed the program),
-    then the timed run; every packet decoded on the card."""
+    then the timed run; every packet decoded on the card; each tool of
+    ``need`` used by some block."""
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
     from svt_av1_tpu_torch.utils import profiling
@@ -643,7 +658,7 @@ def phase_key_frames(tag, frames, w, h, card, warm=True):
         f"({sec['host_ec'] / dt:.1%} of the wall time); fused_txq launches "
         f"{launches} ({card}); decoder on the default device matches recon "
         f"({dec_s:.1f} s)")
-    for k in ("tx", "delta", "cfl", "palette"):
+    for k in need:
         if n[k] <= 0:
             raise AssertionError(f"phase {tag}: no block uses the tool "
                                  f"'{k}' at M6")
@@ -1010,15 +1025,81 @@ def gop_decode_check(pkts, device, shown_limit=None):
     return coded, shown
 
 
+def timed_gop(frames, w, h, preset, **cfg):
+    """A GOP encode with recon_enabled off (what bench.py times), the
+    recon of every coded inter frame kept on the card meanwhile (no
+    copy): (packets, {poc: device recon}, seconds, K1 launches, the batch
+    sizes K1 had, the host stage seconds)."""
+    import torch
+    from svt_av1_tpu_torch.api.encoder import Encoder
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    recon = {}
+    orig = Encoder._collect_inter_fast
+
+    def keep(self, rec):
+        recon[rec[1].poc] = rec[2].recon
+        return orig(self, rec)
+
+    torch.cuda.synchronize()
+    Encoder._collect_inter_fast = keep
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    seen, fused_txq.batches = fused_txq.batches, set()
+    try:
+        t0 = time.perf_counter()
+        pkts = encode_gop(frames, w, h, None, preset, recon_enabled=False,
+                          **cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        Encoder._collect_inter_fast = orig
+        batches = sorted(fused_txq.batches)
+        fused_txq.batches = seen | fused_txq.batches
+    from svt_av1_tpu_torch.codec import obu
+    if any(p.recon is not None for p in pkts
+           if p.frame_type == obu.INTER_FRAME):
+        _fail("recon_enabled=False still copied inter-frame recon")
+    return pkts, recon, dt, fused_txq.launches, batches, \
+        profiling.stage_stats()
+
+
+def decode_against(tag, pkts, recon, frames):
+    """The port's decoder on the card over a timed_gop stream: every shown
+    frame must equal the encoder's recon (Packet.recon on key frames, the
+    kept device recon on inter ones).  Returns (the coded frames' headers
+    and decisions, mean Y-PSNR of the shown frames, seconds)."""
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.codec.decoder import Decoder
+    t0 = time.perf_counter()
+    dec = Decoder()
+    coded, ys = [], []
+    for p in pkts:
+        for rec in dec.decode_temporal_unit(p.data):
+            want = p.recon or {k: v.cpu().numpy()
+                               for k, v in recon[p.pts].items()}
+            for k in ("y", "u", "v"):
+                if not np.array_equal(rec[k], want[k]):
+                    _fail(f"phase {tag}: decoder recon differs (plane {k}, "
+                          f"poc {p.pts})")
+            ys.append(psnr(frames[p.pts][0], want["y"]))
+        if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(p.data)]:
+            coded.append((dec.last_frame_header, dec.last_decisions))
+    if len(ys) != len(frames):
+        _fail(f"phase {tag}: {len(ys)} frames shown of {len(frames)}")
+    return coded, float(np.mean(ys)), time.perf_counter() - t0
+
+
 def gop_block_counts(coded):
     """Blocks of the coded inter frames by kind."""
     from svt_av1_tpu_torch.codec import constants as cc
     from svt_av1_tpu_torch.codec import obu
     n = dict(blocks=0, inter=0, intra=0, compound=0, wedge=0, diffwtd=0,
-             warp=0, merged=0)
+             warp=0, merged=0, split8=0, itx=0, obmc=0, ii=0, tmvp_frames=0)
     for fp, dec in coded:
         if fp.frame_type != obu.INTER_FRAME:
             continue
+        n["tmvp_frames"] += bool(fp.use_ref_frame_mvs)
         for b in dec.values():
             n["blocks"] += 1
             n["inter" if b.is_inter else "intra"] += 1
@@ -1026,7 +1107,12 @@ def gop_block_counts(coded):
             n["wedge"] += bool(b.ref2 and b.comp_type == 1)
             n["diffwtd"] += bool(b.ref2 and b.comp_type == 2)
             n["warp"] += bool(b.use_warp)
-            n["merged"] += b.bsize != cc.BLOCK_16X16
+            n["merged"] += b.bsize not in (cc.BLOCK_16X16, cc.BLOCK_8X8)
+            n["split8"] += b.bsize == cc.BLOCK_8X8
+            n["itx"] += bool(b.is_inter and b.tx_type != cc.DCT_DCT
+                             and np.any(b.qcoeff_y))
+            n["obmc"] += bool(b.is_inter and b.motion_mode == 1)
+            n["ii"] += bool(b.is_inter and b.interintra_mode >= 0)
     return n
 
 
@@ -1130,16 +1216,20 @@ def _headers_key(coded):
     return [(fp.gm_trans, fp.interpolation_filter) for fp, _ in coded]
 
 
-def _same_inter_block(a, b):
+def _same_inter_block(a, b, tx=True):
     return (b is not None and a.bsize == b.bsize and a.is_inter == b.is_inter
             and a.y_mode == b.y_mode and a.mv == b.mv and a.ref == b.ref
             and a.ref2 == b.ref2 and a.mv2 == b.mv2
             and a.use_warp == b.use_warp and a.comp_type == b.comp_type
             and a.wedge_idx == b.wedge_idx and a.wedge_sign == b.wedge_sign
-            and np.array_equal(a.qcoeff_y, b.qcoeff_y))
+            and a.motion_mode == b.motion_mode
+            and a.interintra_mode == b.interintra_mode
+            and (not tx or (a.tx_type == b.tx_type
+                            and np.array_equal(a.qcoeff_y, b.qcoeff_y))))
 
 
-def gop_cpu_vs_cuda(name, frames, need=None, tag="20", **kw):
+def gop_cpu_vs_cuda(name, frames, need=None, tag="20", preset=10,
+                    clip=None, **kw):
     """One GOP encoded on the CPU and on the card, each decoded by the
     port's decoder on its device (every shown frame equal to
     Packet.recon): block agreement, bytes, identity; the frames whose GM
@@ -1149,17 +1239,21 @@ def gop_cpu_vs_cuda(name, frames, need=None, tag="20", **kw):
     whose setting the encodes take).  Returns the coded frames' (header,
     decisions) of the CPU's and the card's stream."""
     h, w = frames[0][0].shape
-    clip = name if need else None
-    pc = encode_gop(frames, w, h, "cpu", clip=clip, **kw)
-    pg = encode_gop(frames, w, h, None, clip=clip, **kw)
+    clip = clip or (name if need else None)
+    pc = encode_gop(frames, w, h, "cpu", preset, clip=clip, **kw)
+    pg = encode_gop(frames, w, h, None, preset, clip=clip, **kw)
     cc_, _ = gop_decode_check(pc, "cpu")
     cg, _ = gop_decode_check(pg, None)
-    same = tot = wedge_ties = 0
+    same = tot = wedge_ties = tx_flips = 0
     for (_, a), (_, b) in zip(cc_, cg):
         for k, blk in a.items():
             tot += 1
             o = b.get(k)
             same += _same_inter_block(blk, o)
+            # the inter tx-type search's float32 transforms: a tie flips
+            # the type (and so the levels) of a block alike otherwise
+            tx_flips += bool(o is not None and blk.tx_type != o.tx_type
+                             and _same_inter_block(blk, o, tx=False))
             wedge_ties += bool(o is not None and blk.comp_type == 1
                                and o.comp_type == 1
                                and (blk.wedge_idx, blk.wedge_sign)
@@ -1173,21 +1267,22 @@ def gop_cpu_vs_cuda(name, frames, need=None, tag="20", **kw):
                          if p.displayed]))
     identical = [p.data for p in pc] == [p.data for p in pg]
     n_c, n_g = gop_block_counts(cc_), gop_block_counts(cg)
-    log(f"phase {tag}: GOP {name} {w}x{h} x{len(frames)} M10 {kw}"
+    log(f"phase {tag}: GOP {name} {w}x{h} x{len(frames)} M{preset} {kw}"
         f"{' (order hints off, wedge priced out)' if name == 'iris' else ''}"
         f" cpu vs cuda:"
         f" {agree:.4%} of {tot} blocks equal, bytes {bc} vs {bg}, "
         f"|dY-PSNR| {dps:.4f} dB, streams identical: {identical}; counted "
         f"ties: frames whose GM model or interp pick differ {ties}, wedge "
-        f"blocks whose option differs {wedge_ties}; inter-frame blocks cpu "
+        f"blocks whose option differs {wedge_ties}, blocks whose inter tx "
+        f"type alone differs {tx_flips}; inter-frame blocks cpu "
         f"{n_c}, cuda {n_g}; both decoders match recon")
     if (agree < MIN_BLOCK_AGREE or dps > MAX_DPSNR
             or abs(bc - bg) > MAX_DBYTES * bg):
         raise AssertionError(f"cpu and cuda GOP encodes of {name} disagree "
                              "beyond the slice's parity thresholds")
-    if need is not None and n_g[need] <= 0:
-        raise AssertionError(f"the card's {name} stream codes no {need} "
-                             "block")
+    for k in ((need,) if isinstance(need, str) else need or ()):
+        if n_g[k] <= 0:
+            raise AssertionError(f"the card's {name} stream codes no {k}")
     return cc_, cg
 
 
@@ -1444,42 +1539,25 @@ def phase_lookahead_ops():
 
 
 def phase_lookahead_gop(card, frames):
-    """This slice's main path: the CIF GOP with the lookahead on (MCTF and
-    TPL, delta-q key frames), M10, DLF + CDEF, through send_picture /
-    flush on the default device.  A warm run, decoded on the card (every
-    shown frame equal to Packet.recon); then the timed run with
-    recon_enabled off (as bench.py runs it), K1's count set to 0 before
-    and read after: its packets must equal the warm run's, and K1's
-    launches must equal the waves of every frame that is not a delta-q
-    key frame (such a frame takes the per-block quantizer and the plain
-    transform, as in the reference)."""
+    """The previous slice's main path: the CIF GOP with the lookahead on
+    (MCTF and TPL, delta-q key frames), M10, DLF + CDEF, through
+    send_picture / flush on the default device, timed with recon_enabled
+    off (timed_gop; phases 18-22 ran every program at CIF, so no separate
+    warm run), K1's count set to 0 before and read after: its launches
+    must equal the waves of every frame that is not a delta-q key frame
+    (such a frame takes the per-block quantizer and the plain transform,
+    as in the reference); then every shown frame decoded on the card
+    against the encoder's recon (decode_against)."""
     import torch
     from svt_av1_tpu_torch.codec import obu
-    from svt_av1_tpu_torch.ops import fused_txq
-    from svt_av1_tpu_torch.utils import profiling
     w, h = CIF
-    warm = encode_gop(frames, w, h, None, **LOOKAHEAD)
-    t1 = time.perf_counter()
-    coded, shown = gop_decode_check(warm, None)
-    dec_s = time.perf_counter() - t1
+    pkts, recon, dt, launches, _, stages = timed_gop(frames, w, h, 10,
+                                                     **LOOKAHEAD)
+    coded, mpsnr, dec_s = decode_against("23", pkts, recon, frames)
     keys = [(fp, dec) for fp, dec in coded if fp.frame_type == obu.KEY_FRAME]
     dq = [(fp, dec) for fp, dec in keys if fp.delta_q_present]
     qrange = [(fp.base_q_idx, min(b.qindex for b in dec.values()),
                max(b.qindex for b in dec.values())) for fp, dec in dq]
-    torch.cuda.synchronize()
-    profiling.reset_stages()
-    fused_txq.launches = 0
-    t0 = time.perf_counter()
-    pkts = encode_gop(frames, w, h, None, recon_enabled=False, **LOOKAHEAD)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = fused_txq.launches
-    stages = profiling.stage_stats()
-    if [p.data for p in pkts] != [p.data for p in warm]:
-        _fail("the timed lookahead GOP differs from the warm run")
-    if any(p.recon is not None for p in pkts
-           if p.frame_type == obu.INTER_FRAME):
-        _fail("recon_enabled=False still copied inter-frame recon")
     waves = waves_per_frame(w, h)
     want = waves * (len(coded) - len(dq))
     if launches != want:
@@ -1494,26 +1572,23 @@ def phase_lookahead_gop(card, frames):
           for k in ("key_tf", "key_tpl", "gop_tf", "gop_tpl",
                     "gop_tpl_synth") if k in stages}
     nbytes = sum(len(p.data) for p in pkts)
-    disp = sorted((p for p in warm if p.displayed), key=lambda p: p.pts)
-    mpsnr = float(np.mean([psnr(frames[p.pts][0], p.recon["y"])
-                           for p in disp]))
-    log(f"phase 23: the main path: GOP {w}x{h} x{len(frames)} M10 qp35 "
+    log(f"phase 23: GOP {w}x{h} x{len(frames)} M10 qp35 "
         f"hierarchical_levels 3 keyint 15 MCTF + TPL DLF + CDEF through "
         f"send_picture / flush on the default device "
         f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
-        f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s; {len(keys)} key, "
+        f"{len(frames) / dt:.3f} fps ({dt:.3f} s; {len(keys)} key, "
         f"{n_inter} inter packets), {per_inter:.3f} s host dispatch per "
-        f"inter frame, {nbytes} bytes, mean Y-PSNR {mpsnr:.4f} dB (warm "
-        f"run); lookahead stage seconds (total, calls) {la}; all host "
+        f"inter frame, {nbytes} bytes, mean Y-PSNR {mpsnr:.4f} dB; "
+        f"lookahead stage seconds (total, calls) {la}; all host "
         f"stage seconds {sec}; delta-q key frames {len(dq)} of "
         f"{len(keys)} (base qindex, qmap min, max) {qrange} (the bench "
         f"clip moves uniformly, so TPL may find every superblock alike; "
         f"phase 24 codes delta-q on the card); fused_txq "
         f"launches {launches} = {waves} waves x {len(coded) - len(dq)} "
         f"frames without delta-q (of 840 / 896 / 952 for 2 / 1 / 0 "
-        f"delta-q key frames) ({card}); the warm run decoded on the "
-        f"default device matches recon over {shown} shown frames "
-        f"({dec_s:.1f} s); the timed run's packets equal the warm run's")
+        f"delta-q key frames) ({card}); decoded on the default device, "
+        f"equal to the encoder's recon over {len(frames)} shown frames "
+        f"({dec_s:.1f} s)")
     return pkts, launches
 
 
@@ -1553,6 +1628,87 @@ def phase_lookahead_cpu_vs_cuda():
     if len(calls) != 2 * half or not dq:
         _fail("the card's lookahead GOP is not the CPU's (MCTF calls) or "
               "codes no delta-q key frame")
+
+
+# bench.py's primary GOP config (bench.py:86-91): M6, keyint 15, 3-level
+# mini-GoPs, TPL + MCTF, DLF, CDEF level 1, qp 35
+M6_BENCH = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=1,
+                enable_tpl_la=1, **FILTERS)
+
+
+def phase_m6_gop(card, frames):
+    """This slice's main path: bench.py's primary config (the CIF x17 GOP
+    at M6 with TPL + MCTF, DLF and CDEF) through send_picture / flush on
+    the default device.  A warm run over a 3-frame prefix (a key frame and
+    a mini-GoP of 2: both P1 shapes, P2, MCTF and TPL at CIF; phase 27
+    ran the M6 tools at small sizes), then the timed run with
+    recon_enabled off as bench.py runs it (timed_gop), K1's count set to
+    0 before and read after: K1 runs on the pass B of every inter frame,
+    at B = 88 (M6 key frames search four tx types and do not take it);
+    then every shown frame decoded on the card against the encoder's
+    recon (decode_against)."""
+    import torch
+    from svt_av1_tpu_torch.codec import obu
+    w, h = CIF
+    t0 = time.perf_counter()
+    encode_gop(frames[:3], w, h, None, 6, **M6_BENCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pkts, recon, dt, launches, batches, stages = timed_gop(frames, w, h, 6,
+                                                           **M6_BENCH)
+    coded, mpsnr, dec_s = decode_against("26", pkts, recon, frames)
+    n = gop_block_counts(coded)
+    n_inter = sum(fp.frame_type == obu.INTER_FRAME for fp, _ in coded)
+    waves = waves_per_frame(w, h)
+    b = k1_batch(1, CIF, 6)
+    if launches != waves * n_inter or batches != [b]:
+        _fail(f"phase 26: fused_txq launched {launches} times at batches "
+              f"{batches}; {waves} waves x {n_inter} inter frames at B = {b}"
+              " predicted")
+    per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / max(n_inter, 1)
+    st = {k: (round(stages[k][0], 3), stages[k][1])
+          for k in ("key_tf", "key_tpl", "gop_tf", "gop_tpl",
+                    "gop_tpl_synth", "tmvp_setup", "save_mvfield", "host_ec",
+                    "device_md_inter") if k in stages}
+    nbytes = sum(len(p.data) for p in pkts)
+    log(f"phase 26: the main path: bench.py's primary config, GOP {w}x{h} "
+        f"x{len(frames)} M6 qp35 hierarchical_levels 3 keyint 15 MCTF + TPL "
+        f"DLF + CDEF through send_picture / flush on the default device "
+        f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
+        f"{len(frames) / dt:.4f} fps hot ({dt:.3f} s; warm 3-frame prefix "
+        f"{warm_s:.1f} s), {per_inter:.3f} s host dispatch per inter frame "
+        f"({n_inter} inter frames), {nbytes} bytes, mean Y-PSNR "
+        f"{mpsnr:.4f} dB; stage seconds (total, calls) {st}; inter-frame "
+        f"blocks {n} (use_ref_frame_mvs on {n['tmvp_frames']} of {n_inter} "
+        f"inter frames); fused_txq launches {launches} = {waves} waves x "
+        f"{n_inter} inter frames at B = {b} ({card}); decoded on the card, "
+        f"equal to the encoder's recon over {len(frames)} shown frames "
+        f"({dec_s:.1f} s)")
+    return launches
+
+
+def phase_m6_tools_cpu_vs_cuda():
+    """The M5-M9 clips of tests/test_torch_gop_m6.py on the CPU and on the
+    card (gop_cpu_vs_cuda, with each clip's pinned features as the
+    reference's tool-isolation tests pin them): OBMC (seam texture, M6
+    without part8 and the tx search), inter-intra (gradient wipe, the
+    same), the 8x8 split + TMVP (boundary clip, M6), M8's full tools and
+    M9 on the natural clip; each card stream must code its tool."""
+    import clips
+    off = dict(enable_dlf_flag=0, cdef_level=0)
+    runs = (("obmc_m6", clips.seam_clip(), 6, "obmc",
+             dict(qp=50, intra_period_length=31, **off)),
+            ("ii_m6", clips.gradient_wipe_clip(), 6, "ii",
+             dict(qp=45, intra_period_length=31, **off)),
+            ("part8_tmvp_m6", clips.boundary_clip(), 6,
+             ("split8", "tmvp_frames"), dict(qp=40, intra_period_length=15)),
+            ("m8", clips.natural_clip(5, 64, 64, seed=1), 8, "itx",
+             dict(intra_period_length=4)),
+            ("m9", clips.natural_clip(5, 64, 64, seed=1), 9, "compound",
+             dict(intra_period_length=4)))
+    for name, frames, preset, need, kw in runs:
+        gop_cpu_vs_cuda(name, frames, need=need, tag="27", preset=preset,
+                        clip=name, hierarchical_levels=2, **kw)
 
 
 def _fail(msg):
@@ -1596,13 +1752,21 @@ def main():
     from svt_av1_tpu_torch.ops import fused_txq
     fused_txq.batches.clear()           # from here on: the paths' batches
 
+    # this slice first (in a fresh process, so that nothing the earlier
+    # paths left behind weighs on the main path's timing): the GOP at
+    # M5-M9, its tools on small clips, then bench.py's primary config
+    cif17 = synth_frames(17, *CIF)
+    by_path = {}
+    phase_m6_tools_cpu_vs_cuda()
+    m6_launches = phase_m6_gop(card, cif17)
+    by_path["M6 GOP MCTF+TPL CIF x17"] = m6_launches
+
     import clips
-    # the all-intra paths of the earlier slices at a cut depth (8 CIF / 2
-    # 720p frames a batch, 3 CIF key frames at M6), so that the GOP phases
-    # fit the time limit
+    # the paths of the earlier slices at a cut depth (8 CIF / 2 720p
+    # frames a batch, 3 CIF and 1 720p key frames at M6), so that the
+    # whole script fits the time limit
     cif = synth_frames(CIF_FRAMES, *CIF)
     hd = synth_frames(HD_FRAMES, *HD)
-    by_path = {}
     pkts_cif, dec_cif, by_path["M10 send_pictures CIF x8"] = phase_encode(
         "5", cif, *CIF, card)
     by_path["M10 send_pictures 720p x2"] = phase_encode(
@@ -1614,9 +1778,9 @@ def main():
     key_cif = cif[:2] + [clips.screen_frame(*CIF, seed=1)]
     pk_m6, dec_m6, by_path["M6 send_picture CIF x3"] = phase_key_frames(
         "9", key_cif, *CIF, card)
-    key_hd = [hd[0], clips.screen_frame(*HD, seed=1)]
-    pk_m6_hd, _, by_path["M6 send_picture 720p x2"] = phase_key_frames(
-        "10", key_hd, *HD, card, warm=False)
+    key_hd = [hd[0]]          # palette: the CIF screen frame of phase 9
+    pk_m6_hd, _, by_path["M6 send_picture 720p x1"] = phase_key_frames(
+        "10", key_hd, *HD, card, warm=False, need=("tx", "delta", "cfl"))
     by_path["M6 send_pictures CIF x8"] = phase_encode(
         "11a", cif, *CIF, card, preset=6)[2]
     by_path["M6 send_pictures 720p x2"] = phase_encode(
@@ -1629,7 +1793,7 @@ def main():
         "14a", key_cif, *CIF, card, pk_m6)
     by_path["M6 send_picture DLF+CDEF CIF x3"] = n
     n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
-    by_path["M6 send_picture DLF+CDEF 720p x2"] = n
+    by_path["M6 send_picture DLF+CDEF 720p x1"] = n
     by_path["M10 send_pictures DLF CIF x8"] = phase_encode(
         "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
     by_path["M10 send_pictures DLF+CDEF CIF x8"] = phase_encode(
@@ -1640,14 +1804,13 @@ def main():
     # the GOP slice of the earlier PR (MCTF and TPL off) at a cut depth:
     # CIF x9 and 720p x5, no warm run at CIF
     phase_motion_ops()
-    cif17 = synth_frames(17, *CIF)
-    by_path["M10 GOP CIF x9"] = phase_gop("18", cif17[:9], *CIF, card,
-                                          warm=0)[2]
-    by_path["M10 GOP 720p x5"] = phase_gop(
-        "19", synth_frames(5, *HD), *HD, card, warm=2, shown_limit=5,
+    by_path["M10 GOP CIF x5"] = phase_gop("18", cif17[:5], *CIF, card,
+                                          warm=0, profile=False)[2]
+    by_path["M10 GOP 720p x3"] = phase_gop(
+        "19", synth_frames(3, *HD), *HD, card, warm=2, shown_limit=3,
         profile=False)[2]
     phase_gop_cpu_vs_cuda()
-    by_path["M12 GOP CIF x9"] = phase_gop("21", cif17[:9], *CIF, card,
+    by_path["M12 GOP CIF x5"] = phase_gop("21", cif17[:5], *CIF, card,
                                           preset=12, warm=0,
                                           profile=False)[2]
 
@@ -1656,6 +1819,7 @@ def main():
     _, launches = phase_lookahead_gop(card, cif17)
     by_path["M10 GOP MCTF+TPL CIF x17"] = launches
     phase_lookahead_cpu_vs_cuda()
+
 
     # every batch size that a path gave K1 must have been checked against
     # the plain version; a size that phase 3 did not foresee is checked now
@@ -1676,17 +1840,17 @@ def main():
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the M10 lookahead GOP at CIF, the time at its pass-B
-    # batch (one frame x 11 wave slots x 6 modes); every size is under
-    # by_batch
+    # launches of bench.py's primary config (the M6 GOP at CIF), the time
+    # at its pass-B batch (one frame x 11 wave slots x 8 modes); every
+    # size is under by_batch
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, CIF, 10))
+              if r["b"] == k1_batch(1, CIF, 6))
     print(smi, flush=True)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
         source="svt_av1_tpu_torch/csrc/fused_txq.cu",
         replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
-        launches=launches, max_abs_err=krec["max_abs_err"],
+        launches=m6_launches, max_abs_err=krec["max_abs_err"],
         ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],

@@ -11,11 +11,13 @@ svt_av1_tpu/api/encoder.py.
 Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and frame-uniform CDEF
 on or off, and LR, superres and film grain off; either all-intra
 (intra_period_length -2 or 0) at presets M5-M13, or the hierarchical
-(random-access) GOP of the reference's fast path at presets M10-M13 with
+(random-access) GOP of the reference's fast path at presets M5-M13 with
 hierarchical_levels 1-3 and intra_period_length > 0, with or without the
-lookahead (MCTF, enable_tf; TPL, enable_tpl_la).  Any other
-configuration raises NotImplementedError naming the ROADMAP.md item that
-brings it; nothing falls back to the JAX package.
+lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M5-M8 its inter
+frames search the inter tx type and the OBMC and inter-intra motion
+modes, at M5-M6 the 8x8 split and TMVP too (gop_fast.run_inter_frame).
+Any other configuration raises NotImplementedError naming the
+ROADMAP.md item that brings it; nothing falls back to the JAX package.
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
@@ -110,10 +112,6 @@ def _unsupported(cfg: EncoderConfig):
                   or cfg.intra_period_length < 0),
          "GOPs with hierarchical_levels 4-5 or intra_period_length -1",
          "queue A item 7"),
-        (gop and 5 <= cfg.enc_mode < 10,
-         f"GOPs at preset M{cfg.enc_mode} (OBMC, inter-intra, the 8x8 "
-         "split, TMVP, the inter tx search and the third reference)",
-         "queue A item 6"),
         (cfg.rate_control_mode != 0 or cfg.max_bit_rate > 0
          or cfg.pass_ != 0, "VBR/CBR, capped CRF and multi-pass",
          "queue A item 7"),
@@ -181,6 +179,12 @@ class Encoder:
                                      bit_depth=8,
                                      enable_cdef=config.cdef_level > 0)
         self._feat = features_for(config.enc_mode)
+        if config.intra_period_length not in (-2, 0):
+            for on, what in ((self._feat.hp_mv, "1/8-pel MVs (hp_mv)"),
+                             (self._feat.mref, "the third reference (mref)")):
+                if on:
+                    raise NotImplementedError(
+                        f"{what}: not ported yet (ROADMAP.md queue A item 7)")
         # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
         # sequence header; a frame turns the tools on when it has
         # palette candidates
@@ -226,6 +230,8 @@ class Encoder:
             self._slot_free = set(range(8))
             self._slot_recon: Dict[int, Dict] = {}  # slot -> device planes
             self._slot_state: Dict[int, tuple] = {}  # slot -> (cdfs, nmv)
+            # slot -> saved motion field (spec 7.19; read by TMVP, 7.9)
+            self._slot_mvfield: Dict[int, mv_pred.FrameMotionField] = {}
             self._slot_hint = [0] * 8
             self._h_anchor_src = None  # the anchor's padded source luma (TPL)
             # order hints let skip mode pick the (fwd, bwd) pair
@@ -603,6 +609,7 @@ class Encoder:
         self._slot_free = set(range(1, 8))
         self._slot_recon = {0: full}
         self._slot_state = {0: (tenc.cdfs, tenc.nmv)}
+        self._slot_mvfield = {}
         self._slot_hint = [poc & ((1 << self.sp.order_hint_bits) - 1)] * 8
         self._h_anchor = poc
         self._finish_packet(pkt, qindex)
@@ -806,6 +813,7 @@ class Encoder:
                    else None)
         fp.skip_mode_present = sm_pair is not None
         fp.use_ref_frame_mvs = bool(self.sp.enable_ref_frame_mvs
+                                    and self.sp.enable_order_hint
                                     and not fp.error_resilient_mode)
         init = self._slot_state[last_slot]
         tenc = TileEncoder(self.coded_w, self.sp.height, qindex,
@@ -826,8 +834,21 @@ class Encoder:
         tenc.cur_hint = fp.order_hint
         tenc.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}
         tenc.order_hint_bits = bits
+        if fp.use_ref_frame_mvs:
+            with stage("tmvp_setup"):
+                tenc.tmvp = mv_pred.setup_motion_field(
+                    {e: self._slot_mvfield.get(idx[e - 1])
+                     for e in range(1, 8)}, tenc.ref_hints, fp.order_hint,
+                    bits, tenc.mi_rows, tenc.mi_cols,
+                    fp.allow_high_precision_mv)
         with stage("host_ec"):
             tile_data = tenc.encode(decisions)
+        if ev.store and self.sp.enable_ref_frame_mvs:
+            side = mv_pred.ref_frame_side(tenc.ref_hints, fp.order_hint, bits)
+            with stage("save_mvfield"):
+                self._slot_mvfield[slot] = mv_pred.save_motion_field(
+                    decisions, tenc.mi_rows, tenc.mi_cols, side,
+                    fp.ref_hints, fp.order_hint, is_intra=False)
         tu = obu.temporal_delimiter()
         if not self._seq_hdr_sent:
             tu += obu.write_sequence_header(self.sp)

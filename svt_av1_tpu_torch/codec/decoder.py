@@ -9,11 +9,13 @@ order hint; show_existing_frame outputs a slot.  Key frames reconstruct
 through ``reconstruct_from_decisions`` (each block at its own qindex
 where the frame codes delta-q), inter frames through
 ``reconstruct_inter_from_decisions`` (translational, GLOBALMV warp,
-compound average / wedge / diffwtd, skip mode, the merged skip leaves),
-followed by DLF at the header's levels (mask-aware where block sizes are
-mixed) and frame-uniform CDEF (cdef_bits = 0).  Shown planes are copied
-out once, filtered.  OBMC, inter-intra, TMVP and per-SB CDEF raise,
-naming their ROADMAP.md items.
+compound average / wedge / diffwtd, skip mode, the merged skip leaves,
+8x8 split leaves, OBMC and inter-intra), followed by DLF at the header's
+levels (mask-aware where block sizes are mixed) and frame-uniform CDEF
+(cdef_bits = 0).  Each slot also keeps its frame's saved motion field,
+which TMVP (use_ref_frame_mvs) projects.  Shown planes are copied out
+once, filtered.  1/8-pel MVs and per-SB CDEF raise, naming their
+ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.encoder import _skip_map, _skip_map8
-from svt_av1_tpu_torch.codec import obu
+from svt_av1_tpu_torch.codec import mv_pred, obu
 from svt_av1_tpu_torch.codec.syntax import TileDecoder
 from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage
@@ -44,6 +46,9 @@ class Decoder:
         self.slot_cdfs: list = [None] * 8
         self.slot_nmv: list = [None] * 8
         self.slot_hints: list = [0] * 8
+        # per-slot saved motion fields (spec 7.19; projected by 7.9 when
+        # a frame sets use_ref_frame_mvs)
+        self.slot_mvfield: list = [None] * 8
         # most recent frame's parsed leaf decisions and frame header (test
         # introspection)
         self.last_decisions: dict = None
@@ -102,12 +107,10 @@ class Decoder:
             raise NotImplementedError(
                 "per-SB CDEF strengths (cdef_bits > 0): ROADMAP.md queue A "
                 "item 7")
-        if not is_intra and (fp.use_ref_frame_mvs
-                             or fp.is_motion_mode_switchable
-                             or fp.allow_high_precision_mv):
+        if not is_intra and fp.allow_high_precision_mv:
             raise NotImplementedError(
-                "TMVP, OBMC and 1/8-pel MVs come with the M5-M9 inter tools "
-                "(ROADMAP.md queue A item 6)")
+                "1/8-pel MVs (allow_high_precision_mv): ROADMAP.md queue A "
+                "item 7")
         chain = (not is_intra
                  and fp.primary_ref_frame != obu.PRIMARY_REF_NONE)
         init_cdfs = init_nmv = None
@@ -137,6 +140,12 @@ class Decoder:
             tdec.cur_hint = fp.order_hint
             tdec.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}
             tdec.order_hint_bits = self.sp.order_hint_bits
+            if fp.use_ref_frame_mvs:
+                tdec.tmvp = mv_pred.setup_motion_field(
+                    {e: self.slot_mvfield[fp.ref_frame_idx[e - 1]]
+                     for e in range(1, 8)}, tdec.ref_hints, fp.order_hint,
+                    self.sp.order_hint_bits, tdec.mi_rows, tdec.mi_cols,
+                    fp.allow_high_precision_mv)
         if fp.delta_q_present:
             tdec.set_delta_q(fp.delta_q_res)
         decisions = tdec.decode(tile_data)
@@ -181,12 +190,24 @@ class Decoder:
         end_nmv = (tdec.nmv if not fp.disable_frame_end_update_cdf
                    else init_nmv)
         stored = {k: recon[k] for k in ("y", "u", "v")}
+        field = None
+        if refresh:
+            hints = ({} if is_intra else
+                     {e: fp.ref_hints[e - 1] for e in range(1, 8)})
+            side = (mv_pred.ref_frame_side(hints, fp.order_hint,
+                                           self.sp.order_hint_bits)
+                    if not is_intra else [0] * 8)
+            field = mv_pred.save_motion_field(
+                decisions, (self.sp.height + 3) >> 2, (coded_w + 3) >> 2,
+                side, tuple(hints.get(e, 0) for e in range(1, 8)),
+                fp.order_hint, is_intra)
         for i in range(8):
             if refresh & (1 << i):
                 self.slots[i] = stored
                 self.slot_cdfs[i] = end_cdfs
                 self.slot_nmv[i] = end_nmv
                 self.slot_hints[i] = fp.order_hint
+                self.slot_mvfield[i] = field
         self.last_decisions = decisions
         self.last_frame_header = fp
         if not fp.show_frame:

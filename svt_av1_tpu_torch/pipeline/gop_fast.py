@@ -1,5 +1,5 @@
 """Fast hierarchical-GOP pipeline: the two programs of an inter frame, the
-PyTorch port of svt_av1_tpu/pipeline/gop_fast.py (presets M10-M13).
+PyTorch port of svt_av1_tpu/pipeline/gop_fast.py (presets M5-M13).
 
 Each inter frame runs as
 
@@ -7,15 +7,19 @@ Each inter frame runs as
                  squares + normative shear/quantization) -> warped
                  reference -> frame interp-filter pick -> pass A over all
                  references and candidates (gm / subpel ring / neighbour
-                 MVs), merged on the device -> compound pairs (average,
-                 wedge, diffwtd, the skip-mode pair) -> pass B: the intra
-                 wave loop with the inter candidate as an override (the
-                 luma step's transform + quantizer is K1, ops/fused_txq)
-                 -> dense per-block decisions, 32x32/64x64/rect merges
-                 and the unfiltered recon.
+                 MVs; at M5-M8 the inter tx-type search on the winner, at
+                 M5-M6 the 8x8 split alternative), merged on the device ->
+                 compound pairs (average, wedge, diffwtd, the skip-mode
+                 pair) -> pass B: the intra wave loop with the inter
+                 candidate as an override (at M5-M8 first priced against
+                 its OBMC and inter-intra alternatives; the luma step's
+                 transform + quantizer is K1, ops/fused_txq) -> dense
+                 per-block decisions, 32x32/64x64/rect merges and the
+                 unfiltered recon.
   P2 "filters" — DLF ladder search + apply with the mask-aware edge
-                 enables, CDEF direction search, per-SB / per-candidate
-                 SSE, the frame-uniform pick and the apply.
+                 enables (at 8-px granularity where blocks split), CDEF
+                 direction search, per-SB / per-candidate SSE, the
+                 frame-uniform pick and the apply.
   host         — one bundled copy of the decision arrays, entropy coding.
 
 Here a "program" is a Python function of eager PyTorch ops on one device:
@@ -29,8 +33,12 @@ Float parts: the GM fit is float32 least squares (sums in the order the
 device picks, held to a tie rule against the reference); the frame-wide
 interp-pick SSE and the filter SSEs are exact int64 sums here (the
 reference sums in float32); RD costs are float32 as in the reference.
-OBMC, inter-intra, the 8x8 split, the inter tx-type search and 1/8-pel
-MVs (the M5-M9 inter tools) are not ported and raise.
+One departure from the reference, where it departs from the AV1
+specification: an OBMC candidate next to an 8x8 split neighbour blends
+that neighbour per 8-px segment with the sub MVs that touch the block
+(spec 7.11.3.10), as a decoder does; the reference leaves the neighbour
+out (ROADMAP.md queue C item 4).  1/8-pel MVs (hp_mv, off at every
+preset) raise.
 """
 from __future__ import annotations
 
@@ -45,6 +53,9 @@ from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
 from svt_av1_tpu_torch.ops import cdef as cdef_ops
 from svt_av1_tpu_torch.ops import dlf as dlf_ops
+from svt_av1_tpu_torch.ops import interintra as ii_ops
+from svt_av1_tpu_torch.ops import intra as intra_ops
+from svt_av1_tpu_torch.ops import obmc as obmc_ops
 from svt_av1_tpu_torch.ops import mc, quant, transforms as tf
 from svt_av1_tpu_torch.ops import warp as warp_ops
 from svt_av1_tpu_torch.ops import wedge as wedge_ops
@@ -54,8 +65,8 @@ from svt_av1_tpu_torch.pipeline import tpl as tpl_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import _ladder, default_filter_level
 from svt_av1_tpu_torch.pipeline.inter_encoder import _SUBPEL_RING, _mv_bits
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
-    BLK, CBLK, UV_MODES, _device_schedule, _rd_step, _rd_step_chroma,
-    _scan_pos_on, _txb_bits, frame_lambda)
+    BLK, CBLK, II_TO_INTRA, UV_MODES, _device_schedule, _gather_neighbors,
+    _rd_step, _rd_step_chroma, _scan_pos_on, _txb_bits, frame_lambda)
 
 WM = 1 << 16  # WARPEDMODEL_PREC_BITS unit
 # named ranges of the two programs, read by torch.profiler
@@ -63,14 +74,27 @@ WM = 1 << 16  # WARPEDMODEL_PREC_BITS unit
 # few microseconds each
 _region = torch.profiler.record_function
 NLVL = 5      # DLF ladder size (padded to a fixed length)
-M5_M9 = ("OBMC, inter-intra, the 8x8 split, the inter tx-type search and "
-         "1/8-pel MVs come with the M5-M9 inter tools (ROADMAP.md queue A, "
-         "the slice after TPL + MCTF)")
+HP_MV = ("1/8-pel MVs (hp_mv, off at every preset): not ported yet "
+         "(ROADMAP.md queue A item 7)")
 
+# extra luma tx types searched on inter winners (beyond DCT_DCT); they
+# share the TX_16X16 default scan, so one rate table serves all
+ITX_SEARCH_SET = (cc.ADST_ADST, cc.ADST_DCT, cc.DCT_ADST)
+_ITX_ENUM = (cc.DCT_DCT,) + ITX_SEARCH_SET   # tx index -> tx_type
+# per-type signaling delta over DCT_DCT under the TX_16X16 inter set's
+# default CDF, aligned with ITX_SEARCH_SET
+_ITX_EXTRA_BITS = (1.62, 1.40, 1.31)
+# 8x8 split overhead over one 16x16 leaf (the SPLIT symbol, four NONE
+# symbols and three more per-sub headers; static estimate)
+_SPLIT_EXTRA_BITS = 18.0
 # masked-compound syntax overhead over the plain average (static
 # estimates from the default CDFs, as in the reference)
 _WEDGE_EXTRA_BITS = 6.0
 _DIFFWTD_EXTRA_BITS = 3.0
+# the OBMC motion-mode flag and the inter-intra flag + mode over their
+# flag-0 sides
+_OBMC_FLAG_BITS = 1.2
+_II_EXTRA_BITS = 3.0
 
 
 def _t(a, dev, dtype=torch.int32):
@@ -331,14 +355,148 @@ def _txq_rd(resid, qp, tx_type, tx_size, coef, txbb_k, eob, lam):
     return qc, dq, dist, bits
 
 
+def _rd_chroma(pred_u, pred_v, resid_u, resid_v, t, qp, lam, coef_uv,
+               txbb_k, eob_uv, bd):
+    """Chroma RD of both planes at TX_8X8 and tx type ``t`` (inter chroma
+    inherits the luma type): ((q, rec, coded cost) of U, of V)."""
+    out = []
+    for pred_c, resid_c in ((pred_u, resid_u), (pred_v, resid_v)):
+        qcc, dqc, dist_c, bits_c = _txq_rd(resid_c, qp, t, cc.TX_8X8,
+                                           coef_uv, txbb_k, eob_uv, lam)
+        rec_c = tf.inv_txfm2d_add(dqc, pred_c, t, cc.TX_8X8, bd=bd)
+        out.append((qcc, rec_c, dist_c + lam * bits_c))
+    return out
+
+
+def _tx_funnel(resid, pred, bq, rec_coded, coded, chroma, mvb, qp, lam, rt,
+               bd):
+    """The inter luma tx-type search on one residual (ITX_SEARCH_SET after
+    DCT_DCT): each type repays its signaling delta and is compared jointly
+    with chroma, whose type it sets; a win needs a nonzero luma txb (with
+    eob 0 the type is not signaled and the decoder takes DCT_DCT).
+    chroma: [(qu, rec_u, cu), (qv, rec_v, cv)] at DCT_DCT, with the chroma
+    prediction and residual as (pred_u, pred_v, resid_u, resid_v) after
+    them.  Returns (coded, q, rec, tx index, chroma) at the winner."""
+    coef_y, coef_uv, txbb, eob_y, eob_uv = rt
+    (qu, rec_u, cu), (qv_, rec_v, cvq), cpr = chroma
+    btx = torch.zeros(resid.shape[0], dtype=torch.int32,
+                      device=resid.device)
+    for ti, t in enumerate(ITX_SEARCH_SET, 1):
+        q_t, dq_t, dist_t, bits_t = _txq_rd(resid, qp, t, cc.TX_16X16,
+                                            coef_y, txbb[0], eob_y, lam)
+        cost_t = dist_t + lam * (bits_t + mvb + _ITX_EXTRA_BITS[ti - 1])
+        (qu_t, rec_u_t, cu_t), (qv_t, rec_v_t, cv_t) = _rd_chroma(
+            *cpr, t, qp, lam, coef_uv, txbb[1], eob_uv, bd)
+        take = ((q_t != 0).any(dim=2).any(dim=1)
+                & ((cost_t + cu_t + cv_t) < (coded + cu + cvq)))
+        t3 = take[:, None, None]
+        coded = torch.where(take, cost_t, coded)
+        bq = torch.where(t3, q_t, bq)
+        rec_coded = torch.where(
+            t3, tf.inv_txfm2d_add(dq_t, pred, t, cc.TX_16X16, bd=bd),
+            rec_coded)
+        btx = torch.where(take, ti, btx)
+        qu = torch.where(t3, qu_t, qu)
+        rec_u = torch.where(t3, rec_u_t, rec_u)
+        cu = torch.where(take, cu_t, cu)
+        qv_ = torch.where(t3, qv_t, qv_)
+        rec_v = torch.where(t3, rec_v_t, rec_v)
+        cvq = torch.where(take, cv_t, cvq)
+    return coded, bq, rec_coded, btx, [(qu, rec_u, cu), (qv_, rec_v, cvq)]
+
+
+def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
+                 qp, lam, rt, bd, interp, nb, K, h, w):
+    """The 8x8 partition-split alternative of a 16x16 block against ONE
+    reference: each of the four 8x8 subs picks its own MV from the
+    parent's candidates, codes TX_8X8 luma and TX_4X4 chroma and decides
+    skip on its own.  Returns (cost, cost_y, sub MVs (nb, 4, 2), sub skips
+    (nb, 4), qy, rec_y (nb, 16, 16), qu, rec_u, qv, rec_v (nb, 8, 8)):
+    each sub's coefficients and recon in its quadrant."""
+    coef_y, coef_uv, txbb, eob_y, eob_uv = rt
+    dev = src_y.device
+    SUB, CSUB = BLK // 2, CBLK // 2
+    ar = torch.arange(nb, device=dev)
+    s2c4 = float(np.float32(tf.coeff_sse_scale(cc.TX_4X4, cc.DCT_DCT)))
+    cost_tot = torch.zeros(nb, dtype=torch.float32, device=dev)
+    cost_y_tot = torch.zeros_like(cost_tot)
+    smvs, sskips = [], []
+    z = lambda n: torch.zeros((nb, n, n), dtype=torch.int32, device=dev)
+    qy_c, rec_c, qu_c, ru_c, qv_c, rv_c = (z(BLK), z(BLK), z(CBLK), z(CBLK),
+                                           z(CBLK), z(CBLK))
+    for dy, dx in ((0, 0), (0, SUB), (SUB, 0), (SUB, SUB)):
+        ys_s, xs_s = ys + dy, xs + dx
+        cand_s = _clamp_cands(cand, ys_s, xs_s, SUB, h, w)
+        mvsK = cand_s.permute(1, 0, 2).reshape(nb * K, 2)
+        ysK, xsK = ys_s.repeat(K), xs_s.repeat(K)
+        pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, SUB, mc.PAD, 0, bd,
+                            kind=interp)
+        resid = _blocks_at(src_y, ysK, xsK, SUB) - pred
+        # luma TX_8X8 priced with the 8-wide table set (an MD
+        # approximation, as in the reference)
+        qc, dq, dist, bits = _txq_rd(resid, qp, cc.DCT_DCT, cc.TX_8X8,
+                                     coef_uv, txbb[1], eob_uv, lam)
+        mvb = _mv_bits(mvsK)
+        cost_coded = dist + lam * (bits + mvb)
+        cost_skip = _sq_sum(resid) + lam * (mvb + 2.0)
+        kbest = torch.minimum(cost_coded, cost_skip).reshape(K, nb).argmin(
+            dim=0)
+        pick = lambda a: a.reshape((K, nb) + a.shape[1:])[kbest, ar]
+        bq, bdq, bpred, bmv = pick(qc), pick(dq), pick(pred), pick(mvsK)
+        bcoded, bskipc = pick(cost_coded), pick(cost_skip)
+        rec_cod = tf.inv_txfm2d_add(bdq, bpred, cc.DCT_DCT, cc.TX_8X8, bd=bd)
+        cys_s, cxs_s = ys_s // 2, xs_s // 2
+        ch = []
+        for refp_c, src_c in ((refp_u, src_u), (refp_v, src_v)):
+            pred_c = mc.mc_blocks(refp_c, cys_s, cxs_s, bmv, CSUB, mc.PAD, 1,
+                                  bd, kind=interp)
+            resid_c = _blocks_at(src_c, cys_s, cxs_s, CSUB) - pred_c
+            cf = tf.fwd_txfm2d(resid_c, cc.DCT_DCT, cc.TX_4X4)
+            qcc, dqc = quant.quantize(cf, qp, cc.TX_4X4)
+            err = cf.to(torch.float32) - dqc.to(torch.float32)
+            dist_c = s2c4 * (err * err).sum(dim=(1, 2))
+            # the analytic level curve (the exact model has no 4-wide
+            # table set; an MD approximation, as in the reference)
+            af = qcc.abs().to(torch.float32)
+            bits_c = (2.0 * torch.log2(1.0 + af).sum(dim=(1, 2))
+                      + (af > 0).sum(dim=(1, 2)) + 2.0)
+            rcc = tf.inv_txfm2d_add(dqc, pred_c, cc.DCT_DCT, cc.TX_4X4,
+                                    bd=bd)
+            ch.append((qcc, rcc, pred_c, dist_c + lam * bits_c,
+                       _sq_sum(resid_c)))
+        (qu_s, ru_s, pu_s, cu_s, su_s), (qv_s, rv_s, pv_s, cv_s, sv_s) = ch
+        coded_tot = bcoded + cu_s + cv_s
+        skip_tot = bskipc + su_s + sv_s
+        ssk = skip_tot < coded_tot
+        s3 = ssk[:, None, None]
+        cost_tot = cost_tot + torch.where(ssk, skip_tot, coded_tot)
+        cost_y_tot = cost_y_tot + torch.where(
+            ssk, bskipc, torch.minimum(bcoded, bskipc))
+        smvs.append(bmv)
+        sskips.append(ssk)
+        qy_c[:, dy:dy + SUB, dx:dx + SUB] = torch.where(s3, 0, bq)
+        rec_c[:, dy:dy + SUB, dx:dx + SUB] = torch.where(s3, bpred, rec_cod)
+        cdy, cdx = dy // 2, dx // 2
+        qu_c[:, cdy:cdy + CSUB, cdx:cdx + CSUB] = torch.where(s3, 0, qu_s)
+        ru_c[:, cdy:cdy + CSUB, cdx:cdx + CSUB] = torch.where(s3, pu_s, ru_s)
+        qv_c[:, cdy:cdy + CSUB, cdx:cdx + CSUB] = torch.where(s3, 0, qv_s)
+        rv_c[:, cdy:cdy + CSUB, cdx:cdx + CSUB] = torch.where(s3, pv_s, rv_s)
+    return (cost_tot + lam * _SPLIT_EXTRA_BITS, cost_y_tot,
+            torch.stack(smvs, dim=1), torch.stack(sskips, dim=1), qy_c,
+            rec_c, qu_c, ru_c, qv_c, rv_c)
+
+
 def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
               wref_v, cand, is_warp0, ys, xs, qp, lam, rt, bd, interp, nb,
-              K):
+              K, h, w, tx_search=False, split8=False):
     """Pass-A candidate evaluation against ONE reference (skip-aware).
 
     cand: (nb, K, 2) clamped MVs (slot 0 = the global-motion candidate,
-    signaling-only when is_warp0).  Returns the per-block winner: (cost_tot,
-    cost_y, mv, skip, qy, rec_y, qu, rec_u, qv, rec_v, warp_flag)."""
+    signaling-only when is_warp0).  tx_search: the inter tx-type search on
+    the winner's residual (_tx_funnel); split8: the 8x8 split alternative
+    (_eval_split8).  Returns the per-block winner: (cost_tot, cost_y, mv,
+    skip, qy, rec_y, qu, rec_u, qv, rec_v, warp_flag, tx index, split,
+    sub MVs, sub skips)."""
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
     ar = torch.arange(nb, device=dev)
@@ -363,7 +521,9 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
     bcoded, bskipc = pick(cost_coded), pick(cost_skip)
     warp_flag = (kbest == 0) & is_warp0
     rec_coded = tf.inv_txfm2d_add(bdq, bpred, cc.DCT_DCT, cc.TX_16X16, bd=bd)
-    # chroma at the winner MV (the warped chroma planes under warp)
+    # chroma at the winner MV (the warped chroma planes under warp),
+    # before the luma tx-type search: the inter chroma tx type is the
+    # signaled luma type, so a non-DCT luma win re-transforms chroma too
     cys, cxs = ys // 2, xs // 2
     ch = []
     for refp_c, wref_c, src_c in ((refp_u, wref_u, src_u),
@@ -373,25 +533,50 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
         pred_c = torch.where(warp_flag[:, None, None],
                              _blocks_at(wref_c, cys, cxs, CBLK), pred_c)
         resid_c = _blocks_at(src_c, cys, cxs, CBLK) - pred_c
-        qcc, dqc, dist_c, bits_c = _txq_rd(resid_c, qp, cc.DCT_DCT,
-                                           cc.TX_8X8, coef_uv, txbb[1],
-                                           eob_uv, lam)
-        rec_c = tf.inv_txfm2d_add(dqc, pred_c, cc.DCT_DCT, cc.TX_8X8, bd=bd)
-        ch.append((pred_c, qcc, rec_c, dist_c + lam * bits_c,
-                   _sq_sum(resid_c)))
-    (pred_u, qu, rec_u, cu, su), (pred_v, qv_, rec_v, cvq, sv) = ch
+        ch.append((pred_c, resid_c, _sq_sum(resid_c)))
+    (pred_u, resid_u, su), (pred_v, resid_v, sv) = ch
+    cpr = (pred_u, pred_v, resid_u, resid_v)
+    chroma = _rd_chroma(*cpr, cc.DCT_DCT, qp, lam, coef_uv, txbb[1], eob_uv,
+                        bd)
+    btx = torch.zeros(nb, dtype=torch.int32, device=dev)
+    if tx_search:
+        bcoded, bq, rec_coded, btx, chroma = _tx_funnel(
+            _blocks_at(src_y, ys, xs, BLK) - bpred, bpred, bq, rec_coded,
+            bcoded, chroma + [cpr], _mv_bits(bmv), qp, lam, rt, bd)
+    (qu, rec_u, cu), (qv_, rec_v, cvq) = chroma
     # joint skip decision across planes (one skip flag covers all)
     coded_tot = bcoded + cu + cvq
     skip_tot = bskipc + su + sv
     skip = skip_tot < coded_tot
     s3 = skip[:, None, None]
-    return (torch.where(skip, skip_tot, coded_tot),
-            torch.where(skip, bskipc, torch.minimum(bcoded, bskipc)),
-            bmv, skip,
-            torch.where(s3, 0, bq), torch.where(s3, bpred, rec_coded),
-            torch.where(s3, 0, qu), torch.where(s3, pred_u, rec_u),
-            torch.where(s3, 0, qv_), torch.where(s3, pred_v, rec_v),
-            warp_flag)
+    out = [torch.where(skip, skip_tot, coded_tot),
+           torch.where(skip, bskipc, torch.minimum(bcoded, bskipc)),
+           bmv, skip,
+           torch.where(s3, 0, bq), torch.where(s3, bpred, rec_coded),
+           torch.where(s3, 0, qu), torch.where(s3, pred_u, rec_u),
+           torch.where(s3, 0, qv_), torch.where(s3, pred_v, rec_v),
+           warp_flag,
+           torch.where(skip, 0, btx),       # skip blocks signal no type
+           torch.zeros(nb, dtype=torch.bool, device=dev),
+           torch.zeros((nb, 4, 2), dtype=torch.int32, device=dev),
+           torch.zeros((nb, 4), dtype=torch.bool, device=dev)]
+    if split8:
+        sp = _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand,
+                          ys, xs, qp, lam, rt, bd, interp, nb, K, h, w)
+        take = sp[0] < out[0]
+        t3 = take[:, None, None]
+        out[0] = torch.where(take, sp[0], out[0])
+        out[1] = torch.where(take, sp[1], out[1])
+        out[2] = torch.where(take[:, None], sp[2][:, 0], out[2])
+        out[3] = torch.where(take, sp[3].all(dim=1), out[3])
+        for fi, si in ((4, 4), (5, 5), (6, 6), (7, 7), (8, 8), (9, 9)):
+            out[fi] = torch.where(t3, sp[si], out[fi])
+        out[10] = torch.where(take, False, out[10])
+        out[11] = torch.where(take, 0, out[11])
+        out[12] = take
+        out[13] = sp[2]
+        out[14] = sp[3]
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -516,9 +701,213 @@ def _eval_pair(src_y, src_u, src_v, p0, p1, mv0, mv1, ys, xs, qp, lam, rt,
 # P1: the inter-frame MD program
 # --------------------------------------------------------------------------
 
-def _check_p1_tools(hp, obmc, interintra, tx_search, split8):
-    if hp or obmc or interintra or tx_search or split8:
-        raise NotImplementedError(M5_M9)
+@functools.lru_cache(maxsize=None)
+def _obmc_ii_masks_on(device):
+    """The OBMC (16 luma / 8 chroma rows) and inter-intra (4 modes of
+    16x16 / 8x8) masks as int32 tensors."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return (t(obmc_ops.MASK_Y16), t(obmc_ops.MASK_C8),
+            t(ii_ops.MASKS_Y16), t(ii_ops.MASKS_UV8))
+
+
+def _wave_valid(ws):
+    """(B,) bool: the slots of a wave that hold a block."""
+    va = torch.zeros(ws.bid.shape[0], dtype=torch.bool, device=ws.bid.device)
+    va[ws.sel] = True
+    return va
+
+
+class _AltEnv:
+    """Pass B's motion-mode alternatives of a wave's blocks (M5-M8): OBMC
+    and inter-intra predictions built on the pass-A winner's MV, each
+    priced by a joint luma + chroma RD through the same tx funnel as the
+    pass-A winner (``rd_joint``), the reference's motion-mode MD."""
+
+    def __init__(self, src_y, src_u, src_v, refps, imv, iref_idx, icomp,
+                 iwarp, isplit, ismv, cost_tot, qp, lam, rt, bd, interp, gw,
+                 tx_search):
+        self.src = (src_y, src_u, src_v)
+        self.refps = refps
+        self.imv, self.iref_idx, self.ismv = imv, iref_idx, ismv
+        self.icomp, self.iwarp, self.isplit = icomp, iwarp, isplit
+        self.cost_tot = cost_tot
+        self.qp, self.lam, self.rt, self.bd = qp, lam, rt, bd
+        self.interp, self.gw, self.tx_search = interp, gw, tx_search
+        self.masks = _obmc_ii_masks_on(src_y.device)
+
+    def wave(self, ws, ry, ru, rv, choose, obmc, interintra):
+        """The alternatives of one wave's slots, merged as the reference
+        merges them: inter-intra replaces OBMC where it beats it.  Returns
+        (OBMC won, inter-intra mode or -1, the winning alternative's
+        (won, skip, cost_y, rec_y, qy, rec_u, qu, rec_v, qv, tx index))."""
+        bid = ws.bid
+        va = _wave_valid(ws)
+        ys = (ws.by * BLK).to(torch.int32)
+        xs = (ws.bx * BLK).to(torch.int32)
+        base = self.base_preds(bid, ys, xs)
+        best_tot = self.cost_tot[bid]
+        alt = None
+        ow = torch.zeros_like(va)
+        iimode = torch.full_like(bid, -1, dtype=torch.int32)
+        if obmc:
+            out = self.obmc_alt(bid, ws.by, ws.bx, va, base, ys, xs, choose)
+            ow = out[0]
+            best_tot = torch.where(ow, out[1], best_tot)
+            alt = [ow] + list(out[2:])
+        if interintra:
+            out = self.ii_alt(ry, ru, rv, ws.fi, bid, va, ws.ha, ws.hl, base,
+                              ys, xs)
+            iw = out[0] & (out[2] < best_tot)
+            iimode = torch.where(iw, out[1], -1)
+            if alt is None:
+                alt = [iw] + list(out[3:])
+            else:
+                for k, b_ in enumerate(out[3:], 1):
+                    sh = iw.reshape(iw.shape + (1,) * (b_.ndim - 1))
+                    alt[k] = torch.where(sh, b_, alt[k])
+                alt[0] = alt[0] | iw
+                ow = ow & ~iw
+        return ow, iimode, alt
+
+    def sel_ref_mc(self, ys, xs, mvs, ridx, plane):
+        """MC of each block from its reference (ridx), plane 0/1/2."""
+        n, ss = (BLK, 0) if plane == 0 else (CBLK, 1)
+        if ss:
+            ys, xs = ys // 2, xs // 2
+        out = None
+        for r, rp in enumerate(self.refps):
+            pr = mc.mc_blocks(rp[plane], ys, xs, mvs, n, mc.PAD, ss, self.bd,
+                              kind=self.interp)
+            out = pr if out is None else torch.where(
+                (ridx == r)[:, None, None], pr, out)
+        return out
+
+    def base_preds(self, bid, ys, xs):
+        mv, ridx = self.imv[bid], self.iref_idx[bid].to(torch.int32)
+        return tuple(self.sel_ref_mc(ys, xs, mv, ridx, p) for p in range(3))
+
+    def rd_joint(self, pred, pred_u, pred_v, mvb, ys, xs):
+        """Joint luma + chroma RD of an alternative prediction, as pass A
+        prices its winner (the tx funnel included).  Returns (cost, skip,
+        cost_y, rec_y, qy, rec_u, qu, rec_v, qv, tx index)."""
+        src_y, src_u, src_v = self.src
+        qp, lam, bd = self.qp, self.lam, self.bd
+        coef_y, coef_uv, txbb, eob_y, eob_uv = self.rt
+        resid = _blocks_at(src_y, ys, xs, BLK) - pred
+        cys, cxs = ys // 2, xs // 2
+        resid_u = _blocks_at(src_u, cys, cxs, CBLK) - pred_u
+        resid_v = _blocks_at(src_v, cys, cxs, CBLK) - pred_v
+        qc, dq, dist, bits = _txq_rd(resid, qp, cc.DCT_DCT, cc.TX_16X16,
+                                     coef_y, txbb[0], eob_y, lam)
+        coded_y = dist + lam * (bits + mvb)
+        skip_y = _sq_sum(resid) + lam * (mvb + 2.0)
+        rec_cod = tf.inv_txfm2d_add(dq, pred, cc.DCT_DCT, cc.TX_16X16, bd=bd)
+        cpr = (pred_u, pred_v, resid_u, resid_v)
+        chroma = _rd_chroma(*cpr, cc.DCT_DCT, qp, lam, coef_uv, txbb[1],
+                            eob_uv, bd)
+        txi = torch.zeros(pred.shape[0], dtype=torch.int32,
+                          device=pred.device)
+        if self.tx_search:
+            coded_y, qc, rec_cod, txi, chroma = _tx_funnel(
+                resid, pred, qc, rec_cod, coded_y, chroma + [cpr], mvb, qp,
+                lam, self.rt, bd)
+        (qu, rec_u, cu), (qv_, rec_v, cv) = chroma
+        coded_tot = coded_y + cu + cv
+        skip_tot = skip_y + _sq_sum(resid_u) + _sq_sum(resid_v)
+        oskip = skip_tot < coded_tot
+        s3 = oskip[:, None, None]
+        return (torch.where(oskip, skip_tot, coded_tot), oskip,
+                torch.where(oskip, skip_y, torch.minimum(coded_y, skip_y)),
+                torch.where(s3, pred, rec_cod), torch.where(s3, 0, qc),
+                torch.where(s3, pred_u, rec_u), torch.where(s3, 0, qu),
+                torch.where(s3, pred_v, rec_v), torch.where(s3, 0, qv_),
+                torch.where(oskip, 0, txi))
+
+    def obmc_alt(self, bid, by, bx, va, base, ys, xs, choose):
+        """OBMC_CAUSAL: the base prediction blended with the ABOVE, then
+        the LEFT neighbour's prediction (the normative masks and order)
+        where that neighbour chose inter.  As spec 7.11.3.10 reads the
+        neighbours per 8-px segment, an 8x8 split neighbour blends each
+        half of the edge with the MV of the sub that touches it (the
+        reference leaves split neighbours out here while a decoder blends
+        them: ROADMAP.md queue C item 4).  Returns (won,) + rd_joint."""
+        gw = self.gw
+        abid = (bid - gw).clamp(min=0)
+        lbid = (bid - 1).clamp(min=0)
+        a_in = (by > 0) & choose[abid]
+        l_in = (bx > 0) & choose[lbid]
+        el = (va & ~self.icomp[bid] & ~self.iwarp[bid] & ~self.isplit[bid]
+              & (a_in | l_in))
+        my, mc8 = self.masks[:2]
+        preds = list(base)
+        b = bid.shape[0]
+        for nbid, on, fn, subs in ((abid, a_in, obmc_ops.blend_above, (2, 3)),
+                                   (lbid, l_in, obmc_ops.blend_left, (1, 3))):
+            sp = self.isplit[nbid][:, None]
+            mvs = torch.cat([torch.where(sp, self.ismv[nbid, k], self.imv[nbid])
+                             for k in subs])
+            nridx = self.iref_idx[nbid].to(torch.int32).repeat(2)
+            for p in range(3):
+                n = BLK if p == 0 else CBLK
+                pn = self.sel_ref_mc(ys.repeat(2), xs.repeat(2), mvs, nridx, p)
+                # the first half of the edge (columns above, rows left)
+                # from the first segment's MV, the rest from the second's
+                half = torch.arange(n, device=bid.device) < n // 2
+                h3 = half[None, None, :] if fn is obmc_ops.blend_above \
+                    else half[None, :, None]
+                pn = torch.where(h3, pn[:b], pn[b:])
+                preds[p] = torch.where(on[:, None, None],
+                                       fn(preds[p], pn, my if p == 0 else mc8),
+                                       preds[p])
+        out = self.rd_joint(*preds, _mv_bits(self.imv[bid]) + _OBMC_FLAG_BITS,
+                            ys, xs)
+        return (el & (out[0] < self.cost_tot[bid]),) + out
+
+    def ii_alt(self, ry, ru, rv, fi, bid, va, ha, hl, base, ys, xs):
+        """Inter-intra: smooth-mask blends of the base prediction with the
+        DC / V / H / SMOOTH intra predictions from the causal wave recon;
+        the least prediction SSE picks the mode, one joint RD prices it.
+        Returns (eligible, mode) + rd_joint."""
+        bd = self.bd
+        el = va & ~self.icomp[bid] & ~self.iwarp[bid] & ~self.isplit[bid]
+        srcb = _blocks_at(self.src[0], ys, xs, BLK)
+        pred, pred_u, pred_v = base
+        _, _, my, muv = self.masks
+        nbr = _gather_neighbors(ry, fi, ys, xs, BLK, ha, hl, bd=bd)
+        blends, sses = [], []
+        for mi, im in enumerate(II_TO_INTRA):
+            ip = intra_ops.predict(im, *nbr, BLK, BLK, have_above=ha,
+                                   have_left=hl, bd=bd)
+            bl = ii_ops.blend(ip, pred, my[mi])
+            blends.append(bl)
+            sses.append(_sq_sum(srcb - bl))
+        best = torch.stack(sses).argmin(dim=0).to(torch.int32)
+        pick = blends[0]
+        for mi in range(1, 4):
+            pick = torch.where((best == mi)[:, None, None], blends[mi], pick)
+        cys, cxs = ys // 2, xs // 2
+        nbu = _gather_neighbors(ru, fi, cys, cxs, CBLK, ha, hl, bd=bd)
+        nbv = _gather_neighbors(rv, fi, cys, cxs, CBLK, ha, hl, bd=bd)
+        pu, pv = pred_u, pred_v
+        for mi, im in enumerate(II_TO_INTRA):
+            t3 = (best == mi)[:, None, None]
+            for nb_c, pc in ((nbu, 0), (nbv, 1)):
+                ipc = intra_ops.predict(im, *nb_c, CBLK, CBLK, have_above=ha,
+                                        have_left=hl, bd=bd)
+                if pc == 0:
+                    pu = torch.where(t3, ii_ops.blend(ipc, pred_u, muv[mi]),
+                                     pu)
+                else:
+                    pv = torch.where(t3, ii_ops.blend(ipc, pred_v, muv[mi]),
+                                     pv)
+        out = self.rd_joint(pick, pu, pv,
+                            _mv_bits(self.imv[bid]) + _II_EXTRA_BITS, ys, xs)
+        return (el, best) + out
+
+
+def _check_p1_tools(hp):
+    if hp:
+        raise NotImplementedError(HP_MV)
 
 
 def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
@@ -530,7 +919,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
     W/2); refs_*: (R, ...) uint8 or int32; qp: QuantParams tensors; lam:
     float32 0-d tensor; rt: md_rate_args(..., inter_frame=True) on the
     same device."""
-    _check_p1_tools(hp, obmc, interintra, tx_search, split8)
+    _check_p1_tools(hp)
     gh, gw = h // BLK, w // BLK
     nb = gh * gw
     h64 = (h + 63) & ~63
@@ -611,7 +1000,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
             with _region("p1.pass_a"):
                 out = _eval_ref(src_y, src_u, src_v, *refps[r], wy, wu, wv,
                                 cand, is_warp0, ys, xs, qp, lam, rt5, bd,
-                                interp, nb, K)
+                                interp, nb, K, h, w, tx_search, split8)
             if best is None:
                 best = list(out)
             else:
@@ -621,7 +1010,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                     t_ = take.reshape((nb,) + (1,) * (best[fi].ndim - 1))
                     best[fi] = torch.where(t_, out[fi], best[fi])
         (cost_tot, cost_y, imv, iskip, iqy, irec_y, iqu, irec_u, iqv,
-         irec_v, iwarp) = best
+         irec_v, iwarp, itx, isplit, ismv, issk) = best
 
         icomp = torch.zeros(nb, dtype=torch.bool, device=dev)
         imv2 = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
@@ -659,6 +1048,8 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
             imv2 = torch.where(take[:, None], m1, imv2)
             iskip = torch.where(take, cskip, iskip)
             iwarp = torch.where(take, False, iwarp)
+            itx = torch.where(take, 0, itx)
+            isplit = torch.where(take, False, isplit)
             iref_idx = torch.where(take, 0, iref_idx)
             iqy = torch.where(t3, cqy, iqy)
             irec_y = torch.where(t3, crec_y, irec_y)
@@ -678,18 +1069,42 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
         qyB = torch.zeros((nb, BLK * BLK), dtype=torch.int16, device=dev)
         quB = torch.zeros((nb, CBLK * CBLK), dtype=torch.int16, device=dev)
         qvB = torch.zeros_like(quB)
+        # the motion-mode alternatives' flags, skips, tx indices and
+        # coefficients, raster order
+        iobmc = torch.zeros(nb, dtype=torch.bool, device=dev)
+        iimodes = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+        osa = torch.zeros(nb, dtype=torch.bool, device=dev)
+        txo = torch.zeros(nb, dtype=torch.int32, device=dev)
+        qyo, quo, qvo = (torch.zeros_like(a) for a in (qyB, quB, qvB))
+        alts = obmc or interintra
+        if alts:
+            alt_env = _AltEnv(src_y, src_u, src_v, refps, imv, iref_idx,
+                              icomp, iwarp, isplit, ismv, cost_tot, qp, lam,
+                              rt5, bd, interp, gw, tx_search)
         with _region("p1.pass_b"):
             for ws in _device_schedule(gh, gw, 1, dev):
                 bid = ws.bid
+                icost, irec = cost_y[bid], irec_y[bid]
+                irec_u_b, irec_v_b = irec_u[bid], irec_v[bid]
+                if alts:
+                    with _region("p1.alts"):
+                        ow, iimode, alt = alt_env.wave(
+                            ws, ry, ru, rv, choose, obmc, interintra)
+                    # alt: (won, skip, cost_y, rec_y, qy, rec_u, qu,
+                    # rec_v, qv, tx index)
+                    aw, a3 = alt[0], alt[0][:, None, None]
+                    icost = torch.where(aw, alt[2], icost)
+                    irec = torch.where(a3, alt[3], irec)
+                    irec_u_b = torch.where(a3, alt[5], irec_u_b)
+                    irec_v_b = torch.where(a3, alt[7], irec_v_b)
                 m, q, ry, ch_ = _rd_step(
                     ry, sy, ws.fi, ws.by * BLK, ws.bx * BLK, ws.sel, ws.ha,
                     ws.hl, qp, lam, modes, (cy_t, txbb, modeb, eoby), bd=bd,
-                    tr_avail=ws.tr, bl_avail=ws.bl,
-                    inter=(cost_y[bid], irec_y[bid]))
+                    tr_avail=ws.tr, bl_avail=ws.bl, inter=(icost, irec))
                 um, qu_, qv2, ru, rv = _rd_step_chroma(
                     ru, rv, su, sv, ws.fi, ws.by * CBLK, ws.bx * CBLK, ws.sel,
                     ws.ha, ws.hl, qp, lam, (cuv_t, txbb, uvb, eobuv), bd=bd,
-                    inter=(ch_, irec_u[bid], irec_v[bid]))
+                    inter=(ch_, irec_u_b, irec_v_b))
                 rid, sel = ws.rid, ws.sel
                 ymode[rid] = m[sel].to(torch.int32)
                 umode[rid] = um[sel].to(torch.int32)
@@ -697,32 +1112,45 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                 qyB[rid] = q[sel].reshape(-1, BLK * BLK).to(torch.int16)
                 quB[rid] = qu_[sel].reshape(-1, CBLK * CBLK).to(torch.int16)
                 qvB[rid] = qv2[sel].reshape(-1, CBLK * CBLK).to(torch.int16)
+                if alts:
+                    iobmc[rid] = (ow & ch_)[sel]
+                    iimodes[rid] = torch.where(ch_, iimode, -1)[sel]
+                    osa[rid] = alt[1][sel]
+                    txo[rid] = alt[9][sel]
+                    for acc, a, n_ in ((qyo, alt[4], BLK), (quo, alt[6], CBLK),
+                                       (qvo, alt[8], CBLK)):
+                        acc[rid] = a[sel].reshape(-1, n_ * n_).to(
+                            torch.int16)
 
+        iqy, iqu, iqv = (a.reshape(nb, -1) for a in (iqy, iqu, iqv))
+        if alts:
+            alt_b = iobmc | (iimodes >= 0)
+            o2 = alt_b[:, None]
+            iqy = torch.where(o2, qyo.to(torch.int32), iqy)
+            iqu = torch.where(o2, quo.to(torch.int32), iqu)
+            iqv = torch.where(o2, qvo.to(torch.int32), iqv)
+            iskip = torch.where(alt_b, osa, iskip)
+            itx = torch.where(alt_b, txo, itx)
         c2 = choose[:, None]
-        qy_f = torch.where(c2, iqy.reshape(nb, -1).to(torch.int16), qyB)
-        qu_f = torch.where(c2, iqu.reshape(nb, -1).to(torch.int16), quB)
-        qv_f = torch.where(c2, iqv.reshape(nb, -1).to(torch.int16), qvB)
+        qy_f = torch.where(c2, iqy.to(torch.int16), qyB)
+        qu_f = torch.where(c2, iqu.to(torch.int16), quB)
+        qv_f = torch.where(c2, iqv.to(torch.int16), qvB)
         gm_mats = torch.stack([g[0] for g in gms])
         gm_trans = torch.stack([g[1] for g in gms])
         gm_kinds = torch.stack([g[2] for g in gms])
-        iobmc = torch.zeros(nb, dtype=torch.bool, device=dev)
-        iimodes = torch.full((nb,), -1, dtype=torch.int8, device=dev)
         with _region("p1.merges"):
             merge32, merge64, mergeH, mergeV = _skip_merges(
                 choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2, gh,
-                gw, h, w)
-        zeros_b = torch.zeros(nb, dtype=torch.bool, device=dev)
+                gw, h, w, isplit, iobmc, iimodes)
         return (ry[0].to(torch.uint8), ru[0].to(torch.uint8),
                 rv[0].to(torch.uint8), ymode.to(torch.uint8),
                 umode.to(torch.uint8), choose, iskip & choose,
                 imv.to(torch.int16), imv2.to(torch.int16),
                 iref_idx.to(torch.uint8), icomp, iwarp & choose,
-                iwedge.to(torch.int8), iobmc, iimodes, qy_f, qu_f, qv_f,
-                gm_mats, gm_trans, gm_kinds, interp, merge32, merge64,
-                torch.zeros(nb, dtype=torch.int8, device=dev), zeros_b,
-                torch.zeros((nb, 4, 2), dtype=torch.int16, device=dev),
-                torch.zeros((nb, 4), dtype=torch.bool, device=dev),
-                mergeH, mergeV)
+                iwedge.to(torch.int8), iobmc, iimodes.to(torch.int8), qy_f,
+                qu_f, qv_f, gm_mats, gm_trans, gm_kinds, interp, merge32,
+                merge64, itx.to(torch.int8), isplit & choose,
+                ismv.to(torch.int16), issk, mergeH, mergeV)
 
     return p1
 
@@ -739,7 +1167,7 @@ def _edge_pad_to(plane, hh, ww):
 
 
 def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
-                 gh, gw, h, w):
+                 gh, gw, h, w, isplit, iobmc, iimodes):
     """The partition-level skip merges: 2x2 groups of inter-skip winners
     sharing (ref, mv) — or the same compound pair — without warp or a
     masked compound become one 32x32 skip leaf, 2x2 merged 32s sharing
@@ -749,7 +1177,9 @@ def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
     partition decision restricted to the lossless case)."""
     dev = choose.device
     gh2, gw2 = gh // 2, gw // 2
-    eligible = choose & iskip & ~(iwarp & choose) & (iwedge < 0)
+    # wedge, OBMC, inter-intra and split blocks keep their 16x16 leaves
+    eligible = (choose & iskip & ~isplit & ~(iwarp & choose) & (iwedge < 0)
+                & ~iobmc & (iimodes < 0))
 
     def grp(a):
         a2 = a.reshape(gh, gw, -1)[:gh2 * 2, :gw2 * 2]
@@ -883,11 +1313,42 @@ def _up(a, k):
     return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
 
 
+def _dlf_plane_flens(x, step, blimit, limit, thresh, bd, fl_v, fl_h, lens):
+    """Plane deblock at ``step``-px edge spacing with per-edge-line filter
+    lengths (8x8 leaves: luma edges every 8 px with flen in {0, 8, 14},
+    chroma every 4 px with flen in {0, 4, 6})."""
+    h, w = x.shape
+    epos_v = np.arange(step, w, step)
+    if len(epos_v):
+        x = dlf_ops._filter_edges_masked(x, epos_v, fl_v, blimit, limit,
+                                         thresh, lens, bd)
+    epos_h = np.arange(step, h, step)
+    if len(epos_h):
+        x = dlf_ops._filter_edges_masked(x.T, epos_h, fl_h.T, blimit, limit,
+                                         thresh, lens, bd).T
+    return x
+
+
+def _derive_skip8(qy_f, qu_f, qv_f, skip16, split16, gh, gw):
+    """(2gh, 2gw) coded-skip map per 8x8 unit: the quadrant's coefficients
+    for split blocks, the block's flag elsewhere (the decoder's per-leaf
+    skip at 8-px granularity)."""
+    nz = lambda q, n: (q.reshape(gh, gw, 2, n, 2, n) != 0).any(dim=5).any(
+        dim=3)
+    subz = ~(nz(qy_f, 8) | nz(qu_f, 4) | nz(qv_f, 4))      # (gh, gw, 2, 2)
+    skip8 = torch.where(split16[:, :, None, None], subz,
+                        skip16[:, :, None, None])
+    return skip8.permute(0, 2, 1, 3).reshape(2 * gh, 2 * gw)
+
+
 def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
-                  mergev):
+                  mergev, split16=None, skip8m=None):
     """Per-line DLF enables of the masked P2 (spec 7.14 derivation):
-    {"y": (on_v, on_h), "c": (on_v, on_h)}."""
+    {"y": (on_v, on_h), "c": (on_v, on_h)}.  With 8x8 leaves (split16,
+    skip8m given) the maps are per-line filter lengths at 8-px (luma) /
+    4-px (chroma) edge spacing instead."""
     dev = skip16.device
+    split8 = split16 is not None
     gh2, gw2 = gh // 2, gw // 2
     gh4, gw4 = gh2 // 2, gw2 // 2
     z = lambda: torch.zeros((gh, gw), dtype=torch.bool, device=dev)
@@ -899,19 +1360,37 @@ def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
     if gh4 and gw4:
         merged64_16[:gh4 * 4, :gw4 * 4] = _up(merge64.reshape(gh4, gw4), 4)
 
-    def szmap(v64, v32, vrh, vrv, dflt):
+    def szmap(v64, v32, vrh, vrv, dflt, dsplit=None):
+        base = torch.where(split16, dsplit, dflt) if split8 else dflt
         return torch.where(
             merged64_16, v64, torch.where(
                 merged16, v32, torch.where(
-                    rect_h16, vrh, torch.where(rect_v16, vrv, dflt)))
+                    rect_h16, vrh, torch.where(rect_v16, vrv, base)))
         ).to(torch.int32)
 
-    skdlf = skip16 & inter16
-    txwmi = _up(szmap(16, 8, 8, 4, 4), 4)
-    txhmi = _up(szmap(16, 8, 4, 8, 4), 4)
-    skmi = _up(skdlf, 4)
+    if split8:
+        # per-direction tx extents in mi units
+        txwmi = _up(szmap(16, 8, 8, 4, 4, 2), 4)
+        txhmi = _up(szmap(16, 8, 4, 8, 4, 2), 4)
+        skdlf = skip8m & _up(inter16, 2)          # at the 8-px grid
+        skmi = _up(skdlf, 2)
+    else:
+        skdlf = skip16 & inter16
+        txwmi = _up(szmap(16, 8, 8, 4, 4), 4)
+        txhmi = _up(szmap(16, 8, 4, 8, 4), 4)
+        skmi = _up(skdlf, 4)
     flv = dlf_ops.edge_flens(txwmi, txwmi, skmi, True)
     flh = dlf_ops.edge_flens(txhmi.T, txhmi.T, skmi.T, True).T
+    if split8:
+        ctxwmi = _up(szmap(8, 4, 4, 2, 2, 1), 2)
+        ctxhmi = _up(szmap(8, 4, 2, 4, 2, 1), 2)
+        cskmi = skdlf                    # the chroma mi grid is the 8-px one
+        cflv = dlf_ops.edge_flens(ctxwmi, ctxwmi, cskmi, False)
+        cflh = dlf_ops.edge_flens(ctxhmi.T, ctxhmi.T, cskmi.T, False).T
+        return {"y": (flv[:, 2::2].repeat_interleave(4, 0),
+                      flh[2::2, :].repeat_interleave(4, 1)),
+                "c": (cflv[:, 1:].repeat_interleave(4, 0),
+                      cflh[1:, :].repeat_interleave(4, 1))}
     ons = {"y": (flv[:, 4::4].repeat_interleave(4, 0) > 0,
                  flh[4::4, :].repeat_interleave(4, 1) > 0)}
     ctxwmi = _up(szmap(8, 4, 4, 2, 2), 2)
@@ -927,14 +1406,18 @@ def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
 def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
        cands, damping: int, bd: int = 8, dlf_on: bool = True,
        cdef_on: bool = True, uniform_apply: bool = True, merge32=None,
-       inter16=None, merge64=None, mergeh=None, mergev=None):
+       inter16=None, merge64=None, mergeh=None, mergev=None, split16=None,
+       skip8m=None):
     """DLF search + apply, CDEF search, pick and apply on the device.
 
     src_*/rec_*: int32 / uint8 planes; skip16 (gh, gw) bool; dlf_y /
     dlf_uv: (NLVL, 4) numpy [level, blimit, limit, thresh] ladders;
     cands: (ncand, 4) numpy CDEF strength sets; damping: the signaled
     CDEF damping.  With ``merge32`` (and inter16, merge64, mergeh,
-    mergev: the P1 merge outputs) the DLF edge enables are mask-aware.
+    mergev: the P1 merge outputs) the DLF edge enables are mask-aware;
+    with ``split16`` and ``skip8m`` (8x8 leaves: the split map and the
+    per-8x8 skip map) the deblock runs at 8-px granularity and CDEF reads
+    the 8x8 skips.
     Returns (y, u, v) uint8, the DLF levels (3,), the per-SB /
     per-candidate SSE (nsb, ncand) and the picked candidate index — the
     planes are post-DLF only and the index 0 when ``uniform_apply`` is
@@ -947,9 +1430,10 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
     sbr, sbc = (h + 63) // 64, (w + 63) // 64
     ncand = len(cands)
     ons = dict(y=(None, None), c=(None, None))
+    split8 = split16 is not None
     if merge32 is not None:
         ons = _edge_enables(gh, gw, skip16, inter16, merge32, merge64,
-                            mergeh, mergev)
+                            mergeh, mergev, split16, skip8m)
 
     def search_plane(src, rec, step, flen, params, onk):
         rec = rec.to(torch.int32)
@@ -959,9 +1443,13 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
         outs = [rec]
         sses = [_sse_plane(src, rec)]
         for li in range(1, NLVL):
-            f = _dlf_plane_traced(rec, step, int(params[li, 1]),
-                                  int(params[li, 2]), int(params[li, 3]),
-                                  flen, bd, on_v, on_h)
+            thr = (int(params[li, 1]), int(params[li, 2]),
+                   int(params[li, 3]))
+            if split8:
+                f = _dlf_plane_flens(rec, step // 2, *thr, bd, on_v, on_h,
+                                     (8, 14) if onk == "y" else (4, 6))
+            else:
+                f = _dlf_plane_traced(rec, step, *thr, flen, bd, on_v, on_h)
             outs.append(f)
             sses.append(_sse_plane(src, f))
         best = torch.stack(sses).argmin()
@@ -989,7 +1477,7 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
     blocks = _blocks_at(fy, ys8, xs8, 8)
     cs = bd - 8
     dirs, var = cdef_ops.cdef_find_dir(blocks, cs)
-    skip8 = _up(skip16, 2).reshape(-1)
+    skip8 = (skip8m if split8 else _up(skip16, 2)).reshape(-1)
     keep = skip8[:, None, None]
     wy = cdef_stage._windows(cdef_stage._pad_vl(fy), ys8, xs8, 8)
     cys, cxs = ys8 // 2, xs8 // 2
@@ -1189,7 +1677,7 @@ def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
     CUDA device).  src_pack_u8: (H + H/2, W) uint8, luma above U|V; refs:
     {ref_enum: dict of y/u/v device planes}, LAST first.  Returns a
     PendingInterFrame; finish it with collect_inter_frame."""
-    _check_p1_tools(hp, obmc, interintra, tx_search, split8)
+    _check_p1_tools(hp)
     if cdf_state is not None:   # adapted rate tables: not ported, raises
         md_rate_args(qindex, (), (), cdf_state=cdf_state)
     dev = device_mod.resolve(device)
@@ -1204,7 +1692,8 @@ def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
     rt = _inter_rates(int(qindex), tuple(modes), bool(exact_rates), dev)
     has_bwd = R >= 2 and ref_enums[-1] == 7   # ALTREF_FRAME present
     p1 = build_p1(h, w, R, tuple(modes), bd, ring, has_bwd, rad2, rad0,
-                  skip_mode=skip_mode and has_bwd)
+                  hp, obmc, interintra, skip_mode and has_bwd, tx_search,
+                  split8)
     outs = p1(*src, refs_y, refs_u, refs_v, qp, lam, rt)
     cands = np.asarray(cdef_cands if cdef_cands is not None
                        else cdef_stage.SEARCH_SET, np.int32)
@@ -1212,13 +1701,18 @@ def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
     gh, gw = h // BLK, w // BLK
     skip16 = ((qy_f == 0).all(dim=1) & (qu_f == 0).all(dim=1)
               & (qv_f == 0).all(dim=1)).reshape(gh, gw)
+    split16 = skip8 = None
+    if split8:
+        split16 = outs[25].reshape(gh, gw)
+        skip8 = _derive_skip8(qy_f, qu_f, qv_f, skip16, split16, gh, gw)
     with _region("p2"):
         p2_outs = p2(*src, *outs[:3], skip16,
                      dlf_ladder_params(qindex, False),
                      dlf_ladder_params(qindex, True), cands,
                      cdef_stage.cdef_damping(qindex), bd, dlf_on, cdef_on,
                      merge32=outs[22], inter16=outs[5].reshape(gh, gw),
-                     merge64=outs[23], mergeh=outs[28], mergev=outs[29])
+                     merge64=outs[23], mergeh=outs[28], mergev=outs[29],
+                     split16=split16, skip8m=skip8)
     pend = PendingInterFrame(outs, p2_outs, ref_enums, h, w, qindex)
     pend.cdef_cands = cands
     pend.cdef_on = cdef_on
@@ -1367,6 +1861,23 @@ def collect_inter_frame(pend: PendingInterFrame, bd: int = 8):
                     (16, 32) if horz else (32, 16),
                     (8, 16) if horz else (16, 8))
             continue
+        if choose[bid] and isplit[bid]:
+            # 8x8 split: four single-reference leaves, each with its own
+            # MV, TX_8X8 luma and TX_4X4 chroma quadrant
+            ref_e = int(enums[iref_idx[bid]])
+            for si, (dy, dx) in enumerate(((0, 0), (0, 8), (8, 0), (8, 8))):
+                cy0, cx0 = dy // 2, dx // 2
+                key = (r4 + dy // 4, c4 + dx // 4)
+                decisions[key] = BlockDecision(
+                    r4=key[0], c4=key[1], bsize=cc.BLOCK_8X8,
+                    y_mode=cc.DC_PRED, uv_mode=cc.DC_PRED, tx_type=cc.DCT_DCT,
+                    qcoeff_y=qy_f[bid][dy:dy + 8, dx:dx + 8].copy(),
+                    qcoeff_u=qu_f[bid][cy0:cy0 + 4, cx0:cx0 + 4].copy(),
+                    qcoeff_v=qv_f[bid][cy0:cy0 + 4, cx0:cx0 + 4].copy(),
+                    is_inter=True,
+                    mv=(int(ismv[bid, si, 0]), int(ismv[bid, si, 1])),
+                    ref=ref_e)
+            continue
         if choose[bid]:
             mcode = int(iwedge[bid]) if icomp[bid] else -1
             if mcode >= 64:      # DIFFWTD (mask_type in the low bit)
@@ -1377,7 +1888,7 @@ def collect_inter_frame(pend: PendingInterFrame, bd: int = 8):
                 ctyp = widx_ = wsgn = 0
             decisions[(r4, c4)] = BlockDecision(
                 r4=r4, c4=c4, bsize=cc.BLOCK_16X16, y_mode=cc.DC_PRED,
-                uv_mode=cc.DC_PRED, tx_type=cc.DCT_DCT,
+                uv_mode=cc.DC_PRED, tx_type=_ITX_ENUM[int(itx[bid])],
                 qcoeff_y=qy_f[bid], qcoeff_u=qu_f[bid], qcoeff_v=qv_f[bid],
                 is_inter=True, mv=(int(imv[bid, 0]), int(imv[bid, 1])),
                 ref=int(enums[iref_idx[bid]]), use_warp=bool(iwarp[bid]),
@@ -1385,7 +1896,8 @@ def collect_inter_frame(pend: PendingInterFrame, bd: int = 8):
                 mv2=((int(imv2[bid, 0]), int(imv2[bid, 1]))
                      if icomp[bid] else (0, 0)),
                 comp_type=ctyp, wedge_idx=widx_, wedge_sign=wsgn,
-                motion_mode=0, interintra_mode=-1)
+                motion_mode=int(bool(iobmc[bid])),
+                interintra_mode=int(iimodes[bid]))
         else:
             decisions[(r4, c4)] = BlockDecision(
                 r4=r4, c4=c4, bsize=cc.BLOCK_16X16, y_mode=int(ymode[bid]),

@@ -35,8 +35,10 @@ from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import palette as pal
 from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
-from svt_av1_tpu_torch.codec.syntax import BlockDecision, _chroma_tx_type
+from svt_av1_tpu_torch.codec.syntax import (BlockDecision, _chroma_tx_type,
+                                             _chroma_tx_type_inter)
 from svt_av1_tpu_torch.ops import dlf, fused_txq, intra, quant
+from svt_av1_tpu_torch.ops import interintra as ii_ops
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
 
@@ -993,9 +995,13 @@ def _select_by(keys, make):
     return out
 
 
+# interintra_mode -> the intra mode of its intra half
+II_TO_INTRA = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED)
+
+
 def reconstruct_from_decisions(decisions, width: int, height: int,
                                qindex: int, bd: int = 8, device=None,
-                               base=None):
+                               base=None, inter_intra=None):
     """Decoder-side reconstruction from parsed BlockDecisions of a key
     frame coded on the uniform 16x16 grid (the slice's streams): luma
     modes with angle deltas and tx types, palette blocks, chroma modes
@@ -1016,7 +1022,13 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
 
     base: the (H, W) / (H/2, W/2) int32 planes of an inter frame with its
     inter blocks already reconstructed; ``decisions`` then holds its intra
-    blocks only, which are reconstructed over it in wave order."""
+    blocks only, which are reconstructed over it in wave order.
+
+    inter_intra: dict(bids=[raster ids], preds={plane: (n, N, N) inter
+    predictions}) of the inter frame's inter-intra blocks, which
+    ``decisions`` then holds too: each blends the intra prediction of its
+    interintra_mode with its inter prediction under the smooth mask, and
+    inverts its residual at the signaled tx type."""
     dev = device_mod.resolve(device)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
@@ -1029,14 +1041,32 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     qv = np.zeros((nb, CBLK, CBLK), np.int32)
     qidx = np.full(nb, int(qindex), np.int64)
     pal_pred = None
+    ii_pred = None
+    if inter_intra is not None:
+        # full-frame (nb, n, n) inter predictions, gathered per wave
+        ii_pred = {}
+        for p, pr in inter_intra["preds"].items():
+            ii_pred[p] = torch.zeros((nb,) + tuple(pr.shape[1:]),
+                                     dtype=pr.dtype, device=pr.device)
+            ii_pred[p][torch.as_tensor(inter_intra["bids"],
+                                       device=pr.device)] = pr
     for (r4, c4), d in decisions.items():
+        bid = (r4 // 4) * gw + c4 // 4
+        if (ii_pred is not None and d.is_inter and d.interintra_mode >= 0
+                and d.bsize == cc.BLOCK_16X16 and not (r4 % 4 or c4 % 4)):
+            # the luma type as a decoder derives it (read only for a luma
+            # txb with coefficients); chroma inherits it
+            ymode[bid] = ("ii", int(d.interintra_mode))
+            ytx[bid] = d.tx_type if np.any(d.qcoeff_y) else cc.DCT_DCT
+            um[bid] = -1 - int(d.interintra_mode)
+            qy[bid], qu[bid], qv[bid] = d.qcoeff_y, d.qcoeff_u, d.qcoeff_v
+            continue
         if (d.bsize != cc.BLOCK_16X16 or d.filter_intra_mode >= 0
                 or d.angle_delta_uv or d.is_inter or r4 % 4 or c4 % 4):
             raise NotImplementedError(
                 f"block at ({r4}, {c4}) uses a tool outside the all-intra "
                 "M5-M13 slice (varpart, filter-intra, chroma angle "
                 "deltas): ROADMAP.md queue A item 7")
-        bid = (r4 // 4) * gw + c4 // 4
         if d.qindex:
             qidx[bid] = d.qindex
         if d.palette is not None:
@@ -1097,19 +1127,41 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
             ys, xs = ws.by[sel] * n, ws.bx[sel] * n
             above, left, corner = _gather_neighbors(rec[p], fi, ys, xs, n,
                                                     ha, hl, bd=bd)
+
+            def ii_blend(mode, p):
+                """An inter-intra block's prediction: the smooth-mask
+                blend of its intra mode's prediction over its inter
+                one."""
+                ip = intra.predict(II_TO_INTRA[mode], above, left, corner, n,
+                                   n, have_above=ha, have_left=hl, bd=bd)
+                mask = torch.as_tensor((ii_ops.MASKS_Y16 if p == "y"
+                                        else ii_ops.MASKS_UV8)[mode],
+                                       device=dev)
+                return ii_ops.blend(ip, ii_pred[p][rid_t], mask)
+
             if luma:
                 keys = [ymode[i] for i in rid]
                 ext = (None, None)
-                if any(k != "pal" and (a := cand_angle(*k))
+                if any(k != "pal" and k[0] != "ii" and (a := cand_angle(*k))
                        and (a < 90 or a > 180) for k in keys):
                     ext = _gather_ext_neighbors(rec[p], fi, ys, xs, n,
                                                 above, left, ws.tr[sel],
                                                 ws.bl[sel])
                 pred = _select_by(keys, lambda k: (
-                    pal_pred[rid_t] if k == "pal" else _predict_cand(
+                    pal_pred[rid_t] if k == "pal" else
+                    ii_blend(k[1], p) if k[0] == "ii" else _predict_cand(
                         k[0], k[1], n, above, left, corner, ext[0], ext[1],
                         ha, hl, bd)))
                 tx_types = [int(t) for t in ytx[rid]]
+            elif ii_pred is not None and (um[rid] < 0).any():
+                keys = [int(m) for m in um[rid]]
+                pred = _select_by(keys, lambda m: (
+                    ii_blend(-1 - m, p) if m < 0 else _predict_cand(
+                        m, 0, n, above, left, corner, None, None, ha, hl,
+                        bd)))
+                tx_types = [_chroma_tx_type_inter(int(ytx[i]), tx, False)
+                            if um[i] < 0 else _chroma_tx_type(int(um[i]), tx)
+                            for i in rid]
             else:
                 keys = [int(m) for m in um[rid]]
                 if cc.UV_CFL_PRED in keys:

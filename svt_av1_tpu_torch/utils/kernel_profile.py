@@ -67,6 +67,8 @@ def inter_frame(frames, w: int, h: int, preset: int, qindex: int = 140):
     kw = dict(modes=feat.intra_modes, ring=feat.subpel_ring,
               rad2=feat.hme_rad2, rad0=feat.hme_rad0,
               cdef_cands=cdef_stage.SEARCH_SET[:feat.cdef_candidates],
-              exact_rates=feat.exact_rates, skip_mode=True)
+              exact_rates=feat.exact_rates, skip_mode=True,
+              obmc=feat.obmc, interintra=feat.interintra,
+              tx_search=feat.tx_search, split8=feat.part8)
     return (lambda: gop_fast.run_inter_frame(src, refs, qindex, h, w, **kw),
             gop_fast.collect_inter_frame)

@@ -3,6 +3,9 @@ from a seed with numpy only (so they also exist where JAX is not
 installed).
 
 ``natural_clip`` is the bench's clip shape: moving sinusoids plus noise.
+``fault_clip``, ``seam_clip``, ``gradient_wipe_clip`` and ``boundary_clip``
+are the M5-M9 GOP clips: the reference's round-trip fault, OBMC,
+inter-intra and the 8x8 split.
 ``screen_frame`` is screen content: flat colored rectangles and text-like
 two-color bars, so that many 16x16 blocks hold 2-8 distinct luma values
 and the palette candidates exist.  ``TOOL_CLIPS`` are the GOP clips that
@@ -10,6 +13,7 @@ code one compound or warp tool each; ``split_motion_clip`` is the
 lookahead's clip (its key frames code delta-q).
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 
@@ -141,6 +145,130 @@ def split_motion_clip(n=5, h=96, w=128, seed=1):
     return out
 
 
+def fault_clip(n=6, h=64, w=64, seed=3):
+    """The clip on which the reference's M6 stream fails its round trip
+    with DLF or CDEF on (ROADMAP.md queue C item 4): the natural clip's
+    luma without its chroma pattern, uniform noise in [-5, 5], a 16x16
+    patch of 230 at rows 8-23 moving 3 px a frame; flat chroma 120 / 135."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        y = (96 + 60 * np.sin(xx / 17.0 + 0.13 * t)
+             + 50 * np.cos(yy / 23.0 + 0.02 * t)
+             + rng.integers(-5, 6, (h, w)))
+        x0 = 8 + 3 * t
+        y[8:24, x0:x0 + 16] = 230
+        out.append((np.clip(y, 0, 255).astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def seam_clip(n=5, h=64, w=64):
+    """The OBMC clip of tests/test_obmc.py: a smoothed texture whose rows
+    shift by 8 + 6 sin(row / 10) px over the clip, so that adjacent
+    block rows move differently; flat chroma."""
+    rng = np.random.default_rng(11)
+    tex = _smooth(rng.integers(0, 255, (h, w + 48)).astype(np.float32))
+    yy = np.mgrid[0:h, 0:w][0]
+    out = []
+    for t in range(n):
+        shift = ((8 + 6 * np.sin(yy[:, 0] / 10.0)) * t / (n - 1)
+                 if t else np.zeros(h))
+        y = np.stack([tex[r, int(round(shift[r])):int(round(shift[r])) + w]
+                      for r in range(h)]).astype(np.uint8)
+        out.append((y, np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def gradient_wipe_clip(n=5, h=64, w=64):
+    """The inter-intra clip of tests/test_interintra.py: a texture panning
+    4 px a frame under a diagonal gradient wipe; flat chroma."""
+    rng = np.random.default_rng(21)
+    tex = _smooth(rng.integers(0, 255, (h, w + 32)).astype(np.float32))
+    yy, xx = np.mgrid[0:h, 0:w]
+    grad = np.clip(60 + yy * 2, 0, 255)
+    out = []
+    for t in range(n):
+        y = tex[:, 4 * t:4 * t + w].copy()
+        m = (yy + xx) < min(2 * h, 20 * t)
+        y[m] = grad[m]
+        out.append((y.astype(np.uint8),
+                    np.full((h // 2, w // 2), 120, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def boundary_clip(n=5, h=96, w=128):
+    """The 8x8-split clip of tests/test_part8.py: a blocky texture whose
+    left 56 columns move 8 px a frame while the rest stands still, so
+    that the boundary crosses 16x16 blocks; flat chroma."""
+    rng = np.random.default_rng(5)
+    base = np.kron(rng.integers(30, 220, (h // 4, (w + 8 * n + 64) // 4))
+                   .astype(np.uint8), np.ones((4, 4), np.uint8))
+    out = []
+    for t in range(n):
+        y = base[:, :w].copy()
+        y[:, :56] = base[:, 8 * t:8 * t + 56]
+        out.append((y, np.full((h // 2, w // 2), 110, np.uint8),
+                    np.full((h // 2, w // 2), 135, np.uint8)))
+    return out
+
+
+def blend_b_clip():
+    """The compound clip of tests/test_compound.py: 128x96 x3, the middle
+    frame the average of its neighbours; flat chroma."""
+    h, w = 96, 128
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 110 + 60 * np.sin(xx / 17.0) + 40 * np.cos(yy / 13.0)
+    f0 = np.clip(base, 0, 255).astype(np.uint8)
+    f2 = np.clip(base + 30 * np.sin((xx + yy) / 9.0), 0, 255).astype(
+        np.uint8)
+    f1 = ((f0.astype(np.int32) + f2.astype(np.int32) + 1) // 2).astype(
+        np.uint8)
+    u = np.full((h // 2, w // 2), 120, np.uint8)
+    v = np.full((h // 2, w // 2), 135, np.uint8)
+    return [(f, u, v) for f in (f0, f1, f2)]
+
+
+def square_clip(n=6):
+    """The 32x32-merge clip of tests/test_gop_hierarchical.py: a static
+    64x64 texture with an 8x8 square moving 2 px a frame."""
+    rng = np.random.default_rng(9)
+    base = rng.integers(30, 220, (64, 64)).astype(np.uint8)
+    u0 = rng.integers(60, 190, (32, 32)).astype(np.uint8)
+    out = []
+    for t in range(n):
+        y = base.copy()
+        y[4:12, 2 * t:2 * t + 8] = 235
+        out.append((y, u0.copy(), u0.copy()))
+    return out
+
+
+def two_motion_clip(horz, n=5, h=96, w=96, seed=7):
+    """The rect-partition clip of tests/test_rect_partition.py: a
+    low-passed random texture whose two halves (split at row or column 48)
+    roll 2 px a frame in opposite directions."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 250, (h, w)).astype(np.int32)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
+            + np.roll(base, (1, 1), (0, 1))) // 4
+    u0 = rng.integers(60, 200, (h // 2, w // 2)).astype(np.uint8)
+    out = []
+    for t in range(n):
+        y = np.empty((h, w), np.int32)
+        if horz:
+            y[:48] = np.roll(base[:48], 2 * t, axis=1)
+            y[48:] = np.roll(base[48:], -2 * t, axis=1)
+        else:
+            y[:, :48] = np.roll(base[:, :48], 2 * t, axis=0)
+            y[:, 48:] = np.roll(base[:, 48:], -2 * t, axis=0)
+        out.append((y.astype(np.uint8), u0, u0))
+    return out
+
+
 # the GOP clips that code one compound or warp tool each at M10
 # (hierarchical_levels 2): name -> (frames, config fields, the tool)
 TOOL_CLIPS = {
@@ -150,17 +278,35 @@ TOOL_CLIPS = {
 }
 
 
+# preset features pinned by the reference's tool-isolation tests
+# (tests/test_obmc.py, tests/test_interintra.py): part8 and the tx search
+# out-RD OBMC and inter-intra on their synthetic clips
+PINNED_FEATURES = {
+    "obmc_m6": dict(part8=False, tx_search=False),
+    "ii_m6": dict(part8=False, tx_search=False),
+    # the reference's OBMC-next-to-a-split fault shows without the search
+    "m6_fault_notx": dict(tx_search=False),
+}
+
+
 @contextlib.contextmanager
 def tool_setting(name, enc, gop_fast):
     """The setting of the reference's test for the clip ``name`` on the
-    encoder ``enc`` (either package's) and its ``gop_fast`` module: the
-    iris clip turns order hints off, so that skip mode does not out-RD
-    the diffwtd blocks, and prices wedge out; the other clips change
+    encoder ``enc`` (either package's, made but not yet fed) and its
+    ``gop_fast`` module: the iris clip turns order hints off, so that
+    skip mode does not out-RD the diffwtd blocks, and prices wedge out;
+    the clips of PINNED_FEATURES replace those preset features (and the
+    sequence flags the encoder derives from them) as the reference's
+    tests do with a patched ``features_for``; the other clips change
     nothing."""
     old = gop_fast._WEDGE_EXTRA_BITS
     if name == "iris":
         enc.sp.enable_order_hint = False
         gop_fast._WEDGE_EXTRA_BITS = 1e7
+    if name in PINNED_FEATURES:
+        enc._feat = dataclasses.replace(enc._feat, **PINNED_FEATURES[name])
+        enc.sp.enable_interintra_compound = enc._feat.interintra
+        enc.sp.enable_ref_frame_mvs = bool(enc._feat.tmvp)
     try:
         yield enc
     finally:

@@ -4,9 +4,9 @@ all-intra encode on the card against the same encode on the CPU, at M10
 through send_pictures and at M6 (tx-type search, angle deltas, CfL,
 palette) through send_picture, without and with the in-loop filters
 (whose ops are also held to their CPU run, exactly), and a hierarchical
-GOP at M10 and M12 (round trip on the card, parity with the CPU), the
-GOP clips that code wedge, diffwtd and warped blocks (the card's stream
-codes each tool, round trip, parity with the CPU), and a GOP with the
+GOP at M6, M8, M10 and M12 (round trip on the card, parity with the CPU),
+the GOP clips that code wedge, diffwtd and warped blocks (the card's
+stream codes each tool, round trip, parity with the CPU), and a GOP with the
 lookahead (MCTF + TPL, a delta-q key frame) on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
@@ -272,10 +272,12 @@ def _gop(frames, device, preset, clip=None, **fields):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", [10, 12])
+@pytest.mark.parametrize("preset", [6, 8, 10, 12])
 def test_gop_on_cuda_round_trips_and_matches_cpu(preset):
     """A 5-frame hierarchical GOP (levels 2, keyint 4) at 96x64 on the
-    card: the port's decoder on the card reproduces every shown frame,
+    card (at M6 and M8 with the inter tx search, OBMC and inter-intra, at
+    M6 the 8x8 split and TMVP too): the port's decoder on the card
+    reproduces every shown frame,
     show-existing ones included, and the stream meets the parity rule
     against the same encode on the CPU."""
     _need_card()

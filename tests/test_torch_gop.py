@@ -23,7 +23,7 @@ package on the CPU.
   recon_enabled=False leaves the packets as they were and skips the recon
   copies of shown inter and show-existing frames.
 - Every setting outside the slice raises NotImplementedError naming its
-  ROADMAP.md item.
+  ROADMAP.md item.  (Presets M5-M9: tests/test_torch_gop_m6.py.)
 """
 import functools
 
@@ -201,12 +201,16 @@ CLIPS = {
 }
 
 
-def _config(pkg_cfg, name, frames):
-    _, fields, preset = CLIPS[name]
+def _config(pkg_cfg, spec, frames):
+    """The EncoderConfig (of either package) of a clip spec (frames,
+    config fields, preset): hierarchical_levels 2, DLF and CDEF on, the
+    lookahead off unless the fields say otherwise."""
+    _, fields, preset = spec
     h, w = frames[0][0].shape
     return pkg_cfg(source_width=w, source_height=h, enc_mode=preset,
-                   hierarchical_levels=2, enable_dlf_flag=1, cdef_level=1,
-                   **dict(dict(enable_tf=0, enable_tpl_la=0), **fields))
+                   **dict(dict(hierarchical_levels=2, enable_dlf_flag=1,
+                               cdef_level=1, enable_tf=0, enable_tpl_la=0),
+                          **fields))
 
 
 def _run(enc, name, frames, gop_fast):
@@ -220,36 +224,53 @@ def _run(enc, name, frames, gop_fast):
     return pkts
 
 
-def _jax_stream(name, frames):
+def _jax_stream(name, spec, frames, decode=False):
+    """The JAX package's stream of a clip as arrays: the packet count, the
+    displayed flags, each packet's bytes, the shown recon planes, and with
+    ``decode`` the JAX decoder's shown frames of that stream."""
     from svt_av1_tpu.api.config import EncoderConfig as JConfig
     from svt_av1_tpu.api.encoder import Encoder as JEncoder
     from svt_av1_tpu.pipeline import gop_fast as jgf
-    pkts = _run(JEncoder(_config(JConfig, name, frames)), name, frames, jgf)
+    pkts = _run(JEncoder(_config(JConfig, spec, frames)), name, frames, jgf)
     shown = [p for p in pkts if p.displayed]
     out = [np.array([len(pkts)]),
            np.array([p.displayed for p in pkts])]
     out += [np.frombuffer(p.data, np.uint8) for p in pkts]
     out += [np.stack([p.recon[k] for p in shown]) for k in "yuv"]
+    if decode:
+        from svt_av1_tpu.codec.decoder import Decoder as JDecoder
+        dec = JDecoder()
+        got = [r for p in pkts for r in dec.decode_temporal_unit(p.data)]
+        out += [np.stack([r[k] for r in got]) for k in "yuv"]
     return out
+
+
+def stream_slice(name, spec, extra=(), decode=False):
+    """(frames, the port's packets, the JAX package's stored stream: the
+    packets' bytes and displayed flags, the shown recon planes, and with
+    ``decode`` the JAX decoder's shown frames) of the clip spec ``name``;
+    ``extra``: more inputs of the stored stream's fingerprint."""
+    frames = spec[0]()
+    pkts = _run(Encoder(_config(EncoderConfig, spec, frames), device="cpu"),
+                name, frames, tgf)
+    ref = port_refs.jax_ref(f"gop_stream_{name}",
+                            lambda: _jax_stream(name, spec, frames, decode),
+                            *[a for f in frames for a in f],
+                            np.array([spec[2]]), *extra)
+    n = int(ref[0][0])
+    planes = lambda i0, j: dict(y=ref[i0][j], u=ref[i0 + 1][j],
+                                v=ref[i0 + 2][j])
+    jax = dict(data=[bytes(a) for a in ref[2:2 + n]],
+               displayed=list(ref[1]),
+               recon=[planes(2 + n, i) for i in range(len(ref[2 + n]))])
+    if decode:
+        jax["decoded"] = [planes(5 + n, i) for i in range(len(ref[5 + n]))]
+    return frames, pkts, jax
 
 
 @functools.lru_cache(maxsize=None)
 def _slice(name):
-    """(frames, the port's packets, the JAX package's stored stream: the
-    packets' bytes and displayed flags, the shown recon planes)."""
-    frames = CLIPS[name][0]()
-    pkts = _run(Encoder(_config(EncoderConfig, name, frames), device="cpu"),
-                name, frames, tgf)
-    ref = port_refs.jax_ref(f"gop_stream_{name}",
-                            lambda: _jax_stream(name, frames),
-                            *[a for f in frames for a in f],
-                            np.array([CLIPS[name][2]]))
-    n = int(ref[0][0])
-    jax = dict(data=[bytes(a) for a in ref[2:2 + n]],
-               displayed=list(ref[1]),
-               recon=[dict(y=ref[2 + n][i], u=ref[3 + n][i],
-                           v=ref[4 + n][i]) for i in range(len(ref[2 + n]))])
-    return frames, pkts, jax
+    return stream_slice(name, CLIPS[name])
 
 
 def _decode(datas):
@@ -270,7 +291,9 @@ def _same_block(a, b):
             and a.ref == b.ref and a.ref2 == b.ref2 and a.mv == b.mv
             and a.mv2 == b.mv2 and a.use_warp == b.use_warp
             and a.comp_type == b.comp_type and a.wedge_idx == b.wedge_idx
-            and a.wedge_sign == b.wedge_sign
+            and a.wedge_sign == b.wedge_sign and a.tx_type == b.tx_type
+            and a.motion_mode == b.motion_mode
+            and a.interintra_mode == b.interintra_mode
             and np.array_equal(a.qcoeff_y, b.qcoeff_y)
             and np.array_equal(a.qcoeff_u, b.qcoeff_u)
             and np.array_equal(a.qcoeff_v, b.qcoeff_v))
@@ -312,23 +335,20 @@ def test_gop_round_trip(name):
             "the key frame codes no delta-q"
 
 
-@pytest.mark.parametrize("name", sorted(CLIPS))
-def test_gop_parity_with_jax(name):
-    """Against the JAX package's stream (which round-trips for these
-    clips): >= 99% of blocks equal, Y-PSNR within 0.05 dB, bytes within
-    1%; byte identity is reported."""
-    frames, pkts, jax = _slice(name)
+def parity(name, frames, pkts, jax):
+    """The port's stream against the JAX package's: (share of leaf blocks
+    equal, the number that differ, mean Y-PSNR of each, bytes of each,
+    whether the streams are identical, whether the JAX stream decodes
+    through the port's decoder to the JAX recon).  Printed."""
     _, dec_port = _decode([p.data for p in pkts])
     shown_jax, dec_jax = _decode(jax["data"])
-    for rec, want in zip(shown_jax, jax["recon"]):      # JAX round trip
-        for k in "yuv":
-            np.testing.assert_array_equal(rec[k], want[k])
+    jax_rt = all(np.array_equal(rec[k], want[k])
+                 for rec, want in zip(shown_jax, jax["recon"]) for k in "yuv")
     same = tot = 0
     for a, b in zip(dec_port, dec_jax):
         for k, blk in a.items():
             tot += 1
             same += k in b and _same_block(blk, b[k])
-    agree = same / tot
     disp = [p for p in pkts if p.displayed]
     p_port = np.mean([_psnr(f[0], p.recon["y"]) for f, p in zip(frames,
                                                                   disp)])
@@ -337,9 +357,22 @@ def test_gop_parity_with_jax(name):
     b_port = sum(len(p.data) for p in pkts)
     b_jax = sum(len(d) for d in jax["data"])
     identical = [p.data for p in pkts] == jax["data"]
-    print(f"{name}: {agree:.2%} of {tot} blocks equal, Y-PSNR {p_port:.4f} "
-          f"vs {p_jax:.4f} dB, bytes {b_port} vs {b_jax}, streams "
-          f"identical: {identical}")
+    print(f"{name}: {same / tot:.2%} of {tot} blocks equal ({tot - same} "
+          f"differ), Y-PSNR {p_port:.4f} vs {p_jax:.4f} dB, bytes {b_port} "
+          f"vs {b_jax}, streams identical: {identical}, JAX stream "
+          f"round-trips: {jax_rt}")
+    return same / tot, tot - same, p_port, p_jax, b_port, b_jax, identical, \
+        jax_rt
+
+
+@pytest.mark.parametrize("name", sorted(CLIPS))
+def test_gop_parity_with_jax(name):
+    """Against the JAX package's stream (which round-trips for these
+    clips): >= 99% of blocks equal, Y-PSNR within 0.05 dB, bytes within
+    1%; byte identity is reported."""
+    agree, _, p_port, p_jax, b_port, b_jax, _, jax_rt = parity(
+        name, *_slice(name))
+    assert jax_rt
     assert agree >= 0.99
     assert abs(p_port - p_jax) <= 0.05
     assert abs(b_port - b_jax) <= 0.01 * b_jax
@@ -443,8 +476,8 @@ GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
 @pytest.mark.parametrize("fields,item", [
     (dict(rate_control_mode=1), "item 7"),
     (dict(enable_adaptive_quantization=2), "item 7"),
-    (dict(enc_mode=6), "item 6"),
-    (dict(enc_mode=9), "item 6"),
+    (dict(enable_restoration_filtering=1), "item 7"),
+    (dict(sframe_dist=2), "item 7"),
     (dict(pred_structure=1), "item 7"),
     (dict(hierarchical_levels=0), "item 7"),
     (dict(hierarchical_levels=4), "item 7"),
@@ -461,14 +494,13 @@ def test_out_of_scope_gop_settings_raise(fields, item):
         Encoder(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("tool", ["obmc", "interintra", "tx_search",
-                                  "split8", "hp"])
+@pytest.mark.parametrize("tool", ["hp"])
 def test_m5_m9_inter_tools_raise(tool):
-    """The P1 tools of presets M5-M9 are not ported; asking for one
-    raises before any work."""
+    """1/8-pel MVs (hp_mv, off at every preset) are not ported; asking
+    P1 for them raises before any work, naming their item."""
     refs = {1: {p: torch.zeros(s, dtype=torch.uint8)
                 for p, s in (("y", (32, 32)), ("u", (16, 16)),
                              ("v", (16, 16)))}}
-    with pytest.raises(NotImplementedError, match="M5-M9"):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
         tgf.run_inter_frame(np.zeros((48, 32), np.uint8), refs, QINDEX, 32,
                             32, (0,), device="cpu", **{tool: True})

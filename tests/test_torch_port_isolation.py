@@ -40,7 +40,8 @@ HOST_COPIES = (
     "codec/fast_ec.py", "codec/obu.py", "utils/bitio.py",
     "utils/profiling.py", "api/config.py", "pipeline/presets.py",
     "pipeline/rate_control.py", "pipeline/rc_onepass.py",
-    "native/ec_native.c", "ops/wedge.py", "pipeline/gop.py")
+    "native/ec_native.c", "ops/wedge.py", "ops/obmc.py",
+    "ops/interintra.py", "pipeline/gop.py")
 DATA_FILES = (
     "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
     "av1_quant_tables", "av1_scan_tables", "md_rate_fit",

@@ -34,6 +34,9 @@ TESTS = (
     "tests/test_torch_lookahead.py::test_tpl_group_stats_exact",
     "tests/test_torch_lookahead.py::test_qmap_key_frame_matches_jax",
     "tests/test_torch_lookahead.py::test_lookahead_gop_parity_with_jax",
+    "tests/test_torch_gop_m6.py::test_p1_tools_match_jax",
+    "tests/test_torch_gop_m6.py::test_p2_split8_matches_jax",
+    "tests/test_torch_gop_m6.py::test_m6_parity_with_jax",
 )
 
 

@@ -28,7 +28,8 @@ warm runs, three timed on the host clock (P1 + P2 dispatch, then the
 bundled copy; each ends in a synchronise), then one under torch.profiler,
 and prints one JSON line with, per op family of the two programs (the
 named ranges p1.hme, p1.gm_fit, p1.interp_pick, p1.warp, p1.pass_a,
-p1.compound, p1.pass_b, p1.merges, p2), the host milliseconds inside the
+p1.compound, p1.pass_b, p1.merges, p2; p1.alts, the OBMC and inter-intra
+alternatives of M5-M8, lies inside p1.pass_b), the host milliseconds inside the
 range, the device milliseconds of the kernels it launched and the span
 of its kernels on the device timeline, beside the frame's kernel count,
 device time and device-busy share; then one JSON line for the lookahead
@@ -143,7 +144,7 @@ def main():
 
 
 FAMILIES = ("p1.hme", "p1.gm_fit", "p1.interp_pick", "p1.warp", "p1.pass_a",
-            "p1.compound", "p1.pass_b", "p1.merges", "p2")
+            "p1.compound", "p1.pass_b", "p1.alts", "p1.merges", "p2")
 
 
 def gop_profile(w, h, preset):
