@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 27 and 26 (this slice) run
-right after phase 4, in a fresh process; the rest in order:
+failure raises and exits non-zero.  Phases 28, 31, 30 and 29 (this
+slice), then 27 and 26 (the previous one) run right after phase 4, in a
+fresh process; the rest in order:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
@@ -16,7 +17,10 @@ right after phase 4, in a fresh process; the rest in order:
      CIF x8 and 720p x2, 704 and 640 for M6; 66, 44 and 240 for a
      send_picture key frame or the pass B of one inter frame at CIF M10,
      CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs;
-     88 for pass B at CIF M6, 16 and 32 for phase 27's), qindex 140 and
+     88 for pass B at CIF M6, 16 and 32 for phase 27's; at M0-M4 110
+     and 22 for pass B at CIF M4 and 64x64 M2, 1320, 165 and 60 for M4
+     send_pictures with the five filter-intra pseudo-modes, 15, 30, 45
+     and 16 for the varpart program's 16x16 steps), qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; at each size
@@ -94,7 +98,7 @@ right after phase 4, in a fresh process; the rest in order:
      every shown frame (show-existing ones included) decoded on the card
      equal to Packet.recon (one inter frame's device kernels under
      torch.profiler: tools/profile_torch_encode.py --gop);
- 19. the same GOP at 1280x720 x3 (warmed on its first 2 frames), the
+ 19. the same GOP at 1280x720 x3 (no warm run, as phase 18), the
      decode check over the 3 shown frames;
  20. 5-frame GOPs (hierarchical_levels 2) on the CPU against the card's,
      each decoded on its device and equal to Packet.recon: the natural
@@ -134,16 +138,17 @@ right after phase 4, in a fresh process; the rest in order:
  25. K1 at any batch size the paths launched that phase 3 did not check
      (checked and timed the same way); the sizes are recorded by the
      wrapper (fused_txq.batches) from the end of phase 4 on;
- 26. the main path of this slice, bench.py's primary config: the CIF x17
-     GOP (key, 15, key) at M6 with MCTF + TPL, DLF + CDEF, hierarchical
-     levels 3, keyint 15, qp 35 (run after phase 27); a warm run over a
+ 26. the main path of the M5-M9 slice, bench.py's primary config at a cut
+     depth: the CIF x9 GOP (key + one 3-level mini-GoP; bench.py runs
+     x17) at M6 with MCTF + TPL, DLF + CDEF, hierarchical levels 3,
+     keyint 15, qp 35 (run after phase 27); a warm run over a
      3-frame prefix, then the timed run with recon_enabled off: fps, host
      dispatch seconds per inter frame, the lookahead, tmvp_setup and
      save_mvfield stage seconds, bytes, mean Y-PSNR, the inter blocks by
      kind (8x8 split
      leaves, non-DCT inter tx, OBMC, inter-intra, compound, warp) and the
      inter frames with use_ref_frame_mvs; K1's launches must equal the
-     waves of the 15 inter frames, all at B = 88 (M6 key frames search
+     waves of the 8 inter frames, all at B = 88 (M6 key frames search
      four tx types and do not take it); every shown frame decoded on the
      card equal to the encoder's recon (kept on the card during the run);
  27. the M5-M9 clips of the CPU tests on the CPU against the card's, as in
@@ -151,14 +156,45 @@ right after phase 4, in a fresh process; the rest in order:
      with part8 and the tx search pinned off as the reference's tests pin
      them, the 8x8 split + TMVP (boundary clip, M6), M8's full tools and
      M9 on the natural clip; the card's stream must code the clip's tool,
-     and blocks whose inter tx type alone differs are counted.
+     and blocks whose inter tx type alone differs are counted;
+ 28. the M0-M4 ops on the card against the port's CPU run, exact: the
+     filter-intra predictor (five modes, one wavefront) at 4/8/16/32, D45
+     / D67 / D203 at 16/32/64, the per-SB CDEF apply and per-SB SSE on a
+     CIF frame with an index map over 4 strength sets; the host time of
+     one filter-intra call per block size;
+ 29. M4 all-intra at CIF: send_picture with DLF + CDEF on the bench
+     clip's first frame (qp 35) and on a clip / screen-content composite
+     (qp 25, where per-SB CDEF strengths pay): the varpart program, the
+     mask-aware DLF search, per-SB CDEF; seconds, bytes, Y-PSNR, levels,
+     cdef_bits and strengths, the blocks of each leaf size, filter-intra
+     and D45 / D67 (each must be > 0 over the two, and cdef_bits > 0 on
+     one); then send_pictures x8 (K1 at B = 1320); every packet decoded on
+     the card equal to Packet.recon;
+ 30. the main path of this slice: the CIF x9 GOP (key + one 3-level
+     mini-GoP) at M4 with MCTF + TPL, DLF + CDEF, after a warm 3-frame
+     prefix, timed with recon_enabled off as phase 26 is: fps, host
+     dispatch per inter frame (beside phase 26's M6 frames in the same
+     call), the stage seconds, the blocks of each tool (filter-intra on the
+     key frames and GOLDEN references must be > 0); K1's launches must
+     equal 56 waves x the 8 inter frames, all at B = 110 (the key frames
+     search four tx types); every shown frame decoded on the card equal
+     to the encoder's recon;
+ 31. the M0-M4 clips of the CPU tests on the CPU against the card's: the
+     varpart picture (128x96 M4, DLF + CDEF), the 64x64 screen picture at
+     M2 (filter-intra, D203), M4 send_pictures on two 64x64 pictures, the
+     64x64 x5 M2 GOP (hierarchical_levels 1: GOLDEN blocks; its key frame
+     forced to two CDEF strength sets, cdef_bits > 0 required) and the
+     64x64 x17 M4 GOP (hierarchical_levels 3, two 8-frame mini-GoPs: the
+     second base's GOLDEN must be the key frame), each decoded on its
+     device: >= 99% of blocks equal, identity printed.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
 (pass B of every inter frame, and the M9-M13 key frames without delta-q)
-must have launched it; the M6 send_picture paths and the M6 GOP's key
+must have launched it; the M6 send_picture paths and the M0-M6 GOPs' key
 frames do not run it (their luma step searches four tx types, as the
-reference's does without its kernel).
+reference's does without its kernel); the M4 varpart key frames run it
+on their 16x16 steps.
 
 Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
@@ -178,7 +214,8 @@ leaves them: just written, so in the 50 MB L2.
 The script imports nothing of JAX or of the JAX package (the golden
 inputs come from svt_av1_tpu_torch/goldens.py) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
-record, the last line {"ok": true, "device": {...}}.
+record (its top-level numbers are K1's on this slice's main path, phase
+30), the last line {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -235,16 +272,18 @@ GRAPH_REPLAYS = 50
 CIF_FRAMES, HD_FRAMES = 8, 2
 
 
-def k1_batch(nframes, size, preset):
+def k1_batch(nframes, size, preset, fi=False):
     """K1's batch B on a path: frames in one program x wave slots (the
-    natural wave size of the 16x16 grid) x the preset's luma modes.  A
-    send_pictures chunk holds all its frames; a send_picture key frame
-    and the pass B of an inter frame hold one."""
+    natural wave size of the 16x16 grid) x the preset's luma modes, plus
+    the five filter-intra pseudo-modes with ``fi`` (send_pictures at
+    M0-M4; pass B has none).  A send_pictures chunk holds all its frames;
+    a send_picture key frame and the pass B of an inter frame hold
+    one."""
     from svt_av1_tpu_torch.pipeline import intra_encoder
     from svt_av1_tpu_torch.pipeline.presets import features_for
     w, h = size
     return (nframes * intra_encoder._natural_maxb(-(-h // 16), -(-w // 16))
-            * len(features_for(preset).intra_modes))
+            * (len(features_for(preset).intra_modes) + (5 if fi else 0)))
 
 
 def k1_batches():
@@ -259,6 +298,15 @@ def k1_batches():
                for size in ((96, 96), (64, 64), (80, 80), (128, 96))]
     # pass B at M6 / M8 (8 modes): CIF (phase 26) and phase 27's clips
     driven += [k1_batch(1, size, 6) for size in (CIF, (64, 64), (128, 96))]
+    # M0-M4: pass B at M4 (10 modes, CIF, phase 30) and M2 (11 modes,
+    # 64x64, phase 31); send_pictures with the five filter-intra
+    # pseudo-modes (CIF x8, 64x64 x2); the varpart program's 16x16 steps
+    # (the one-frame batch is phase 29's warm run)
+    driven += [k1_batch(1, CIF, 4), k1_batch(1, (64, 64), 2),
+               k1_batch(CIF_FRAMES, CIF, 4, fi=True),
+               k1_batch(1, CIF, 4, fi=True), k1_batch(2, (64, 64), 4, fi=True)]
+    driven += (k1_varpart_batches(CIF, 4) + k1_varpart_batches((64, 64), 2)
+               + k1_varpart_batches((128, 96), 4))
     return list(dict.fromkeys(driven))
 
 
@@ -1095,7 +1143,8 @@ def gop_block_counts(coded):
     from svt_av1_tpu_torch.codec import constants as cc
     from svt_av1_tpu_torch.codec import obu
     n = dict(blocks=0, inter=0, intra=0, compound=0, wedge=0, diffwtd=0,
-             warp=0, merged=0, split8=0, itx=0, obmc=0, ii=0, tmvp_frames=0)
+             warp=0, merged=0, split8=0, itx=0, obmc=0, ii=0, golden=0,
+             tmvp_frames=0)
     for fp, dec in coded:
         if fp.frame_type != obu.INTER_FRAME:
             continue
@@ -1113,6 +1162,7 @@ def gop_block_counts(coded):
                              and np.any(b.qcoeff_y))
             n["obmc"] += bool(b.is_inter and b.motion_mode == 1)
             n["ii"] += bool(b.is_inter and b.interintra_mode >= 0)
+            n["golden"] += bool(b.is_inter and b.ref == 4)
     return n
 
 
@@ -1637,11 +1687,12 @@ M6_BENCH = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=1,
 
 
 def phase_m6_gop(card, frames):
-    """This slice's main path: bench.py's primary config (the CIF x17 GOP
-    at M6 with TPL + MCTF, DLF and CDEF) through send_picture / flush on
-    the default device.  A warm run over a 3-frame prefix (a key frame and
-    a mini-GoP of 2: both P1 shapes, P2, MCTF and TPL at CIF; phase 27
-    ran the M6 tools at small sizes), then the timed run with
+    """The M5-M9 slice's main path: bench.py's primary config (the GOP at
+    M6 with TPL + MCTF, DLF and CDEF; CIF x9 here, x17 in bench.py)
+    through send_picture / flush on the default device.  A warm run over
+    a 3-frame prefix (a key frame and a mini-GoP of 2: both P1 shapes,
+    P2, MCTF and TPL at CIF; phase 27 ran the M6 tools at small sizes),
+    then the timed run with
     recon_enabled off as bench.py runs it (timed_gop), K1's count set to
     0 before and read after: K1 runs on the pass B of every inter frame,
     at B = 88 (M6 key frames search four tx types and do not take it);
@@ -1710,6 +1761,345 @@ def phase_m6_tools_cpu_vs_cuda():
         gop_cpu_vs_cuda(name, frames, need=need, tag="27", preset=preset,
                         clip=name, hierarchical_levels=2, **kw)
 
+def m4_counts(decisions):
+    """Blocks by M0-M4 tool over the frames' parsed decisions: leaf sizes,
+    filter-intra, D45 / D67 / D203, GOLDEN references."""
+    from svt_av1_tpu_torch.codec import constants as cc
+    blocks = [b for d in decisions for b in d.values()]
+    return dict(
+        leaf16=sum(b.bsize == cc.BLOCK_16X16 for b in blocks),
+        leaf32=sum(b.bsize == cc.BLOCK_32X32 for b in blocks),
+        leaf64=sum(b.bsize == cc.BLOCK_64X64 for b in blocks),
+        filter_intra=sum(b.filter_intra_mode >= 0 for b in blocks),
+        d45=sum(not b.is_inter and b.y_mode == cc.D45_PRED for b in blocks),
+        d67=sum(not b.is_inter and b.y_mode == cc.D67_PRED for b in blocks),
+        d203=sum(not b.is_inter and b.y_mode == cc.D203_PRED
+                 for b in blocks),
+        golden=sum(b.is_inter and b.ref == 4 for b in blocks))
+
+
+def k1_varpart_batches(size, preset):
+    """K1's batches in the variable-partition program (presets M0-M4):
+    the 16x16 sub-steps of a wave's superblocks (1 up to the natural wave
+    size of the 64x64 grid) x the luma modes and filter-intra
+    pseudo-modes."""
+    from svt_av1_tpu_torch.pipeline import intra_encoder
+    from svt_av1_tpu_torch.pipeline.presets import features_for
+    w, h = size
+    maxb = intra_encoder._natural_maxb(-(-h // 64), -(-w // 64))
+    nm = len(features_for(preset).intra_modes) + 5
+    return [k * nm for k in range(1, maxb + 1)]
+
+
+def composite_frame(w, h):
+    """The bench clip's picture on the left half and screen content on
+    the right: superblocks that want different CDEF strengths."""
+    import clips
+    a = synth_frames(1, w, h)[0]
+    b = clips.screen_frame(w, h, seed=1)
+    out = []
+    for pa, pb in zip(a, b):
+        p = pa.copy()
+        half = p.shape[1] // 2
+        p[:, half:] = pb[:, half:]
+        out.append(p)
+    return tuple(out)
+
+
+def encode_key(frames, w, h, device, preset, qp=35, batched=False,
+               **filters):
+    """Packets of all-intra ``frames`` at ``preset`` and ``qp``."""
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=qp,
+                                enc_mode=preset, **filters), device=device)
+    if batched:
+        enc.send_pictures(frames, eos=True)
+    else:
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
+    pkts = []
+    while (p := enc.get_packet()) is not None:
+        pkts.append(p)
+    if len(pkts) != len(frames):
+        raise AssertionError(f"{len(pkts)} packets for {len(frames)} frames")
+    return pkts
+
+
+def phase_quality_ops():
+    """The M0-M4 ops on the card against the port's CPU run, exact: the
+    filter-intra predictor (the five modes in one wavefront) at the block
+    sizes and batches of the varpart program, D45 / D67 / D203 at 16, 32
+    and 64, and the per-SB CDEF apply and per-SB SSE on a CIF frame with
+    an index map over 4 strength sets; then the host time of one
+    filter-intra call (its wavefront is eager launches: the dispatch cost
+    the varpart and send_pictures paths pay)."""
+    import torch
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.ops import intra
+    from svt_av1_tpu_torch.pipeline import cdef_stage
+    rng = np.random.default_rng(28)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    n_fi = n_dir = 0
+    fi_ms = {}
+    for n, b in ((4, 64), (8, 64), (16, 45), (32, 45)):
+        a, l = (rng.integers(0, 256, (b, n)).astype(np.int32)
+                for _ in range(2))
+        c = rng.integers(0, 256, b).astype(np.int32)
+        ref = intra.filter_intra_pred_multi(t(a), t(l), t(c), tuple(range(5)),
+                                            n, n)
+        args = (t(a).cuda(), t(l).cuda(), t(c).cuda(), tuple(range(5)), n, n)
+        got = intra.filter_intra_pred_multi(*args).cpu()
+        if not torch.equal(ref, got):
+            _fail(f"phase 28: filter-intra {n}x{n} differs cuda vs cpu")
+        n_fi += ref.numel()
+        fi_ms[n] = round(host_issue_ms(
+            lambda: intra.filter_intra_pred_multi(*args), n=20), 3)
+    for n in (16, 32, 64):
+        a, l = (rng.integers(0, 256, (45, n)).astype(np.int32)
+                for _ in range(2))
+        c = rng.integers(0, 256, 45).astype(np.int32)
+        ae, le = (rng.integers(0, 256, (45, 2 * n + 1)).astype(np.int32)
+                  for _ in range(2))
+        for mode in (cc.D45_PRED, cc.D67_PRED, cc.D203_PRED):
+            ref = intra.predict(mode, t(a), t(l), t(c), n, n,
+                                above_ext=t(ae), left_ext=t(le))
+            got = intra.predict(mode, t(a).cuda(), t(l).cuda(), t(c).cuda(),
+                                n, n, above_ext=t(ae).cuda(),
+                                left_ext=t(le).cuda()).cpu()
+            if not torch.equal(ref, got):
+                _fail(f"phase 28: mode {mode} {n}x{n} differs cuda vs cpu")
+            n_dir += ref.numel()
+    w, h = CIF
+    src = synth_frames(1, w, h)[0]
+    rec = {p: np.clip(s.astype(np.int32)
+                      + rng.integers(-6, 7, s.shape), 0, 255).astype(np.uint8)
+           for p, s in zip("yuv", src)}
+    skip16 = rng.random((h // 16, w // 16)) < 0.3
+    idx = rng.integers(-1, 4, ((h + 63) // 64, (w + 63) // 64)).astype(
+        np.int32)
+    sets = cdef_stage.SEARCH_SET[2:6]
+    damping = cdef_stage.cdef_damping(140)
+    ref = cdef_stage.cdef_apply({p: t(v) for p, v in rec.items()}, skip16,
+                                sets, damping, sb_idx=idx)
+    got = cdef_stage.cdef_apply({p: t(v).cuda() for p, v in rec.items()},
+                                skip16, sets, damping, sb_idx=idx)
+    srcs = dict(zip("yuv", src))
+    for p in "yuv":
+        if not torch.equal(ref[p], got[p].cpu()):
+            _fail(f"phase 28: per-SB CDEF apply differs cuda vs cpu ({p})")
+    sse_c = cdef_stage._sb_sse({p: t(v) for p, v in srcs.items()}, ref)
+    sse_g = cdef_stage._sb_sse({p: t(v).cuda() for p, v in srcs.items()},
+                               got).cpu()
+    if not torch.equal(sse_c, sse_g):
+        _fail("phase 28: per-SB SSE differs cuda vs cpu")
+    log(f"phase 28: M0-M4 ops exact cuda vs cpu: filter-intra (5 modes, "
+        f"one wavefront) {n_fi} samples at 4/8/16/32, D45/D67/D203 "
+        f"{n_dir} samples at 16/32/64, per-SB CDEF apply and SSE on a CIF "
+        f"frame ({idx.size} SBs, 4 sets, index -1..3); host time per "
+        f"filter-intra call (ms, by block size) {fi_ms}")
+
+
+def phase_m4_key_frames(card):
+    """Presets M0-M4 all-intra at CIF on the default device: send_picture
+    with DLF + CDEF (the varpart program, the mask-aware DLF level search,
+    the per-SB CDEF search) on the bench clip's first frame (qp 35) and on
+    the clip / screen composite (qp 25, where per-SB strengths pay); then
+    send_pictures x8 at M4 (the batched program with the five filter-intra
+    pseudo-modes, K1 at B = 8 x 11 x 15).  Each packet decoded on the card
+    equal to Packet.recon; the M0-M4 tools counted."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    w, h = CIF
+    runs = (("clip", synth_frames(1, w, h), 35),
+            ("composite", [composite_frame(w, h)], 25))
+    total = {}
+    launches = {}
+    bits = []
+    for name, frames, qp in runs:
+        torch.cuda.synchronize()
+        profiling.reset_stages()
+        fused_txq.launches = 0
+        t0 = time.perf_counter()
+        pkts = encode_key(frames, w, h, None, 4, qp=qp, **FILTERS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = fused_txq.launches
+        stages = profiling.stage_stats()
+        hdrs = []
+        dec = decode_check(pkts, None, hdrs)
+        n = m4_counts(dec)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        bits.append(hdrs[0].cdef_bits)
+        sec = {k: round(stages[k][0], 3) for k in
+               ("device_md_intra", "dlf", "cdef", "host_ec") if k in stages}
+        log(f"phase 29: M4 send_picture {name} {w}x{h} qp{qp} DLF + CDEF "
+            f"(varpart) on the default device "
+            f"({torch.cuda.get_device_name(0)}): {dt:.3f} s, "
+            f"{len(pkts[0].data)} bytes, Y-PSNR "
+            f"{psnr(frames[0][0], pkts[0].recon['y']):.4f} dB, DLF levels "
+            f"{hdrs[0].filter_level}/{hdrs[0].filter_level_uv}, cdef_bits "
+            f"{hdrs[0].cdef_bits}, strengths "
+            f"{hdrs[0].cdef_strength_list or hdrs[0].cdef_strengths}; blocks "
+            f"{n}; stage seconds {sec}; fused_txq launches "
+            f"{launches[name]} ({card}); decoded on the card, equal to recon")
+    for k in ("leaf16", "leaf32", "leaf64", "filter_intra"):
+        if total[k] <= 0:
+            _fail(f"phase 29: no {k} block")
+    if total["d45"] + total["d67"] <= 0 or max(bits) <= 0:
+        _fail(f"phase 29: no D45/D67 block or no per-SB CDEF ({bits})")
+    cif = synth_frames(CIF_FRAMES, w, h)
+    encode_key(cif[:1], w, h, None, 4, batched=True)           # warm
+    torch.cuda.synchronize()
+    fused_txq.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode_key(cif, w, h, None, 4, batched=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["batch"] = fused_txq.launches
+    if launches["batch"] <= 0:
+        _fail("phase 29: send_pictures at M4 never launched fused_txq")
+    n = m4_counts(decode_check(pkts, None))
+    if n["filter_intra"] <= 0:
+        _fail("phase 29: no filter-intra block in send_pictures")
+    log(f"phase 29: M4 send_pictures {w}x{h} x{len(cif)} qp35 (five "
+        f"filter-intra pseudo-modes in the batch): {len(cif) / dt:.3f} fps "
+        f"hot ({dt:.3f} s), {sum(len(p.data) for p in pkts)} bytes; blocks "
+        f"{n}; fused_txq launches {launches['batch']} at B = "
+        f"{k1_batch(CIF_FRAMES, CIF, 4, fi=True)} ({card}); decoded on "
+        f"the card, equal to recon")
+    return launches
+
+
+def phase_m4_gop(card, frames):
+    """This slice's main path: the CIF x9 GOP (key + one 3-level mini-GoP)
+    at M4 with MCTF + TPL, DLF + CDEF through send_picture / flush on the
+    default device: a warm run over a 3-frame prefix, then the timed run
+    with recon_enabled off (timed_gop), K1's count set to 0 before and
+    read after: K1 runs on the pass B of every inter frame at B = 11 x 10
+    (the key frames search four tx types and do not take it); every shown
+    frame decoded on the card against the encoder's recon."""
+    import torch
+    from svt_av1_tpu_torch.codec import obu
+    w, h = CIF
+    t0 = time.perf_counter()
+    encode_gop(frames[:3], w, h, None, 4, **M6_BENCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pkts, recon, dt, launches, batches, stages = timed_gop(frames, w, h, 4,
+                                                           **M6_BENCH)
+    coded, mpsnr, dec_s = decode_against("30", pkts, recon, frames)
+    n = gop_block_counts(coded)
+    m = m4_counts([d for _, d in coded])
+    n_inter = sum(fp.frame_type == obu.INTER_FRAME for fp, _ in coded)
+    waves = waves_per_frame(w, h)
+    b = k1_batch(1, CIF, 4)
+    if launches != waves * n_inter or batches != [b]:
+        _fail(f"phase 30: fused_txq launched {launches} times at batches "
+              f"{batches}; {waves} waves x {n_inter} inter frames at B = {b}"
+              " predicted")
+    for k in ("filter_intra", "golden"):
+        if m[k] <= 0:
+            _fail(f"phase 30: no {k} block")
+    per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / max(n_inter, 1)
+    st = {k: (round(stages[k][0], 3), stages[k][1])
+          for k in ("key_tf", "key_tpl", "device_md_intra", "key_filters",
+                    "gop_tf", "gop_tpl", "tmvp_setup", "host_ec",
+                    "device_md_inter") if k in stages}
+    log(f"phase 30: the main path of this slice: GOP {w}x{h} x{len(frames)} "
+        f"M4 qp35 hierarchical_levels 3 keyint 15 MCTF + TPL DLF + CDEF "
+        f"through send_picture / flush on the default device "
+        f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
+        f"{len(frames) / dt:.4f} fps hot ({dt:.3f} s; warm 3-frame prefix "
+        f"{warm_s:.1f} s), {per_inter:.3f} s host dispatch per inter frame "
+        f"({n_inter} inter frames), "
+        f"{sum(len(p.data) for p in pkts)} bytes, mean Y-PSNR {mpsnr:.4f} "
+        f"dB; stage seconds (total, calls) {st}; inter-frame blocks {n}; "
+        f"M0-M4 tools {m}; key cdef_bits "
+        f"{[fp.cdef_bits for fp, _ in coded if fp.frame_type == 0]}; "
+        f"fused_txq launches {launches} = {waves} waves x {n_inter} inter "
+        f"frames at B = {b} ({card}); decoded on the card, equal to the "
+        f"encoder's recon over {len(frames)} shown frames ({dec_s:.1f} s)")
+    return launches
+
+
+def phase_m4_cpu_vs_cuda():
+    """The M0-M4 clips of the CPU tests on the CPU and on the card: the
+    varpart picture (128x96, M4, DLF + CDEF), the 64x64 screen picture at
+    M2 (DLF + CDEF: filter-intra, D203), send_pictures at M4 on two 64x64
+    screen pictures, each decoded on its device and equal to its recon,
+    block agreement, bytes, identity; then through gop_cpu_vs_cuda the
+    64x64 x5 GOP at M2 (hierarchical_levels 1: GOLDEN; its key frame's
+    per-SB CDEF pick forced to two strength sets, as the CPU test forces
+    it, so that the key frame codes cdef_bits 1 and a cdef_idx per SB)
+    and the 64x64 x17 GOP at M4 (hierarchical_levels 3, two 8-frame
+    mini-GoPs: the second base's GOLDEN is the key frame, which keep_poc
+    held through the first mini-GoP)."""
+    import clips
+    from svt_av1_tpu_torch.codec import mv_pred
+    from svt_av1_tpu_torch.pipeline import cdef_stage
+    runs = (("varpart 128x96 M4", [clips.varpart_frame()], 4, False,
+             FILTERS),
+            ("screen 64x64 M2", [clips.screen_frame(64, 64, seed=5)], 2,
+             False, FILTERS),
+            ("send_pictures 64x64 x2 M4",
+             [clips.screen_frame(64, 64, seed=s) for s in (5, 6)], 4, True,
+             {}))
+    total = {}
+    for name, frames, preset, batched, filt in runs:
+        h, w = frames[0][0].shape
+        pc = encode_key(frames, w, h, "cpu", preset, batched=batched, **filt)
+        pg = encode_key(frames, w, h, None, preset, batched=batched, **filt)
+        dc = decode_check(pc, "cpu")
+        dg = decode_check(pg, None)
+        agree = block_agreement(dc, dg)
+        n = m4_counts(dg)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        identical = [p.data for p in pc] == [p.data for p in pg]
+        log(f"phase 31: {name} cpu vs cuda: {agree:.4%} blocks equal, bytes "
+            f"{sum(len(p.data) for p in pc)} vs "
+            f"{sum(len(p.data) for p in pg)}, streams identical: "
+            f"{identical}; card blocks {n}; both decoders match recon")
+        if agree < MIN_BLOCK_AGREE:
+            _fail(f"phase 31: {name} cpu and cuda disagree")
+    for k in ("filter_intra", "d203", "leaf32", "leaf64"):
+        if total[k] <= 0:
+            _fail(f"phase 31: no {k} block on the card")
+    def two_sets(sse, coded, lam, cands, max_bits=3):
+        return 1, (tuple(cands[1]), tuple(cands[3])), \
+            np.where(coded, 1, -1).astype(np.int32)
+
+    select = cdef_stage.select_sb_sets
+    cdef_stage.select_sb_sets = two_sets
+    try:
+        _, cg = gop_cpu_vs_cuda("m2 natural", clips.natural_clip(
+            5, 64, 64, seed=1), tag="31", preset=2, hierarchical_levels=1,
+            intra_period_length=8)
+    finally:
+        cdef_stage.select_sb_sets = select
+    bits = [fp.cdef_bits for fp, _ in cg if fp.frame_type == 0]
+    log(f"phase 31: the card's M2 GOP key frame cdef_bits {bits} (two "
+        "strength sets forced)")
+    if m4_counts([d for _, d in cg])["golden"] <= 0:
+        _fail("phase 31: the card's M2 GOP codes no GOLDEN block")
+    if not bits or bits[0] <= 0:
+        _fail("phase 31: the card's M2 GOP key frame has no per-SB CDEF")
+    _, cg = gop_cpu_vs_cuda("m4 seam out and back", clips.seam_clip(
+        17, back=True), tag="31", preset=4, hierarchical_levels=3,
+        intra_period_length=32)
+    gold = {fp.order_hint: fp.ref_hints[mv_pred.GOLDEN_FRAME - 1]
+            for fp, _ in cg if fp.frame_type != 0}
+    n_gold = m4_counts([d for _, d in cg])["golden"]
+    log(f"phase 31: the card's M4 levels-3 GOP: GOLDEN order hint per "
+        f"inter frame {gold}, {n_gold} GOLDEN blocks, "
+        f"use_ref_frame_mvs {[fp.use_ref_frame_mvs for fp, _ in cg]}")
+    if gold.get(16) != 0 or gold.get(8) != 0 or n_gold <= 0:
+        _fail("phase 31: the card's second base does not code from the "
+              "key frame in GOLDEN")
+
 
 def _fail(msg):
     raise AssertionError(msg)
@@ -1753,13 +2143,23 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first (in a fresh process, so that nothing the earlier
-    # paths left behind weighs on the main path's timing): the GOP at
-    # M5-M9, its tools on small clips, then bench.py's primary config
+    # paths left behind weighs on the main path's timing): the M0-M4 ops
+    # and small clips, then the M4 GOP, then the M4 key frames
     cif17 = synth_frames(17, *CIF)
     by_path = {}
+    phase_quality_ops()
+    phase_m4_cpu_vs_cuda()
+    m4_launches = phase_m4_gop(card, cif17[:9])
+    by_path["M4 GOP MCTF+TPL CIF x9"] = m4_launches
+    kl = phase_m4_key_frames(card)
+    by_path["M4 send_picture DLF+CDEF CIF clip"] = kl["clip"]
+    by_path["M4 send_picture DLF+CDEF CIF composite"] = kl["composite"]
+    by_path["M4 send_pictures CIF x8"] = kl["batch"]
+
+    # the slice of the previous PR: the GOP at M5-M9, its tools on small
+    # clips, then bench.py's primary config at a cut depth (x9)
     phase_m6_tools_cpu_vs_cuda()
-    m6_launches = phase_m6_gop(card, cif17)
-    by_path["M6 GOP MCTF+TPL CIF x17"] = m6_launches
+    by_path["M6 GOP MCTF+TPL CIF x9"] = phase_m6_gop(card, cif17[:9])
 
     import clips
     # the paths of the earlier slices at a cut depth (8 CIF / 2 720p
@@ -1807,7 +2207,7 @@ def main():
     by_path["M10 GOP CIF x5"] = phase_gop("18", cif17[:5], *CIF, card,
                                           warm=0, profile=False)[2]
     by_path["M10 GOP 720p x3"] = phase_gop(
-        "19", synth_frames(3, *HD), *HD, card, warm=2, shown_limit=3,
+        "19", synth_frames(3, *HD), *HD, card, warm=0, shown_limit=3,
         profile=False)[2]
     phase_gop_cpu_vs_cuda()
     by_path["M12 GOP CIF x5"] = phase_gop("21", cif17[:5], *CIF, card,
@@ -1840,17 +2240,16 @@ def main():
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of bench.py's primary config (the M6 GOP at CIF), the time
-    # at its pass-B batch (one frame x 11 wave slots x 8 modes); every
-    # size is under by_batch
+    # launches of the M4 GOP at CIF, the time at its pass-B batch (one
+    # frame x 11 wave slots x 10 modes); every size is under by_batch
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, CIF, 6))
+              if r["b"] == k1_batch(1, CIF, 4))
     print(smi, flush=True)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
         source="svt_av1_tpu_torch/csrc/fused_txq.cu",
         replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
-        launches=m6_launches, max_abs_err=krec["max_abs_err"],
+        launches=m4_launches, max_abs_err=krec["max_abs_err"],
         ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],

@@ -1,5 +1,5 @@
-"""Encoder handle for the port: the all-intra half of
-svt_av1_tpu/api/encoder.py.
+"""Encoder handle for the port: svt_av1_tpu/api/encoder.py for the
+port's slice.
 
   Encoder(config, device)   ~ svt_av1_enc_init_handle + init
   enc.send_picture(y, u, v) ~ svt_av1_enc_send_picture
@@ -8,25 +8,29 @@ svt_av1_tpu/api/encoder.py.
   enc.get_packet()          ~ svt_av1_enc_get_packet
   enc.stream_header()       ~ svt_av1_enc_stream_header
 
-Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and frame-uniform CDEF
-on or off, and LR, superres and film grain off; either all-intra
-(intra_period_length -2 or 0) at presets M5-M13, or the hierarchical
-(random-access) GOP of the reference's fast path at presets M5-M13 with
+Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and CDEF on or off,
+and LR, superres and film grain off, at every preset (M0-M13); either
+all-intra (intra_period_length -2 or 0), or the hierarchical
+(random-access) GOP of the reference's fast path with
 hierarchical_levels 1-3 and intra_period_length > 0, with or without the
-lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M5-M8 its inter
+lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
 frames search the inter tx type and the OBMC and inter-intra motion
-modes, at M5-M6 the 8x8 split and TMVP too (gop_fast.run_inter_frame).
-Any other configuration raises NotImplementedError naming the
-ROADMAP.md item that brings it; nothing falls back to the JAX package.
+modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third (GOLDEN-role)
+reference (gop_fast.run_inter_frame).  Any other configuration, or a
+feature override (SVT_TPU_FEAT) that turns on a tool no preset uses
+(hp_mv, rdoq), raises NotImplementedError naming the ROADMAP.md item that
+brings it; nothing falls back to the JAX package.
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
 layers, and show-existing packets for hidden frames.  Key frames take the
-intra path above (their filters as the reference's GOP key frames take
-them); each inter frame runs the two device programs of
-pipeline/gop_fast.py, every frame of the mini-GoP dispatched before the
-first is entropy-coded.  The DPB's recon stays on the device; a slot is
-freed after its last use in the mini-GoP.
+intra path below (their filters as the reference's GOP key frames take
+them: per-SB CDEF strengths at M0-M4); each inter frame runs the two
+device programs of pipeline/gop_fast.py, every frame of the mini-GoP
+dispatched before the first is entropy-coded.  The DPB's recon stays on
+the device; a slot is freed after its last use in the mini-GoP.  At M0-M4
+(mref) the mid frames also search the mini-GoP's anchor, the base frame
+the previous mini-GoP's anchor, which the DPB keeps one mini-GoP longer.
 
 The lookahead, as in the reference: MCTF (pipeline/tf_stage.py) filters
 each key frame's source against its next two frames and each mini-GoP
@@ -39,20 +43,24 @@ decode order, with an IPP tail into the next one, sets every frame's
 qindex from its r0.
 
 ``send_picture`` codes one key frame at a time with the preset's whole
-tool set (at M5-M8: tx-type search, angle deltas, CfL, palette on screen
-content), runs the in-loop filters as the reference's stage path does
-(DLF level search at M5-M8, the qindex heuristic level at M9-M13; CDEF
-strength search over the preset's candidates) and packetizes the
+tool set (at M0-M4 the 64/32/16 variable-partition program,
+pipeline/varpart.py, with the filter-intra pseudo-modes; at M5-M8 the
+tx-type search, angle deltas, CfL, palette on screen content; GOP key
+frames at M0-M4 take the M5-M8 tools plus filter-intra and no palette),
+runs the in-loop filters as the reference's stage path does (DLF level
+search at M0-M8, mask-aware where 32/64 leaves mix with 16x16 ones, the
+qindex heuristic level at M9-M13; CDEF strength search over the
+preset's candidates, per 64x64 superblock at M0-M4) and packetizes the
 per-block decisions with the object tile coder.  ``send_pictures`` runs
-the batched frame program with the preset's plain luma modes (as the
-reference's does) and the array-native C tile coder, or with CDEF on the
-object coder and no source for the filters: the heuristic DLF level and
-CDEF signaled with zero strengths, as the reference does.  Mode decision
-and the filters run on ``device`` (pipeline/intra_encoder.py,
-pipeline/dlf_stage.py, pipeline/cdef_stage.py; default: the current CUDA
-device); recon stays there until the filtered planes are copied out.
-Entropy coding is the port's copy of the host coder (codec/syntax.py,
-native/ec_native.c).
+the batched program with the preset's plain luma modes (as the
+reference's does) and the array-native C tile coder, or, with CDEF or
+filter-intra on, the object coder and no source for the filters: the
+heuristic DLF level and CDEF signaled with zero strengths, as the
+reference does.  Mode decision and the filters run on ``device``
+(pipeline/intra_encoder.py, pipeline/varpart.py, pipeline/dlf_stage.py,
+pipeline/cdef_stage.py; default: the current CUDA device); recon stays
+there until the filtered planes are copied out.  Entropy coding is the
+port's copy of the host coder (codec/syntax.py, native/ec_native.c).
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from svt_av1_tpu_torch.codec import mv_pred
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
 from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
                                         intra_encoder, tf_stage, tpl)
+from svt_av1_tpu_torch.pipeline import varpart as varpart_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
@@ -115,9 +124,6 @@ def _unsupported(cfg: EncoderConfig):
         (cfg.rate_control_mode != 0 or cfg.max_bit_rate > 0
          or cfg.pass_ != 0, "VBR/CBR, capped CRF and multi-pass",
          "queue A item 7"),
-        (not 5 <= cfg.enc_mode <= 13,
-         f"preset M{cfg.enc_mode} (varpart, filter-intra, the D45/D67/D203 "
-         "modes, per-SB CDEF)", "queue A item 7"),
         (cfg.tile_columns > 0 or cfg.tile_rows > 0, "tiles",
          "queue A item 7"),
         (cfg.enable_adaptive_quantization != 0, "adaptive quantization",
@@ -179,20 +185,25 @@ class Encoder:
                                      bit_depth=8,
                                      enable_cdef=config.cdef_level > 0)
         self._feat = features_for(config.enc_mode)
-        if config.intra_period_length not in (-2, 0):
-            for on, what in ((self._feat.hp_mv, "1/8-pel MVs (hp_mv)"),
-                             (self._feat.mref, "the third reference (mref)")):
-                if on:
-                    raise NotImplementedError(
-                        f"{what}: not ported yet (ROADMAP.md queue A item 7)")
+        # feature overrides (SVT_TPU_FEAT) can turn on tools that no preset
+        # uses and the port does not have
+        gop_mode = config.intra_period_length not in (-2, 0)
+        for on, what in ((self._feat.hp_mv and gop_mode,
+                          "1/8-pel MVs (hp_mv)"),
+                         (self._feat.rdoq, "RDOQ (rdoq)")):
+            if on:
+                raise NotImplementedError(
+                    f"{what}: not ported yet (ROADMAP.md queue A item 7)")
         # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
         # sequence header; a frame turns the tools on when it has
         # palette candidates
         self.sp.enable_screen_content = bool(self._feat.palette)
-        # the other sequence flags the preset sets in the reference (no
-        # key frame of the slice uses the tools they announce)
+        # filter-intra: the sequence flag and the MD pseudo-modes
         self.sp.enable_filter_intra = self._feat.filter_intra
         self.sp.enable_interintra_compound = self._feat.interintra
+        self._md_modes = self._feat.intra_modes
+        if self._feat.filter_intra:
+            self._md_modes = self._feat.intra_modes + intra_encoder.FI_MODES
         self._packets: Deque[Packet] = deque()
         self._la: Deque = deque()      # submitted, not yet coded
         self._pts = 0
@@ -224,6 +235,7 @@ class Encoder:
             self._h_next_in = 0       # next arriving poc
             self._h_sched = 0         # first unscheduled poc
             self._h_anchor = None     # display poc of the last coded anchor
+            self._h_prev_anchor = None  # the anchor before it (mref)
             self._h_cuts = set()      # scene-cut pocs
             self._h_activity = {}     # poc -> mean AHD (dynamic mini-GoP)
             self._dpb: Dict[int, int] = {}         # stored poc -> slot
@@ -280,26 +292,36 @@ class Encoder:
         packetization."""
         qindex = self._rc.frame_qindex()
         y, u, v = self._pad(y, u, v)
-        decisions, recon, allow_sct = self._mode_decision(y, u, v, qindex)
+        decisions, recon, allow_sct = self._mode_decision(
+            y, u, v, qindex, varpart=self._feat.varpart)
         pkt = self._packetize(decisions, recon, qindex, pts,
                               allow_sct=allow_sct, src=dict(y=y, u=u, v=v))
         self._rc.feedback(len(pkt.data) * 8, qindex, True)
         return pkt
 
-    def _mode_decision(self, y, u, v, qindex, qmap=None):
+    def _mode_decision(self, y, u, v, qindex, qmap=None, varpart=False):
         """Palette candidates and the frame program with the preset's
         tools for one padded frame: (decisions, recon on the device,
         whether the frame turns the screen-content tools on).  qmap: the
         per-64x64 qindex map of a delta-q key frame (no palette then, as
-        in the reference)."""
+        in the reference).  varpart: the 64/32/16 partition program
+        (all-intra key frames at M0-M4); the presets that have it take
+        no palette on any key frame, as in the reference."""
+        if varpart and qmap is None:
+            with stage("device_md_intra"):
+                decisions, recon = varpart_mod.encode_intra_frame_varpart(
+                    y, u, v, qindex, modes=self._md_modes,
+                    device=self.device)
+            return decisions, recon, False
         pal_cands = None
-        if self.sp.enable_screen_content and qmap is None:
+        if (self.sp.enable_screen_content and qmap is None
+                and not self._feat.varpart):
             with stage("palette_md"):
                 pal_cands = intra_encoder.palette_md_candidates(
                     y, qindex, device=self.device)
         with stage("device_md_intra"):
             decisions, recon = intra_encoder.encode_intra_frame(
-                y, u, v, qindex, modes=self._feat.intra_modes,
+                y, u, v, qindex, modes=self._md_modes,
                 rdoq=self._feat.rdoq, tx_search=self._feat.tx_search,
                 angle_deltas=self._feat.angle_deltas, cfl=self._feat.cfl,
                 exact_rates=(self._feat.exact_rates
@@ -330,11 +352,11 @@ class Encoder:
         if self.sp.enable_order_hint:
             fp.order_hint = pts & ((1 << self.sp.order_hint_bits) - 1)
         if prefilt is not None:
-            recon, _, fpu, _ = prefilt
+            recon, _, fpu, cdef_idx = prefilt
             for k, val in fpu.items():
                 setattr(fp, k, val)
         else:
-            recon = self._filter(decisions, recon, fp, qindex, src)
+            recon, cdef_idx = self._filter(decisions, recon, fp, qindex, src)
         self._ref = recon
         tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
@@ -347,6 +369,10 @@ class Encoder:
             fp.delta_q_present = True
             fp.delta_q_res = 2
             tenc.set_delta_q(fp.delta_q_res)
+        if fp.cdef_bits:
+            # per-SB strengths: each SB's index is coded at its first
+            # non-skip block
+            tenc.set_cdef(fp.cdef_bits, cdef_idx)
         with stage("host_ec"):
             tile_data = tenc.encode(decisions)
         if not fp.disable_frame_end_update_cdf:
@@ -358,36 +384,65 @@ class Encoder:
         return pkt
 
     def _filter(self, decisions, recon, fp, qindex, src):
-        """The reference's stage path for a key frame on the uniform 16x16
-        grid: DLF (level search at M5-M8 when the source is at hand, else
-        the heuristic level), then frame-uniform CDEF (strength search
-        over the preset's candidates, then apply) when the source is at
-        hand.  Sets the header fields; recon stays on the device."""
+        """The reference's stage path for a key frame: DLF (level search
+        at M0-M8 when the source is at hand, else the heuristic level;
+        mask-aware where the frame mixes 16/32/64 leaves), then CDEF when
+        the source is at hand (strength search over the preset's
+        candidates, per SB at M0-M4 (cdef_bits > 0), then apply).  Sets
+        the header fields; recon stays on the device.  Returns (recon,
+        the per-SB cdef index map or None)."""
         searches = ((self.cfg.enable_dlf_flag and self._feat.dlf_search)
                     or self.sp.enable_cdef)
         if src is not None and searches:
             src = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device) for k, v in src.items()}
         if self.cfg.enable_dlf_flag:
+            # uniform filtering is conformant on the fixed 16x16 grid;
+            # frames with varpart 32/64 leaves take the mask-aware filter
+            mixed = any(d.bsize != cc.BLOCK_16X16
+                        for d in decisions.values())
             with stage("dlf"):
-                if self._feat.dlf_search and src is not None:
+                if mixed:
+                    flens = dlf_stage.flens_from_maps(
+                        dlf_stage.maps_from_decisions(
+                            decisions, self.coded_h // 4, self.coded_w // 4),
+                        device=self.device)
+                    if self._feat.dlf_search and src is not None:
+                        recon = dlf_stage.search_and_apply_masked(
+                            src, recon, fp, flens)
+                    else:
+                        self._heuristic_dlf_levels(fp, qindex)
+                        recon = dlf_stage.apply_masked(recon, fp, flens)
+                elif self._feat.dlf_search and src is not None:
                     # per-plane level search (dlf_process.c:106-131)
                     recon = dlf_stage.search_and_apply(src, recon, fp)
                 else:
                     self._heuristic_dlf_levels(fp, qindex)
                     recon = intra_encoder.apply_loop_filter(recon, fp)
+        cdef_idx = None
         if self.sp.enable_cdef and src is not None:
             skip16 = _skip_map(decisions, self.coded_h // 16,
                                self.coded_w // 16)
             fp.cdef_damping = cdef_stage.cdef_damping(qindex)
             with stage("cdef"):
-                fp.cdef_strengths = cdef_stage.cdef_search(
-                    src, recon, skip16, qindex,
-                    max_candidates=self._feat.cdef_candidates)
-                recon = cdef_stage.cdef_apply(recon, skip16,
-                                              fp.cdef_strengths,
-                                              fp.cdef_damping)
-        return recon
+                if self._feat.cdef_sb:
+                    bits, sets, cdef_idx = cdef_stage.cdef_search_sb(
+                        src, recon, skip16, qindex,
+                        max_candidates=self._feat.cdef_candidates)
+                    fp.cdef_bits = bits
+                    fp.cdef_strengths = sets[0]
+                    fp.cdef_strength_list = sets if bits else None
+                    recon = cdef_stage.cdef_apply(recon, skip16, sets,
+                                                  fp.cdef_damping,
+                                                  sb_idx=cdef_idx)
+                else:
+                    fp.cdef_strengths = cdef_stage.cdef_search(
+                        src, recon, skip16, qindex,
+                        max_candidates=self._feat.cdef_candidates)
+                    recon = cdef_stage.cdef_apply(recon, skip16,
+                                                  fp.cdef_strengths,
+                                                  fp.cdef_damping)
+        return recon, cdef_idx
 
     @staticmethod
     def _heuristic_dlf_levels(fp, qindex: int):
@@ -413,7 +468,10 @@ class Encoder:
                 self.flush()
             return
         qindex = self._rc.frame_qindex()
-        arrays_ok = qindex > 0 and not self.sp.enable_cdef
+        # filter-intra blocks take the object coder (the per-block route),
+        # with the preset's pseudo-modes in the batch, as in the reference
+        arrays_ok = (qindex > 0 and not self.sp.enable_cdef
+                     and not self.sp.enable_filter_intra)
         padded = [self._pad(*self._checked(y, u, v))
                   for (y, u, v) in frames]
         pending = None
@@ -421,7 +479,9 @@ class Encoder:
             chunk = padded[i:i + CHUNK]
             with stage("device_dispatch"):
                 launched = intra_encoder.encode_intra_frames_launch(
-                    chunk, qindex, modes=self._feat.intra_modes,
+                    chunk, qindex,
+                    modes=(self._feat.intra_modes if arrays_ok
+                           else self._md_modes),
                     exact_rates=(self._feat.exact_rates
                                  and self._feat.exact_rates_intra),
                     device=self.device)
@@ -612,6 +672,7 @@ class Encoder:
         self._slot_mvfield = {}
         self._slot_hint = [poc & ((1 << self.sp.order_hint_bits) - 1)] * 8
         self._h_anchor = poc
+        self._h_prev_anchor = None
         self._finish_packet(pkt, qindex)
 
     def _base_q_for(self, poc: int) -> int:
@@ -647,14 +708,28 @@ class Encoder:
         tpl_r0 = None
         if self.cfg.enable_tpl_la:
             tpl_r0 = self._minigop_tpl(anchor, p0, n, events)
+        mref = self._feat.mref
+        if mref:
+            # the base frame's GOLDEN-role reference: the previous
+            # mini-GoP's anchor, kept alive one extra mini-GoP (keep_poc)
+            prev = self._h_prev_anchor
+            if (prev is not None and prev in self._dpb
+                    and isinstance(events[0], gop.CodeEvent)):
+                events[0].gld_poc = prev
         last_use: Dict[int, int] = {}
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
                 last_use[ev.last_poc] = i
                 if ev.bwd_poc is not None:
                     last_use[ev.bwd_poc] = i
+                if mref and ev.gld_poc is not None:
+                    last_use[ev.gld_poc] = max(i,
+                                               last_use.get(ev.gld_poc, 0))
             else:
                 last_use[ev.poc] = i
+        # the anchor stays stored past this mini-GoP, so that the next
+        # base can search it as GOLDEN (freed there after its last use)
+        keep_poc = anchor if mref else None
         records = []
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
@@ -678,7 +753,8 @@ class Encoder:
                 records.append(("show", ev.poc, slot,
                                 self._slot_recon[slot]))
             for poc, li in list(last_use.items()):
-                if li == i and poc != end_poc and poc in self._dpb:
+                if (li == i and poc != end_poc and poc != keep_poc
+                        and poc in self._dpb):
                     slot = self._dpb.pop(poc)
                     self._slot_free.add(slot)
                     self._slot_recon.pop(slot, None)
@@ -688,6 +764,7 @@ class Encoder:
             else:
                 self._collect_inter_fast(rec)
         self._h_anchor = end_poc
+        self._h_prev_anchor = anchor
 
     def _minigop_tpl(self, anchor: int, p0: int, n: int, events):
         """TPL over the anchor and the mini-GoP along both pyramid edges
@@ -725,6 +802,12 @@ class Encoder:
         if ev.bwd_poc is not None:
             bwd_slot = self._dpb[ev.bwd_poc]
             refs[mv_pred.ALTREF_FRAME] = self._slot_recon[bwd_slot]
+        gld_slot = None
+        if (self._feat.mref and ev.gld_poc is not None
+                and ev.gld_poc in self._dpb):
+            # the third reference (M0-M4): pass A searches it too
+            gld_slot = self._dpb[ev.gld_poc]
+            refs[mv_pred.GOLDEN_FRAME] = self._slot_recon[gld_slot]
         src_pack = np.concatenate(
             [y, np.concatenate([u, v], axis=1)], axis=0)
         pend = gop_fast.run_inter_frame(
@@ -747,6 +830,8 @@ class Encoder:
             # the backward ref maps only to ALTREF, so that the skip-mode
             # derivation picks (LAST, ALTREF), the pair compound signals
             idx[mv_pred.ALTREF_FRAME - 1] = bwd_slot
+        if gld_slot is not None:
+            idx[mv_pred.GOLDEN_FRAME - 1] = gld_slot
         ref_hints = tuple(self._slot_hint[i] for i in idx)
         if ev.store:
             self._slot_free.remove(slot)

@@ -6,16 +6,18 @@ the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
 ``TileDecoder``).  The 8 DPB slots keep their frame's planes on ``device``
 (default: the current CUDA device) with its saved CDFs, MV context and
 order hint; show_existing_frame outputs a slot.  Key frames reconstruct
-through ``reconstruct_from_decisions`` (each block at its own qindex
-where the frame codes delta-q), inter frames through
+through ``reconstruct_from_decisions`` (filter-intra and every luma
+mode, 16x16 / 32x32 / 64x64 leaves, each block at its own qindex where
+the frame codes delta-q), inter frames (LAST, GOLDEN and ALTREF
+references) through
 ``reconstruct_inter_from_decisions`` (translational, GLOBALMV warp,
 compound average / wedge / diffwtd, skip mode, the merged skip leaves,
 8x8 split leaves, OBMC and inter-intra), followed by DLF at the header's
-levels (mask-aware where block sizes are mixed) and frame-uniform CDEF
-(cdef_bits = 0).  Each slot also keeps its frame's saved motion field,
-which TMVP (use_ref_frame_mvs) projects.  Shown planes are copied out
-once, filtered.  1/8-pel MVs and per-SB CDEF raise, naming their
-ROADMAP.md items.
+levels (mask-aware where block sizes are mixed) and CDEF (frame-uniform,
+or per superblock with the cdef_idx each SB codes when cdef_bits > 0).
+Each slot also keeps its frame's saved motion field, which TMVP
+(use_ref_frame_mvs) projects.  Shown planes are copied out once,
+filtered.  1/8-pel MVs raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -103,10 +105,6 @@ class Decoder:
             raise NotImplementedError(
                 "10-bit, LR, superres and segmentation: ROADMAP.md queue A "
                 "item 7")
-        if fp.cdef_bits:
-            raise NotImplementedError(
-                "per-SB CDEF strengths (cdef_bits > 0): ROADMAP.md queue A "
-                "item 7")
         if not is_intra and fp.allow_high_precision_mv:
             raise NotImplementedError(
                 "1/8-pel MVs (allow_high_precision_mv): ROADMAP.md queue A "
@@ -148,10 +146,10 @@ class Decoder:
                     fp.allow_high_precision_mv)
         if fp.delta_q_present:
             tdec.set_delta_q(fp.delta_q_res)
+        if fp.cdef_bits:
+            tdec.set_cdef(fp.cdef_bits)
         decisions = tdec.decode(tile_data)
         if is_intra:
-            # mixed block sizes (varpart leaves) raise here, naming their
-            # item
             recon = reconstruct_from_decisions(decisions, coded_w,
                                                self.sp.height,
                                                fp.base_q_idx,
@@ -179,9 +177,14 @@ class Decoder:
         if self.sp.enable_cdef:
             skip16 = _skip_map(decisions, self.sp.height // 16, coded_w // 16)
             skip8 = _skip_map8(decisions, self.sp.height // 8, coded_w // 8)
-            recon = cdef_stage.cdef_apply(recon, skip16, fp.cdef_strengths,
-                                          fp.cdef_damping,
-                                          bd=self.sp.bit_depth, skip8=skip8)
+            if fp.cdef_bits:
+                recon = cdef_stage.cdef_apply(
+                    recon, skip16, fp.cdef_strength_list, fp.cdef_damping,
+                    bd=self.sp.bit_depth, sb_idx=tdec.cdef_idx, skip8=skip8)
+            else:
+                recon = cdef_stage.cdef_apply(
+                    recon, skip16, fp.cdef_strengths, fp.cdef_damping,
+                    bd=self.sp.bit_depth, skip8=skip8)
         refresh = fp.refresh_frame_flags
         if fp.frame_type == obu.KEY_FRAME and fp.show_frame:
             refresh = 0xFF

@@ -1,10 +1,10 @@
 """AV1 intra predictors (PyTorch, batched over blocks).
 
-Port of svt_av1_tpu/ops/intra.py for the modes the all-intra M5-M13
-slice codes — DC (with its top / left / 128 variants), V, H, SMOOTH,
-PAETH, the three directional zones (zone 2 for D135/D113/D157, zones 1
-and 3 for the angle-delta refinements of V and H) and chroma-from-luma
-— and SMOOTH_V/SMOOTH_H.  Normative per AV1 spec §7.11.2; every
+Port of svt_av1_tpu/ops/intra.py: DC (with its top / left / 128
+variants), V, H, SMOOTH, SMOOTH_V/SMOOTH_H, PAETH, the three directional
+zones (zone 1 for D45/D67, zone 2 for D135/D113/D157, zone 3 for D203,
+and the angle-delta refinements of each), chroma-from-luma and the
+recursive filter-intra predictor.  Normative per AV1 spec §7.11.2; every
 predictor works on prepared neighbor arrays:
 
   above:      (B, W) int32 — reconstructed row above the block
@@ -270,12 +270,15 @@ def cfl_predict(dc_pred, ac_q3, alpha_q3, bd: int = 8):
 
 
 def predict(mode: int, above, left, above_left, h: int, w: int,
-            have_above=None, have_left=None, bd: int = 8):
+            have_above=None, have_left=None, bd: int = 8, above_ext=None,
+            left_ext=None):
     """One intra mode (static) over a batch.
 
     have_above/have_left: optional (B,) bool tensors — only DC consults
     them (spec: DC averages only the available edges); the other modes
-    rely on the neighbor substitution done by the caller."""
+    rely on the neighbor substitution done by the caller.  above_ext /
+    left_ext: the (B, w+h+1) extended edges (see z1_pred / z3_pred) that
+    D45 and D67 (zone 1) and D203 (zone 3) read."""
     b = above.shape[0]
     if mode == cc.DC_PRED:
         if have_above is None:
@@ -302,6 +305,109 @@ def predict(mode: int, above, left, above_left, h: int, w: int,
         return paeth_pred(above, left, above_left)
     if mode in (cc.D135_PRED, cc.D113_PRED, cc.D157_PRED):
         return z2_pred(above, left, above_left, h, w, MODE_TO_ANGLE[mode])
-    raise NotImplementedError(
-        f"intra mode {mode} is not ported yet (ROADMAP.md queue A item 7: "
-        "D45/D67/D203 and filter-intra come with presets M0-M4)")
+    if mode in (cc.D45_PRED, cc.D67_PRED, cc.D203_PRED):
+        ext = left_ext if mode == cc.D203_PRED else above_ext
+        if ext is None:
+            raise ValueError(f"intra mode {mode} reads the extended edge")
+        zone = z3_pred if mode == cc.D203_PRED else z1_pred
+        return zone(ext, h, w, MODE_TO_ANGLE[mode])
+    raise ValueError(f"intra mode {mode}")
+
+
+# ---------------------------------------------------------------------------
+# recursive filter intra (spec 7.11.2.3)
+# ---------------------------------------------------------------------------
+
+# normative Intra_Filter_Taps (5 modes x 8 outputs x 7 inputs)
+FILTER_INTRA_TAPS = np.array([
+    [[-6, 10, 0, 0, 0, 12, 0], [-5, 2, 10, 0, 0, 9, 0],
+     [-3, 1, 1, 10, 0, 7, 0], [-3, 1, 1, 2, 10, 5, 0],
+     [-4, 6, 0, 0, 0, 2, 12], [-3, 2, 6, 0, 0, 2, 9],
+     [-3, 2, 2, 6, 0, 2, 7], [-3, 1, 2, 2, 6, 3, 5]],
+    [[-10, 16, 0, 0, 0, 10, 0], [-6, 0, 16, 0, 0, 6, 0],
+     [-4, 0, 0, 16, 0, 4, 0], [-2, 0, 0, 0, 16, 2, 0],
+     [-10, 16, 0, 0, 0, 0, 10], [-6, 0, 16, 0, 0, 0, 6],
+     [-4, 0, 0, 16, 0, 0, 4], [-2, 0, 0, 0, 16, 0, 2]],
+    [[-8, 8, 0, 0, 0, 16, 0], [-8, 0, 8, 0, 0, 16, 0],
+     [-8, 0, 0, 8, 0, 16, 0], [-8, 0, 0, 0, 8, 16, 0],
+     [-4, 4, 0, 0, 0, 0, 16], [-4, 0, 4, 0, 0, 0, 16],
+     [-4, 0, 0, 4, 0, 0, 16], [-4, 0, 0, 0, 4, 0, 16]],
+    [[-2, 8, 0, 0, 0, 10, 0], [-1, 3, 8, 0, 0, 6, 0],
+     [-1, 2, 3, 8, 0, 4, 0], [0, 1, 2, 3, 8, 2, 0],
+     [-1, 4, 0, 0, 0, 3, 10], [-1, 3, 4, 0, 0, 4, 6],
+     [-1, 2, 3, 4, 0, 4, 4], [-1, 2, 2, 3, 4, 3, 3]],
+    [[-12, 14, 0, 0, 0, 14, 0], [-10, 0, 14, 0, 0, 12, 0],
+     [-9, 0, 0, 14, 0, 11, 0], [-8, 0, 0, 0, 14, 10, 0],
+     [-10, 12, 0, 0, 0, 0, 14], [-9, 1, 12, 0, 0, 0, 12],
+     [-8, 0, 0, 12, 0, 1, 11], [-7, 0, 0, 1, 12, 1, 9]],
+], np.int32)
+
+FILTER_INTRA_MODES = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _fi_waves(h: int, w: int, device):
+    """The 4x2-cell wavefront of an (h, w) filter-intra block: per wave
+    (cell (tr, tc) in wave 2*tr + tc), the flat (T*7,) indices of its
+    cells' seven inputs and the (T*8,) indices of their outputs in the
+    (h+1, w+1) buffer whose row 0 / column 0 hold the edges."""
+    nh, nw = h // 2, w // 4
+    wp = w + 1
+    waves = []
+    for wv in range(2 * (nh - 1) + nw):
+        cells = [(tr, wv - 2 * tr) for tr in range(nh)
+                 if 0 <= wv - 2 * tr < nw]
+        src, dst = [], []
+        for tr, tc in cells:
+            r, c = 2 * tr + 1, 4 * tc + 1
+            src += [(r - 1) * wp + c - 1, (r - 1) * wp + c,
+                    (r - 1) * wp + c + 1, (r - 1) * wp + c + 2,
+                    (r - 1) * wp + c + 3, r * wp + c - 1,
+                    (r + 1) * wp + c - 1]
+            dst += [(r + i) * wp + c + j for i in range(2) for j in range(4)]
+        waves.append((len(cells),
+                      torch.as_tensor(src, dtype=torch.int64, device=device),
+                      torch.as_tensor(dst, dtype=torch.int64, device=device)))
+    return waves
+
+
+def filter_intra_pred_multi(above, left, above_left, fi_modes, h: int,
+                            w: int, bd: int = 8):
+    """Recursive filter-intra prediction (spec 7.11.2.3) of every mode in
+    ``fi_modes`` for a batch of B blocks in one wavefront pass: the modes
+    ride the batch axis, each row with its own tap matrix.  A wave is one
+    gather of its cells' inputs, one integer multiply-add against the
+    taps, the signed rounding and clip, and one scatter.  Returns (M, B,
+    h, w)."""
+    b = above.shape[0]
+    m = len(fi_modes)
+    dev = above.device
+    bm = b * m
+    taps = _fi_taps_on(tuple(fi_modes), device=dev)          # (M, 8, 7)
+    taps = taps.repeat_interleave(b, dim=0)[:, None]         # (MB,1,8,7)
+    buf = torch.zeros((bm, h + 1, w + 1), dtype=torch.int32, device=dev)
+    buf[:, 0, 0] = above_left.repeat(m)
+    buf[:, 0, 1:] = above[:, :w].repeat(m, 1)
+    buf[:, 1:, 0] = left[:, :h].repeat(m, 1)
+    flat = buf.view(bm, -1)
+    hi = (1 << bd) - 1
+    for nc, src, dst in _fi_waves(h, w, dev):
+        p = flat[:, src].view(bm, nc, 1, 7)
+        acc = (p * taps).sum(dim=-1, dtype=torch.int32)      # (MB, T, 8)
+        # ROUND_POWER_OF_TWO_SIGNED(acc, 4), then the pixel clip
+        mag = (acc.abs() + 8) >> 4
+        flat[:, dst] = torch.where(acc < 0, -mag, mag).clamp(0, hi).view(
+            bm, nc * 8)
+    return buf[:, 1:, 1:].reshape(m, b, h, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _fi_taps_on(fi_modes: tuple, device):
+    return torch.as_tensor(FILTER_INTRA_TAPS[list(fi_modes)], device=device)
+
+
+def filter_intra_pred(above, left, above_left, fi_mode: int, h: int,
+                      w: int, bd: int = 8):
+    """Filter-intra prediction of one mode over a batch: (B, h, w)."""
+    return filter_intra_pred_multi(above, left, above_left, (fi_mode,), h,
+                                   w, bd)[0]

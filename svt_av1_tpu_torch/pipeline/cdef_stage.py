@@ -1,17 +1,18 @@
-"""CDEF frame stage: frame-uniform strength search (encoder) + normative
-apply, the PyTorch port of svt_av1_tpu/pipeline/cdef_stage.py.
+"""CDEF frame stage: strength search (encoder) + normative apply, the
+PyTorch port of svt_av1_tpu/pipeline/cdef_stage.py.
 
 Behavioral reference: cdef_process.c svt_av1_cdef_frame / cdef_seg_search
 and cdef.c svt_cdef_filter_fb.  The whole frame filters as ONE batch of
 8x8 (luma) / 4x4 (chroma) blocks (ops/cdef.py) on the recon's device.
 
-Signaling: cdef_bits = 0 (one frame-uniform strength set per plane, no
-per-SB index bits).  Skip rule (enc_cdef.c:267): an 8x8 block filters iff
-ANY of its four 4x4 MIs is non-skip; damping = 3 + (base_q_idx >> 6),
-chroma damping one less (cdef.c:filter_fb).  The per-SB search
-(``cdef_search_sb``, cdef_bits > 0) serves presets M0-M4 and comes with
-them; its host subset selection (``coded_sb_map``, ``select_sb_sets``)
-also picks the GOP key frames' frame-uniform set (gop_fast.run_key_filters).
+Signaling: ``cdef_search`` picks one frame-uniform strength set
+(cdef_bits = 0); ``cdef_search_sb`` (presets M0-M4) prices every
+candidate per 64x64 superblock and picks cdef_bits (0..3), a subset of
+2^cdef_bits sets and each superblock's index (its host subset selection,
+``select_sb_sets``, also serves gop_fast.run_key_filters).  Skip rule
+(enc_cdef.c:267): an 8x8 block filters iff ANY of its four 4x4 MIs is
+non-skip; damping = 3 + (base_q_idx >> 6), chroma damping one less
+(cdef.c:filter_fb).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from svt_av1_tpu_torch.ops import cdef as cdef_ops
+from svt_av1_tpu_torch.ops import quant
 from svt_av1_tpu_torch.pipeline.dlf_stage import _sse
 
 # encoder search candidates: (pri_y, sec_y, pri_uv, sec_uv), header
@@ -105,18 +107,29 @@ def cdef_damping(base_q_idx: int) -> int:
     return 3 + (base_q_idx >> 6)
 
 
-def _block_strengths(h, w, strengths):
+def _block_strengths(h, w, strengths, sb_idx=None):
     """Per-8x8-block (nb,) int32 strength arrays (pri_y, sec_y, pri_uv,
-    sec_uv) from one header-domain strength set (frame-uniform; a coded
-    secondary strength 3 applies as 4)."""
-    nb = (h // 8) * (w // 8)
-    per = np.broadcast_to(np.asarray(strengths, np.int32), (nb, 4))
+    sec_uv) from header-domain strength set(s); a coded secondary
+    strength 3 applies as 4.  sb_idx: None for one frame-uniform set, or
+    the per-64x64 index map into the sequence ``strengths``; an SB with
+    no coded cdef_idx (-1) filters with strength 0."""
+    gh8, gw8 = h // 8, w // 8
+    if sb_idx is None:
+        per = np.broadcast_to(np.asarray(strengths, np.int32),
+                              (gh8 * gw8, 4))
+    else:
+        sets = np.concatenate([np.asarray(strengths, np.int32)
+                               .reshape(-1, 4),
+                               np.zeros((1, 4), np.int32)])  # -1 -> 0
+        idx8 = np.asarray(sb_idx, np.int32)[
+            (np.arange(gh8) // 8)[:, None], (np.arange(gw8) // 8)[None]]
+        per = sets[idx8.reshape(-1)]
     pri_y, sec_y, pri_uv, sec_uv = (per[:, i] for i in range(4))
     return (pri_y, sec_y + (sec_y == 3), pri_uv, sec_uv + (sec_uv == 3))
 
 
 def cdef_apply(recon: Dict[str, torch.Tensor], skip16: np.ndarray,
-               strengths, damping: int, bd: int = 8,
+               strengths, damping: int, bd: int = 8, sb_idx=None,
                skip8=None) -> Dict[str, torch.Tensor]:
     """Normative CDEF apply over a post-deblock recon (dict of y/u/v
     tensors, on any device; the result keeps their device and dtype).
@@ -124,14 +137,16 @@ def cdef_apply(recon: Dict[str, torch.Tensor], skip16: np.ndarray,
     damping: the SIGNALED cdef_damping (3..6) from the frame header.
     skip16: (gh, gw) bool per 16x16 block (the uniform leaf grid); an
     8x8 filters iff its covering block is non-skip (skip8, when given, is
-    the per-8x8 map itself).  strengths: one header-domain 4-tuple."""
+    the per-8x8 map itself).  strengths: one header-domain 4-tuple
+    (frame-uniform), or — with sb_idx, the per-64x64 index map (-1: no
+    coded index, strength 0) — a sequence of 2^cdef_bits 4-tuples."""
     y0 = recon["y"]
     h, w = y0.shape
     dev = y0.device
     if skip8 is None:
         skip8 = np.repeat(np.repeat(skip16, 2, 0), 2, 1)
     per = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
-           for a in _block_strengths(h, w, strengths)]
+           for a in _block_strengths(h, w, strengths, sb_idx)]
     y, u, v = _apply(*(recon[p].to(torch.int32) for p in ("y", "u", "v")),
                      torch.as_tensor(np.asarray(skip8, bool), device=dev),
                      *per, damping, bd)
@@ -191,3 +206,42 @@ def select_sb_sets(sse: np.ndarray, coded: np.ndarray, lam: float,
     _, bits, sub, idx = best
     idx_map = np.where(coded, idx.reshape(coded.shape), -1).astype(np.int32)
     return bits, tuple(cands[i] for i in sub), idx_map
+
+
+def _sb_sse(src: Dict[str, torch.Tensor], filt: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Per-64x64-SB SSE (y + u + v), (sb_rows, sb_cols) int64 on the
+    planes' device (exact; the reference sums the same integers in
+    float64)."""
+    h, w = src["y"].shape
+    gr, gc = (h + 63) // 64, (w + 63) // 64
+    out = None
+    for p, step in (("y", 64), ("u", 32), ("v", 32)):
+        d = filt[p].to(torch.int64) - src[p].to(torch.int64)
+        d = d * d
+        ph, pw = d.shape
+        d = torch.nn.functional.pad(d, (0, gc * step - pw, 0, gr * step - ph))
+        sb = d.reshape(gr, step, gc, step).sum(dim=(1, 3))
+        out = sb if out is None else out + sb
+    return out
+
+
+def cdef_search_sb(src: Dict[str, torch.Tensor],
+                   recon: Dict[str, torch.Tensor], skip16: np.ndarray,
+                   base_q_idx: int, bd: int = 8,
+                   max_candidates: int = len(SEARCH_SET)):
+    """Per-SB strength search (cdef_seg_search + finish_cdef_search
+    analog): every candidate's per-SB SSE on the device, read back once,
+    then the host picks cdef_bits (0..3) and the strength subset that
+    minimize SSE + lambda * signaling bits.  Returns (cdef_bits,
+    strength_list, sb_idx_map)."""
+    cands = SEARCH_SET[:max_candidates]
+    damping = cdef_damping(base_q_idx)
+    sse = torch.stack([
+        _sb_sse(src, cdef_apply(recon, skip16, cand, damping, bd))
+        .reshape(-1) for cand in cands], dim=1)          # (nsb, ncand)
+    coded = coded_sb_map(skip16)
+    qstep = quant.dc_q(base_q_idx, bd=bd) / 8.0
+    lam = 0.7 * qstep * qstep
+    return select_sb_sets(sse.cpu().numpy().astype(np.float64), coded, lam,
+                          cands)

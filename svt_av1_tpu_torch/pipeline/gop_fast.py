@@ -1,17 +1,19 @@
 """Fast hierarchical-GOP pipeline: the two programs of an inter frame, the
-PyTorch port of svt_av1_tpu/pipeline/gop_fast.py (presets M5-M13).
+PyTorch port of svt_av1_tpu/pipeline/gop_fast.py (presets M0-M13).
 
 Each inter frame runs as
 
   P1 "md"      — per-reference HME -> global-motion fit (device least
                  squares + normative shear/quantization) -> warped
                  reference -> frame interp-filter pick -> pass A over all
-                 references and candidates (gm / subpel ring / neighbour
-                 MVs; at M5-M8 the inter tx-type search on the winner, at
-                 M5-M6 the 8x8 split alternative), merged on the device ->
-                 compound pairs (average, wedge, diffwtd, the skip-mode
-                 pair) -> pass B: the intra wave loop with the inter
-                 candidate as an override (at M5-M8 first priced against
+                 references (LAST, ALTREF, at M0-M4 GOLDEN) and
+                 candidates (gm / subpel ring / neighbour MVs; at M0-M8
+                 the inter tx-type search on the winner, at M0-M6 the
+                 8x8 split alternative), merged on the device ->
+                 compound pairs of (LAST, ALTREF) (average, wedge,
+                 diffwtd, the skip-mode pair) -> pass B: the intra wave
+                 loop with the inter candidate as an override (at M0-M8
+                 first priced against
                  its OBMC and inter-intra alternatives; the luma step's
                  transform + quantizer is K1, ops/fused_txq) -> dense
                  per-block decisions, 32x32/64x64/rect merges and the
@@ -1760,15 +1762,16 @@ def run_key_filters(src: Dict[str, np.ndarray],
         bits, sets, idx_map = cdef_stage.select_sb_sets(
             np.asarray(sse_h, np.float64), coded, lam,
             [tuple(int(x) for x in c) for c in cands], max_bits)
-        if bits:
-            raise NotImplementedError(
-                "per-SB CDEF strengths (cdef_bits > 0): ROADMAP.md queue A "
-                "item 7")
-        out = cdef_stage.cdef_apply(deblocked, np.asarray(skip16), sets[0],
-                                    damping, bd)
-        fp_updates.update(cdef_bits=0, cdef_strengths=sets[0],
-                          cdef_strength_list=None, cdef_damping=damping)
-        idx_map = None
+        # per-SB strengths (cdef_bits > 0, presets M0-M4) apply through
+        # the index map; with one set the frame-uniform apply
+        out = cdef_stage.cdef_apply(deblocked, np.asarray(skip16),
+                                    sets if bits else sets[0], damping, bd,
+                                    sb_idx=idx_map if bits else None)
+        fp_updates.update(cdef_bits=bits, cdef_strengths=sets[0],
+                          cdef_strength_list=sets if bits else None,
+                          cdef_damping=damping)
+        if not bits:
+            idx_map = None
     return out, deblocked, fp_updates, idx_map
 
 

@@ -1,12 +1,13 @@
 """Intra (key) frame encoder: wave-batched mode decision + reconstruction.
 
 Port of svt_av1_tpu/pipeline/intra_encoder.py for the all-intra slice
-(presets M5-M13: fixed 16x16 luma / 8x8 chroma blocks; luma modes
-DC/V/H/SMOOTH/PAETH/D135/D113/D157, at M5-M8 crossed with the tx-type
-search set and the angle-delta refinements of the directional modes;
-chroma DC/V/H/SMOOTH with their implied transform types plus the CfL
-candidate; exact palettes on screen content; no filter-intra, varpart,
-RDOQ or AQ).
+(fixed 16x16 luma / 8x8 chroma blocks; the preset's luma modes — up to
+all eleven, with the five filter-intra pseudo-modes at M0-M4 —, at M0-M8
+crossed with the tx-type search set and the angle-delta refinements of
+the directional modes; chroma DC/V/H/SMOOTH with their implied transform
+types plus the CfL candidate; exact palettes on screen content; no RDOQ
+or AQ).  The wave steps also take 32x32 and 64x64 blocks, for the
+variable-partition program (pipeline/varpart.py).
 
 The frame's 16x16 blocks are batched along 2:1 wavefronts (wave
 k = 2*by + bx): every neighbor a block reads lies in an earlier wave.
@@ -35,17 +36,22 @@ from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import palette as pal
 from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.rate_est import md_rate_args
-from svt_av1_tpu_torch.codec.syntax import (BlockDecision, _chroma_tx_type,
-                                             _chroma_tx_type_inter)
+from svt_av1_tpu_torch.codec.syntax import (MAX_TX, BlockDecision,
+                                             _chroma_tx_type,
+                                             _chroma_tx_type_inter,
+                                             max_chroma_tx_size)
 from svt_av1_tpu_torch.ops import dlf, fused_txq, intra, quant
 from svt_av1_tpu_torch.ops import interintra as ii_ops
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
 
-# luma candidates the slice supports (presets M5-M8 use all eight,
-# M9-M11 the first six, M12/M13 the first four)
+# luma modes of presets M5-M8 (M9-M11 use the first six, M12/M13 the
+# first four); M3-M4 add D45 and D67, M0-M2 D203 too (ALL_MODES), and
+# M0-M4 the filter-intra pseudo-modes FI_MODE_BASE + 0..4
 MODES = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED, cc.PAETH_PRED,
          cc.D135_PRED, cc.D113_PRED, cc.D157_PRED)
+ALL_MODES = MODES + (cc.D45_PRED, cc.D67_PRED, cc.D203_PRED)
+FI_MODES = tuple(cc.FI_MODE_BASE + k for k in range(cc.FILTER_INTRA_MODES))
 # chroma mode set; each uses its implied (unsignaled) transform type
 UV_MODES = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED)
 UV_TX_TYPES = (cc.DCT_DCT, cc.ADST_DCT, cc.DCT_ADST, cc.ADST_ADST)
@@ -94,12 +100,11 @@ def expand_tx_cands(modes, angle_deltas=False):
 def _predict_cand(mode, delta, n, above, left, corner, above_ext, left_ext,
                   have_above, have_left, bd):
     """Prediction for one (mode, angle_delta) candidate; the zone comes
-    from the final angle (spec §7.11.2).  Filter-intra is not in this
-    slice."""
+    from the final angle (spec §7.11.2).  Pseudo-modes >= FI_MODE_BASE
+    are the filter-intra modes."""
     if mode >= cc.FI_MODE_BASE:
-        raise NotImplementedError(
-            f"candidate mode {mode} is a filter-intra mode: ROADMAP.md "
-            "queue A item 7 (presets M0-M4)")
+        return intra.filter_intra_pred(above, left, corner,
+                                       mode - cc.FI_MODE_BASE, n, n, bd)
     angle = cand_angle(mode, delta)
     if angle and angle != 90 and angle != 180:
         if angle < 90:
@@ -322,19 +327,28 @@ def _gather_neighbors(recon, fi, ys, xs, n, have_above, have_left, bd=8):
 
 
 def _gather_ext_neighbors(recon, fi, ys, xs, n, above, left, tr_avail,
-                          bl_avail):
+                          bl_avail, edge=None):
     """Extended (2n+1) above/left arrays for the zone-1/3 directional
     candidates: the second half is read from recon where the top-right /
-    bottom-left block is available, else it repeats the last sample.  At
-    the right and bottom frame edges ``_gather_block`` clamps the window
-    into the plane; the flag is false there, so the shifted samples are
-    never used."""
+    bottom-left block is available, else it repeats the last sample.
+
+    edge: (max_x, max_y), the frame's last column and row (the plane's
+    by default; the varpart program's plane is padded to whole
+    superblocks, and a 64x64 leaf's top-right superblock may stick out
+    of the frame): available samples past them repeat the frame's last
+    one (spec 7.11.2, Min(maxX, x + i))."""
+    _, hh, ww = recon.shape
+    max_x, max_y = edge or (ww - 1, hh - 1)
     ay = (ys - 1).clamp(min=0)
     lx = (xs - 1).clamp(min=0)
-    tr = _gather_block(recon, fi, ay, xs + n, 1, n)[:, 0, :]
+    ar = torch.arange(n, device=recon.device)
+    tr = recon[fi[:, None], ay[:, None],
+               (xs[:, None] + n + ar).clamp(max=min(max_x, ww - 1))]
+    bl = recon[fi[:, None],
+               (ys[:, None] + n + ar).clamp(max=min(max_y, hh - 1)),
+               lx[:, None]]
     tr = torch.where(tr_avail[:, None], tr, above[:, n - 1:n])
     above_ext = torch.cat([above, tr, tr[:, -1:]], dim=1)
-    bl = _gather_block(recon, fi, ys + n, lx, n, 1)[:, :, 0]
     bl = torch.where(bl_avail[:, None], bl, left[:, n - 1:n])
     left_ext = torch.cat([left, bl, bl[:, -1:]], dim=1)
     return above_ext, left_ext
@@ -342,38 +356,56 @@ def _gather_ext_neighbors(recon, fi, ys, xs, n, above, left, tr_avail,
 
 def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
              modes, rates, bd=8, tx_types=None, tr_avail=None,
-             bl_avail=None, inter=None, return_index=False):
-    """One luma wave step over 16x16 blocks: every candidate of every
-    slot through predict -> transform + quantize -> rate + distortion,
-    the cheapest per slot kept, its normative reconstruction written
-    into ``recon`` (in place) for the slots ``sel``.
+             bl_avail=None, inter=None, return_index=False, n=BLK,
+             tx_size=cc.TX_16X16, no_write=False, edge=None):
+    """One luma wave step over n x n blocks (16x16 by default): every
+    candidate of every slot through predict -> transform + quantize ->
+    rate + distortion, the cheapest per slot kept, its normative
+    reconstruction written into ``recon`` (in place) for the slots
+    ``sel``.
 
     recon/src: (F, H, W) int32; fi/ys/xs: (B,) frame index and pixel
     coordinates; qp: QuantParams tensors, (2,) each, or (B, 2) rows of
     per-block quantizers (adaptive quantization: the delta-q key frame);
     lam: float32 scalar tensor, or (B,) with per-block rows;
-    modes: mode ids or (mode, angle_delta) pairs; rates: (coef_bits,
-    txb_base, mode_bits, eob_tbl), mode_bits one per candidate.
+    modes: mode ids or (mode, angle_delta) pairs (filter-intra pseudo-modes
+    >= FI_MODE_BASE included; they are dropped above 32x32, where the
+    spec forbids them); rates: (coef_bits, txb_base, mode_bits, eob_tbl),
+    mode_bits one per candidate, or None for the analytic proxy
+    2*sum(log2(1+|l|)) + nonzeros + 8 (the varpart program's).
     tx_types: optional tx type per candidate (DCT_DCT when None).
     tr_avail/bl_avail: (B,) bool, needed when a candidate's angle lies
     in zone 1 or 3.  inter: optional (cost (B,), rec (B, n, n)) of a
-    precomputed alternative per block (the palette candidate), taken
-    wherever its cost beats the best intra candidate.  Returns
+    precomputed alternative per block (the palette candidate, pass B's
+    inter candidate), taken wherever its cost beats the best intra
+    candidate.  n/tx_size: the block size and its square transform
+    (TX_64X64 codes a 32x32 coefficient region; the energy the
+    projection drops is charged as distortion).  edge: the frame's last
+    (column, row) where recon is padded past the frame (see
+    _gather_ext_neighbors).  no_write: leave recon
+    alone and return the winners' reconstruction instead.  Returns
     (best_mode (B,) int32 — the candidate index when ``return_index`` —,
-    best_q (B, n, n) int32, recon[, choose (B,) bool when ``inter``]).
+    best_q (B, kh, kw) int32, recon[, choose (B,) bool when ``inter``]),
+    with recon replaced by the winners' (B, n, n) reconstruction and the
+    best cost (B,) appended when ``no_write``.
 
-    With one tx type, DCT_DCT, and a frame quantizer, the transform +
-    quantizer runs through ops/fused_txq: the hand-written CUDA kernel for
-    tensors on the card, its plain version on the CPU (the reference takes
-    its Pallas kernel under the same conditions on the TPU); per-block
-    quantizers take fwd_txfm2d + quantize, as in the reference.  With mixed tx types the
-    candidates are grouped by type: one forward/quantize pass per
-    distinct type over all its candidates, one inverse per distinct type
-    on the winners."""
-    n, tx_size = BLK, cc.TX_16X16
+    With one tx type, DCT_DCT at TX_16X16, and a frame quantizer, the
+    transform + quantizer runs through ops/fused_txq: the hand-written
+    CUDA kernel for tensors on the card, its plain version on the CPU
+    (the reference takes its Pallas kernel under the same conditions on
+    the TPU); per-block quantizers take fwd_txfm2d + quantize, as in the
+    reference.  With mixed tx types the candidates are grouped by type:
+    one forward/quantize pass per distinct type over all its candidates,
+    one inverse per distinct type on the winners.  Every filter-intra
+    candidate comes from one batched wavefront pass."""
     dev = recon.device
     b = ys.shape[0]
     cands = [m if isinstance(m, tuple) else (m, 0) for m in modes]
+    if n > 32 and any(m >= cc.FI_MODE_BASE for m, _ in cands):
+        if rates is not None:
+            raise ValueError("rate tables must match the filtered "
+                             "candidate list")
+        cands = [c for c in cands if c[0] < cc.FI_MODE_BASE]
     nm = len(cands)
     above, left, corner = _gather_neighbors(recon, fi, ys, xs, n,
                                             have_above, have_left, bd=bd)
@@ -381,11 +413,18 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     above_ext = left_ext = None
     if any(a and (a < 90 or a > 180) for a in angles):
         above_ext, left_ext = _gather_ext_neighbors(
-            recon, fi, ys, xs, n, above, left, tr_avail, bl_avail)
+            recon, fi, ys, xs, n, above, left, tr_avail, bl_avail, edge)
     src_blk = _gather_block(src, fi, ys, xs, n, n)
     per_block_qp = qp.zbin.dim() == 2
     rows = lambda k: quant.QuantParams(*(a.repeat(k, 1) for a in qp))
     pred_cache = {}
+    fi_list = sorted({m for m, _ in cands if m >= cc.FI_MODE_BASE})
+    if fi_list:
+        fi_all = intra.filter_intra_pred_multi(
+            above, left, corner,
+            tuple(m - cc.FI_MODE_BASE for m in fi_list), n, n, bd)
+        for k, m in enumerate(fi_list):
+            pred_cache[(m, 0)] = fi_all[k]
     for key in cands:
         if key not in pred_cache:
             pred_cache[key] = _predict_cand(
@@ -394,24 +433,39 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     # every candidate stacked on the batch axis: (nm, B, n, n)
     pred_all = torch.stack([pred_cache[key] for key in cands])
     resid_all = src_blk[None] - pred_all
+    proj = tx_size == cc.TX_64X64
+
+    def dist_of(coeffs, dq, resid, t):
+        # transform-domain distortion: pixel SSE ~ s2 * coeff-error SSE;
+        # the normative inverse runs only for the winner below
+        s2 = float(np.float32(tf.coeff_sse_scale(tx_size, t)))
+        err = coeffs.to(torch.float32) - dq.to(torch.float32)
+        d = s2 * (err * err).sum(dim=(1, 2))
+        if proj:
+            # only a 32x32 coefficient subspace is coded: charge the
+            # energy the projection throws away (Parseval)
+            rf = resid.to(torch.float32)
+            cf = coeffs.to(torch.float32)
+            d = d + torch.clamp((rf * rf).sum(dim=(1, 2))
+                                - s2 * (cf * cf).sum(dim=(1, 2)), min=0.0)
+        return d
+
     same_tx = tx_types is None or len(set(tx_types)) == 1
     if same_tx:
         tx0 = cc.DCT_DCT if tx_types is None else tx_types[0]
         flat = resid_all.reshape(nm * b, n, n)
-        if tx0 == cc.DCT_DCT and not per_block_qp:
+        if (tx0 == cc.DCT_DCT and tx_size == cc.TX_16X16
+                and not per_block_qp):
             coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(flat, qp)
         else:
             coeffs = tf.fwd_txfm2d(flat, tx0, tx_size)
             qcoeff_all, dq_all = quant.quantize(
                 coeffs, rows(nm) if per_block_qp else qp, tx_size)
-        # transform-domain distortion: pixel SSE ~ s2 * coeff-error SSE;
-        # the normative inverse runs only for the winner below
-        s2 = float(np.float32(tf.coeff_sse_scale(tx_size, tx0)))
-        err = coeffs.to(torch.float32) - dq_all.to(torch.float32)
-        dist = s2 * (err * err).sum(dim=(1, 2))
+        dist = dist_of(coeffs, dq_all, flat, tx0)
     else:
         uniq_tx = list(dict.fromkeys(tx_types))
-        qcoeff_all = torch.empty((nm, b, n, n), dtype=torch.int32,
+        kk = n if not proj else 32
+        qcoeff_all = torch.empty((nm, b, kk, kk), dtype=torch.int32,
                                  device=dev)
         dq_all = torch.empty_like(qcoeff_all)
         dist = torch.empty((nm, b), dtype=torch.float32, device=dev)
@@ -419,22 +473,27 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
             idx = _ids_on(tuple(i for i, tt in enumerate(tx_types)
                                 if tt == t), dev, torch.int64)
             g = idx.shape[0]
-            coeffs_t = tf.fwd_txfm2d(resid_all[idx].reshape(g * b, n, n),
-                                     t, tx_size)
+            res_t = resid_all[idx].reshape(g * b, n, n)
+            coeffs_t = tf.fwd_txfm2d(res_t, t, tx_size)
             qc_t, dq_t = quant.quantize(
                 coeffs_t, rows(g) if per_block_qp else qp, tx_size)
-            s2 = float(np.float32(tf.coeff_sse_scale(tx_size, t)))
-            err = coeffs_t.to(torch.float32) - dq_t.to(torch.float32)
-            qcoeff_all[idx] = qc_t.reshape(g, b, n, n)
-            dq_all[idx] = dq_t.reshape(g, b, n, n)
-            dist[idx] = (s2 * (err * err).sum(dim=(1, 2))).reshape(g, b)
+            qcoeff_all[idx] = qc_t.reshape(g, b, kk, kk)
+            dq_all[idx] = dq_t.reshape(g, b, kk, kk)
+            dist[idx] = dist_of(coeffs_t, dq_t, res_t, t).reshape(g, b)
         dist = dist.reshape(-1)
-    qcoeff_all = qcoeff_all.reshape(nm, b, n, n)
-    dq_all = dq_all.reshape(nm, b, n, n)
-    coef_bits, txb_base, mode_bits, eob_tbl = rates
-    bits = (_txb_bits(qcoeff_all.abs().reshape(nm * b, n, n), coef_bits,
-                      txb_base[0], eob_tbl, _scan_pos_on(tx_size, dev))
-            + mode_bits[:, None].expand(nm, b).reshape(-1))
+    kh, kw = qcoeff_all.shape[-2:]
+    qcoeff_all = qcoeff_all.reshape(nm, b, kh, kw)
+    dq_all = dq_all.reshape(nm, b, kh, kw)
+    aq = qcoeff_all.abs().reshape(nm * b, kh, kw)
+    if rates is None:
+        # the analytic proxy of the light paths (varpart)
+        bits = (torch.log2(1.0 + aq.to(torch.float32)).sum(dim=(1, 2))
+                * 2.0 + (aq > 0).sum(dim=(1, 2)) + 8.0)
+    else:
+        coef_bits, txb_base, mode_bits, eob_tbl = rates
+        bits = (_txb_bits(aq, coef_bits, txb_base[0], eob_tbl,
+                          _scan_pos_on(tx_size, dev))
+                + mode_bits[:, None].expand(nm, b).reshape(-1))
     # per-block lambdas follow the candidate-major (mode, block) stacking
     lam_flat = lam.repeat(nm) if per_block_qp else lam
     cost = (dist + lam_flat * bits).reshape(nm, b)
@@ -470,6 +529,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
         inter_cost, inter_rec = inter
         choose = inter_cost < cost.amin(dim=0)
         best_rec = torch.where(choose[:, None, None], inter_rec, best_rec)
+    if no_write:
+        return best_mode, best_q, best_rec, cost.amin(dim=0)
     _scatter_blocks(recon, best_rec, fi, ys, xs, sel)
     if inter is not None:
         return best_mode, best_q, recon, choose
@@ -478,7 +539,9 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
 
 def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
                     have_above, have_left, qp, lam, rates, bd=8,
-                    luma_rec=None, cfl=False, inter=None):
+                    luma_rec=None, cfl=False, inter=None, n=CBLK,
+                    tx_size=cc.TX_8X8, uv_tx_types=UV_TX_TYPES,
+                    no_write=False):
     """Joint U+V mode decision for one wave (uv_mode is signaled once per
     block; the chroma transform type is implied by the mode).  Every
     (mode, plane) pair runs its forward transform, quantizer and the
@@ -497,9 +560,15 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     qp/lam: a frame quantizer and lambda, or (B, 2) / (B,) per-block rows
     (see _rd_step).
 
+    n/tx_size: the chroma block size and transform (8x8 by default);
+    uv_tx_types: the mode-implied tx types (all DCT_DCT at 32x32, where
+    ADST is illegal).  rates None: the analytic proxy 2*sum(log2(1+|l|))
+    + nonzeros + 4 per plane and no mode cost (the varpart program's).
+    no_write: leave the planes alone and return the winners'
+    reconstructions in their place.
+
     Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v) and, with cfl,
     (alpha_u, alpha_v) (B,) int32, signed q3, zero where CfL lost."""
-    n, tx_size = CBLK, cc.TX_8X8
     dev = recon_u.device
     nb_u = _gather_neighbors(recon_u, fi, ys, xs, n, have_above, have_left,
                              bd=bd)
@@ -525,7 +594,7 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     src_all = src_pair.repeat(nm, 1, 1)
     resid_all = src_all - pred_all
     qcs, recs = [], []
-    for mi, tx_type in enumerate(UV_TX_TYPES):
+    for mi, tx_type in enumerate(uv_tx_types):
         sl = slice(mi * 2 * b, (mi + 1) * 2 * b)
         coeffs = tf.fwd_txfm2d(resid_all[sl], tx_type, tx_size)
         qc, dq = quant.quantize(coeffs, qp, tx_size)
@@ -536,12 +605,19 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     rec_all = torch.cat(recs, dim=0)
     d = rec_all - src_all
     dist = (d * d).sum(dim=(1, 2)).to(torch.float32)
-    coef_bits, txb_base, uv_bits, eob_tbl = rates
-    pos = _scan_pos_on(tx_size, dev)
-    bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl, pos)
     lam_flat = lam_pair.repeat(nm) if lam_pair.dim() else lam
-    cost_uv = (dist + lam_flat * bits).reshape(nm, 2, b).sum(dim=1)
-    cost_uv = cost_uv + lam * uv_bits[:, None]
+    if rates is None:
+        aq = qcoeff_all.abs()
+        bits = (torch.log2(1.0 + aq.to(torch.float32)).sum(dim=(1, 2))
+                * 2.0 + (aq > 0).sum(dim=(1, 2)) + 4.0)
+        cost_uv = (dist + lam_flat * bits).reshape(nm, 2, b).sum(dim=1)
+    else:
+        coef_bits, txb_base, uv_bits, eob_tbl = rates
+        pos = _scan_pos_on(tx_size, dev)
+        bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl,
+                         pos)
+        cost_uv = (dist + lam_flat * bits).reshape(nm, 2, b).sum(dim=1)
+        cost_uv = cost_uv + lam * uv_bits[:, None]
     mi_best = cost_uv.argmin(dim=0)
     ar = torch.arange(b, device=dev)
     qall = qcoeff_all.reshape(nm, 2, b, n, n)
@@ -614,8 +690,11 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
             alpha_u = torch.where(choose, 0, alpha_u)
             alpha_v = torch.where(choose, 0, alpha_v)
             um = torch.where(choose, UV_MODES[0], um)
-    _scatter_blocks(recon_u, rec_u, fi, ys, xs, sel)
-    _scatter_blocks(recon_v, rec_v, fi, ys, xs, sel)
+    if no_write:
+        recon_u, recon_v = rec_u, rec_v
+    else:
+        _scatter_blocks(recon_u, rec_u, fi, ys, xs, sel)
+        _scatter_blocks(recon_v, rec_v, fi, ys, xs, sel)
     if cfl:
         return um, qu, qv, recon_u, recon_v, alpha_u, alpha_v
     return um, qu, qv, recon_u, recon_v
@@ -729,12 +808,9 @@ def frame_lambda(qindex: int, bd: int = 8) -> np.float32:
 def _check_slice(modes, bd, h, w):
     if bd != 8:
         raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
-    bad = [m for m in modes if m not in MODES]
+    bad = [m for m in modes if m not in ALL_MODES + FI_MODES]
     if bad:
-        raise NotImplementedError(
-            f"luma modes {bad} are not in the M5-M13 slice (D45/D67/D203 "
-            "and filter-intra come with presets M0-M4): ROADMAP.md queue A "
-            "item 7")
+        raise ValueError(f"{bad} are not luma intra modes")
     if h % BLK or w % BLK:
         raise ValueError(f"frame {w}x{h} is not a multiple of {BLK}")
 
@@ -742,7 +818,8 @@ def _check_slice(modes, bd, h, w):
 def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                                bd: int = 8, exact_rates: bool = False,
                                device=None):
-    """Enqueue the batched frame program (plain luma modes, DCT_DCT) for
+    """Enqueue the batched frame program (plain luma modes, with the
+    filter-intra pseudo-modes at M0-M4, DCT_DCT) for
     frames = [(y, u, v), ...] (numpy, same dims, multiples of 16) on
     ``device`` (default: the current CUDA device).  On CUDA the work runs
     asynchronously; pair with encode_intra_frames_finish, so the host can
@@ -1003,10 +1080,12 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                                qindex: int, bd: int = 8, device=None,
                                base=None, inter_intra=None):
     """Decoder-side reconstruction from parsed BlockDecisions of a key
-    frame coded on the uniform 16x16 grid (the slice's streams): luma
-    modes with angle deltas and tx types, palette blocks, chroma modes
-    and CfL; a block whose decision carries a qindex (delta-q) is
-    dequantized at it, the others at ``qindex``.
+    frame: luma modes with angle deltas and tx types, filter-intra and
+    palette blocks, chroma modes and CfL; a block whose decision carries
+    a qindex (delta-q) is dequantized at it, the others at ``qindex``.
+    A frame with 32x32 / 64x64 leaves (the variable-partition program's)
+    takes ``_reconstruct_mixed``; the rest of this docstring is about the
+    uniform 16x16 grid.
 
     The reference walks superblocks in z-order block by block; on this
     grid the encoder's 2:1 wave order is a valid order too (every sample
@@ -1030,6 +1109,9 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     interintra_mode with its inter prediction under the smooth mask, and
     inverts its residual at the signaled tx type."""
     dev = device_mod.resolve(device)
+    if base is None and any(d.bsize != cc.BLOCK_16X16
+                            for d in decisions.values()):
+        return _reconstruct_mixed(decisions, width, height, qindex, bd, dev)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
     ymode = [None] * nb        # (mode, delta), or "pal"
@@ -1061,12 +1143,13 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
             um[bid] = -1 - int(d.interintra_mode)
             qy[bid], qu[bid], qv[bid] = d.qcoeff_y, d.qcoeff_u, d.qcoeff_v
             continue
-        if (d.bsize != cc.BLOCK_16X16 or d.filter_intra_mode >= 0
-                or d.angle_delta_uv or d.is_inter or r4 % 4 or c4 % 4):
+        if d.angle_delta_uv or d.is_inter or r4 % 4 or c4 % 4:
             raise NotImplementedError(
-                f"block at ({r4}, {c4}) uses a tool outside the all-intra "
-                "M5-M13 slice (varpart, filter-intra, chroma angle "
-                "deltas): ROADMAP.md queue A item 7")
+                f"block at ({r4}, {c4}) uses a tool outside the port "
+                "(chroma angle deltas): ROADMAP.md queue A item 7")
+        if d.bsize != cc.BLOCK_16X16:
+            raise ValueError(f"{d.bsize}: a leaf of a mixed-size frame "
+                             "among uniform-grid blocks")
         if d.qindex:
             qidx[bid] = d.qindex
         if d.palette is not None:
@@ -1076,8 +1159,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                 np.asarray(d.palette_map, np.int32)]
             ymode[bid], ytx[bid] = "pal", cc.DCT_DCT
         else:
-            ymode[bid], ytx[bid] = (int(d.y_mode),
-                                    int(d.angle_delta_y)), d.tx_type
+            ymode[bid], ytx[bid] = _luma_key(d), d.tx_type
         um[bid] = d.uv_mode
         alpha[:, bid] = d.cfl_alpha_u, d.cfl_alpha_v
         qy[bid], qu[bid], qv[bid] = d.qcoeff_y, d.qcoeff_u, d.qcoeff_v
@@ -1182,3 +1264,135 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
                 dq, pred, t, tx, bd=bd))
             _scatter_blocks(rec[p], recon, fi, ys, xs, ar)
     return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}
+
+
+def _luma_key(d):
+    """The luma prediction key of an intra decision: (mode, angle delta),
+    filter-intra as its pseudo-mode."""
+    if d.filter_intra_mode >= 0:
+        return (cc.FI_MODE_BASE + int(d.filter_intra_mode), 0)
+    return (int(d.y_mode), int(d.angle_delta_y))
+
+
+def _sb_leaves(decisions, mi_rows: int, mi_cols: int, r4: int, c4: int,
+               size: int, out: list):
+    """Append the leaves of the square tree under (r4, c4) in coding
+    (z) order."""
+    if r4 >= mi_rows or c4 >= mi_cols:
+        return
+    d = decisions.get((r4, c4))
+    if d is not None and int(cc.block_size_wide[d.bsize]) == size:
+        out.append(d)
+        return
+    if size <= BLK:
+        raise ValueError(f"no {size}x{size} leaf at ({r4}, {c4})")
+    half = size >> 3
+    for dr, dc in ((0, 0), (0, half), (half, 0), (half, half)):
+        _sb_leaves(decisions, mi_rows, mi_cols, r4 + dr, c4 + dc, size >> 1,
+                   out)
+
+
+def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
+                       bd: int, dev):
+    """Reconstruction of a key frame with 16x16, 32x32 and 64x64 leaves
+    (the reference's z-order walk, batched): 64x64 superblocks run in 2:1
+    waves (every sample a superblock reads lies in an earlier wave), and
+    step t of a wave reconstructs the t-th leaf (z-order) of each of its
+    superblocks, grouped by leaf size.  Top-right / bottom-left
+    availability is tr_bl_avail on the leaf size's own grid, partial last
+    row and column included, as the encoder derives it; available
+    samples past the frame's edge repeat its last one (spec 7.11.2).
+    The reference's decoder counts whole grid cells only: it takes a
+    64x64 leaf's top-right as unavailable where the frame's width is not
+    a multiple of 64, while its encoder reads the zeros past the frame
+    there (ROADMAP.md queue C item 4 (c)).  Returns dict(y, u, v) uint8
+    planes on ``dev``."""
+    mi_rows, mi_cols = height // 4, width // 4
+    gh64, gw64 = (height + 63) // 64, (width + 63) // 64
+    sb_leaves = {}
+    for sr in range(gh64):
+        for sc in range(gw64):
+            leaves = []
+            _sb_leaves(decisions, mi_rows, mi_cols, sr * 16, sc * 16, 64,
+                       leaves)
+            sb_leaves[(sr, sc)] = leaves
+    for d in decisions.values():
+        # what the varpart program codes: no palette, CfL or delta-q
+        if (d.is_inter or d.angle_delta_uv or d.palette is not None
+                or d.uv_mode == cc.UV_CFL_PRED or d.qindex
+                or d.bsize not in (cc.BLOCK_16X16, cc.BLOCK_32X32,
+                                   cc.BLOCK_64X64)):
+            raise NotImplementedError(
+                f"block at ({d.r4}, {d.c4}) of a mixed-size key frame uses "
+                "a tool the variable-partition program does not code "
+                "(palette, CfL, delta-q, chroma angle deltas, other block "
+                "sizes): ROADMAP.md queue A item 7")
+    rec = dict(y=torch.zeros((1, height, width), dtype=torch.int32,
+                             device=dev),
+               u=torch.zeros((1, height // 2, width // 2), dtype=torch.int32,
+                             device=dev))
+    rec["v"] = torch.zeros_like(rec["u"])
+    qp = quant.params_on(int(qindex), dev, bd)
+    for wave in _wave_schedule(gh64, gw64, gh64 * gw64):
+        steps = max(len(sb_leaves[sb]) for sb in wave)
+        for t in range(steps):
+            by_size = {}
+            for sb in wave:
+                if t < len(sb_leaves[sb]):
+                    d = sb_leaves[sb][t]
+                    by_size.setdefault(d.bsize, []).append(d)
+            for bsize, ds in by_size.items():
+                _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev)
+    return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}
+
+
+def _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev):
+    """Reconstruct a batch of independent same-size intra leaves into
+    ``rec`` (dict of (1, H, W) int32 planes) in place."""
+    n = int(cc.block_size_wide[bsize])
+    n4 = n >> 2
+    # the leaf size's grid over the frame, a partial last row / column
+    # included: a 64x64 leaf's top-right superblock may stick out of the
+    # frame (its samples past the edge repeat the last one)
+    gh_n, gw_n = -(-height // n), -(-width // n)
+    nl = len(ds)
+    fl = torch.zeros(nl, dtype=torch.int64, device=dev)
+    ar = torch.arange(nl, device=dev)
+    flags = np.array([tr_bl_avail(d.r4 // n4, d.c4 // n4, gh_n, gw_n,
+                                  m=16 // n4) for d in ds], bool)
+    tr = torch.as_tensor(flags[:, 0], device=dev)
+    bl = torch.as_tensor(flags[:, 1], device=dev)
+    for p in ("y", "u", "v"):
+        luma = p == "y"
+        m = n if luma else n // 2
+        sc = 4 if luma else 2
+        ys = torch.as_tensor([d.r4 * sc for d in ds], device=dev)
+        xs = torch.as_tensor([d.c4 * sc for d in ds], device=dev)
+        ha, hl = ys > 0, xs > 0
+        above, left, corner = _gather_neighbors(rec[p], fl, ys, xs, m, ha,
+                                                hl, bd=bd)
+        if luma:
+            keys = [_luma_key(d) for d in ds]
+            ext = (None, None)
+            if any((a := cand_angle(*k)) and (a < 90 or a > 180)
+                   for k in keys):
+                ext = _gather_ext_neighbors(rec[p], fl, ys, xs, m, above,
+                                            left, tr, bl,
+                                            (width - 1, height - 1))
+            tx_types = [int(d.tx_type) for d in ds]
+            lv = [d.qcoeff_y for d in ds]
+            t_sz = MAX_TX[bsize]
+        else:
+            keys = [(int(d.uv_mode), 0) for d in ds]
+            ext = (None, None)
+            t_sz = max_chroma_tx_size(bsize)
+            tx_types = [_chroma_tx_type(k[0], t_sz) for k in keys]
+            lv = [d.qcoeff_u if p == "u" else d.qcoeff_v for d in ds]
+        pred = _select_by(keys, lambda k: _predict_cand(
+            k[0], k[1], m, above, left, corner, ext[0], ext[1], ha, hl, bd))
+        dq = quant.dequantize(torch.as_tensor(
+            np.stack([np.asarray(q, np.int32) for q in lv]), device=dev), qp,
+            t_sz)
+        out = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
+            dq, pred, t, t_sz, bd=bd))
+        _scatter_blocks(rec[p], out, fl, ys, xs, ar)

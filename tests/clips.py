@@ -10,7 +10,9 @@ inter-intra and the 8x8 split.
 two-color bars, so that many 16x16 blocks hold 2-8 distinct luma values
 and the palette candidates exist.  ``TOOL_CLIPS`` are the GOP clips that
 code one compound or warp tool each; ``split_motion_clip`` is the
-lookahead's clip (its key frames code delta-q).
+lookahead's clip (its key frames code delta-q).  ``varpart_frame`` is
+the 128x96 picture of the reference's variable-partition tests (a smooth
+field with a textured corner: 64x64, 32x32 and 16x16 leaves at M0-M4).
 """
 import contextlib
 import dataclasses
@@ -34,6 +36,21 @@ def natural_clip(n, w, h, seed=0, chroma_noise=True):
         out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
                          for p in (y, u, v)))
     return out
+
+
+def varpart_frame(h=96, w=128, seed=2):
+    """One (y, u, v) uint8 picture: a smooth luma field with a random
+    48x48 textured corner and flat chroma (tests/test_varpart.py's
+    content)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = (100 + 50 * np.sin(xx / 40.0) + 30 * np.cos(yy / 33.0)).astype(
+        np.int32)
+    y[:48, :48] = rng.integers(0, 256, (48, 48))
+    y = np.clip(y, 0, 255).astype(np.uint8)
+    u = np.full((h // 2, w // 2), 100, np.uint8)
+    v = np.full((h // 2, w // 2), 140, np.uint8)
+    return y, u, v
 
 
 def screen_frame(w, h, seed=0):
@@ -165,16 +182,20 @@ def fault_clip(n=6, h=64, w=64, seed=3):
     return out
 
 
-def seam_clip(n=5, h=64, w=64):
+def seam_clip(n=5, h=64, w=64, back=False):
     """The OBMC clip of tests/test_obmc.py: a smoothed texture whose rows
     shift by 8 + 6 sin(row / 10) px over the clip, so that adjacent
-    block rows move differently; flat chroma."""
+    block rows move differently; flat chroma.  ``back``: the rows shift
+    that far by the middle frame and back again, so that the last frame
+    repeats the first (a base two mini-GoPs after the key frame finds it
+    in its GOLDEN reference)."""
     rng = np.random.default_rng(11)
     tex = _smooth(rng.integers(0, 255, (h, w + 48)).astype(np.float32))
     yy = np.mgrid[0:h, 0:w][0]
     out = []
     for t in range(n):
-        shift = ((8 + 6 * np.sin(yy[:, 0] / 10.0)) * t / (n - 1)
+        f = (min(t, n - 1 - t) / ((n - 1) / 2) if back else t / (n - 1))
+        shift = ((8 + 6 * np.sin(yy[:, 0] / 10.0)) * f
                  if t else np.zeros(h))
         y = np.stack([tex[r, int(round(shift[r])):int(round(shift[r])) + w]
                       for r in range(h)]).astype(np.uint8)

@@ -6,8 +6,10 @@ palette) through send_picture, without and with the in-loop filters
 (whose ops are also held to their CPU run, exactly), and a hierarchical
 GOP at M6, M8, M10 and M12 (round trip on the card, parity with the CPU),
 the GOP clips that code wedge, diffwtd and warped blocks (the card's
-stream codes each tool, round trip, parity with the CPU), and a GOP with the
-lookahead (MCTF + TPL, a delta-q key frame) on the card against the CPU.
+stream codes each tool, round trip, parity with the CPU), a GOP with the
+lookahead (MCTF + TPL, a delta-q key frame) on the card against the CPU,
+and the M0-M4 predictors (filter-intra, D45 / D67 / D203) and an M2
+varpart key frame with the filters on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -382,3 +384,50 @@ def test_lookahead_gop_on_cuda_round_trips_and_matches_cpu():
     b_c = sum(len(p.data) for p in pk_c)
     assert abs(p_g - p_c) <= MAX_DPSNR
     assert abs(b_g - b_c) <= MAX_DBYTES * b_c
+
+
+@pytest.mark.cuda
+def test_quality_ops_on_cuda_match_cpu():
+    """The M0-M4 predictors on the card against the CPU, exact: the five
+    filter-intra modes in one wavefront at 4-32, D45 / D67 / D203 at
+    16-64."""
+    _need_card()
+    from svt_av1_tpu_torch.ops import intra
+    rng = np.random.default_rng(28)
+    t = torch.from_numpy
+    for n in (4, 8, 16, 32, 64):
+        a, l = (rng.integers(0, 256, (9, n)).astype(np.int32)
+                for _ in range(2))
+        c = rng.integers(0, 256, 9).astype(np.int32)
+        ext = rng.integers(0, 256, (9, 2 * n + 1)).astype(np.int32)
+        if n <= 32:
+            ref = intra.filter_intra_pred_multi(t(a), t(l), t(c),
+                                                tuple(range(5)), n, n)
+            got = intra.filter_intra_pred_multi(
+                t(a).cuda(), t(l).cuda(), t(c).cuda(), tuple(range(5)), n, n)
+            assert torch.equal(ref, got.cpu()), n
+        for mode in (cc.D45_PRED, cc.D67_PRED, cc.D203_PRED):
+            ref = intra.predict(mode, t(a), t(l), t(c), n, n,
+                                above_ext=t(ext), left_ext=t(ext))
+            got = intra.predict(mode, t(a).cuda(), t(l).cuda(), t(c).cuda(),
+                                n, n, above_ext=t(ext).cuda(),
+                                left_ext=t(ext).cuda())
+            assert torch.equal(ref, got.cpu()), (n, mode)
+
+
+@pytest.mark.cuda
+def test_m2_varpart_key_frame_on_cuda_matches_cpu():
+    """send_picture at M2 with DLF + CDEF (the varpart program,
+    filter-intra, the mask-aware DLF search, per-SB CDEF) on the varpart
+    picture: the card's stream round-trips on the card and equals the
+    CPU's under the parity rule."""
+    _need_card()
+    frames = [clips.varpart_frame()]
+    h, w = frames[0][0].shape
+    kw = dict(enable_dlf_flag=1, cdef_level=1)
+    pk_g, dec_g = _encode_decode(frames, w, h, "cuda", 2, batched=False,
+                                 **kw)
+    pk_c, dec_c = _encode_decode(frames, w, h, "cpu", 2, batched=False, **kw)
+    _parity(frames, pk_g, dec_g, pk_c, dec_c)
+    sizes = {b.bsize for b in dec_g[0].values()}
+    assert {cc.BLOCK_16X16, cc.BLOCK_32X32} <= sizes

@@ -484,7 +484,7 @@ GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
     (dict(intra_period_length=-1), "item 7"),
     (dict(encoder_bit_depth=10), "item 7"),
     (dict(tile_columns=1), "item 7"),
-    (dict(enc_mode=4), "item 7"),
+    (dict(film_grain_denoise_strength=8), "item 7"),
 ])
 def test_out_of_scope_gop_settings_raise(fields, item):
     cfg = EncoderConfig(source_width=64, source_height=64,

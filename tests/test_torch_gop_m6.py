@@ -462,10 +462,11 @@ def test_m9_stream_is_m10_stream():
     assert [p.data for p in m9] == [p.data for p in m10]
 
 
-@pytest.mark.parametrize("feature", ["hp_mv", "mref"])
+@pytest.mark.parametrize("feature", ["hp_mv", "rdoq"])
 def test_feature_overrides_outside_the_slice_raise(monkeypatch, feature):
-    """1/8-pel MVs and the third reference stay refused at M6 when a
-    feature override turns them on, naming queue A item 7."""
+    """1/8-pel MVs and RDOQ (on at no preset) stay refused at M6 when a
+    feature override turns them on, naming queue A item 7.  (The third
+    reference, mref, is ported: tests/test_torch_gop_m4.py.)"""
     import dataclasses
 
     from svt_av1_tpu_torch.api import encoder as enc_mod

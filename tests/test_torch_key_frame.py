@@ -270,8 +270,8 @@ def test_presets_encode_with_filters(preset):
     ("enable_restoration_filtering", 1, "item 7"),
     ("film_grain_denoise_strength", 8, "item 7"),
     ("enable_adaptive_quantization", 1, "item 7"),
-    ("enc_mode", 4, "item 7"),
-    ("enc_mode", 0, "item 7")])
+    ("superres_mode", 1, "item 7"),
+    ("tile_columns", 1, "item 7")])
 def test_out_of_slice_still_raises(field, value, item):
     cfg = EncoderConfig(**CFG)
     setattr(cfg, field, value)
@@ -280,19 +280,24 @@ def test_out_of_slice_still_raises(field, value, item):
 
 
 def test_encode_intra_frame_refuses_aq_and_other_modes():
-    """RDOQ (the qmap of a TPL delta-q key frame is ported) and the luma
-    modes of M0-M4 raise."""
+    """RDOQ (with or without the qmap of a TPL delta-q key frame, which is
+    ported) and 10-bit raise, naming their ROADMAP.md item; an id that is
+    no luma mode (nor a filter-intra pseudo-mode) is refused.  (The luma
+    modes of M0-M4, D45/D67/D203 and filter-intra, are ported.)"""
     y, u, v = clips.natural_clip(1, 32, 32)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tie.encode_intra_frame(y, u, v, 140, qmap=np.full((1, 1), 120),
                                rdoq=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tie.encode_intra_frame(y, u, v, 140, modes=(cc.DC_PRED,
-                                                    cc.D45_PRED),
-                               device="cpu")
+        tie.encode_intra_frame(y, u, v, 140, rdoq=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tie.encode_intra_frame(
-            y, u, v, 140, modes=(cc.DC_PRED, cc.FI_MODE_BASE), device="cpu")
+        tie.encode_intra_frame(y, u, v, 140, modes=(cc.DC_PRED,
+                                                    cc.D45_PRED), bd=10,
+                               device="cpu")
+    with pytest.raises(ValueError, match="not luma intra modes"):
+        tie.encode_intra_frame(y, u, v, 140,
+                               modes=(cc.DC_PRED, cc.UV_CFL_PRED),
+                               device="cpu")
 
 
 @pytest.mark.parametrize("bad", ["shape", "chroma", "dtype"])

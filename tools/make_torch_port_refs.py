@@ -37,6 +37,13 @@ TESTS = (
     "tests/test_torch_gop_m6.py::test_p1_tools_match_jax",
     "tests/test_torch_gop_m6.py::test_p2_split8_matches_jax",
     "tests/test_torch_gop_m6.py::test_m6_parity_with_jax",
+    "tests/test_torch_quality_tools.py::test_wave_step_32_64_matches_jax",
+    "tests/test_torch_quality_tools.py::"
+    "test_run_key_filters_per_sb_matches_jax",
+    "tests/test_torch_varpart.py::test_varpart_frame_matches_jax",
+    "tests/test_torch_varpart.py::test_intra_stream_matches_jax",
+    "tests/test_torch_gop_m4.py::test_m2_gop_matches_jax",
+    "tests/test_torch_gop_m4.py::test_m4_gop_levels3_golden_dpb",
 )
 
 
