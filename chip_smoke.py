@@ -4,21 +4,21 @@
     python3 chip_smoke.py
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 28, 31, 30 and 29 (this
-slice), then 27 and 26 (the previous one) run right after phase 4, in a
-fresh process; the rest in order:
+failure raises and exits non-zero.  Phases 32, 33 and 34 (this slice),
+then 28, 31, 30 and 29, then 27 and 26 (the two slices before it) run
+right after phase 4, in a fresh process; the rest in order:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
      into build/kernels/;
   3. the fused transform+quantize kernel (K1) on the card, at every batch
      size B that the paths below give it (frames in one program x wave
-     slots x luma modes, k1_batches: 528 and 480 for M10 send_pictures at
-     CIF x8 and 720p x2, 704 and 640 for M6; 66, 44 and 240 for a
+     slots x luma modes, k1_batches: 264 and 240 for M10 send_pictures at
+     CIF x4 and 720p x1, 352 and 320 for M6; 66, 44 and 240 for a
      send_picture key frame or the pass B of one inter frame at CIF M10,
      CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs;
      88 for pass B at CIF M6, 16 and 32 for phase 27's; at M0-M4 110
-     and 22 for pass B at CIF M4 and 64x64 M2, 1320, 165 and 60 for M4
+     and 22 for pass B at CIF M4 and 64x64 M2, 660, 165 and 60 for M4
      send_pictures with the five filter-intra pseudo-modes, 15, 30, 45
      and 16 for the varpart program's 16x16 steps), qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
@@ -32,12 +32,12 @@ fresh process; the rest in order:
      the L2 (bound by device memory);
   4. the inverse transform and the DC/V/H/SMOOTH/PAETH predictors on the
      card against the C-reference goldens in tests/golden/ (bit-exact);
-  5. the all-intra batch: CIF 352x288, 8 frames, preset M10, qp 35, through
+  5. the all-intra batch: CIF 352x288, 4 frames, preset M10, qp 35, through
      Encoder(cfg).send_pictures on the default device (the card), once to
      warm and once timed; the kernel's launch count over the timed run
      must be > 0; every packet is decoded by the port's decoder on the
      card and must equal Packet.recon exactly;
-  6. the same encode and decode check at 1280x720, 2 frames;
+  6. the same encode and decode check at 1280x720, 1 frame;
   7. the first 4 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
      |dbytes| <= 1%;
@@ -54,7 +54,7 @@ fresh process; the rest in order:
  10. the same at 1280x720, 1 clip frame (no warm frame; palette is
      required of phase 9's screen frame only);
  11. M6 through send_pictures (the batched program with the preset's 8
-     plain luma modes): CIF x8 and 720p x2, hot fps, bytes, PSNR, K1
+     plain luma modes): CIF x4 and 720p x1, hot fps, bytes, PSNR, K1
      launches > 0, decoder exact;
  12. 1 clip frame and 1 screen-content CIF frame at M6 on the CPU against
      the card's: >= 99% of blocks equal (mode, tx type, delta, uv mode,
@@ -75,7 +75,7 @@ fresh process; the rest in order:
      filtered recon's SSE over Y+U+V not above the unfiltered recon's of
      phases 9-10 (the same decisions: key-frame MD does not see the
      filters, and both searches include "off");
- 15. M10 through send_pictures, CIF x8, with DLF only (array route) and
+ 15. M10 through send_pictures, CIF x4, with DLF only (array route) and
      with DLF + CDEF (per-block route, CDEF signaled at strength 0 as in
      the reference): hot fps, bytes, PSNR, K1 launches > 0, decoder exact;
  16. the first clip frame and the screen-content frame at M6 with both
@@ -118,7 +118,8 @@ fresh process; the rest in order:
      tail) exact; the temporal filter on 99 32x32 blocks (F = 3) and
      mctf_filter_frame (the key's 2 neighbours, the base's 3) under the
      pixel tie rule below, flips counted;
- 23. the previous slice's main path: the CIF x17 GOP (key, 15, key) of
+ 23. the lookahead slice's main path at a cut depth: the CIF x9 GOP (key
+     and one mini-GoP) of
      phase 18's structure with the reference's default tools, MCTF and
      TPL on (delta-q key frames), M10, DLF + CDEF, with recon_enabled off
      as bench.py runs it (phases 18-22 ran every program at CIF, so no
@@ -127,8 +128,8 @@ fresh process; the rest in order:
      gop_tpl_synth), the key frames coded with delta-q and their qindex
      range; every shown frame decoded on the card equal to the encoder's
      recon (kept on the card during the run); K1's launches must equal 56
-     waves x the frames that are not delta-q key frames (840, 896 or
-     952), since a delta-q key frame takes the per-block quantizer and
+     waves x the frames that are not delta-q key frames, since a
+     delta-q key frame takes the per-block quantizer and
      the plain transform, as in the reference;
  24. the 7-frame 128x96 lookahead GOP of the CPU tests
      (clips.split_motion_clip, M10, hierarchical_levels 2, keyint 4) on
@@ -139,16 +140,16 @@ fresh process; the rest in order:
      (checked and timed the same way); the sizes are recorded by the
      wrapper (fused_txq.batches) from the end of phase 4 on;
  26. the main path of the M5-M9 slice, bench.py's primary config at a cut
-     depth: the CIF x9 GOP (key + one 3-level mini-GoP; bench.py runs
-     x17) at M6 with MCTF + TPL, DLF + CDEF, hierarchical levels 3,
-     keyint 15, qp 35 (run after phase 27); a warm run over a
-     3-frame prefix, then the timed run with recon_enabled off: fps, host
+     depth: the CIF x5 GOP (key + a 4-frame mini-GoP at flush; bench.py
+     runs x17) at M6 with MCTF + TPL, DLF + CDEF, hierarchical levels 3,
+     keyint 15, qp 35, run after phase 27 (which ran the M6 programs at
+     small sizes), timed with recon_enabled off: fps, host
      dispatch seconds per inter frame, the lookahead, tmvp_setup and
      save_mvfield stage seconds, bytes, mean Y-PSNR, the inter blocks by
      kind (8x8 split
      leaves, non-DCT inter tx, OBMC, inter-intra, compound, warp) and the
      inter frames with use_ref_frame_mvs; K1's launches must equal the
-     waves of the 8 inter frames, all at B = 88 (M6 key frames search
+     waves of the 4 inter frames, all at B = 88 (M6 key frames search
      four tx types and do not take it); every shown frame decoded on the
      card equal to the encoder's recon (kept on the card during the run);
  27. the M5-M9 clips of the CPU tests on the CPU against the card's, as in
@@ -168,11 +169,12 @@ fresh process; the rest in order:
      mask-aware DLF search, per-SB CDEF; seconds, bytes, Y-PSNR, levels,
      cdef_bits and strengths, the blocks of each leaf size, filter-intra
      and D45 / D67 (each must be > 0 over the two, and cdef_bits > 0 on
-     one); then send_pictures x8 (K1 at B = 1320); every packet decoded on
+     one); then send_pictures x4 (K1 at B = 660); every packet decoded on
      the card equal to Packet.recon;
- 30. the main path of this slice: the CIF x9 GOP (key + one 3-level
-     mini-GoP) at M4 with MCTF + TPL, DLF + CDEF, after a warm 3-frame
-     prefix, timed with recon_enabled off as phase 26 is: fps, host
+ 30. the main path of the M0-M4 slice: the CIF x9 GOP (key + one 3-level
+     mini-GoP) at M4 with MCTF + TPL, DLF + CDEF, run after phase 31
+     (which ran the M4 programs at small sizes), timed with
+     recon_enabled off as phase 26 is: fps, host
      dispatch per inter frame (beside phase 26's M6 frames in the same
      call), the stage seconds, the blocks of each tool (filter-intra on the
      key frames and GOLDEN references must be > 0); K1's launches must
@@ -186,7 +188,30 @@ fresh process; the rest in order:
      forced to two CDEF strength sets, cdef_bits > 0 required) and the
      64x64 x17 M4 GOP (hierarchical_levels 3, two 8-frame mini-GoPs: the
      second base's GOLDEN must be the key frame), each decoded on its
-     device: >= 99% of blocks equal, identity printed.
+     device: >= 99% of blocks equal, identity printed;
+ 32. the loop restoration and superres ops on the card against the port's
+     CPU run, exact: wiener_filter and the 16 self-guided parameter sets
+     (filters and projection) at CIF's luma chunk shape, the superres
+     upscale of CIF planes from half width and at denominators 9-16, and
+     the LR search and apply of a CIF frame (tests/clips.lr_planes: the
+     same unit choices and planes);
+ 33. the main path of this slice: CIF x3 M10 through send_picture / flush
+     with DLF + CDEF + loop restoration, then 720p x1 with LR, CIF x2
+     with superres + LR, CIF x1 each with film grain (parameters
+     estimated from the source), AQ 1 and AQ 2, and a CIF x5 M10 GOP with
+     LR on its key frame (phase 18's structure), each beside the same
+     frames without the tool: seconds per frame, the restoration stage
+     seconds, the LR unit types chosen per frame and plane, bytes and
+     Y-PSNR, K1's launches and batches (56 a CIF frame at B = 66 on the
+     main path and the GOP, 45 at B = 36 on a superres frame, none on AQ
+     frames), every shown frame decoded on the card equal to recon; then
+     the restoration stage of one CIF frame under torch.profiler
+     (kernels, device time, busy share);
+ 34. the small streams of tests/test_torch_post_filters.py (LR at 128x96,
+     superres + LR at 160x96, film grain at 64x64, AQ 1, AQ 2 at M8 and
+     M10, a 64x64 x5 GOP with LR on its key frame) on the CPU and on the
+     card: every stream identical, each decoded on its device equal to
+     its recon.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
@@ -215,7 +240,8 @@ The script imports nothing of JAX or of the JAX package (the golden
 inputs come from svt_av1_tpu_torch/goldens.py) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
 record (its top-level numbers are K1's on this slice's main path, phase
-30), the last line {"ok": true, "device": {...}}.
+33's CIF x3 send_picture with LR, at B = 66), the last line {"ok": true,
+"device": {...}}.
 """
 import json
 import os
@@ -269,7 +295,7 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 GRAPH_LAUNCHES = 20
 GRAPH_REPLAYS = 50
 # the depth of the all-intra send_pictures paths of the earlier slices
-CIF_FRAMES, HD_FRAMES = 8, 2
+CIF_FRAMES, HD_FRAMES = 4, 1
 
 
 def k1_batch(nframes, size, preset, fi=False):
@@ -300,13 +326,17 @@ def k1_batches():
     driven += [k1_batch(1, size, 6) for size in (CIF, (64, 64), (128, 96))]
     # M0-M4: pass B at M4 (10 modes, CIF, phase 30) and M2 (11 modes,
     # 64x64, phase 31); send_pictures with the five filter-intra
-    # pseudo-modes (CIF x8, 64x64 x2); the varpart program's 16x16 steps
+    # pseudo-modes (CIF x4, 64x64 x2); the varpart program's 16x16 steps
     # (the one-frame batch is phase 29's warm run)
     driven += [k1_batch(1, CIF, 4), k1_batch(1, (64, 64), 2),
                k1_batch(CIF_FRAMES, CIF, 4, fi=True),
                k1_batch(1, CIF, 4, fi=True), k1_batch(2, (64, 64), 4, fi=True)]
     driven += (k1_varpart_batches(CIF, 4) + k1_varpart_batches((64, 64), 2)
                + k1_varpart_batches((128, 96), 4))
+    # superres frames code at half width (CIF: 176 px, phase 33; 80 px,
+    # phase 34)
+    driven += [k1_batch(1, (CIF[0] // 2, CIF[1]), 10),
+               k1_batch(1, (80, 96), 10)]
     return list(dict.fromkeys(driven))
 
 
@@ -1635,8 +1665,7 @@ def phase_lookahead_gop(card, frames):
         f"clip moves uniformly, so TPL may find every superblock alike; "
         f"phase 24 codes delta-q on the card); fused_txq "
         f"launches {launches} = {waves} waves x {len(coded) - len(dq)} "
-        f"frames without delta-q (of 840 / 896 / 952 for 2 / 1 / 0 "
-        f"delta-q key frames) ({card}); decoded on the default device, "
+        f"frames without delta-q ({card}); decoded on the default device, "
         f"equal to the encoder's recon over {len(frames)} shown frames "
         f"({dec_s:.1f} s)")
     return pkts, launches
@@ -1688,11 +1717,9 @@ M6_BENCH = dict(hierarchical_levels=3, intra_period_length=15, enable_tf=1,
 
 def phase_m6_gop(card, frames):
     """The M5-M9 slice's main path: bench.py's primary config (the GOP at
-    M6 with TPL + MCTF, DLF and CDEF; CIF x9 here, x17 in bench.py)
-    through send_picture / flush on the default device.  A warm run over
-    a 3-frame prefix (a key frame and a mini-GoP of 2: both P1 shapes,
-    P2, MCTF and TPL at CIF; phase 27 ran the M6 tools at small sizes),
-    then the timed run with
+    M6 with TPL + MCTF, DLF and CDEF; CIF x5 here, x17 in bench.py)
+    through send_picture / flush on the default device (phase 27 ran the
+    M6 tools at small sizes just before): the timed run with
     recon_enabled off as bench.py runs it (timed_gop), K1's count set to
     0 before and read after: K1 runs on the pass B of every inter frame,
     at B = 88 (M6 key frames search four tx types and do not take it);
@@ -1701,10 +1728,6 @@ def phase_m6_gop(card, frames):
     import torch
     from svt_av1_tpu_torch.codec import obu
     w, h = CIF
-    t0 = time.perf_counter()
-    encode_gop(frames[:3], w, h, None, 6, **M6_BENCH)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     pkts, recon, dt, launches, batches, stages = timed_gop(frames, w, h, 6,
                                                            **M6_BENCH)
     coded, mpsnr, dec_s = decode_against("26", pkts, recon, frames)
@@ -1726,8 +1749,8 @@ def phase_m6_gop(card, frames):
         f"x{len(frames)} M6 qp35 hierarchical_levels 3 keyint 15 MCTF + TPL "
         f"DLF + CDEF through send_picture / flush on the default device "
         f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
-        f"{len(frames) / dt:.4f} fps hot ({dt:.3f} s; warm 3-frame prefix "
-        f"{warm_s:.1f} s), {per_inter:.3f} s host dispatch per inter frame "
+        f"{len(frames) / dt:.4f} fps ({dt:.3f} s), {per_inter:.3f} s host "
+        f"dispatch per inter frame "
         f"({n_inter} inter frames), {nbytes} bytes, mean Y-PSNR "
         f"{mpsnr:.4f} dB; stage seconds (total, calls) {st}; inter-frame "
         f"blocks {n} (use_ref_frame_mvs on {n['tmvp_frames']} of {n_inter} "
@@ -1905,8 +1928,8 @@ def phase_m4_key_frames(card):
     with DLF + CDEF (the varpart program, the mask-aware DLF level search,
     the per-SB CDEF search) on the bench clip's first frame (qp 35) and on
     the clip / screen composite (qp 25, where per-SB strengths pay); then
-    send_pictures x8 at M4 (the batched program with the five filter-intra
-    pseudo-modes, K1 at B = 8 x 11 x 15).  Each packet decoded on the card
+    send_pictures x4 at M4 (the batched program with the five filter-intra
+    pseudo-modes, K1 at B = 4 x 11 x 15).  Each packet decoded on the card
     equal to Packet.recon; the M0-M4 tools counted."""
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
@@ -1974,20 +1997,17 @@ def phase_m4_key_frames(card):
 
 
 def phase_m4_gop(card, frames):
-    """This slice's main path: the CIF x9 GOP (key + one 3-level mini-GoP)
-    at M4 with MCTF + TPL, DLF + CDEF through send_picture / flush on the
-    default device: a warm run over a 3-frame prefix, then the timed run
-    with recon_enabled off (timed_gop), K1's count set to 0 before and
+    """The M0-M4 slice's main path: the CIF x9 GOP (key + one 3-level
+    mini-GoP) at M4 with MCTF + TPL, DLF + CDEF through send_picture /
+    flush on the default device (phase 31 ran the M4 programs at small
+    sizes just before): the timed run with recon_enabled off
+    (timed_gop), K1's count set to 0 before and
     read after: K1 runs on the pass B of every inter frame at B = 11 x 10
     (the key frames search four tx types and do not take it); every shown
     frame decoded on the card against the encoder's recon."""
     import torch
     from svt_av1_tpu_torch.codec import obu
     w, h = CIF
-    t0 = time.perf_counter()
-    encode_gop(frames[:3], w, h, None, 4, **M6_BENCH)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     pkts, recon, dt, launches, batches, stages = timed_gop(frames, w, h, 4,
                                                            **M6_BENCH)
     coded, mpsnr, dec_s = decode_against("30", pkts, recon, frames)
@@ -2012,8 +2032,8 @@ def phase_m4_gop(card, frames):
         f"M4 qp35 hierarchical_levels 3 keyint 15 MCTF + TPL DLF + CDEF "
         f"through send_picture / flush on the default device "
         f"({torch.cuda.get_device_name(0)}), recon_enabled off: "
-        f"{len(frames) / dt:.4f} fps hot ({dt:.3f} s; warm 3-frame prefix "
-        f"{warm_s:.1f} s), {per_inter:.3f} s host dispatch per inter frame "
+        f"{len(frames) / dt:.4f} fps ({dt:.3f} s), {per_inter:.3f} s host "
+        f"dispatch per inter frame "
         f"({n_inter} inter frames), "
         f"{sum(len(p.data) for p in pkts)} bytes, mean Y-PSNR {mpsnr:.4f} "
         f"dB; stage seconds (total, calls) {st}; inter-frame blocks {n}; "
@@ -2101,6 +2121,352 @@ def phase_m4_cpu_vs_cuda():
               "key frame in GOLDEN")
 
 
+# ------------------- the post filters and quantizer tools (32-34) ---
+
+# loop restoration on top of the in-loop filters (this slice's main path)
+LR = dict(enable_restoration_filtering=1, **FILTERS)
+
+
+def _lr_spy():
+    """Wrap lr_stage.search_lr so that the unit choices of every searched
+    frame are kept: returns (the list they go to, the undo)."""
+    from svt_av1_tpu_torch.codec import lr as lr_mod
+    from svt_av1_tpu_torch.pipeline import lr_stage
+    seen = []
+    orig = lr_stage.search_lr
+    names = {lr_mod.RESTORE_NONE: "none", lr_mod.RESTORE_WIENER: "wiener",
+             lr_mod.RESTORE_SGRPROJ: "sgr"}
+
+    def spy(src, recon, deb, info, bd=8, eps_set=tuple(range(16))):
+        orig(src, recon, deb, info, bd, eps_set)
+        frame = {}
+        for p, pl in zip("yuv", info):
+            kinds = {}
+            for row in pl.units:
+                for u in row:
+                    k = names[u.rtype] + (f"{u.sgrproj.ep}" if u.sgrproj
+                                          and u.rtype == 2 else "")
+                    kinds[k] = kinds.get(k, 0) + 1
+            frame[p] = kinds
+        seen.append(frame)
+
+    lr_stage.search_lr = spy
+
+    def undo():
+        lr_stage.search_lr = orig
+    return seen, undo
+
+
+def phase_restoration_ops():
+    """The restoration and superres ops on the card against the port's
+    CPU run, exact: the Wiener filter and every self-guided parameter set
+    (filters and projection) at CIF's luma chunk shape (5 chunks of
+    64 x 352), the superres upscale of a CIF frame's planes from half
+    width and at every denominator 9-16, and the LR search and apply of
+    a CIF frame (tests/clips.lr_planes): the same unit choices, the same
+    planes."""
+    import torch
+    import clips
+    from svt_av1_tpu_torch.codec import lr as lr_mod
+    from svt_av1_tpu_torch.ops import resize
+    from svt_av1_tpu_torch.ops import restoration as rst
+    from svt_av1_tpu_torch.pipeline import lr_stage
+    rng = np.random.default_rng(32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    h, w = 64, 352
+    win = rng.integers(0, 256, (5, h + 6, w + 7)).astype(np.int32)
+    taps = np.zeros((2, 5, 8), np.int32)
+    for i in range(2):
+        for b in range(5):
+            c = [int(rng.integers(lo, hi + 1))
+                 for lo, hi, _, _ in lr_mod.WIENER_TAPS]
+            taps[i, b] = [c[0], c[1], c[2], -2 * sum(c), c[2], c[1], c[0], 0]
+    ref = rst.wiener_filter(t(win), t(taps[0]), t(taps[1]), w, h)
+    got = rst.wiener_filter(t(win).cuda(), t(taps[0]).cuda(),
+                            t(taps[1]).cuda(), w, h).cpu()
+    if not torch.equal(ref, got):
+        _fail("phase 32: wiener_filter differs cuda vs cpu")
+    ext = t(win[:, :, :w + 6])
+    xqd0 = t(rng.integers(-96, 32, 5).astype(np.int32))
+    xqd1 = t(rng.integers(-32, 96, 5).astype(np.int32))
+    for eps in range(16):
+        for a, b in zip(rst.selfguided_restoration(ext, eps, h, w),
+                        rst.selfguided_restoration(ext.cuda(), eps, h, w)):
+            if not torch.equal(a, b.cpu()):
+                _fail(f"phase 32: self-guided filter {eps} differs")
+        a = rst.apply_selfguided(ext, eps, xqd0, xqd1, h, w)
+        b = rst.apply_selfguided(ext.cuda(), eps, xqd0.cuda(), xqd1.cuda(),
+                                 h, w)
+        if not torch.equal(a, b.cpu()):
+            _fail(f"phase 32: apply_selfguided {eps} differs cuda vs cpu")
+    half = {p: t(a[:, ::2]) for p, a in zip("yuv", synth_frames(1, *CIF)[0])}
+    n_sr = 0
+    for d in range(9, 17):
+        out_w = CIF[0] if d == 16 else 96
+        for p, plane in half.items():
+            ow = out_w >> int(p != "y")
+            src = plane[:, :resize.scaled_width(ow, d)]
+            a = resize.superres_upscale(src, ow)
+            b = resize.superres_upscale(src.cuda(), ow).cpu()
+            if not torch.equal(a, b):
+                _fail(f"phase 32: superres upscale 1/{d} differs ({p})")
+            n_sr += a.numel()
+    src, deb, cdef = clips.lr_planes(CIF[1], CIF[0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        info = lr_mod.make_lr_info(*CIF)
+        tc = {k: t(v).to(dev) for k, v in cdef.items()}
+        td = {k: t(v).to(dev) for k, v in deb.items()}
+        lr_stage.search_lr(src, tc, td, info)
+        planes = lr_stage.apply_lr(tc, td, info)
+        out[dev] = ([(u.rtype, u.sgrproj and (u.sgrproj.ep, u.sgrproj.xqd),
+                      u.wiener and (u.wiener.vfilter, u.wiener.hfilter))
+                     for pl in info for row in pl.units for u in row],
+                    {k: v.cpu() for k, v in planes.items()})
+    if out["cpu"][0] != out["cuda"][0] or any(
+            not torch.equal(out["cpu"][1][k], out["cuda"][1][k])
+            for k in "yuv"):
+        _fail("phase 32: LR search / apply differ cuda vs cpu")
+    log(f"phase 32: restoration ops exact cuda vs cpu: wiener_filter and "
+        f"the 16 self-guided sets (filters, projection) on 5 windows of "
+        f"{h} x {w}, superres upscale (CIF planes from half width, "
+        f"denominators 9-16) {n_sr} samples, LR search (16 sets + Wiener) "
+        f"and apply on a CIF frame: units {out['cuda'][0]}")
+
+
+def _tool_run(tag, what, frames, cfg, card, base=None, gop=False):
+    """One timed encode on the default device through send_picture /
+    flush at M10 with ``cfg``: seconds per frame, the restoration stage
+    seconds, the LR units chosen per frame and plane, bytes and Y-PSNR
+    beside ``base`` (the packets of the same frames without the tool),
+    K1's launches and batches; every shown frame decoded on the card
+    equal to Packet.recon.  Returns (packets, K1 launches)."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    h, w = frames[0][0].shape
+    units, undo = _lr_spy()
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    seen, fused_txq.batches = fused_txq.batches, set()
+    try:
+        t0 = time.perf_counter()
+        pkts = (encode_gop(frames, w, h, None, 10, **cfg) if gop else
+                encode_key(frames, w, h, None, 10, **cfg))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+        batches = sorted(fused_txq.batches)
+        fused_txq.batches = seen | fused_txq.batches
+    launches = fused_txq.launches
+    stages = profiling.stage_stats()
+    t1 = time.perf_counter()
+    if gop:
+        coded, _ = gop_decode_check(pkts, None)
+        headers = [fp for fp, _ in coded]
+    else:
+        headers = []
+        decode_check(pkts, None, headers)
+    dec_s = time.perf_counter() - t1
+    shown = [p for p in pkts if p.displayed]
+    ps = float(np.mean([psnr(f[0], p.recon["y"])
+                        for f, p in zip(frames, shown)]))
+    nbytes = sum(len(p.data) for p in pkts)
+    cmp = ""
+    if base is not None:
+        bb = sum(len(p.data) for p in base)
+        bp = float(np.mean([psnr(f[0], p.recon["y"]) for f, p in
+                            zip(frames, [p for p in base if p.displayed])]))
+        cmp = (f" (without it: {bb} bytes, {bp:.4f} dB: {nbytes - bb:+d} "
+               f"bytes, {ps - bp:+.4f} dB)")
+    sec = {k: round(stages[k][0], 3) for k in
+           ("device_md_intra", "dlf", "cdef", "restoration", "host_ec",
+            "dispatch_inter") if k in stages}
+    key = headers[0]
+    grain = key.film_grain and dict(
+        points_y=len(key.film_grain.scaling_points_y),
+        ar_lag=key.film_grain.ar_coeff_lag)
+    log(f"phase {tag}: {what} {w}x{h} x{len(frames)} M10 on the default "
+        f"device ({torch.cuda.get_device_name(0)}): {dt / len(frames):.3f} s "
+        f"per frame ({dt:.3f} s), {nbytes} bytes, mean Y-PSNR {ps:.4f} dB"
+        f"{cmp}; stage seconds {sec}; LR units per searched frame {units}; "
+        f"key frame lr_types {key.lr_types}, superres_denom "
+        f"{key.superres_denom}, delta_q {key.delta_q_present}, segmentation "
+        f"{key.segmentation is not None}, film grain {grain}; fused_txq "
+        f"launches {launches} at B "
+        f"= {batches} ({card}); decoded on the card, equal to recon "
+        f"({dec_s:.1f} s)")
+    return pkts, launches, units, batches, dt
+
+
+def restoration_profile():
+    """The restoration stage of one CIF M10 key frame (the bench clip's
+    first frame, DLF + CDEF done) under torch.profiler: the LR search
+    over the preset's parameter sets and the apply."""
+    import torch
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.codec import lr as lr_mod
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.pipeline import lr_stage
+    from svt_av1_tpu_torch.utils import kernel_profile
+    enc = Encoder(EncoderConfig(source_width=CIF[0], source_height=CIF[1],
+                                qp=35, enc_mode=10, **LR))
+    y, u, v = enc._pad(*synth_frames(1, *CIF)[0])
+    qindex = enc._rc.frame_qindex()
+    dec0, rec0, _ = enc._mode_decision(y, u, v, qindex)
+    src = dict(y=y, u=u, v=v)
+    recon, deb, _ = enc._filter(dec0, rec0, obu.FrameParams(
+        base_q_idx=qindex), qindex, src)
+
+    def stage():
+        info = lr_mod.make_lr_info(*CIF)
+        lr_stage.search_lr(src, recon, deb, info,
+                           eps_set=enc._feat.lr_eps)
+        lr_stage.apply_lr(recon, deb, info)
+
+    stage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stage()
+    torch.cuda.synchronize()
+    hot = time.perf_counter() - t0
+    prof = kernel_profile.device_kernels(stage)
+    busy = (prof["device_ms"] / 1000.0 / hot
+            if isinstance(prof["device_ms"], float) else "not measured")
+    return prof, hot, busy
+
+
+def phase_post_filters(card, cif):
+    """This slice's main path and its variants on the default device at
+    M10 (DLF + CDEF on): CIF x3 send_picture with loop restoration (the
+    main path), 720p x1 with LR, CIF x2 superres + LR, CIF x1 each with
+    film grain (parameters estimated from the source), AQ 1 (delta-q) and
+    AQ 2 (segments), a CIF x5 GOP (hierarchical_levels 3, keyint 15, MCTF
+    and TPL off) with LR on its key frame; each beside the same frames
+    without the tool; then the restoration stage of a CIF frame under
+    torch.profiler.  K1 must run 56 waves a CIF frame at B = 66 on the
+    main path, 45 at B = 36 on superres frames (176 px: 11 columns, 6
+    slots), on every frame of the GOP, and never on AQ frames (per-block
+    quantizer rows, as in the reference)."""
+    import clips
+    w, h = CIF
+    hd = synth_frames(1, *HD)
+    by_path = {}
+    # the main path; the run without LR first warms the M10 program
+    base = encode_key(cif[:3], w, h, None, 10, **FILTERS)
+    # all-intra CQP: the first frame's packet is that frame coded alone
+    plain = base[:1]
+    pkts, n, units, batches, dt = _tool_run(
+        "33", "send_picture DLF + CDEF + LR (the main path)", cif[:3], LR,
+        card, base=base)
+    waves = waves_per_frame(w, h)
+    if n != 3 * waves or batches != [k1_batch(1, CIF, 10)]:
+        _fail(f"phase 33: fused_txq {n} launches at {batches} on the main "
+              f"path, {3 * waves} at B = {k1_batch(1, CIF, 10)} predicted")
+    if not any(k != "none" for f in units for p in f.values() for k in p):
+        _fail("phase 33: LR chose RESTORE_NONE everywhere on the main path")
+    by_path["M10 send_picture DLF+CDEF+LR CIF x3"] = n
+    main = n
+    base = encode_key(hd, *HD, None, 10, **FILTERS)
+    by_path["M10 send_picture DLF+CDEF+LR 720p x1"] = _tool_run(
+        "33", "send_picture DLF + CDEF + LR", hd, LR, card, base=base)[1]
+    sr = dict(superres_mode=1, **LR)
+    base = encode_key(cif[:2], w, h, None, 10, superres_mode=1, **FILTERS)
+    _, n, _, batches, _ = _tool_run("33", "superres + DLF + CDEF + LR",
+                                    cif[:2], sr, card, base=base)
+    sr_b = k1_batch(1, (w // 2, h), 10)
+    if n != 2 * waves_per_frame(w // 2, h) or batches != [sr_b]:
+        _fail(f"phase 33: superres K1 {n} launches at {batches}")
+    by_path["M10 superres+LR CIF x2"] = n
+    for what, extra in (("film grain", dict(film_grain_denoise_strength=8)),
+                        ("AQ 1", dict(enable_adaptive_quantization=1)),
+                        ("AQ 2", dict(enable_adaptive_quantization=2))):
+        _, n, _, _, _ = _tool_run("33", what + " + DLF + CDEF", cif[:1],
+                                  dict(extra, **FILTERS), card, base=plain)
+        if (n == 0) != what.startswith("AQ"):
+            _fail(f"phase 33: {what}: K1 launched {n} times")
+        by_path[f"M10 {what} CIF x1"] = n
+    gop_frames = cif[:5]
+    base = encode_gop(gop_frames, w, h, None, 10)
+    _, n, _, batches, _ = _tool_run(
+        "33", "GOP (levels 3, keyint 15) DLF + CDEF + LR on the key frame",
+        gop_frames, dict(enable_restoration_filtering=1), card, base=base,
+        gop=True)
+    if n != 5 * waves or batches != [k1_batch(1, CIF, 10)]:
+        _fail(f"phase 33: the GOP's K1 {n} launches at {batches}")
+    by_path["M10 GOP LR CIF x5"] = n
+    prof, hot, busy = restoration_profile()
+    log(f"phase 33: the restoration stage of one CIF M10 key frame (search "
+        f"over the preset's 4 self-guided sets + Wiener, then apply): "
+        f"{hot:.3f} s hot; under torch.profiler {prof['launches']} device "
+        f"kernels ({prof['copies']} copies), device time "
+        f"{prof['device_ms']} ms, {prof['wall_s']:.3f} s wall, busy "
+        f"{busy if isinstance(busy, str) else f'{busy:.1%}'} (device time "
+        f"over the hot wall); top kernels {prof['top_kernels']}; {card}")
+    return main, by_path
+
+
+# the streams of tests/test_torch_post_filters.py (name: frames, config)
+POST_CASES = {
+    "lr_m10": (lambda c: c.natural_clip(1, 128, 96, seed=4), 10, LR),
+    "superres_lr": (lambda c: c.natural_clip(1, 160, 96, seed=5), 10,
+                    dict(superres_mode=1, qp=40, **LR)),
+    "film_grain": (lambda c: [c.grain_frame()], 10,
+                   dict(film_grain_denoise_strength=8, qp=40)),
+    "aq1": (lambda c: [c.varpart_frame()], 10,
+            dict(enable_adaptive_quantization=1)),
+    "aq2_m8": (lambda c: [c.varpart_frame()], 8,
+               dict(enable_adaptive_quantization=2)),
+    "aq2_m10": (lambda c: [c.varpart_frame()], 10,
+                dict(enable_adaptive_quantization=2)),
+}
+
+
+def phase_post_cpu_vs_cuda():
+    """The small streams of the CPU tests on the CPU and on the card:
+    every stream identical, each decoded on its device equal to its
+    recon; then the 64x64 x5 GOP (hierarchical_levels 2) with LR on its
+    key frame through gop_cpu_vs_cuda."""
+    import clips
+    for name, (make, preset, cfg) in POST_CASES.items():
+        frames = make(clips)
+        h, w = frames[0][0].shape
+        qp = cfg.get("qp", 35)
+        kw = {k: v for k, v in cfg.items() if k != "qp"}
+        pc = encode_key(frames, w, h, "cpu", preset, qp=qp, **kw)
+        pg = encode_key(frames, w, h, None, preset, qp=qp, **kw)
+        decode_check(pc, "cpu")
+        hg = []
+        decode_check(pg, None, hg)
+        identical = [p.data for p in pc] == [p.data for p in pg]
+        log(f"phase 34: {name} ({w}x{h} M{preset}) cpu vs cuda: bytes "
+            f"{sum(len(p.data) for p in pc)} vs "
+            f"{sum(len(p.data) for p in pg)}, streams identical: "
+            f"{identical}; lr_types {hg[0].lr_types}; both decoders match "
+            f"recon")
+        if not identical:
+            _fail(f"phase 34: {name}: the card's stream differs from the "
+                  "CPU's")
+    frames = clips.natural_clip(5, 64, 64, seed=1)
+    kw = dict(hierarchical_levels=2, intra_period_length=4,
+              enable_restoration_filtering=1)
+    pc = encode_gop(frames, 64, 64, "cpu", 10, **kw)
+    pg = encode_gop(frames, 64, 64, None, 10, **kw)
+    gop_decode_check(pc, "cpu")
+    coded, _ = gop_decode_check(pg, None)
+    identical = [p.data for p in pc] == [p.data for p in pg]
+    log(f"phase 34: GOP 64x64 x5 M10 {kw} cpu vs cuda: bytes "
+        f"{sum(len(p.data) for p in pc)} vs {sum(len(p.data) for p in pg)},"
+        f" streams identical: {identical}; lr_types per coded frame "
+        f"{[fp.lr_types for fp, _ in coded]}; both decoders match recon")
+    if not identical:
+        _fail("phase 34: the card's GOP stream differs from the CPU's")
+    if coded[0][0].lr_types == (0, 0, 0):
+        _fail("phase 34: the GOP's key frame codes no LR units")
+
+
 def _fail(msg):
     raise AssertionError(msg)
 
@@ -2143,33 +2509,37 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first (in a fresh process, so that nothing the earlier
-    # paths left behind weighs on the main path's timing): the M0-M4 ops
-    # and small clips, then the M4 GOP, then the M4 key frames
+    # paths left behind weighs on the main path's timing): the restoration
+    # ops, the main path and its variants, the small streams
     cif17 = synth_frames(17, *CIF)
-    by_path = {}
+    phase_restoration_ops()
+    main_launches, by_path = phase_post_filters(card, cif17)
+    phase_post_cpu_vs_cuda()
+
+    # the M0-M4 slice: its ops and small clips, then the M4 GOP,
+    # then the M4 key frames
     phase_quality_ops()
     phase_m4_cpu_vs_cuda()
-    m4_launches = phase_m4_gop(card, cif17[:9])
-    by_path["M4 GOP MCTF+TPL CIF x9"] = m4_launches
+    by_path["M4 GOP MCTF+TPL CIF x9"] = phase_m4_gop(card, cif17[:9])
     kl = phase_m4_key_frames(card)
     by_path["M4 send_picture DLF+CDEF CIF clip"] = kl["clip"]
     by_path["M4 send_picture DLF+CDEF CIF composite"] = kl["composite"]
-    by_path["M4 send_pictures CIF x8"] = kl["batch"]
+    by_path["M4 send_pictures CIF x4"] = kl["batch"]
 
     # the slice of the previous PR: the GOP at M5-M9, its tools on small
-    # clips, then bench.py's primary config at a cut depth (x9)
+    # clips, then bench.py's primary config at a cut depth (x5)
     phase_m6_tools_cpu_vs_cuda()
-    by_path["M6 GOP MCTF+TPL CIF x9"] = phase_m6_gop(card, cif17[:9])
+    by_path["M6 GOP MCTF+TPL CIF x5"] = phase_m6_gop(card, cif17[:5])
 
     import clips
-    # the paths of the earlier slices at a cut depth (8 CIF / 2 720p
+    # the paths of the earlier slices at a cut depth (4 CIF / 1 720p
     # frames a batch, 3 CIF and 1 720p key frames at M6), so that the
     # whole script fits the time limit
     cif = synth_frames(CIF_FRAMES, *CIF)
     hd = synth_frames(HD_FRAMES, *HD)
-    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x8"] = phase_encode(
+    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x4"] = phase_encode(
         "5", cif, *CIF, card)
-    by_path["M10 send_pictures 720p x2"] = phase_encode(
+    by_path["M10 send_pictures 720p x1"] = phase_encode(
         "6", hd, *HD, card)[2]
     phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
     del pkts_cif, dec_cif
@@ -2181,9 +2551,9 @@ def main():
     key_hd = [hd[0]]          # palette: the CIF screen frame of phase 9
     pk_m6_hd, _, by_path["M6 send_picture 720p x1"] = phase_key_frames(
         "10", key_hd, *HD, card, warm=False, need=("tx", "delta", "cfl"))
-    by_path["M6 send_pictures CIF x8"] = phase_encode(
+    by_path["M6 send_pictures CIF x4"] = phase_encode(
         "11a", cif, *CIF, card, preset=6)[2]
-    by_path["M6 send_pictures 720p x2"] = phase_encode(
+    by_path["M6 send_pictures 720p x1"] = phase_encode(
         "11b", hd, *HD, card, preset=6)[2]
     phase_cpu_vs_cuda_m6([key_cif[0], key_cif[2]], [pk_m6[0], pk_m6[2]],
                          [dec_m6[0], dec_m6[2]])
@@ -2194,15 +2564,15 @@ def main():
     by_path["M6 send_picture DLF+CDEF CIF x3"] = n
     n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
     by_path["M6 send_picture DLF+CDEF 720p x1"] = n
-    by_path["M10 send_pictures DLF CIF x8"] = phase_encode(
+    by_path["M10 send_pictures DLF CIF x4"] = phase_encode(
         "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
-    by_path["M10 send_pictures DLF+CDEF CIF x8"] = phase_encode(
+    by_path["M10 send_pictures DLF+CDEF CIF x4"] = phase_encode(
         "15b", cif, *CIF, card, **FILTERS)[2]
     phase_cpu_vs_cuda_filters([key_cif[0], key_cif[2]], [pk_f[0], pk_f[2]],
                               [dec_f[0], dec_f[2]], [hdr_f[0], hdr_f[2]])
 
     # the GOP slice of the earlier PR (MCTF and TPL off) at a cut depth:
-    # CIF x9 and 720p x5, no warm run at CIF
+    # CIF x5 and 720p x3, no warm run
     phase_motion_ops()
     by_path["M10 GOP CIF x5"] = phase_gop("18", cif17[:5], *CIF, card,
                                           warm=0, profile=False)[2]
@@ -2216,8 +2586,8 @@ def main():
 
     # this slice: the lookahead (MCTF, TPL, delta-q key frames)
     phase_lookahead_ops()
-    _, launches = phase_lookahead_gop(card, cif17)
-    by_path["M10 GOP MCTF+TPL CIF x17"] = launches
+    _, launches = phase_lookahead_gop(card, cif17[:9])
+    by_path["M10 GOP MCTF+TPL CIF x9"] = launches
     phase_lookahead_cpu_vs_cuda()
 
 
@@ -2240,16 +2610,17 @@ def main():
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the M4 GOP at CIF, the time at its pass-B batch (one
-    # frame x 11 wave slots x 10 modes); every size is under by_batch
+    # launches of the CIF x3 M10 send_picture with LR, the time at its
+    # batch (one frame x 11 wave slots x 6 modes); every size is under
+    # by_batch
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, CIF, 4))
+              if r["b"] == k1_batch(1, CIF, 10))
     print(smi, flush=True)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
         source="svt_av1_tpu_torch/csrc/fused_txq.cu",
         replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
-        launches=m4_launches, max_abs_err=krec["max_abs_err"],
+        launches=main_launches, max_abs_err=krec["max_abs_err"],
         ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],

@@ -8,15 +8,26 @@ port's slice.
   enc.get_packet()          ~ svt_av1_enc_get_packet
   enc.stream_header()       ~ svt_av1_enc_stream_header
 
-Slice: 8-bit 4:2:0, CQP/CRF, one tile, no AQ, DLF and CDEF on or off,
-and LR, superres and film grain off, at every preset (M0-M13); either
+Slice: 8-bit 4:2:0, CQP/CRF, one tile, DLF, CDEF and loop restoration
+on or off, at every preset (M0-M13); either
 all-intra (intra_period_length -2 or 0), or the hierarchical
 (random-access) GOP of the reference's fast path with
 hierarchical_levels 1-3 and intra_period_length > 0, with or without the
 lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
 frames search the inter tx type and the OBMC and inter-intra motion
 modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third (GOLDEN-role)
-reference (gop_fast.run_inter_frame).  Any other configuration, or a
+reference (gop_fast.run_inter_frame).  All-intra streams also take
+superres (superres_mode > 0: half width where the coded width is a
+multiple of 32), film grain (parameters estimated from the first frame's
+source, pipeline/noise_model.py) and adaptive quantization
+(enable_adaptive_quantization 1: a per-64x64 variance qindex map coded
+as delta-q; 2: the same deltas as SEG_LVL_ALT_Q segments) on
+``send_picture`` key frames at presets without varpart (M5-M13).  As in
+the reference, a GOP codes without superres and without AQ, and its key
+frames take loop restoration (the DPB slot holds the restored planes;
+inter frames signal RESTORE_NONE); a GOP with film grain runs the
+reference's stage path, which is not ported.  Any other configuration,
+or a
 feature override (SVT_TPU_FEAT) that turns on a tool no preset uses
 (hp_mv, rdoq), raises NotImplementedError naming the ROADMAP.md item that
 brings it; nothing falls back to the JAX package.
@@ -50,13 +61,15 @@ frames at M0-M4 take the M5-M8 tools plus filter-intra and no palette),
 runs the in-loop filters as the reference's stage path does (DLF level
 search at M0-M8, mask-aware where 32/64 leaves mix with 16x16 ones, the
 qindex heuristic level at M9-M13; CDEF strength search over the
-preset's candidates, per 64x64 superblock at M0-M4) and packetizes the
+preset's candidates, per 64x64 superblock at M0-M4; with superres the
+normative upscale; loop restoration, pipeline/lr_stage.py, searched
+against the full-width source) and packetizes the
 per-block decisions with the object tile coder.  ``send_pictures`` runs
 the batched program with the preset's plain luma modes (as the
 reference's does) and the array-native C tile coder, or, with CDEF or
 filter-intra on, the object coder and no source for the filters: the
-heuristic DLF level and CDEF signaled with zero strengths, as the
-reference does.  Mode decision and the filters run on ``device``
+heuristic DLF level, CDEF signaled with zero strengths and loop
+restoration with RESTORE_NONE, as the reference does.  Mode decision and the filters run on ``device``
 (pipeline/intra_encoder.py, pipeline/varpart.py, pipeline/dlf_stage.py,
 pipeline/cdef_stage.py; default: the current CUDA device); recon stays
 there until the filtered planes are copied out.  Entropy coding is the
@@ -77,8 +90,12 @@ from svt_av1_tpu_torch.codec import fast_ec, obu
 from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import mv_pred
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
+from svt_av1_tpu_torch.codec import lr as lr_mod
+from svt_av1_tpu_torch.codec.film_grain import default_grain_params
+from svt_av1_tpu_torch.ops import resize
 from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
-                                        intra_encoder, tf_stage, tpl)
+                                        intra_encoder, lr_stage, noise_model,
+                                        tf_stage, tpl)
 from svt_av1_tpu_torch.pipeline import varpart as varpart_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
@@ -106,6 +123,53 @@ def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def _variance_qmap(y: np.ndarray, base_q: int) -> np.ndarray:
+    """Per-64x64 qindex from luma variance (the variance-boost AQ
+    analog, Docs/Appendix-Variance-Boost.md): smooth superblocks get a
+    lower qindex (banding protection), busy ones a higher one.  Deltas
+    are multiples of 1 << delta_q_res (= 4)."""
+    h, w = y.shape
+    sh, sw = (h + 63) // 64, (w + 63) // 64
+    qmap = np.zeros((sh, sw), np.int32)
+    yp = np.pad(y.astype(np.float64), ((0, sh * 64 - h), (0, sw * 64 - w)),
+                mode="edge")
+    blocks = yp.reshape(sh, 64, sw, 64).transpose(0, 2, 1, 3)
+    var = blocks.var(axis=(2, 3)) + 1.0
+    med = max(float(np.median(var)), 1.0)
+    delta = np.clip(np.round(np.log2(var / med) * 2.0), -3, 3) * 4
+    # positive deltas must keep base_q+delta congruent mod
+    # (1 << delta_q_res) below 255, or the decoder's clamped
+    # CurrentQIndex diverges from the qindex we quantized with
+    res_mask = (1 << 2) - 1  # delta_q_res = 2
+    delta_hi = (255 - base_q) & ~res_mask
+    delta = np.clip(delta.astype(np.int32), None, delta_hi)
+    return np.clip(base_q + delta, 1, 255)
+
+
+def _segment_qmap(y: np.ndarray, base_q: int):
+    """Segment-based AQ: variance deltas -> SEG_LVL_ALT_Q segments.
+
+    Returns ((SegmentationParams, per-SB segment-id map), per-SB qindex
+    map for the MD quantizer)."""
+    from svt_av1_tpu_torch.codec import segmentation as seg_mod
+    h, w = y.shape
+    sh, sw = (h + 63) // 64, (w + 63) // 64
+    yp = np.pad(y.astype(np.float64),
+                ((0, sh * 64 - h), (0, sw * 64 - w)), mode="edge")
+    blocks = yp.reshape(sh, 64, sw, 64).transpose(0, 2, 1, 3)
+    var = blocks.var(axis=(2, 3)) + 1.0
+    med = max(float(np.median(var)), 1.0)
+    delta = (np.clip(np.round(np.log2(var / med) * 2.0), -3, 3) * 4
+             ).astype(np.int32)
+    deltas = sorted(set(delta.reshape(-1).tolist()))[:8]
+    seg_of = {d: i for i, d in enumerate(deltas)}
+    seg_map = np.vectorize(
+        lambda d: seg_of.get(d, len(deltas) - 1))(delta).astype(np.int32)
+    params = seg_mod.alt_q_params(deltas)
+    qmap = np.clip(base_q + np.array(deltas, np.int32)[seg_map], 1, 255)
+    return (params, seg_map), qmap
+
+
 def _unsupported(cfg: EncoderConfig):
     """(reason, ROADMAP.md item) of the first setting outside the slice,
     or None."""
@@ -126,11 +190,9 @@ def _unsupported(cfg: EncoderConfig):
          "queue A item 7"),
         (cfg.tile_columns > 0 or cfg.tile_rows > 0, "tiles",
          "queue A item 7"),
-        (cfg.enable_adaptive_quantization != 0, "adaptive quantization",
-         "queue A item 7"),
-        (cfg.enable_restoration_filtering > 0 or cfg.superres_mode > 0
-         or cfg.film_grain_denoise_strength > 0,
-         "loop restoration, superres and film grain", "queue A item 7"),
+        (gop and cfg.film_grain_denoise_strength > 0,
+         "film grain in a GOP (the reference codes it on its stage path, "
+         "which is not ported)", "queue A item 7"),
         (bool(cfg.avif) or cfg.sframe_dist > 0, "AVIF and S-frames",
          "queue A item 7"),
         (bool(cfg.mastering_display or cfg.content_light
@@ -181,9 +243,24 @@ class Encoder:
         self.render_h = config.source_height
         self.coded_w = _align16(config.source_width)
         self.coded_h = _align16(config.source_height)
-        self.sp = obu.SequenceParams(width=self.coded_w, height=self.coded_h,
-                                     bit_depth=8,
-                                     enable_cdef=config.cdef_level > 0)
+        # superres: half width, all-intra only, and only where the
+        # downscaled width keeps the 16-px grid (as in the reference)
+        self.sr_denom = 8
+        if (config.superres_mode > 0
+                and config.intra_period_length in (-2, 0)
+                and self.coded_w % 32 == 0):
+            self.sr_denom = 16
+        self.sr_w = (self.coded_w * 8 + self.sr_denom // 2) // self.sr_denom
+        self.sp = obu.SequenceParams(
+            width=self.coded_w, height=self.coded_h, bit_depth=8,
+            enable_cdef=config.cdef_level > 0,
+            enable_superres=self.sr_denom != 8,
+            enable_restoration=config.enable_restoration_filtering > 0,
+            film_grain_params_present=config.film_grain_denoise_strength > 0)
+        # film grain parameters: estimated from the first key frame's
+        # source, kept for the sequence
+        self._grain_params = None
+        self._grain_estimated = False
         self._feat = features_for(config.enc_mode)
         # feature overrides (SVT_TPU_FEAT) can turn on tools that no preset
         # uses and the port does not have
@@ -288,14 +365,32 @@ class Encoder:
             self._pts += 1
 
     def _encode_frame(self, y, u, v, pts) -> Packet:
-        """One key frame: mode decision, then the filters and object
-        packetization."""
+        """One key frame: the superres downscale, AQ's qindex map, mode
+        decision, then the filters and object packetization."""
         qindex = self._rc.frame_qindex()
         y, u, v = self._pad(y, u, v)
+        src_full = dict(y=y, u=u, v=v)
+        if self.sr_denom != 8:
+            # encoder-side horizontal downscale (not normative); the loop
+            # upscales back with the normative kernel
+            y, u, v = (((p[:, 0::2].astype(np.int32)
+                         + p[:, 1::2].astype(np.int32) + 1) >> 1
+                        ).astype(p.dtype) for p in (y, u, v))
+        qmap = seg_info = None
+        if self.cfg.enable_adaptive_quantization and not self._feat.varpart:
+            if self.cfg.enable_adaptive_quantization == 2:
+                # segment-based AQ: the variance deltas become
+                # SEG_LVL_ALT_Q segments (segmentation.c role)
+                seg_info, qmap = _segment_qmap(y, qindex)
+            else:
+                qmap = _variance_qmap(y, qindex)
         decisions, recon, allow_sct = self._mode_decision(
-            y, u, v, qindex, varpart=self._feat.varpart)
+            y, u, v, qindex, qmap=qmap, varpart=self._feat.varpart)
         pkt = self._packetize(decisions, recon, qindex, pts,
-                              allow_sct=allow_sct, src=dict(y=y, u=u, v=v))
+                              allow_sct=allow_sct, src=dict(y=y, u=u, v=v),
+                              src_full=src_full,
+                              delta_q=qmap is not None and seg_info is None,
+                              seg=seg_info)
         self._rc.feedback(len(pkt.data) * 8, qindex, True)
         return pkt
 
@@ -330,20 +425,23 @@ class Encoder:
         return decisions, recon, pal_cands is not None
 
     def _packetize(self, decisions, recon, qindex, pts,
-                   allow_sct: bool = False, src=None, prefilt=None,
-                   return_state: bool = False,
-                   delta_q: bool = False) -> Packet:
+                   allow_sct: bool = False, src=None, src_full=None,
+                   prefilt=None, return_state: bool = False,
+                   delta_q: bool = False, seg=None) -> Packet:
         """In-loop filters + entropy coding + OBU assembly for one key
         frame from per-block decisions.  allow_sct: the frame has palette
         candidates, so it turns the screen-content tools on.  src: the
-        padded source planes (numpy) the filter searches measure against;
-        without it DLF takes the heuristic level and CDEF is signaled with
-        zero strengths, as in the reference.  prefilt: the (recon,
-        deblocked, header fields, cdef map) of gop_fast.run_key_filters,
-        which has filtered the frame already.  return_state: also return
-        the filtered recon and the tile encoder (its end-of-frame CDFs).
-        delta_q: the decisions carry per-block qindex values (a TPL qmap),
-        coded as delta-q at delta_q_res 2."""
+        padded source planes (numpy, at the superres width) the filter
+        searches measure against; without it DLF takes the heuristic
+        level, CDEF is signaled with zero strengths and loop restoration
+        with RESTORE_NONE, as in the reference.  src_full: the full-width
+        source loop restoration measures against under superres.
+        prefilt: the (recon, deblocked, header fields, cdef map) of
+        gop_fast.run_key_filters, which has filtered the frame already.
+        return_state: also return the filtered recon and the tile encoder
+        (its end-of-frame CDFs).  delta_q: the decisions carry per-block
+        qindex values (a TPL or AQ qmap), coded as delta-q at delta_q_res
+        2.  seg: (SegmentationParams, per-SB segment ids) of segment AQ."""
         fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
                              base_q_idx=qindex,
                              render_width=self.render_w,
@@ -351,17 +449,39 @@ class Encoder:
         fp.allow_screen_content_tools = allow_sct
         if self.sp.enable_order_hint:
             fp.order_hint = pts & ((1 << self.sp.order_hint_bits) - 1)
+        if seg is not None:
+            fp.segmentation = seg[0]
+        if self.cfg.film_grain_denoise_strength > 0:
+            fp.film_grain = self._grain(**(src or {}))
         if prefilt is not None:
-            recon, _, fpu, cdef_idx = prefilt
+            recon, deblocked, fpu, cdef_idx = prefilt
             for k, val in fpu.items():
                 setattr(fp, k, val)
         else:
-            recon, cdef_idx = self._filter(decisions, recon, fp, qindex, src)
+            recon, deblocked, cdef_idx = self._filter(decisions, recon, fp,
+                                                      qindex, src)
+        if self.sr_denom != 8 and src is not None:
+            # the normative upscale (spec 7.16): after CDEF, before loop
+            # restoration, which works at the full width with its
+            # deblocked boundary rows upscaled the same way
+            fp.superres_denom = self.sr_denom
+            recon = resize.upscale_frame(recon, self.coded_w)
+            deblocked = resize.upscale_frame(deblocked, self.coded_w)
+        lr_info = None
+        if self.sp.enable_restoration and src is not None:
+            with stage("restoration"):
+                lr_info = lr_mod.make_lr_info(self.coded_w, self.coded_h)
+                lr_stage.search_lr(src_full or src, recon, deblocked,
+                                   lr_info, eps_set=self._feat.lr_eps)
+                fp.lr_types = tuple(i.frame_type for i in lr_info)
+                recon = lr_stage.apply_lr(recon, deblocked, lr_info)
         self._ref = recon
-        tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
+        tenc = TileEncoder(self.sr_w, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
                            update_cdfs=not fp.disable_cdf_update,
                            frame_is_intra=True)
+        if lr_info is not None:
+            tenc.set_lr(lr_info)
         tenc.enable_filter_intra = self.sp.enable_filter_intra
         tenc.allow_palette = bool(fp.allow_screen_content_tools)
         tenc.bit_depth = 8
@@ -369,12 +489,22 @@ class Encoder:
             fp.delta_q_present = True
             fp.delta_q_res = 2
             tenc.set_delta_q(fp.delta_q_res)
+        if seg is not None:
+            # per-SB segment ids -> mi granularity for the tile coder
+            mi_map = np.repeat(np.repeat(seg[1], 16, 0), 16, 1)
+            tenc.set_segmentation(fp.segmentation,
+                                  mi_map[:tenc.mi_rows, :tenc.mi_cols])
         if fp.cdef_bits:
             # per-SB strengths: each SB's index is coded at its first
             # non-skip block
             tenc.set_cdef(fp.cdef_bits, cdef_idx)
         with stage("host_ec"):
-            tile_data = tenc.encode(decisions)
+            # the C array walk codes no segment ids, yet TileEncoder.encode
+            # takes it for plain 16x16 DCT frames whatever their
+            # segmentation (the reference's stream then does not decode,
+            # ROADMAP.md queue C item 4 (d)): segment AQ frames take the
+            # per-block coder, which codes them as the spec reads them
+            tile_data = tenc.encode(decisions, use_native=seg is None)
         if not fp.disable_frame_end_update_cdf:
             self._ref_cdfs = tenc.cdfs
             self._ref_nmv = tenc.nmv
@@ -388,9 +518,10 @@ class Encoder:
         at M0-M8 when the source is at hand, else the heuristic level;
         mask-aware where the frame mixes 16/32/64 leaves), then CDEF when
         the source is at hand (strength search over the preset's
-        candidates, per SB at M0-M4 (cdef_bits > 0), then apply).  Sets
-        the header fields; recon stays on the device.  Returns (recon,
-        the per-SB cdef index map or None)."""
+        candidates, per SB at M0-M4 (cdef_bits > 0), then apply), both at
+        the superres width.  Sets the header fields; recon stays on the
+        device.  Returns (recon, the deblocked planes before CDEF, the
+        per-SB cdef index map or None)."""
         searches = ((self.cfg.enable_dlf_flag and self._feat.dlf_search)
                     or self.sp.enable_cdef)
         if src is not None and searches:
@@ -405,7 +536,7 @@ class Encoder:
                 if mixed:
                     flens = dlf_stage.flens_from_maps(
                         dlf_stage.maps_from_decisions(
-                            decisions, self.coded_h // 4, self.coded_w // 4),
+                            decisions, self.coded_h // 4, self.sr_w // 4),
                         device=self.device)
                     if self._feat.dlf_search and src is not None:
                         recon = dlf_stage.search_and_apply_masked(
@@ -419,10 +550,11 @@ class Encoder:
                 else:
                     self._heuristic_dlf_levels(fp, qindex)
                     recon = intra_encoder.apply_loop_filter(recon, fp)
+        deblocked = recon
         cdef_idx = None
         if self.sp.enable_cdef and src is not None:
             skip16 = _skip_map(decisions, self.coded_h // 16,
-                               self.coded_w // 16)
+                               self.sr_w // 16)
             fp.cdef_damping = cdef_stage.cdef_damping(qindex)
             with stage("cdef"):
                 if self._feat.cdef_sb:
@@ -442,7 +574,7 @@ class Encoder:
                     recon = cdef_stage.cdef_apply(recon, skip16,
                                                   fp.cdef_strengths,
                                                   fp.cdef_damping)
-        return recon, cdef_idx
+        return recon, deblocked, cdef_idx
 
     @staticmethod
     def _heuristic_dlf_levels(fp, qindex: int):
@@ -456,9 +588,18 @@ class Encoder:
         chunk of up to 32 frames runs as one device batch with the
         preset's plain luma modes; the host entropy-codes chunk k while
         the device works on chunk k+1.  As in the reference, frames take
-        the array tile coder unless CDEF is on (or qindex is 0): then the
-        per-block route, whose packetization has no source, so DLF takes
-        the heuristic level and CDEF is signaled with zero strengths."""
+        the array tile coder unless CDEF or loop restoration is on (or
+        qindex is 0): then the per-block route, whose packetization has no
+        source, so DLF takes the heuristic level, CDEF is signaled with
+        zero strengths and loop restoration with RESTORE_NONE.  With
+        superres, frames go through send_picture one at a time, as in the
+        reference."""
+        if self.sr_denom != 8:
+            for (y, u, v) in frames:
+                self.send_picture(y, u, v)
+            if eos:
+                self._eos_sent = True
+            return
         if self._hier:
             # a GOP with inter frames: the sequential path; eos drains the
             # last (partial) mini-GoP as send_picture(..., eos=True) does
@@ -470,7 +611,8 @@ class Encoder:
         qindex = self._rc.frame_qindex()
         # filter-intra blocks take the object coder (the per-block route),
         # with the preset's pseudo-modes in the batch, as in the reference
-        arrays_ok = (qindex > 0 and not self.sp.enable_cdef
+        arrays_ok = (qindex > 0 and not self.sp.enable_restoration
+                     and not self.sp.enable_cdef
                      and not self.sp.enable_filter_intra)
         padded = [self._pad(*self._checked(y, u, v))
                   for (y, u, v) in frames]
@@ -514,6 +656,8 @@ class Encoder:
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
+        if self.cfg.film_grain_denoise_strength > 0:
+            fp.film_grain = self._grain()
         if self.cfg.enable_dlf_flag:
             self._heuristic_dlf_levels(fp, qindex)
             with stage("dlf"):
@@ -527,6 +671,23 @@ class Encoder:
         self._ref_cdfs = tenc.cdfs
         self._ref_nmv = tenc.nmv
         return self._assemble(fp, tile_data, recon, pts)
+
+    def _grain(self, y=None, u=None, v=None):
+        """Film-grain parameters for the frame header: the AR-model
+        estimate from the source (noise_model.c:2279 role) on the first
+        key frame, kept for the sequence; the strength preset when the
+        source is clean, the fit fails or no source is at hand (as in the
+        reference, a host-side model fit)."""
+        if not self._grain_estimated and y is not None:
+            self._grain_estimated = True
+            try:
+                p, _ = noise_model.estimate_grain_params(y, u, v, bd=8)
+            except Exception:
+                p = None
+            self._grain_params = p
+        if self._grain_params is not None:
+            return self._grain_params
+        return default_grain_params(self.cfg.film_grain_denoise_strength)
 
     def _assemble(self, fp, tile_data, recon, pts) -> Packet:
         """The temporal unit (with the sequence header on the first) and

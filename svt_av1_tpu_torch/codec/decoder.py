@@ -13,8 +13,12 @@ references) through
 ``reconstruct_inter_from_decisions`` (translational, GLOBALMV warp,
 compound average / wedge / diffwtd, skip mode, the merged skip leaves,
 8x8 split leaves, OBMC and inter-intra), followed by DLF at the header's
-levels (mask-aware where block sizes are mixed) and CDEF (frame-uniform,
-or per superblock with the cdef_idx each SB codes when cdef_bits > 0).
+levels (mask-aware where block sizes are mixed), CDEF (frame-uniform,
+or per superblock with the cdef_idx each SB codes when cdef_bits > 0),
+the superres upscale (spec 7.16) and loop restoration with the units the
+tile codes (pipeline/lr_stage.apply_lr, boundary rows from the upscaled
+deblocked planes).  Key frames with segmentation (SEG_LVL_ALT_Q) take
+each block's segment qindex.
 Each slot also keeps its frame's saved motion field, which TMVP
 (use_ref_frame_mvs) projects.  Shown planes are copied out once,
 filtered.  1/8-pel MVs raise, naming their ROADMAP.md item.
@@ -27,10 +31,12 @@ import numpy as np
 
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.encoder import _skip_map, _skip_map8
+from svt_av1_tpu_torch.codec import lr as lr_mod
 from svt_av1_tpu_torch.codec import mv_pred, obu
 from svt_av1_tpu_torch.codec.syntax import TileDecoder
 from svt_av1_tpu_torch.codec import constants as cc
-from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage
+from svt_av1_tpu_torch.ops import resize
+from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage, lr_stage
 from svt_av1_tpu_torch.pipeline.inter_encoder import (
     reconstruct_inter_from_decisions)
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
@@ -100,11 +106,12 @@ class Decoder:
             * (1 << fp.log2_tile_rows)
         if n_tiles > 1:
             raise NotImplementedError("tiles: ROADMAP.md queue A item 7")
-        if (self.sp.bit_depth != 8 or self.sp.enable_restoration
-                or fp.superres_denom != 8 or fp.segmentation is not None):
+        if self.sp.bit_depth != 8:
+            raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
+        if not is_intra and fp.superres_denom != 8:
             raise NotImplementedError(
-                "10-bit, LR, superres and segmentation: ROADMAP.md queue A "
-                "item 7")
+                "superres on inter frames (scaled-reference motion "
+                "compensation): ROADMAP.md queue A item 7")
         if not is_intra and fp.allow_high_precision_mv:
             raise NotImplementedError(
                 "1/8-pel MVs (allow_high_precision_mv): ROADMAP.md queue A "
@@ -144,10 +151,23 @@ class Decoder:
                      for e in range(1, 8)}, tdec.ref_hints, fp.order_hint,
                     self.sp.order_hint_bits, tdec.mi_rows, tdec.mi_cols,
                     fp.allow_high_precision_mv)
-        if fp.delta_q_present:
-            tdec.set_delta_q(fp.delta_q_res)
+        if fp.segmentation is not None:
+            tdec.set_segmentation(fp.segmentation)
         if fp.cdef_bits:
             tdec.set_cdef(fp.cdef_bits)
+        lr_info = None
+        if self.sp.enable_restoration:
+            w, h = self.sp.width, self.sp.height
+            cw, ch = (w + 1) >> 1, (h + 1) >> 1
+            csize = fp.lr_unit_size >> (1 if fp.lr_uv_half else 0)
+            lr_info = [
+                lr_mod.PlaneLrInfo(fp.lr_types[0], fp.lr_unit_size, w, h),
+                lr_mod.PlaneLrInfo(fp.lr_types[1], csize, cw, ch),
+                lr_mod.PlaneLrInfo(fp.lr_types[2], csize, cw, ch),
+            ]
+            tdec.set_lr(lr_info)
+        if fp.delta_q_present:
+            tdec.set_delta_q(fp.delta_q_res)
         decisions = tdec.decode(tile_data)
         if is_intra:
             recon = reconstruct_from_decisions(decisions, coded_w,
@@ -174,6 +194,7 @@ class Decoder:
             recon = dlf_stage.apply_masked(recon, fp, flens)
         else:
             recon = apply_loop_filter(recon, fp)
+        deblocked = recon
         if self.sp.enable_cdef:
             skip16 = _skip_map(decisions, self.sp.height // 16, coded_w // 16)
             skip8 = _skip_map8(decisions, self.sp.height // 8, coded_w // 8)
@@ -185,6 +206,11 @@ class Decoder:
                 recon = cdef_stage.cdef_apply(
                     recon, skip16, fp.cdef_strengths, fp.cdef_damping,
                     bd=self.sp.bit_depth, skip8=skip8)
+        if fp.superres_denom != 8:
+            recon = resize.upscale_frame(recon, self.sp.width)
+            deblocked = resize.upscale_frame(deblocked, self.sp.width)
+        if lr_info is not None:
+            recon = lr_stage.apply_lr(recon, deblocked, lr_info)
         refresh = fp.refresh_frame_flags
         if fp.frame_type == obu.KEY_FRAME and fp.show_frame:
             refresh = 0xFF

@@ -13,6 +13,10 @@ code one compound or warp tool each; ``split_motion_clip`` is the
 lookahead's clip (its key frames code delta-q).  ``varpart_frame`` is
 the 128x96 picture of the reference's variable-partition tests (a smooth
 field with a textured corner: 64x64, 32x32 and 16x16 leaves at M0-M4).
+``grain_frame`` is a smooth picture under spatially correlated noise (the
+film-grain estimator fits it); ``lr_planes`` are source, deblocked and
+CDEF planes on which the loop-restoration search picks Wiener for luma
+and self-guided filters for chroma.
 """
 import contextlib
 import dataclasses
@@ -332,3 +336,49 @@ def tool_setting(name, enc, gop_fast):
         yield enc
     finally:
         gop_fast._WEDGE_EXTRA_BITS = old
+
+
+def grain_frame(h=64, w=64, seed=0):
+    """A smooth luma field under AR-correlated gaussian noise (sigma about
+    7) and lightly noisy flat chroma: the film-grain noise model finds
+    flat blocks and fits their noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    clean = np.clip(100 + 60 * np.sin(xx / 33.0), 0, 255)
+    white = rng.normal(0, 6, (h + 4, w + 4))
+    noise = (white[2:-2, 2:-2] + 0.5 * white[1:-3, 2:-2]
+             + 0.3 * white[2:-2, 1:-3])
+    y = np.clip(clean + noise, 0, 255).astype(np.uint8)
+    u = np.clip(120 + rng.normal(0, 3, (h // 2, w // 2)), 0,
+                255).astype(np.uint8)
+    v = np.clip(130 + rng.normal(0, 3, (h // 2, w // 2)), 0,
+                255).astype(np.uint8)
+    return y, u, v
+
+
+def lr_planes(h=96, w=128, seed=9, exact=False):
+    """(source, deblocked, cdef) dicts of uint8 planes for the restoration
+    search: a sinusoid luma under gaussian noise (Wiener pays), rings
+    (u) and a diagonal step (v) under noise (the self-guided filters pay).
+    ``exact``: the planes equal the source (RESTORE_NONE wins)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2]
+    src = dict(
+        y=np.clip(100 + 60 * np.sin(xx / 7.0) + 40 * np.cos(yy / 5.0), 0,
+                  255),
+        u=128 + 100 * np.sign(np.sin(np.hypot(cx - w // 4, cy - h // 4)
+                                     / 3.0)),
+        v=np.where(cx + cy > (h + w) // 5, 200, 60))
+    src = {k: np.clip(v, 0, 255).astype(np.uint8) for k, v in src.items()}
+    if exact:
+        return src, dict(src), dict(src)
+
+    def noisy(a, sigma):
+        return np.clip(a + np.rint(rng.normal(0, sigma, a.shape)), 0,
+                       255).astype(np.uint8)
+
+    deb = dict(y=noisy(src["y"], 6), u=noisy(src["u"], 5),
+               v=noisy(src["v"], 2))
+    cdef = dict(y=noisy(deb["y"], 2), u=deb["u"].copy(), v=deb["v"].copy())
+    return src, deb, cdef

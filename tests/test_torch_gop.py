@@ -17,7 +17,7 @@ package on the CPU.
   (>= 99% of blocks equal, Y-PSNR within 0.05 dB, bytes within 1%; byte
   identity printed); every stream round-trips through the port's decoder,
   and the JAX package's decoder decodes the port's M10 stream to the
-  port's recon (one live cross-run).
+  port's recon (its output stored, fingerprinted by the port's packets).
 - send_pictures(frames, eos=True) shows every frame (the last partial
   mini-GoP included), in the JAX package's send_picture + flush stream;
   recon_enabled=False leaves the packets as they were and skips the recon
@@ -378,26 +378,29 @@ def test_gop_parity_with_jax(name):
     assert abs(b_port - b_jax) <= 0.01 * b_jax
 
 
-@pytest.fixture(scope="module")
-def jax_decoded_m10():
-    """One live cross-run: the JAX package's decoder on the port's M10
-    stream."""
+def _jax_decoded(datas):
+    """The JAX package's decoder's shown frames of ``datas``, stacked per
+    plane."""
     from svt_av1_tpu.codec.decoder import Decoder as JDecoder
-    _, pkts, _ = _slice("m10")
     dec = JDecoder()
-    out = []
-    for p in pkts:
-        out += dec.decode_temporal_unit(p.data)
-    return pkts, out
+    shown = [r for d in datas for r in dec.decode_temporal_unit(d)]
+    return tuple(np.stack([np.asarray(r[k]) for r in shown]) for k in "yuv")
 
 
-def test_jax_decoder_decodes_port_stream(jax_decoded_m10):
-    pkts, shown = jax_decoded_m10
+def test_jax_decoder_decodes_port_stream():
+    """The JAX package's decoder on the port's M10 stream (its output
+    stored, fingerprinted by the port's packets) reproduces every shown
+    frame of the port's recon."""
+    _, pkts, _ = _slice("m10")
+    datas = [p.data for p in pkts]
+    shown = port_refs.jax_ref("gop_m10_jax_decoder",
+                              lambda: _jax_decoded(datas),
+                              *[np.frombuffer(d, np.uint8) for d in datas])
     disp = [p for p in pkts if p.displayed]
-    assert len(shown) == len(disp)
-    for rec, p in zip(shown, disp):
-        for k in "yuv":
-            np.testing.assert_array_equal(rec[k], p.recon[k])
+    assert len(shown[0]) == len(disp)
+    for j, p in enumerate(disp):
+        for k, planes in zip("yuv", shown):
+            np.testing.assert_array_equal(planes[j], p.recon[k])
 
 
 # ------------------------------------------- send_pictures, recon copies ---
@@ -475,8 +478,6 @@ GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
 
 @pytest.mark.parametrize("fields,item", [
     (dict(rate_control_mode=1), "item 7"),
-    (dict(enable_adaptive_quantization=2), "item 7"),
-    (dict(enable_restoration_filtering=1), "item 7"),
     (dict(sframe_dist=2), "item 7"),
     (dict(pred_structure=1), "item 7"),
     (dict(hierarchical_levels=0), "item 7"),

@@ -424,29 +424,46 @@ def test_reference_round_trip_fault(name):
     assert jax_rt == (name == "m6_fault")
 
 
+def _jax_decoder_slots(datas):
+    """The JAX package's decoder on ``datas``: its 8 DPB slots' planes
+    after each packet, stacked per plane (packet, slot, rows, cols)."""
+    from svt_av1_tpu.codec.decoder import Decoder as JDecoder
+    jdec = JDecoder()
+    out = {k: [] for k in "yuv"}
+    for d in datas:
+        jdec.decode_temporal_unit(d)
+        for k in "yuv":
+            out[k].append(np.stack([np.asarray(jdec.slots[i][k])
+                                    for i in range(8)]))
+    return tuple(np.stack(out[k]) for k in "yuv")
+
+
 def test_jax_decoder_decodes_port_stream():
-    """One live cross-run on the first packets of the port's OBMC stream
-    (the key frame and the hidden base frame, whose blocks include OBMC
-    and inter-intra ones at DCT_DCT and no 8x8 split: where the JAX
-    package's decoder follows the specification): that decoder's DPB
+    """The JAX package's decoder on the first packets of the port's OBMC
+    stream (the key frame and the hidden base frame, whose blocks include
+    OBMC and inter-intra ones at DCT_DCT and no 8x8 split: where that
+    decoder follows the specification), its output stored
+    (tests/port_refs.py, fingerprinted by the port's packets): its DPB
     slots hold exactly the port's decoder's planes.  (Not on m6: that
     stream codes OBMC and inter-intra blocks with non-DCT tx types, which
     the reference's decoder inverts as DCT_DCT; see
     test_reference_round_trip_fault.)"""
-    from svt_av1_tpu.codec.decoder import Decoder as JDecoder
     _, pkts, _ = _slice("obmc_m6")
-    jdec, tdec = JDecoder(), tg.Decoder(device="cpu")
+    datas = [p.data for p in pkts[:2]]
+    jax_slots = port_refs.jax_ref(
+        "gop_m6_jax_decoder_obmc", lambda: _jax_decoder_slots(datas),
+        *[np.frombuffer(d, np.uint8) for d in datas])
+    tdec = tg.Decoder(device="cpu")
     modes = []
-    for p in pkts[:2]:
-        jdec.decode_temporal_unit(p.data)
-        tdec.decode_temporal_unit(p.data)
+    for n, d in enumerate(datas):
+        tdec.decode_temporal_unit(d)
         modes += [(b.motion_mode, b.interintra_mode)
                   for b in tdec.last_decisions.values() if b.is_inter]
         for i in range(8):
-            for k in "yuv":
+            for k, planes in zip("yuv", jax_slots):
                 np.testing.assert_array_equal(
-                    np.asarray(jdec.slots[i][k]),
-                    tdec.slots[i][k].cpu().numpy(), err_msg=f"slot {i} {k}")
+                    planes[n, i], tdec.slots[i][k].cpu().numpy(),
+                    err_msg=f"slot {i} {k}")
     assert any(m == 1 for m, _ in modes) and any(i >= 0 for _, i in modes)
 
 

@@ -267,10 +267,6 @@ def test_presets_encode_with_filters(preset):
     # an IPPP GOP (hierarchical_levels 0): the hierarchical GOP is ported
     # at M10-M13, low-delay and IPPP structures are not
     ("intra_period_length", 15, "item 7"),
-    ("enable_restoration_filtering", 1, "item 7"),
-    ("film_grain_denoise_strength", 8, "item 7"),
-    ("enable_adaptive_quantization", 1, "item 7"),
-    ("superres_mode", 1, "item 7"),
     ("tile_columns", 1, "item 7")])
 def test_out_of_slice_still_raises(field, value, item):
     cfg = EncoderConfig(**CFG)

@@ -41,12 +41,12 @@ HOST_COPIES = (
     "utils/profiling.py", "api/config.py", "pipeline/presets.py",
     "pipeline/rate_control.py", "pipeline/rc_onepass.py",
     "native/ec_native.c", "ops/wedge.py", "ops/obmc.py",
-    "ops/interintra.py", "pipeline/gop.py")
+    "ops/interintra.py", "pipeline/gop.py", "pipeline/noise_model.py")
 DATA_FILES = (
     "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
     "av1_quant_tables", "av1_scan_tables", "md_rate_fit",
     "md_rate_fit_adapted", "av1_sgr_tables", "av1_gaussian_sequence",
-    "av1_interp_filters", "av1_warp_filters")
+    "av1_interp_filters", "av1_warp_filters", "av1_resize_filters")
 # the numpy half of codec/rate_est.py, copied by name
 RATE_EST_NAMES = (
     "MAX_LEVEL", "_sym_bits", "_R_GRID", "_R_WEIGHTS", "_avg_bits",
@@ -58,6 +58,15 @@ GOLDEN_NAMES = ("INTRA_SIZES", "legal_tx_types", "inv_txfm_input",
 # the numpy functions of pipeline/tpl.py and ops/satd.py, copied by name
 TPL_NAMES = ("BLK", "synthesize", "r0_of", "beta_qmap")
 SATD_NAMES = ("_h8",)
+# the host geometry and the Wiener solve of pipeline/lr_stage.py, the
+# plan and scale helpers of ops/resize.py and the AQ maps of
+# api/encoder.py, copied by name
+LR_NAMES = ("STRIPE", "OFFSET", "CTX_VERT", "BORDER", "save_boundaries",
+            "_stripe_chunks", "_unit_ranges", "_v_ranges", "_wiener_stats",
+            "_solve_wiener")
+RESIZE_NAMES = ("scaled_width", "upscale_step_x0", "_upscale_plan",
+                "_filters")
+AQ_NAMES = ("_variance_qmap", "_segment_qmap")
 
 _PKG_NAME = re.compile(r"\bsvt_av1_tpu\b")
 
@@ -100,7 +109,9 @@ def test_no_import_of_the_jax_package():
             "ops/me.py", "ops/convolve.py", "ops/mc.py", "ops/warp.py",
             "pipeline/me.py", "pipeline/gop_fast.py",
             "pipeline/inter_encoder.py", "ops/satd.py", "ops/tf.py",
-            "pipeline/tf_stage.py", "pipeline/tpl.py"} <= scanned
+            "pipeline/tf_stage.py", "pipeline/tpl.py", "ops/resize.py",
+            "ops/restoration.py", "pipeline/lr_stage.py",
+            "pipeline/noise_model.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
@@ -184,11 +195,19 @@ def _top_level_sources(path, names):
     ("svt_av1_tpu_torch/pipeline/tpl.py", "svt_av1_tpu/pipeline/tpl.py",
      TPL_NAMES),
     ("svt_av1_tpu_torch/ops/satd.py", "svt_av1_tpu/ops/satd.py",
-     SATD_NAMES)])
+     SATD_NAMES),
+    ("svt_av1_tpu_torch/pipeline/lr_stage.py",
+     "svt_av1_tpu/pipeline/lr_stage.py", LR_NAMES),
+    ("svt_av1_tpu_torch/ops/resize.py", "svt_av1_tpu/ops/resize.py",
+     RESIZE_NAMES),
+    ("svt_av1_tpu_torch/api/encoder.py", "svt_av1_tpu/api/encoder.py",
+     AQ_NAMES)])
 def test_copied_definitions_match_source(path, ref, names):
     """Definitions copied one by one (the numpy half of rate_est.py, the
     golden input generators, TPL's synthesizer and beta map, the SATD
-    butterfly matrix) equal their sources, import lines aside."""
+    butterfly matrix, the restoration geometry and Wiener solve, the
+    superres plan, the AQ maps) equal their sources, import lines
+    aside."""
     got = _top_level_sources(os.path.join(REPO, path), names)
     want = _top_level_sources(os.path.join(REPO, ref), names)
     assert set(got) == set(want) == set(names)
@@ -230,6 +249,10 @@ ENTRY_POINTS = {
     "convert": lambda: importlib.import_module(
         "svt_av1_tpu_torch.convert").quant_params_from_jax(
             quant.make_quant_params(140)),
+    "Encoder post filters": lambda: Encoder(EncoderConfig(
+        source_width=64, source_height=64, enable_restoration_filtering=1,
+        superres_mode=1, film_grain_denoise_strength=8,
+        enable_adaptive_quantization=2)),
     "Encoder GOP": lambda: Encoder(EncoderConfig(
         source_width=32, source_height=32, intra_period_length=4,
         hierarchical_levels=1, enable_tf=0)),

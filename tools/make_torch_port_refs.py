@@ -2,13 +2,14 @@
 """Remake tests/golden/torch_port_refs.npz, the JAX package's outputs that
 the port's slowest comparisons are held to (see tests/port_refs.py).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_refs.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_refs.py [TEST_ID ...]
 
 Runs those tests in this process with ``port_refs.recording`` set, so that
 each comparison computes the JAX package's outputs live (and still checks
 the port against them), then writes every recorded output with the
-fingerprint of its inputs.  Exits non-zero, writing nothing, if a test
-fails.
+fingerprint of its inputs.  Given test ids (each one of TESTS, or a file
+or test name that selects some of them), runs only those and keeps the
+file's other entries.  Exits non-zero, writing nothing, if a test fails.
 """
 import os
 import sys
@@ -29,6 +30,7 @@ TESTS = (
     "tests/test_torch_gop.py::test_p2_matches_jax",
     "tests/test_torch_gop.py::test_gop_parity_with_jax",
     "tests/test_torch_gop.py::test_send_pictures_eos_shows_every_frame",
+    "tests/test_torch_gop.py::test_jax_decoder_decodes_port_stream",
     "tests/test_torch_lookahead.py::test_temporal_filter_tie_rule",
     "tests/test_torch_lookahead.py::test_mctf_filter_frame_tie_rule",
     "tests/test_torch_lookahead.py::test_tpl_group_stats_exact",
@@ -44,24 +46,41 @@ TESTS = (
     "tests/test_torch_varpart.py::test_intra_stream_matches_jax",
     "tests/test_torch_gop_m4.py::test_m2_gop_matches_jax",
     "tests/test_torch_gop_m4.py::test_m4_gop_levels3_golden_dpb",
+    "tests/test_torch_gop_m6.py::test_jax_decoder_decodes_port_stream",
+    "tests/test_torch_restoration.py",
+    "tests/test_torch_post_filters.py",
 )
 
 
-def main():
+def main(argv):
     os.chdir(REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import port_refs
+    unknown = [t for t in argv if not any(t.startswith(k) or k.startswith(t)
+                                          for k in TESTS)]
+    if unknown:
+        print(f"make_torch_port_refs: not among TESTS: {unknown}",
+              file=sys.stderr)
+        return 2
     port_refs.recording = {}
     rc = pytest.main(["-q", "-p", "no:cacheprovider", "-p", "no:randomly",
-                      *TESTS])
+                      *(argv or TESTS)])
     if rc != 0:
         print("make_torch_port_refs: a test failed; nothing written",
               file=sys.stderr)
         return 1
+    if argv:
+        # keep the entries of the tests that did not run
+        kept = {k.rsplit("/", 1)[0] for k in port_refs._stored()}
+        for key in kept - set(port_refs.recording):
+            z = port_refs._stored()
+            port_refs.recording[key] = (
+                str(z[f"{key}/inputs"]),
+                tuple(z[f"{key}/{i}"] for i in range(int(z[f"{key}/n"]))))
     port_refs.save()
     print(f"wrote {len(port_refs.recording)} references to {port_refs.PATH}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
