@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --this-slice   # phases 1-4, 35, 36 and 25 only
+
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 32, 33 and 34 (this slice),
-then 28, 31, 30 and 29, then 27 and 26 (the two slices before it) run
-right after phase 4, in a fresh process; the rest in order:
+failure raises and exits non-zero.  Phases 35 and 36 (this slice), then
+32, 33 and 34, then 28, 31, 30 and 29, then 27 and 26 (the slices before
+it) run right after phase 4; the rest in order:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
@@ -37,7 +39,8 @@ right after phase 4, in a fresh process; the rest in order:
      warm and once timed; the kernel's launch count over the timed run
      must be > 0; every packet is decoded by the port's decoder on the
      card and must equal Packet.recon exactly;
-  6. the same encode and decode check at 1280x720, 1 frame;
+  6. the same encode and decode check at 1280x720, 1 frame (no warm run:
+     phase 35 ran the program at 720p);
   7. the first 4 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
      |dbytes| <= 1%;
@@ -45,8 +48,8 @@ right after phase 4, in a fresh process; the rest in order:
      prediction (exact) and the 16x16 ADST_ADST/ADST_DCT/DCT_ADST forward
      transforms (tie rule) on the card against the port's CPU run;
   9. preset M6 (tx-type search, angle deltas, CfL, palette) through
-     Encoder(cfg).send_picture / flush on the default device: CIF, 2
-     frames of the bench clip and 1 screen-content frame, one warm frame
+     Encoder(cfg).send_picture / flush on the default device: CIF, 1
+     frame of the bench clip and 1 screen-content frame, one warm frame
      then timed; every packet decoded on the card and equal to
      Packet.recon; seconds per frame, bytes, Y-PSNR, the counts of blocks
      with a non-DCT tx type, a non-zero angle delta, CfL and palette
@@ -118,8 +121,8 @@ right after phase 4, in a fresh process; the rest in order:
      tail) exact; the temporal filter on 99 32x32 blocks (F = 3) and
      mctf_filter_frame (the key's 2 neighbours, the base's 3) under the
      pixel tie rule below, flips counted;
- 23. the lookahead slice's main path at a cut depth: the CIF x9 GOP (key
-     and one mini-GoP) of
+ 23. the lookahead slice's main path at a cut depth: the CIF x5 GOP (key
+     and a 4-frame mini-GoP at flush) of
      phase 18's structure with the reference's default tools, MCTF and
      TPL on (delta-q key frames), M10, DLF + CDEF, with recon_enabled off
      as bench.py runs it (phases 18-22 ran every program at CIF, so no
@@ -140,7 +143,7 @@ right after phase 4, in a fresh process; the rest in order:
      (checked and timed the same way); the sizes are recorded by the
      wrapper (fused_txq.batches) from the end of phase 4 on;
  26. the main path of the M5-M9 slice, bench.py's primary config at a cut
-     depth: the CIF x5 GOP (key + a 4-frame mini-GoP at flush; bench.py
+     depth: the CIF x3 GOP (key + a 2-frame mini-GoP at flush; bench.py
      runs x17) at M6 with MCTF + TPL, DLF + CDEF, hierarchical levels 3,
      keyint 15, qp 35, run after phase 27 (which ran the M6 programs at
      small sizes), timed with recon_enabled off: fps, host
@@ -149,7 +152,7 @@ right after phase 4, in a fresh process; the rest in order:
      kind (8x8 split
      leaves, non-DCT inter tx, OBMC, inter-intra, compound, warp) and the
      inter frames with use_ref_frame_mvs; K1's launches must equal the
-     waves of the 4 inter frames, all at B = 88 (M6 key frames search
+     waves of the 2 inter frames, all at B = 88 (M6 key frames search
      four tx types and do not take it); every shown frame decoded on the
      card equal to the encoder's recon (kept on the card during the run);
  27. the M5-M9 clips of the CPU tests on the CPU against the card's, as in
@@ -171,14 +174,14 @@ right after phase 4, in a fresh process; the rest in order:
      and D45 / D67 (each must be > 0 over the two, and cdef_bits > 0 on
      one); then send_pictures x4 (K1 at B = 660); every packet decoded on
      the card equal to Packet.recon;
- 30. the main path of the M0-M4 slice: the CIF x9 GOP (key + one 3-level
-     mini-GoP) at M4 with MCTF + TPL, DLF + CDEF, run after phase 31
+ 30. the main path of the M0-M4 slice: the CIF x7 GOP (key + a 6-frame
+     3-level mini-GoP at flush; at x5 no block takes GOLDEN) at M4 with MCTF + TPL, DLF + CDEF, run after phase 31
      (which ran the M4 programs at small sizes), timed with
      recon_enabled off as phase 26 is: fps, host
      dispatch per inter frame (beside phase 26's M6 frames in the same
      call), the stage seconds, the blocks of each tool (filter-intra on the
      key frames and GOLDEN references must be > 0); K1's launches must
-     equal 56 waves x the 8 inter frames, all at B = 110 (the key frames
+     equal 56 waves x the 6 inter frames, all at B = 110 (the key frames
      search four tx types); every shown frame decoded on the card equal
      to the encoder's recon;
  31. the M0-M4 clips of the CPU tests on the CPU against the card's: the
@@ -186,7 +189,7 @@ right after phase 4, in a fresh process; the rest in order:
      M2 (filter-intra, D203), M4 send_pictures on two 64x64 pictures, the
      64x64 x5 M2 GOP (hierarchical_levels 1: GOLDEN blocks; its key frame
      forced to two CDEF strength sets, cdef_bits > 0 required) and the
-     64x64 x17 M4 GOP (hierarchical_levels 3, two 8-frame mini-GoPs: the
+     64x64 x9 M4 GOP (hierarchical_levels 2, two 4-frame mini-GoPs: the
      second base's GOLDEN must be the key frame), each decoded on its
      device: >= 99% of blocks equal, identity printed;
  32. the loop restoration and superres ops on the card against the port's
@@ -195,10 +198,10 @@ right after phase 4, in a fresh process; the rest in order:
      upscale of CIF planes from half width and at denominators 9-16, and
      the LR search and apply of a CIF frame (tests/clips.lr_planes: the
      same unit choices and planes);
- 33. the main path of this slice: CIF x3 M10 through send_picture / flush
+ 33. the main path of the slice before: CIF x2 M10 through send_picture / flush
      with DLF + CDEF + loop restoration, then 720p x1 with LR, CIF x2
      with superres + LR, CIF x1 each with film grain (parameters
-     estimated from the source), AQ 1 and AQ 2, and a CIF x5 M10 GOP with
+     estimated from the source), AQ 1 and AQ 2, and a CIF x3 M10 GOP with
      LR on its key frame (phase 18's structure), each beside the same
      frames without the tool: seconds per frame, the restoration stage
      seconds, the LR unit types chosen per frame and plane, bytes and
@@ -211,12 +214,36 @@ right after phase 4, in a fresh process; the rest in order:
      superres + LR at 160x96, film grain at 64x64, AQ 1, AQ 2 at M8 and
      M10, a 64x64 x5 GOP with LR on its key frame) on the CPU and on the
      card: every stream identical, each decoded on its device equal to
-     its recon.
+     its recon;
+ 35. the main path of this slice: the CIF x9 GOP (phase 18's structure:
+     hierarchical_levels 3, keyint 15, DLF + CDEF) at M10 with the
+     default MCTF under one-pass CBR at 100,000 bits/s at 30 fps through
+     send_picture / flush, timed with recon_enabled off, beside the same
+     frames at qp 35: fps, host dispatch seconds per inter frame, the
+     achieved bits/s against the target, (poc, qindex, bytes) of every
+     coded frame, the stat report's host seconds per CIF frame, K1's
+     launches (56 waves x 9 frames at B = 66), every shown frame decoded
+     on the card equal to the encoder's recon; then the CIF x5 two-pass
+     GOP (pass 1 at qp 35, its stats blob from get_stream_info(0); pass 2
+     VBR at the target), all-intra CBR send_picture at 1,000,000 bits/s on
+     four smooth CIF frames and a noise frame (one recode, at pts 4: the
+     controller gives a first frame the worst qindex, so it cannot
+     overshoot), send_pictures with tile columns on CIF x4 (2 tiles, with
+     HDR metadata and stat reports) and 720p x1 (4 tiles), each beside one
+     tile (bytes, the entropy-coding seconds), decoded on the card by the
+     tiled decoder; one 720p frame's tiled packetization 20 times (the
+     same bytes each time);
+ 36. the small streams of tests/test_torch_rate_control.py and
+     tests/test_torch_api_surface.py on the CPU and on the card, each
+     decoded on its device equal to its recon: streams and qindex
+     sequences identical (a difference fails unless a tie counted in the
+     first frame that differs explains it).
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
 (pass B of every inter frame, and the M9-M13 key frames without delta-q)
-must have launched it; the M6 send_picture paths and the M0-M6 GOPs' key
+must have launched it (phase 35 checks each count against the waves of
+the frames it coded); the M6 send_picture paths and the M0-M6 GOPs' key
 frames do not run it (their luma step searches four tx types, as the
 reference's does without its kernel); the M4 varpart key frames run it
 on their 16x16 steps.
@@ -237,11 +264,13 @@ published rates); bytes bound it.  The inputs are timed as the encode
 leaves them: just written, so in the 50 MB L2.
 
 The script imports nothing of JAX or of the JAX package (the golden
-inputs come from svt_av1_tpu_torch/goldens.py) and checks at its end
+inputs come from svt_av1_tpu_torch/goldens.py; phase 36's cases and
+helpers from the two test modules, which import the JAX package only
+inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
 record (its top-level numbers are K1's on this slice's main path, phase
-33's CIF x3 send_picture with LR, at B = 66), the last line {"ok": true,
-"device": {...}}.
+35's CIF x9 CBR GOP, at B = 66), the last line {"ok": true, "device":
+{...}}.
 """
 import json
 import os
@@ -337,6 +366,10 @@ def k1_batches():
     # phase 34)
     driven += [k1_batch(1, (CIF[0] // 2, CIF[1]), 10),
                k1_batch(1, (80, 96), 10)]
+    # phase 36's send_pictures streams: 64x64 x8, 32x32 x33 (a chunk of
+    # 32 and one of 1), the tiled 128x64 / 352x64 x3
+    driven += [k1_batch(8, (64, 64), 10), k1_batch(32, (32, 32), 10),
+               k1_batch(1, (32, 32), 10), k1_batch(3, (128, 64), 10)]
     return list(dict.fromkeys(driven))
 
 
@@ -654,10 +687,11 @@ def decode_check(pkts, device, headers=None):
     return decisions
 
 
-def phase_encode(tag, frames, w, h, card, preset=10, **filters):
+def phase_encode(tag, frames, w, h, card, preset=10, warm=True, **filters):
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
-    encode(frames, w, h, None, preset, **filters)    # warm
+    if warm:
+        encode(frames, w, h, None, preset, **filters)
     torch.cuda.synchronize()
     fused_txq.launches = 0
     t0 = time.perf_counter()
@@ -1103,15 +1137,34 @@ def gop_decode_check(pkts, device, shown_limit=None):
     return coded, shown
 
 
+def counted(run):
+    """run() with K1's count and batch record set aside: (its result, K1
+    launches, the sorted batches, the host stage seconds, wall seconds)."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    profiling.reset_stages()
+    fused_txq.launches = 0
+    seen, fused_txq.batches = fused_txq.batches, set()
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        batches = sorted(fused_txq.batches)
+        fused_txq.batches = seen | fused_txq.batches
+    return out, fused_txq.launches, batches, profiling.stage_stats(), dt
+
+
 def timed_gop(frames, w, h, preset, **cfg):
     """A GOP encode with recon_enabled off (what bench.py times), the
     recon of every coded inter frame kept on the card meanwhile (no
     copy): (packets, {poc: device recon}, seconds, K1 launches, the batch
     sizes K1 had, the host stage seconds)."""
-    import torch
     from svt_av1_tpu_torch.api.encoder import Encoder
-    from svt_av1_tpu_torch.ops import fused_txq
-    from svt_av1_tpu_torch.utils import profiling
+    from svt_av1_tpu_torch.codec import obu
     recon = {}
     orig = Encoder._collect_inter_fast
 
@@ -1119,27 +1172,16 @@ def timed_gop(frames, w, h, preset, **cfg):
         recon[rec[1].poc] = rec[2].recon
         return orig(self, rec)
 
-    torch.cuda.synchronize()
     Encoder._collect_inter_fast = keep
-    profiling.reset_stages()
-    fused_txq.launches = 0
-    seen, fused_txq.batches = fused_txq.batches, set()
     try:
-        t0 = time.perf_counter()
-        pkts = encode_gop(frames, w, h, None, preset, recon_enabled=False,
-                          **cfg)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        pkts, launches, batches, stages, dt = counted(lambda: encode_gop(
+            frames, w, h, None, preset, recon_enabled=False, **cfg))
     finally:
         Encoder._collect_inter_fast = orig
-        batches = sorted(fused_txq.batches)
-        fused_txq.batches = seen | fused_txq.batches
-    from svt_av1_tpu_torch.codec import obu
     if any(p.recon is not None for p in pkts
            if p.frame_type == obu.INTER_FRAME):
         _fail("recon_enabled=False still copied inter-frame recon")
-    return pkts, recon, dt, fused_txq.launches, batches, \
-        profiling.stage_stats()
+    return pkts, recon, dt, launches, batches, stages
 
 
 def decode_against(tag, pkts, recon, frames):
@@ -1997,8 +2039,8 @@ def phase_m4_key_frames(card):
 
 
 def phase_m4_gop(card, frames):
-    """The M0-M4 slice's main path: the CIF x9 GOP (key + one 3-level
-    mini-GoP) at M4 with MCTF + TPL, DLF + CDEF through send_picture /
+    """The M0-M4 slice's main path: the CIF x7 GOP (key + a 3-level
+    mini-GoP of 6 at flush) at M4 with MCTF + TPL, DLF + CDEF through send_picture /
     flush on the default device (phase 31 ran the M4 programs at small
     sizes just before): the timed run with recon_enabled off
     (timed_gop), K1's count set to 0 before and
@@ -2054,7 +2096,7 @@ def phase_m4_cpu_vs_cuda():
     64x64 x5 GOP at M2 (hierarchical_levels 1: GOLDEN; its key frame's
     per-SB CDEF pick forced to two strength sets, as the CPU test forces
     it, so that the key frame codes cdef_bits 1 and a cdef_idx per SB)
-    and the 64x64 x17 GOP at M4 (hierarchical_levels 3, two 8-frame
+    and the 64x64 x9 GOP at M4 (hierarchical_levels 2, two 4-frame
     mini-GoPs: the second base's GOLDEN is the key frame, which keep_poc
     held through the first mini-GoP)."""
     import clips
@@ -2108,15 +2150,15 @@ def phase_m4_cpu_vs_cuda():
     if not bits or bits[0] <= 0:
         _fail("phase 31: the card's M2 GOP key frame has no per-SB CDEF")
     _, cg = gop_cpu_vs_cuda("m4 seam out and back", clips.seam_clip(
-        17, back=True), tag="31", preset=4, hierarchical_levels=3,
+        9, back=True), tag="31", preset=4, hierarchical_levels=2,
         intra_period_length=32)
     gold = {fp.order_hint: fp.ref_hints[mv_pred.GOLDEN_FRAME - 1]
             for fp, _ in cg if fp.frame_type != 0}
     n_gold = m4_counts([d for _, d in cg])["golden"]
-    log(f"phase 31: the card's M4 levels-3 GOP: GOLDEN order hint per "
+    log(f"phase 31: the card's M4 levels-2 GOP: GOLDEN order hint per "
         f"inter frame {gold}, {n_gold} GOLDEN blocks, "
         f"use_ref_frame_mvs {[fp.use_ref_frame_mvs for fp, _ in cg]}")
-    if gold.get(16) != 0 or gold.get(8) != 0 or n_gold <= 0:
+    if gold.get(8) != 0 or gold.get(4) != 0 or n_gold <= 0:
         _fail("phase 31: the card's second base does not code from the "
               "key frame in GOLDEN")
 
@@ -2242,26 +2284,14 @@ def _tool_run(tag, what, frames, cfg, card, base=None, gop=False):
     K1's launches and batches; every shown frame decoded on the card
     equal to Packet.recon.  Returns (packets, K1 launches)."""
     import torch
-    from svt_av1_tpu_torch.ops import fused_txq
-    from svt_av1_tpu_torch.utils import profiling
     h, w = frames[0][0].shape
     units, undo = _lr_spy()
-    torch.cuda.synchronize()
-    profiling.reset_stages()
-    fused_txq.launches = 0
-    seen, fused_txq.batches = fused_txq.batches, set()
     try:
-        t0 = time.perf_counter()
-        pkts = (encode_gop(frames, w, h, None, 10, **cfg) if gop else
-                encode_key(frames, w, h, None, 10, **cfg))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        pkts, launches, batches, stages, dt = counted(
+            lambda: encode_gop(frames, w, h, None, 10, **cfg) if gop else
+            encode_key(frames, w, h, None, 10, **cfg))
     finally:
         undo()
-        batches = sorted(fused_txq.batches)
-        fused_txq.batches = seen | fused_txq.batches
-    launches = fused_txq.launches
-    stages = profiling.stage_stats()
     t1 = time.perf_counter()
     if gop:
         coded, _ = gop_decode_check(pkts, None)
@@ -2339,11 +2369,12 @@ def restoration_profile():
 
 
 def phase_post_filters(card, cif):
-    """This slice's main path and its variants on the default device at
-    M10 (DLF + CDEF on): CIF x3 send_picture with loop restoration (the
-    main path), 720p x1 with LR, CIF x2 superres + LR, CIF x1 each with
-    film grain (parameters estimated from the source), AQ 1 (delta-q) and
-    AQ 2 (segments), a CIF x5 GOP (hierarchical_levels 3, keyint 15, MCTF
+    """The post-filter slice's main path and its variants on the default
+    device at M10 (DLF + CDEF on): CIF x2 send_picture with loop
+    restoration (that slice's main path), 720p x1 with LR, CIF x2 superres
+    + LR, CIF x1 each with film grain (parameters estimated from the
+    source), AQ 1 (delta-q) and AQ 2 (segments), a CIF x3 GOP
+    (hierarchical_levels 3, keyint 15, MCTF
     and TPL off) with LR on its key frame; each beside the same frames
     without the tool; then the restoration stage of a CIF frame under
     torch.profiler.  K1 must run 56 waves a CIF frame at B = 66 on the
@@ -2355,19 +2386,21 @@ def phase_post_filters(card, cif):
     hd = synth_frames(1, *HD)
     by_path = {}
     # the main path; the run without LR first warms the M10 program
-    base = encode_key(cif[:3], w, h, None, 10, **FILTERS)
+    key = cif[:2]
+    base = encode_key(key, w, h, None, 10, **FILTERS)
     # all-intra CQP: the first frame's packet is that frame coded alone
     plain = base[:1]
     pkts, n, units, batches, dt = _tool_run(
-        "33", "send_picture DLF + CDEF + LR (the main path)", cif[:3], LR,
-        card, base=base)
+        "33", "send_picture DLF + CDEF + LR (that slice's main path)", key,
+        LR, card, base=base)
     waves = waves_per_frame(w, h)
-    if n != 3 * waves or batches != [k1_batch(1, CIF, 10)]:
+    if n != len(key) * waves or batches != [k1_batch(1, CIF, 10)]:
         _fail(f"phase 33: fused_txq {n} launches at {batches} on the main "
-              f"path, {3 * waves} at B = {k1_batch(1, CIF, 10)} predicted")
+              f"path, {len(key) * waves} at B = {k1_batch(1, CIF, 10)} "
+              "predicted")
     if not any(k != "none" for f in units for p in f.values() for k in p):
         _fail("phase 33: LR chose RESTORE_NONE everywhere on the main path")
-    by_path["M10 send_picture DLF+CDEF+LR CIF x3"] = n
+    by_path["M10 send_picture DLF+CDEF+LR CIF x2"] = n
     main = n
     base = encode_key(hd, *HD, None, 10, **FILTERS)
     by_path["M10 send_picture DLF+CDEF+LR 720p x1"] = _tool_run(
@@ -2388,15 +2421,15 @@ def phase_post_filters(card, cif):
         if (n == 0) != what.startswith("AQ"):
             _fail(f"phase 33: {what}: K1 launched {n} times")
         by_path[f"M10 {what} CIF x1"] = n
-    gop_frames = cif[:5]
+    gop_frames = cif[:3]
     base = encode_gop(gop_frames, w, h, None, 10)
     _, n, _, batches, _ = _tool_run(
         "33", "GOP (levels 3, keyint 15) DLF + CDEF + LR on the key frame",
         gop_frames, dict(enable_restoration_filtering=1), card, base=base,
         gop=True)
-    if n != 5 * waves or batches != [k1_batch(1, CIF, 10)]:
+    if n != len(gop_frames) * waves or batches != [k1_batch(1, CIF, 10)]:
         _fail(f"phase 33: the GOP's K1 {n} launches at {batches}")
-    by_path["M10 GOP LR CIF x5"] = n
+    by_path["M10 GOP LR CIF x3"] = n
     prof, hot, busy = restoration_profile()
     log(f"phase 33: the restoration stage of one CIF M10 key frame (search "
         f"over the preset's 4 self-guided sets + Wiener, then apply): "
@@ -2467,6 +2500,291 @@ def phase_post_cpu_vs_cuda():
         _fail("phase 34: the GOP's key frame codes no LR units")
 
 
+# -- this slice: rate control and the rest of the API surface ---------------
+
+# the main path's config: the GOP of phase 18 (levels 3, keyint 15, DLF +
+# CDEF) with the default MCTF, one-pass CBR at 100,000 bits/s at 30 fps
+CBR_TARGET = 100_000
+RC_GOP = dict(GOP, enable_tf=1)
+HDR = dict(content_light="1000,400",
+           mastering_display="G(0.2649,0.6900)B(0.1500,0.0600)"
+                             "R(0.6800,0.3200)WP(0.3127,0.3290)"
+                             "L(1000.0,0.0001)")
+
+
+def frame_line(coded, pkts):
+    """(poc, qindex, bytes) of every coded frame of a stream, in decode
+    order."""
+    from svt_av1_tpu_torch.codec import obu
+    sized = [p for p in pkts
+             if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(p.data)]]
+    return [(p.pts, fp.base_q_idx, len(p.data))
+            for (fp, _), p in zip(coded, sized)]
+
+
+def phase_rate_control(card, cif):
+    """This slice's main path and its variants on the default device:
+    the CIF x9 M10 GOP under one-pass CBR (timed with recon_enabled off,
+    beside the same frames at qp 35), the CIF x5 two-pass GOP, all-intra
+    CBR send_picture with a recode, send_pictures with tile columns
+    (HDR metadata and stat reports ride on the CIF batch)."""
+    import clips
+    import torch
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.utils import metrics
+    w, h = CIF
+    waves = waves_per_frame(w, h)
+    b66 = k1_batch(1, CIF, 10)
+    by_path = {}
+    frames = cif[:9]
+    fps = 30.0
+    runs = {}
+    for what, cfg in (("CBR", dict(rate_control_mode=2,
+                                   target_bit_rate=CBR_TARGET)),
+                      ("qp 35", {})):
+        pkts, recon, dt, n, batches, stages = timed_gop(
+            frames, w, h, 10, **dict(RC_GOP, **cfg))
+        coded, mpsnr, dec_s = decode_against("35", pkts, recon, frames)
+        if n != waves * len(coded) or batches != [b66]:
+            _fail(f"phase 35: {what} GOP: fused_txq {n} launches at "
+                  f"{batches}, {waves * len(coded)} at B = {b66} predicted")
+        bits = sum(len(p.data) for p in pkts) * 8
+        n_inter = sum(fp.frame_type == obu.INTER_FRAME for fp, _ in coded)
+        per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / n_inter
+        runs[what] = (pkts, recon)
+        t0 = time.perf_counter()
+        for p in pkts:
+            if p.displayed:
+                rec = p.recon or {k: v.cpu().numpy()
+                                  for k, v in recon[p.pts].items()}
+                metrics.frame_stats(dict(zip("yuv", frames[p.pts])), rec)
+        stat_s = (time.perf_counter() - t0) / len(frames)
+        rate = bits * fps / len(frames)
+        log(f"phase 35: GOP {w}x{h} x{len(frames)} M10 {what} "
+            f"hierarchical_levels 3 keyint 15 MCTF DLF + CDEF through "
+            f"send_picture / flush on the default device, recon_enabled "
+            f"off: {len(frames) / dt:.3f} fps ({dt:.3f} s), "
+            f"{per_inter:.3f} s host dispatch per inter frame, "
+            f"{bits // 8} bytes = {rate:.0f} bits/s at 30 fps"
+            + (f" against the {CBR_TARGET} target ({rate / CBR_TARGET:.3f}"
+               "x)" if what == "CBR" else "")
+            + f", mean Y-PSNR {mpsnr:.4f} dB; (poc, qindex, bytes) in "
+            f"decode order {frame_line(coded, pkts)}; fused_txq launches "
+            f"{n} = {waves} waves x {len(coded)} coded frames at B = "
+            f"{batches} ({card}); stat report (PSNR + SSIM, numpy on the "
+            f"host) {stat_s:.3f} s per CIF frame; decoded on the card equal "
+            f"to the encoder's recon ({dec_s:.1f} s)")
+        by_path[f"M10 GOP {what} CIF x9"] = n
+    main = by_path["M10 GOP CBR CIF x9"]
+    if (qindices_of(runs["CBR"][0]) == qindices_of(runs["qp 35"][0])):
+        _fail("phase 35: CBR coded every frame at the CRF qindex")
+
+    # two passes: CRF pass 1 (the stats blob), VBR pass 2 at the target
+    five = cif[:5]
+    p1, n1, _, _, dt1 = counted(lambda: encode_gop_enc(
+        five, w, h, **dict(RC_GOP, pass_=1)))
+    enc1, pk1 = p1
+    blob = enc1.get_stream_info(0)
+    if blob != enc1.get_stats() or not blob:
+        _fail("phase 35: get_stream_info(0) is not the pass-1 stats blob")
+    (enc2, pk2), n2, _, _, dt2 = counted(lambda: encode_gop_enc(
+        five, w, h, **dict(RC_GOP, pass_=2, rate_control_mode=1,
+                           target_bit_rate=CBR_TARGET,
+                           rc_stats_buffer=blob)))
+    coded2, _ = gop_decode_check(pk2, None)
+    gop_decode_check(pk1, None)
+    bits2 = sum(len(p.data) for p in pk2) * 8
+    log(f"phase 35: two-pass GOP {w}x{h} x{len(five)} M10: pass 1 (qp 35) "
+        f"{dt1:.3f} s, stats blob {len(blob)} bytes; pass 2 (VBR "
+        f"{CBR_TARGET} bits/s) {dt2:.3f} s, {bits2 * fps / len(five):.0f} "
+        f"bits/s; (poc, qindex, bytes) {frame_line(coded2, pk2)}; fused_txq "
+        f"{n1} + {n2} launches; both passes decoded on the card equal to "
+        f"recon")
+    by_path["M10 two-pass GOP CIF x5 (pass 1 + pass 2)"] = n1 + n2
+
+    # all-intra CBR send_picture: four smooth frames, then a noise frame
+    # that overshoots 8x its budget and is coded again (a first frame
+    # cannot: the controller gives it the worst qindex)
+    rng = np.random.default_rng(35)
+    noise = (rng.integers(0, 256, (h, w)).astype(np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8),
+             rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8))
+    key = clips.natural_clip(4, w, h, seed=2) + [noise]
+    with test_module("test_torch_rate_control").recode_spy() as seen:
+        pk, n, batches, stages, dt = counted(lambda: encode_key(
+            key, w, h, None, 10, rate_control_mode=2,
+            target_bit_rate=1_000_000))
+    recodes = [pts for pts, _ in seen]
+    hdr = []
+    decode_check(pk, None, hdr)
+    if recodes != [4] or n != waves * (len(key) + len(recodes)) or batches != [b66]:
+        _fail(f"phase 35: all-intra CBR recodes at {recodes} (4 expected), "
+              f"fused_txq {n} launches at {batches}")
+    log(f"phase 35: all-intra CBR 1,000,000 bits/s send_picture {w}x{h} "
+        f"x{len(key)} (4 clip frames, then a noise frame): "
+        f"{dt / len(key):.3f} s per frame; recodes at pts {recodes}; "
+        f"(pts, qindex, bytes) "
+        f"{[(p.pts, f.base_q_idx, len(p.data)) for p, f in zip(pk, hdr)]}; "
+        f"fused_txq {n} launches = {waves} waves x {len(key) + 1} frame "
+        f"programs at B = {batches}; decoded on the card equal to recon")
+    by_path["M10 CBR send_picture CIF x5 (1 recode)"] = n
+
+    # tile columns on the all-intra batch, beside one tile; the CIF batch
+    # carries the HDR metadata and stat reports
+    for tag, fr, size, cols, extra in (
+            ("CIF x4", cif[:4], CIF, 1, dict(HDR, stat_report=1)),
+            ("720p x1", synth_frames(1, *HD), HD, 2, {})):
+        tw, th = size
+        encode(fr, tw, th, None, **extra)                  # warm
+        res = {c: counted(lambda: encode(fr, tw, th, None, tile_columns=c,
+                                         **extra)) for c in (0, cols)}
+        pk, n, batches, stages, dt = res[cols]
+        pk0, _, _, stages0, dt0 = res[0]
+        hdr = []
+        decode_check(pk, None, hdr)
+        decode_check(pk0, None)
+        if {fp.log2_tile_cols for fp in hdr} != {cols} or n == 0:
+            _fail(f"phase 35: {tag} tile_columns={cols}: log2_tile_cols "
+                  f"{[fp.log2_tile_cols for fp in hdr]}, K1 {n} launches")
+        meta = sorted(obu.parse_metadata(pl)[0]
+                      for t, pl in obu.parse_obus(pk[0].data)
+                      if t == obu.OBU_METADATA)
+        if extra and (len(meta) != 2 or any(p.stats is None for p in pk)):
+            _fail("phase 35: the HDR metadata or stat reports are missing")
+        ec, ec0 = stages["host_ec"][0], stages0["host_ec"][0]
+        log(f"phase 35: send_pictures {tw}x{th} {tag} M10 tile_columns="
+            f"{cols} ({1 << cols} tiles) {dt:.3f} s against one tile "
+            f"{dt0:.3f} s; entropy coding (host_ec) {ec:.3f} s against "
+            f"{ec0:.3f} s; bytes {sum(len(p.data) for p in pk)} against "
+            f"{sum(len(p.data) for p in pk0)}; fused_txq {n} launches at "
+            f"B = {batches}"
+            + (f"; metadata types {meta}, stats of frame 0 "
+               f"{pk[0].stats}, stat_report {stages['stat_report'][0]:.3f} "
+               "s" if extra else "")
+            + "; decoded on the card equal to recon")
+        by_path[f"M10 send_pictures tiles {tag}"] = n
+    # the tiled coder's threads: one 720p frame packetized 20 times
+    enc = Encoder(EncoderConfig(source_width=HD[0], source_height=HD[1],
+                                tile_columns=2))
+    from svt_av1_tpu_torch.pipeline import intra_encoder
+    (bundle, recon), = intra_encoder.encode_intra_frames_finish(
+        intra_encoder.encode_intra_frames_launch(
+            synth_frames(1, *HD), 140, modes=enc._feat.intra_modes,
+            tile_starts=enc._tile_starts))
+    datas = set()
+    for _ in range(20):
+        enc._seq_hdr_sent = True
+        datas.add(enc._packetize_arrays(bundle, recon, 140, 0).data)
+    log(f"phase 35: one 720p frame's four-tile packetization 20 times: "
+        f"{len(datas)} distinct stream(s)")
+    if len(datas) != 1:
+        _fail("phase 35: the tiled coder's bytes depend on its threads")
+    return main, by_path
+
+
+def test_module(name):
+    """A module of tests/ (its cases and helpers), imported without the
+    torch thread count it sets for the CPU tests."""
+    import importlib
+    import torch
+    threads = torch.get_num_threads()
+    try:
+        return importlib.import_module(name)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def qindices_of(pkts):
+    """base_q_idx of every coded frame of a stream."""
+    from svt_av1_tpu_torch.codec import obu
+    return test_module("test_torch_rate_control").qindices(
+        obu, [p.data for p in pkts])
+
+
+def encode_gop_enc(frames, w, h, device=None, **cfg):
+    """(the encoder, its packets) of a GOP through send_picture / flush."""
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    enc = Encoder(EncoderConfig(source_width=w, source_height=h,
+                                **dict(dict(qp=35), **cfg)), device=device)
+    for f in frames:
+        enc.send_picture(*f)
+    enc.flush()
+    return enc, list(iter(enc.get_packet, None))
+
+
+def phase_rate_control_cpu_vs_cuda():
+    """The small streams of tests/test_torch_rate_control.py and
+    tests/test_torch_api_surface.py on the card, each decoded on the card
+    equal to its recon, against the CPU's streams: those the tests store
+    (tests/golden/torch_port_refs.npz, where the CPU tests hold the
+    port's CPU stream byte-identical to the JAX package's), found by the
+    fingerprint of the card's own packets.  Streams and qindex sequences
+    must be identical.  A stream with no stored match is encoded on the
+    CPU, and the first frame that differs is printed with the ties
+    counted in it (its GM model or interp pick, blocks whose inter tx
+    type alone differs); a difference that no counted tie in the first
+    differing frame explains fails, and so does any qindex difference
+    before it."""
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.codec import obu
+    rc_tests = test_module("test_torch_rate_control")
+    api_tests = test_module("test_torch_api_surface")
+
+    def rc_encode(name, frames, dev):
+        return rc_tests.encode(Encoder, EncoderConfig, name, frames,
+                               device=dev)[1]
+
+    suites = (("rate_control", rc_tests.CASES, rc_encode, rc_tests.stored),
+              ("api_surface", api_tests.CASES, api_tests.encode,
+               api_tests.stored))
+    for suite, cases, enc, stored in suites:
+        for name in cases:
+            frames = cases[name][0]()
+            pg = enc(name, frames, None)
+            cg, _ = gop_decode_check(pg, None)
+            qg = qindices_of(pg)
+            try:
+                ref = stored(name, frames, [p.data for p in pg])
+            except AssertionError:
+                ref = None
+            if ref is not None and ref["data"] == [p.data for p in pg]:
+                log(f"phase 36: {suite} {name} on the card: "
+                    f"{sum(len(p.data) for p in pg)} bytes, qindex {qg}, "
+                    "the CPU's stream (stored): identical; decoded on the "
+                    "card equal to recon")
+                continue
+            pc = enc(name, frames, "cpu")
+            cc_, _ = gop_decode_check(pc, "cpu")
+            qc = qindices_of(pc)
+            if [p.data for p in pc] == [p.data for p in pg]:
+                log(f"phase 36: {suite} {name} cpu vs cuda (no stored "
+                    f"stream): {sum(len(p.data) for p in pg)} bytes, qindex "
+                    f"{qg}, identical; both decoders match recon")
+                continue
+            first = next((i for i, (a, b) in enumerate(zip(pc, pg))
+                          if a.data != b.data), min(len(pc), len(pg)))
+            fi = sum(obu.OBU_FRAME in [t for t, _ in obu.parse_obus(p.data)]
+                     for p in pc[:first])
+            ties = tx_flips = 0
+            if fi < min(len(cc_), len(cg)):
+                ties = int(_headers_key(cc_[fi:fi + 1])
+                           != _headers_key(cg[fi:fi + 1]))
+                a, b = cc_[fi][1], cg[fi][1]
+                tx_flips = sum(bool(b.get(k) is not None
+                                    and blk.tx_type != b[k].tx_type
+                                    and _same_inter_block(blk, b[k],
+                                                          tx=False))
+                               for k, blk in a.items())
+            log(f"phase 36: {suite} {name} cpu vs cuda: bytes "
+                f"{sum(len(p.data) for p in pc)} vs "
+                f"{sum(len(p.data) for p in pg)}, qindex {qc} vs {qg}; "
+                f"first differing packet {first}, counted ties in it: GM / "
+                f"interp {ties}, inter tx type alone {tx_flips}")
+            if qc[:fi + 1] != qg[:fi + 1] or not (ties or tx_flips):
+                _fail(f"phase 36: {name}: the card's stream differs from "
+                      "the CPU's where no counted tie explains it")
+
 def _fail(msg):
     raise AssertionError(msg)
 
@@ -2508,28 +2826,36 @@ def main():
     from svt_av1_tpu_torch.ops import fused_txq
     fused_txq.batches.clear()           # from here on: the paths' batches
 
-    # this slice first (in a fresh process, so that nothing the earlier
-    # paths left behind weighs on the main path's timing): the restoration
-    # ops, the main path and its variants, the small streams
+    # this slice first (so that nothing the earlier paths left behind
+    # weighs on the main path's timing): rate control and the API surface,
+    # then the small streams of the CPU tests
     cif17 = synth_frames(17, *CIF)
+    main_launches, by_path = phase_rate_control(card, cif17)
+    phase_rate_control_cpu_vs_cuda()
+    if "--this-slice" in sys.argv[1:]:
+        # a short call while the slice is built: phases 1-4, 35, 36, 25
+        return finish(card, krec, main_launches, by_path, smi)
+
+    # the slice of the previous PR: the restoration ops, its main path and
+    # variants, the small streams
     phase_restoration_ops()
-    main_launches, by_path = phase_post_filters(card, cif17)
+    by_path.update(phase_post_filters(card, cif17)[1])
     phase_post_cpu_vs_cuda()
 
     # the M0-M4 slice: its ops and small clips, then the M4 GOP,
     # then the M4 key frames
     phase_quality_ops()
     phase_m4_cpu_vs_cuda()
-    by_path["M4 GOP MCTF+TPL CIF x9"] = phase_m4_gop(card, cif17[:9])
+    by_path["M4 GOP MCTF+TPL CIF x7"] = phase_m4_gop(card, cif17[:7])
     kl = phase_m4_key_frames(card)
     by_path["M4 send_picture DLF+CDEF CIF clip"] = kl["clip"]
     by_path["M4 send_picture DLF+CDEF CIF composite"] = kl["composite"]
     by_path["M4 send_pictures CIF x4"] = kl["batch"]
 
     # the slice of the previous PR: the GOP at M5-M9, its tools on small
-    # clips, then bench.py's primary config at a cut depth (x5)
+    # clips, then bench.py's primary config at a cut depth (x3)
     phase_m6_tools_cpu_vs_cuda()
-    by_path["M6 GOP MCTF+TPL CIF x5"] = phase_m6_gop(card, cif17[:5])
+    by_path["M6 GOP MCTF+TPL CIF x3"] = phase_m6_gop(card, cif17[:3])
 
     import clips
     # the paths of the earlier slices at a cut depth (4 CIF / 1 720p
@@ -2539,14 +2865,15 @@ def main():
     hd = synth_frames(HD_FRAMES, *HD)
     pkts_cif, dec_cif, by_path["M10 send_pictures CIF x4"] = phase_encode(
         "5", cif, *CIF, card)
+    # phase 35's tiled run warmed the 720p M10 program
     by_path["M10 send_pictures 720p x1"] = phase_encode(
-        "6", hd, *HD, card)[2]
+        "6", hd, *HD, card, warm=False)[2]
     phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
     del pkts_cif, dec_cif
 
     phase_tools()
-    key_cif = cif[:2] + [clips.screen_frame(*CIF, seed=1)]
-    pk_m6, dec_m6, by_path["M6 send_picture CIF x3"] = phase_key_frames(
+    key_cif = cif[:1] + [clips.screen_frame(*CIF, seed=1)]
+    pk_m6, dec_m6, by_path["M6 send_picture CIF x2"] = phase_key_frames(
         "9", key_cif, *CIF, card)
     key_hd = [hd[0]]          # palette: the CIF screen frame of phase 9
     pk_m6_hd, _, by_path["M6 send_picture 720p x1"] = phase_key_frames(
@@ -2555,21 +2882,19 @@ def main():
         "11a", cif, *CIF, card, preset=6)[2]
     by_path["M6 send_pictures 720p x1"] = phase_encode(
         "11b", hd, *HD, card, preset=6)[2]
-    phase_cpu_vs_cuda_m6([key_cif[0], key_cif[2]], [pk_m6[0], pk_m6[2]],
-                         [dec_m6[0], dec_m6[2]])
+    phase_cpu_vs_cuda_m6(key_cif, pk_m6, dec_m6)
 
     phase_filter_ops()
     pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
         "14a", key_cif, *CIF, card, pk_m6)
-    by_path["M6 send_picture DLF+CDEF CIF x3"] = n
+    by_path["M6 send_picture DLF+CDEF CIF x2"] = n
     n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
     by_path["M6 send_picture DLF+CDEF 720p x1"] = n
     by_path["M10 send_pictures DLF CIF x4"] = phase_encode(
         "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
     by_path["M10 send_pictures DLF+CDEF CIF x4"] = phase_encode(
         "15b", cif, *CIF, card, **FILTERS)[2]
-    phase_cpu_vs_cuda_filters([key_cif[0], key_cif[2]], [pk_f[0], pk_f[2]],
-                              [dec_f[0], dec_f[2]], [hdr_f[0], hdr_f[2]])
+    phase_cpu_vs_cuda_filters(key_cif, pk_f, dec_f, hdr_f)
 
     # the GOP slice of the earlier PR (MCTF and TPL off) at a cut depth:
     # CIF x5 and 720p x3, no warm run
@@ -2586,11 +2911,16 @@ def main():
 
     # this slice: the lookahead (MCTF, TPL, delta-q key frames)
     phase_lookahead_ops()
-    _, launches = phase_lookahead_gop(card, cif17[:9])
-    by_path["M10 GOP MCTF+TPL CIF x9"] = launches
+    _, launches = phase_lookahead_gop(card, cif17[:5])
+    by_path["M10 GOP MCTF+TPL CIF x5"] = launches
     phase_lookahead_cpu_vs_cuda()
+    return finish(card, krec, main_launches, by_path, smi)
 
 
+def finish(card, krec, main_launches, by_path, smi):
+    """Phase 25, the import check and the two last lines."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
     # every batch size that a path gave K1 must have been checked against
     # the plain version; a size that phase 3 did not foresee is checked now
     unchecked = sorted(fused_txq.batches
@@ -2610,9 +2940,8 @@ def main():
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the CIF x3 M10 send_picture with LR, the time at its
-    # batch (one frame x 11 wave slots x 6 modes); every size is under
-    # by_batch
+    # launches of the CIF x9 M10 CBR GOP, the time at its batch (one frame
+    # x 11 wave slots x 6 modes); every size is under by_batch
     b0 = next(r for r in krec["by_batch"]
               if r["b"] == k1_batch(1, CIF, 10))
     print(smi, flush=True)

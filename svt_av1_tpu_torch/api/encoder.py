@@ -7,30 +7,49 @@ port's slice.
   enc.send_pictures(frames) ~ batched svt_av1_enc_send_picture
   enc.get_packet()          ~ svt_av1_enc_get_packet
   enc.stream_header()       ~ svt_av1_enc_stream_header
+  enc.reconfigure(...)      ~ svt_av1_enc_set_parameter between pictures
+  enc.get_stream_info(0)    ~ svt_av1_enc_get_stream_info (pass-1 stats)
 
-Slice: 8-bit 4:2:0, CQP/CRF, one tile, DLF, CDEF and loop restoration
-on or off, at every preset (M0-M13); either
-all-intra (intra_period_length -2 or 0), or the hierarchical
-(random-access) GOP of the reference's fast path with
+Slice: 8-bit 4:2:0 at every preset (M0-M13), DLF, CDEF and loop
+restoration on or off; either all-intra (intra_period_length -2 or 0), or
+the hierarchical (random-access) GOP of the reference's fast path with
 hierarchical_levels 1-3 and intra_period_length > 0, with or without the
 lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
 frames search the inter tx type and the OBMC and inter-intra motion
-modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third (GOLDEN-role)
-reference (gop_fast.run_inter_frame).  All-intra streams also take
-superres (superres_mode > 0: half width where the coded width is a
-multiple of 32), film grain (parameters estimated from the first frame's
-source, pipeline/noise_model.py) and adaptive quantization
+modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third
+(GOLDEN-role) reference (gop_fast.run_inter_frame).  All-intra streams
+also take superres (superres_mode > 0: half width where the coded width
+is a multiple of 32), film grain (parameters estimated from the first
+frame's source, pipeline/noise_model.py) and adaptive quantization
 (enable_adaptive_quantization 1: a per-64x64 variance qindex map coded
 as delta-q; 2: the same deltas as SEG_LVL_ALT_Q segments) on
-``send_picture`` key frames at presets without varpart (M5-M13).  As in
-the reference, a GOP codes without superres and without AQ, and its key
-frames take loop restoration (the DPB slot holds the restored planes;
-inter frames signal RESTORE_NONE); a GOP with film grain runs the
-reference's stage path, which is not ported.  Any other configuration,
-or a
+``send_picture`` key frames at presets without varpart (M5-M13).
+
+Rate control on every route: CQP/CRF, capped CRF (max_bit_rate), one-pass
+VBR / CBR (rate_control_mode 1 / 2: OnePassRC picks each frame's qindex,
+each GOP frame's at dispatch; the coded bits go back after entropy
+coding), and two passes (pass_ 1 collects the stats blob that get_stats
+returns; pass_ 2 codes each frame at the qindex its plan gives).  Under
+one-pass VBR / CBR an all-intra ``send_picture`` frame over 8x its
+budget is coded once more at a higher qindex (the recode loop).
+``send_pictures`` picks one qindex per 32-frame chunk.  HDR metadata
+(content_light, mastering_display) rides the first temporal unit;
+stat_report puts per-frame PSNR / SSIM on ``Packet.stats``
+(utils/metrics.py).  Tile columns (tile_columns, log2) are coded on the
+array route of ``send_pictures`` only: tile-clamped availability in the
+wave loop and one native coder call per tile; every other route codes one
+tile, and tile_rows is not used, as in the reference.
+
+As in the reference, a GOP codes without superres and without AQ, and its
+key frames take loop restoration (the DPB slot holds the restored planes;
+inter frames signal RESTORE_NONE).  What still raises NotImplementedError,
+naming the ROADMAP.md item that brings it (nothing falls back to the JAX
+package): a GOP with film grain or with more than one tile column (the
+reference codes both on its stage path, which is not ported), 10-bit
+input, chroma formats other than 4:2:0, low-delay and IPPP GOPs,
+hierarchical_levels 4-5, intra_period_length -1, AVIF and S-frames, and a
 feature override (SVT_TPU_FEAT) that turns on a tool no preset uses
-(hp_mv, rdoq), raises NotImplementedError naming the ROADMAP.md item that
-brings it; nothing falls back to the JAX package.
+(hp_mv, rdoq).
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
@@ -78,14 +97,16 @@ port's copy of the host coder (codec/syntax.py, native/ec_native.c).
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Deque, Dict, Optional
 
 import numpy as np
 import torch
 
 from svt_av1_tpu_torch import device as device_mod
-from svt_av1_tpu_torch.api.config import EncoderConfig
+from svt_av1_tpu_torch.api.config import ConfigError, EncoderConfig
 from svt_av1_tpu_torch.codec import fast_ec, obu
 from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import mv_pred
@@ -99,10 +120,11 @@ from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
 from svt_av1_tpu_torch.pipeline import varpart as varpart_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
+from svt_av1_tpu_torch.pipeline import rate_control as rc_mod
 from svt_av1_tpu_torch.pipeline.rate_control import (RateControlState,
                                                      crf_qindex_calc,
                                                      qp_to_qindex)
-from svt_av1_tpu_torch.utils import profiling
+from svt_av1_tpu_torch.utils import metrics, profiling
 from svt_av1_tpu_torch.utils.profiling import stage
 
 __all__ = ["Encoder", "EncoderConfig", "Packet", "qp_to_qindex"]
@@ -116,6 +138,7 @@ class Packet:
     pts: int               # display order of the content (poc)
     frame_type: int
     recon: Optional[Dict[str, np.ndarray]] = None
+    stats: Optional[dict] = None   # stat_report: per-frame PSNR / SSIM
     displayed: bool = True  # False for hidden (show_frame=0) frames
 
 
@@ -170,6 +193,12 @@ def _segment_qmap(y: np.ndarray, base_q: int):
     return (params, seg_map), qmap
 
 
+def _tile_layout(width: int, tile_columns: int):
+    """The uniform tile-column layout (superblock units) for the
+    configured log2 tile_columns, clamped to 0-4 as in the reference."""
+    return obu.tile_cols_layout(width, max(0, min(int(tile_columns), 4)))
+
+
 def _unsupported(cfg: EncoderConfig):
     """(reason, ROADMAP.md item) of the first setting outside the slice,
     or None."""
@@ -185,18 +214,14 @@ def _unsupported(cfg: EncoderConfig):
                   or cfg.intra_period_length < 0),
          "GOPs with hierarchical_levels 4-5 or intra_period_length -1",
          "queue A item 7"),
-        (cfg.rate_control_mode != 0 or cfg.max_bit_rate > 0
-         or cfg.pass_ != 0, "VBR/CBR, capped CRF and multi-pass",
-         "queue A item 7"),
-        (cfg.tile_columns > 0 or cfg.tile_rows > 0, "tiles",
-         "queue A item 7"),
+        (gop and len(_tile_layout(_align16(cfg.source_width),
+                                  cfg.tile_columns)) > 1,
+         "tile columns in a GOP (the reference codes it on its stage path, "
+         "which is not ported)", "queue A item 7"),
         (gop and cfg.film_grain_denoise_strength > 0,
          "film grain in a GOP (the reference codes it on its stage path, "
          "which is not ported)", "queue A item 7"),
         (bool(cfg.avif) or cfg.sframe_dist > 0, "AVIF and S-frames",
-         "queue A item 7"),
-        (bool(cfg.mastering_display or cfg.content_light
-              or cfg.stat_report), "HDR metadata and stat reports",
          "queue A item 7"),
     )
     for bad, what, item in checks:
@@ -284,6 +309,10 @@ class Encoder:
         self._packets: Deque[Packet] = deque()
         self._la: Deque = deque()      # submitted, not yet coded
         self._pts = 0
+        # two-pass: pass 1 collects (bits, qindex, is_key) per frame, pass
+        # 2 codes each frame at the qindex its plan gives
+        self._fp_stats = [] if config.pass_ == 1 else None
+        self._q_plan = None
         self._eos_sent = False
         self._seq_hdr_sent = False
         # last (filtered) recon on the device and end-of-frame CDF state
@@ -295,6 +324,21 @@ class Encoder:
         fps = (config.frame_rate_numerator
                / max(config.frame_rate_denominator, 1))
         self._rc = RateControlState.create(config, fps)
+        if config.pass_ == 2 and config.rc_stats_buffer:
+            self._q_plan = rc_mod.plan_second_pass(
+                rc_mod.unpack_first_pass_stats(config.rc_stats_buffer),
+                config.target_bit_rate, fps,
+                min_q=max(4, config.min_qp_allowed * 4),
+                max_q=min(255, config.max_qp_allowed * 4))
+            self._rc.two_pass_q = self._q_plan
+        # tile columns (log2): the array route of send_pictures codes
+        # them (block-column starts from the spec's uniform spacing); every
+        # other route codes one tile, and tile_rows is not used, as in the
+        # reference
+        layout = _tile_layout(self.sr_w, config.tile_columns)
+        self._tile_starts = tuple(s * 4 for s, _ in layout)
+        self._log2_tile_cols = (max(0, min(int(config.tile_columns), 4))
+                                if len(layout) > 1 else 0)
         self._arf_q = None   # base-layer ratio qindex (crf_qindex_calc)
         # callers that do not read Packet.recon (a benchmark) turn this
         # off: shown GOP frames then skip the host copy of their recon
@@ -364,10 +408,28 @@ class Encoder:
             self._packets.append(self._encode_frame(y, u, v, self._pts))
             self._pts += 1
 
-    def _encode_frame(self, y, u, v, pts) -> Packet:
-        """One key frame: the superres downscale, AQ's qindex map, mode
-        decision, then the filters and object packetization."""
-        qindex = self._rc.frame_qindex()
+    def _encode_frame(self, y, u, v, pts, qindex_override=None,
+                      recode: bool = False) -> Packet:
+        """One key frame: its qindex (the pass-2 plan, one-pass VBR/CBR's
+        pick, else the configured one), the superres downscale, AQ's
+        qindex map, mode decision, then the filters and object
+        packetization.  Under one-pass VBR/CBR a frame over 8x its budget
+        is coded once more at a higher qindex, from the same reference
+        state (the recode loop); rate control, the first-pass stats and
+        the stat report see the frame once, at the qindex it keeps."""
+        if qindex_override is not None:
+            qindex = int(qindex_override)
+        elif self._q_plan is not None and pts < len(self._q_plan):
+            qindex = int(self._q_plan[pts])
+        elif self._rc.onepass is not None:
+            qindex = self._rc.pick_q(True, 0, pts)
+        else:
+            qindex = self._rc.frame_qindex()
+        # what a recode rewinds: the reference state, and whether the
+        # sequence header went out (the first attempt's packet is dropped)
+        snap = (self._ref, self._ref_cdfs, self._ref_nmv,
+                self._seq_hdr_sent)
+        planes = (y, u, v)
         y, u, v = self._pad(y, u, v)
         src_full = dict(y=y, u=u, v=v)
         if self.sr_denom != 8:
@@ -391,7 +453,22 @@ class Encoder:
                               src_full=src_full,
                               delta_q=qmap is not None and seg_info is None,
                               seg=seg_info)
-        self._rc.feedback(len(pkt.data) * 8, qindex, True)
+        bits = len(pkt.data) * 8
+        if (not recode and self._rc.mode in (1, 2) and self._q_plan is None
+                and bits > 8.0 * self._rc.target_bits_per_frame
+                and qindex < self._rc.max_qindex):
+            (self._ref, self._ref_cdfs, self._ref_nmv,
+             self._seq_hdr_sent) = snap
+            return self._encode_frame(
+                *planes, pts, recode=True,
+                qindex_override=min(self._rc.max_qindex,
+                                    max(qindex + 16, int(qindex * 1.25))))
+        if self.cfg.stat_report:
+            with stage("stat_report"):
+                pkt.stats = metrics.frame_stats(src_full, pkt.recon)
+        self._rc.feedback(bits, qindex, True)
+        if self._fp_stats is not None:
+            self._fp_stats.append((bits, qindex, 1.0))
         return pkt
 
     def _mode_decision(self, y, u, v, qindex, qmap=None, varpart=False):
@@ -608,7 +685,7 @@ class Encoder:
             if eos:
                 self.flush()
             return
-        qindex = self._rc.frame_qindex()
+        qindex = self._chunk_qindex()
         # filter-intra blocks take the object coder (the per-block route),
         # with the preset's pseudo-modes in the batch, as in the reference
         arrays_ok = (qindex > 0 and not self.sp.enable_restoration
@@ -618,39 +695,61 @@ class Encoder:
                   for (y, u, v) in frames]
         pending = None
         for i in range(0, len(padded), CHUNK):
+            # one qindex a chunk, picked before the previous chunk's bits
+            # come back (as the reference does)
+            q = self._chunk_qindex() if i else qindex
             chunk = padded[i:i + CHUNK]
             with stage("device_dispatch"):
                 launched = intra_encoder.encode_intra_frames_launch(
-                    chunk, qindex,
+                    chunk, q,
                     modes=(self._feat.intra_modes if arrays_ok
                            else self._md_modes),
                     exact_rates=(self._feat.exact_rates
                                  and self._feat.exact_rates_intra),
+                    tile_starts=self._tile_starts if arrays_ok else (0,),
                     device=self.device)
             if pending is not None:
-                self._emit(pending, qindex, arrays_ok)
-            pending = launched
+                self._emit(*pending, arrays_ok)
+            pending = (launched, q, chunk)
         if pending is not None:
-            self._emit(pending, qindex, arrays_ok)
+            self._emit(*pending, arrays_ok)
         if eos:
             self._eos_sent = True
 
-    def _emit(self, pending, qindex: int, arrays_ok: bool):
+    def _chunk_qindex(self) -> int:
+        """A send_pictures chunk's qindex: one-pass VBR/CBR's key-frame
+        pick at the next pts, else the configured one (capped CRF's
+        offset included)."""
+        if self._rc.onepass is not None:
+            return self._rc.pick_q(True, 0, self._pts)
+        return self._rc.frame_qindex()
+
+    def _emit(self, pending, qindex: int, srcs, arrays_ok: bool):
         with stage("device_wait_transfer"):
             results = intra_encoder.encode_intra_frames_finish(
                 pending, as_arrays=arrays_ok)
-        for decisions, recon in results:
+        for (decisions, recon), src in zip(results, srcs):
             if arrays_ok:
                 pkt = self._packetize_arrays(decisions, recon, qindex,
                                              self._pts)
             else:
                 pkt = self._packetize(decisions, recon, qindex, self._pts)
+            if self.cfg.stat_report:
+                with stage("stat_report"):
+                    pkt.stats = metrics.frame_stats(
+                        dict(y=src[0], u=src[1], v=src[2]), pkt.recon)
             self._packets.append(pkt)
-            self._rc.feedback(len(pkt.data) * 8, qindex, True)
+            bits = len(pkt.data) * 8
+            self._rc.feedback(bits, qindex, True)
+            if self._fp_stats is not None:
+                self._fp_stats.append((bits, qindex, 1.0))
             self._pts += 1
 
     def _packetize_arrays(self, bundle, recon, qindex, pts) -> Packet:
-        """Array-native key-frame packetization (one tile, C coder)."""
+        """Array-native key-frame packetization through the C coder: one
+        tile, or with tile columns one coder call per tile on a thread
+        pool (each with its own coder state; the frame-end CDFs are tile
+        0's, context_update_tile_id = 0)."""
         ym, um, qy, qu, qv, gh, gw = bundle
         fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
                              base_q_idx=qindex,
@@ -663,11 +762,37 @@ class Encoder:
             with stage("dlf"):
                 recon = intra_encoder.apply_loop_filter(recon, fp)
         self._ref = recon
-        tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
-                           update_cdfs=True, frame_is_intra=True)
-        with stage("host_ec"):
-            tile_data = fast_ec.encode_intra_tile_arrays(tenc, ym, um, qy,
-                                                         qu, qv)
+        starts = self._tile_starts
+        if len(starts) > 1:
+            fp.log2_tile_cols = self._log2_tile_cols
+            bounds = list(zip(starts, starts[1:] + (gw,)))
+
+            def cut(a, c0, c1):
+                return np.ascontiguousarray(
+                    a.reshape(gh, gw, -1)[:, c0:c1]).reshape(
+                        gh * (c1 - c0), -1)
+
+            def enc_tile(b):
+                c0, c1 = b
+                te = TileEncoder((c1 - c0) * 16, self.sp.height, qindex,
+                                 update_cdfs=True, frame_is_intra=True)
+                data = fast_ec.encode_intra_tile_arrays(
+                    te, cut(ym, c0, c1).reshape(-1),
+                    cut(um, c0, c1).reshape(-1), cut(qy, c0, c1),
+                    cut(qu, c0, c1), cut(qv, c0, c1))
+                return data, te
+
+            with stage("host_ec"):
+                with ThreadPoolExecutor(len(bounds)) as pool:
+                    results = list(pool.map(enc_tile, bounds))
+            tile_data = [d for d, _ in results]
+            tenc = results[0][1]
+        else:
+            tenc = TileEncoder(self.sp.width, self.sp.height, qindex,
+                               update_cdfs=True, frame_is_intra=True)
+            with stage("host_ec"):
+                tile_data = fast_ec.encode_intra_tile_arrays(tenc, ym, um,
+                                                             qy, qu, qv)
         self._ref_cdfs = tenc.cdfs
         self._ref_nmv = tenc.nmv
         return self._assemble(fp, tile_data, recon, pts)
@@ -693,13 +818,42 @@ class Encoder:
         """The temporal unit (with the sequence header on the first) and
         the recon (device tensors) cropped to the render size and copied
         to the host."""
-        tu = obu.temporal_delimiter()
-        if not self._seq_hdr_sent:
-            tu += obu.write_sequence_header(self.sp)
-            self._seq_hdr_sent = True
+        tu = obu.temporal_delimiter() + self._stream_start()
         tu += obu.write_frame_obu(self.sp, fp, tile_data)
         return Packet(data=tu, pts=pts, frame_type=fp.frame_type,
                       recon=self._host_recon(recon))
+
+    def _stream_start(self) -> bytes:
+        """The sequence header and the HDR metadata OBUs on the stream's
+        first temporal unit; nothing after it."""
+        if self._seq_hdr_sent:
+            return b""
+        out = obu.write_sequence_header(self.sp) + self._metadata_obus()
+        self._seq_hdr_sent = True
+        return out
+
+    def _metadata_obus(self) -> bytes:
+        """The content-light-level and mastering-display metadata OBUs of
+        the configuration's strings ("max_cll,max_fall";
+        "G(x,y)B(x,y)R(x,y)WP(x,y)L(max,min)"); a malformed string raises
+        ConfigError."""
+        out = b""
+        if self.cfg.content_light:
+            try:
+                cll, fall = (int(x) for x in
+                             self.cfg.content_light.split(","))
+                out += obu.write_metadata_hdr_cll(cll, fall)
+            except ValueError:
+                raise ConfigError("bad content-light string") from None
+        if self.cfg.mastering_display:
+            m = {k: (float(a), float(b)) for k, a, b in re.findall(
+                r"(G|B|R|WP|L)\(([\d.]+),([\d.]+)\)",
+                self.cfg.mastering_display)}
+            if set(m) != {"G", "B", "R", "WP", "L"}:
+                raise ConfigError("bad mastering-display string")
+            out += obu.write_metadata_hdr_mdcv(
+                (m["R"], m["G"], m["B"]), m["WP"], m["L"][0], m["L"][1])
+        return out
 
     def _host_recon(self, recon):
         """Device planes cropped to the render size, copied to the host
@@ -763,9 +917,14 @@ class Encoder:
             self._h_sched = p0 + n
 
     def _finish_packet(self, pkt: Packet, qindex: int, layer: int = 0):
+        """Queue a coded GOP frame; its bits go to rate control (every
+        coded frame takes the per-frame bandwidth credit; show-existing
+        packets are not routed through it) and the first-pass stats."""
         self._packets.append(pkt)
-        self._rc.feedback(len(pkt.data) * 8, qindex,
-                          pkt.frame_type == obu.KEY_FRAME, layer)
+        key = pkt.frame_type == obu.KEY_FRAME
+        self._rc.feedback(len(pkt.data) * 8, qindex, key, layer)
+        if self._fp_stats is not None:
+            self._fp_stats.append((len(pkt.data) * 8, qindex, float(key)))
 
     def _encode_key_job(self, poc: int):
         """A GOP key frame: MCTF against its next two frames, TPL over its
@@ -837,8 +996,13 @@ class Encoder:
         self._finish_packet(pkt, qindex)
 
     def _base_q_for(self, poc: int) -> int:
-        """The configured (CQP/CRF) qindex: the only branch of the
-        reference's per-frame base q that the slice reaches."""
+        """A GOP frame's base qindex: the pass-2 plan, else one-pass
+        VBR/CBR's pick (at layer 0), else the configured one (capped
+        CRF's offset included)."""
+        if self._q_plan is not None and poc < len(self._q_plan):
+            return int(self._q_plan[poc])
+        if self._rc.onepass is not None:
+            return self._rc.pick_q(self._is_key_poc(poc), 0, poc)
         return self._rc.frame_qindex()
 
     def _encode_minigop(self, p0: int, n: int):
@@ -894,7 +1058,12 @@ class Encoder:
         records = []
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
-                if tpl_r0 is not None:
+                if self._rc.onepass is not None and self._q_plan is None:
+                    # one-pass VBR/CBR: each frame's pick from the buffer
+                    # model at dispatch, before any frame of the mini-GoP
+                    # is entropy-coded
+                    q = self._rc.pick_q(False, ev.layer, ev.poc)
+                elif tpl_r0 is not None:
                     # the reference's CRF model (rc_process.c): the base
                     # scales its qstep by sqrt(r0), mid layers interpolate
                     # from the base's q toward cq, leaves code at cq
@@ -1001,11 +1170,12 @@ class Encoder:
             self._slot_hint[slot] = \
                 ev.poc & ((1 << self.sp.order_hint_bits) - 1)
         return ("code", ev, pend, qindex, last_slot, slot, tuple(idx),
-                ref_hints)
+                ref_hints, (y, u, v))
 
     def _collect_inter_fast(self, rec):
-        """The bundled host copy, entropy coding and the packet."""
-        _, ev, pend, qindex, last_slot, slot, idx, ref_hints = rec
+        """The bundled host copy, entropy coding and the packet (with the
+        stat report against the frame's padded source)."""
+        _, ev, pend, qindex, last_slot, slot, idx, ref_hints, src = rec
         with stage("device_md_inter"):
             decisions, recon_dev, header = gop_fast.collect_inter_frame(pend)
         pkt, tenc = self._packetize_fast(decisions, header, qindex, ev,
@@ -1013,15 +1183,20 @@ class Encoder:
         if ev.store:
             self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
         pkt.displayed = ev.shown
-        if ev.shown and self.recon_enabled:
+        if ev.shown and (self.recon_enabled or self.cfg.stat_report):
             pkt.recon = self._host_recon(recon_dev)
+            if self.cfg.stat_report:
+                with stage("stat_report"):
+                    pkt.stats = metrics.frame_stats(
+                        dict(y=src[0], u=src[1], v=src[2]), pkt.recon)
         self._finish_packet(pkt, qindex, ev.layer)
 
     def _emit_show_existing_fast(self, poc: int, slot: int, recon_dev):
         data = obu.temporal_delimiter() + obu.write_show_existing(slot)
         self._packets.append(Packet(
             data=data, pts=poc, frame_type=obu.INTER_FRAME,
-            recon=(self._host_recon(recon_dev) if self.recon_enabled
+            recon=(self._host_recon(recon_dev)
+                   if self.recon_enabled or self.cfg.stat_report
                    else None)))
 
     def _packetize_fast(self, decisions, header, qindex, ev, last_slot,
@@ -1095,10 +1270,7 @@ class Encoder:
                 self._slot_mvfield[slot] = mv_pred.save_motion_field(
                     decisions, tenc.mi_rows, tenc.mi_cols, side,
                     fp.ref_hints, fp.order_hint, is_intra=False)
-        tu = obu.temporal_delimiter()
-        if not self._seq_hdr_sent:
-            tu += obu.write_sequence_header(self.sp)
-            self._seq_hdr_sent = True
+        tu = obu.temporal_delimiter() + self._stream_start()
         tu += obu.write_frame_obu(self.sp, fp, tile_data)
         return Packet(data=tu, pts=ev.poc, frame_type=obu.INTER_FRAME), tenc
 
@@ -1145,6 +1317,42 @@ class Encoder:
             if int(abrupt.sum()) >= vote_th:
                 self._ahd_running = ahd.copy()
         self._prev_hist = (hist, means)
+
+    def reconfigure(self, target_bit_rate=None, qp=None):
+        """Change the rate target or the base quantizer between pictures
+        without resetting the encoder: one-pass VBR/CBR retargets its
+        buffer model and keeps the correction factors it has learned."""
+        if target_bit_rate is not None:
+            self.cfg.target_bit_rate = int(target_bit_rate)
+            fps = (self.cfg.frame_rate_numerator
+                   / max(self.cfg.frame_rate_denominator, 1))
+            self._rc.target_bits_per_frame = \
+                max(target_bit_rate, 1) / max(fps, 1e-6)
+            if self._rc.onepass is not None:
+                op = self._rc.onepass
+                bw = max(float(target_bit_rate), 1.0)
+                op.avg_frame_bandwidth = bw / max(fps, 1e-6)
+                op.optimal_buffer_level = 0.600 * bw
+                op.maximum_buffer_size = 1.000 * bw
+                op.buffer_level = min(op.buffer_level,
+                                      op.maximum_buffer_size)
+        if qp is not None:
+            if not (0 <= qp <= 63):
+                raise ConfigError(f"bad qp {qp}")
+            self.cfg.qp = int(qp)
+            self._rc.qindex = qp_to_qindex(qp)
+
+    def get_stats(self) -> bytes:
+        """Pass 1's stats blob, (bits, qindex, is_key) per coded frame;
+        pass 2 takes it as EncoderConfig.rc_stats_buffer."""
+        assert self._fp_stats is not None, "not a pass-1 encoder"
+        return rc_mod.pack_first_pass_stats(self._fp_stats)
+
+    def get_stream_info(self, info_id: int = 0):
+        """Stream info by id: 0 is the first-pass stats blob."""
+        if info_id == 0:
+            return self.get_stats()
+        raise ValueError(f"unknown stream info id {info_id}")
 
     def send_eos(self):
         self._eos_sent = True

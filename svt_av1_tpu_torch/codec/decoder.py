@@ -1,5 +1,5 @@
-"""Verification decoder for the port's streams: key and inter frames, one
-tile, the port of svt_av1_tpu/codec/decoder.py for that subset.
+"""Verification decoder for the port's streams: key and inter frames, the
+port of svt_av1_tpu/codec/decoder.py.
 
 OBU parsing, the frame header and the tile syntax are the port's copies of
 the reference's numpy code (``obu.parse_obus``, ``obu.read_frame_header``,
@@ -20,12 +20,21 @@ tile codes (pipeline/lr_stage.apply_lr, boundary rows from the upscaled
 deblocked planes).  Key frames with segmentation (SEG_LVL_ALT_Q) take
 each block's segment qindex.
 Each slot also keeps its frame's saved motion field, which TMVP
-(use_ref_frame_mvs) projects.  Shown planes are copied out once,
-filtered.  1/8-pel MVs raise, naming their ROADMAP.md item.
+(use_ref_frame_mvs) projects.  A key frame of several tile columns (what
+the all-intra array route codes with tile_columns) decodes tile by tile,
+each with its own contexts and CDFs, and reconstructs with
+tile-clamped intra availability; the frame-end CDFs are tile 0's.
+Metadata OBUs (HDR content light level, mastering display) are parsed
+into ``metadata`` by type.  Shown planes are copied out once, filtered.
+What still raises, naming its ROADMAP.md item: 1/8-pel MVs, 10-bit
+streams, superres on inter frames, tile rows, and tile columns on inter
+frames (the reference's encoder codes neither).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
+
+import dataclasses
 
 import numpy as np
 
@@ -57,6 +66,8 @@ class Decoder:
         # per-slot saved motion fields (spec 7.19; projected by 7.9 when
         # a frame sets use_ref_frame_mvs)
         self.slot_mvfield: list = [None] * 8
+        # parsed metadata OBUs by metadata_type (HDR CLL / MDCV)
+        self.metadata: dict = {}
         # most recent frame's parsed leaf decisions and frame header (test
         # introspection)
         self.last_decisions: dict = None
@@ -88,10 +99,11 @@ class Decoder:
                         f"show_existing_frame of empty slot {idx}")
                 frames.append({k: v.cpu().numpy()
                                for k, v in self.slots[idx].items()})
+            elif obu_type == obu.OBU_METADATA:
+                mtype, fields = obu.parse_metadata(payload)
+                self.metadata[mtype] = fields
             else:
-                raise NotImplementedError(
-                    f"OBU type {obu_type}: metadata OBUs come with HDR "
-                    "metadata (ROADMAP.md queue A item 7)")
+                raise NotImplementedError(f"OBU type {obu_type}")
         return frames
 
     def _decode_frame(self, payload: bytes):
@@ -104,10 +116,10 @@ class Decoder:
         coded_w = fp.coded_width(self.sp.width)
         n_tiles = len(obu.tile_cols_layout(coded_w, fp.log2_tile_cols)) \
             * (1 << fp.log2_tile_rows)
-        if n_tiles > 1:
-            raise NotImplementedError("tiles: ROADMAP.md queue A item 7")
         if self.sp.bit_depth != 8:
             raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
+        if n_tiles > 1:
+            return self._decode_frame_tiled(fp, tile_data, coded_w, n_tiles)
         if not is_intra and fp.superres_denom != 8:
             raise NotImplementedError(
                 "superres on inter frames (scaled-reference motion "
@@ -237,6 +249,79 @@ class Decoder:
                 self.slot_nmv[i] = end_nmv
                 self.slot_hints[i] = fp.order_hint
                 self.slot_mvfield[i] = field
+        self.last_decisions = decisions
+        self.last_frame_header = fp
+        if not fp.show_frame:
+            return None, False
+        out = {k: v.cpu().numpy() for k, v in stored.items()}
+        out["decisions"] = decisions
+        return out, True
+
+    def _decode_frame_tiled(self, fp, tile_data: bytes, coded_w: int,
+                            n_tiles: int):
+        """A key frame of several tile columns: split the tile group
+        (4-byte tile sizes), decode each tile with its own contexts and
+        CDFs, merge the decisions, reconstruct with tile-clamped intra
+        availability, then DLF and frame-uniform CDEF at the header's
+        values.  The frame refreshes every slot with tile 0's frame-end
+        CDFs (context_update_tile_id = 0)."""
+        if fp.frame_type != obu.KEY_FRAME or fp.log2_tile_rows:
+            raise NotImplementedError(
+                "tile rows, and tile columns on frames other than key "
+                "frames: ROADMAP.md queue A item 7")
+        if fp.cdef_bits or fp.superres_denom != 8 or any(
+                t != lr_mod.RESTORE_NONE for t in fp.lr_types):
+            raise NotImplementedError(
+                "per-SB CDEF, superres or loop restoration with tile "
+                "columns: ROADMAP.md queue A item 7")
+        if tile_data[0] & 0x80:
+            raise ValueError("tile_start_and_end_present_flag in an "
+                             "OBU_FRAME")
+        pos = 1
+        tiles = []
+        for _ in range(n_tiles - 1):
+            sz = int.from_bytes(tile_data[pos:pos + 4], "little") + 1
+            pos += 4
+            tiles.append(tile_data[pos:pos + sz])
+            pos += sz
+        tiles.append(tile_data[pos:])
+        layout = obu.tile_cols_layout(coded_w, fp.log2_tile_cols)
+        decisions = {}
+        t0 = None
+        for (s, e), data in zip(layout, tiles):
+            tdec = TileDecoder(min(e * 64, coded_w) - s * 64, self.sp.height,
+                               fp.base_q_idx,
+                               reduced_tx_set=fp.reduced_tx_set,
+                               update_cdfs=not fp.disable_cdf_update,
+                               frame_is_intra=True)
+            tdec.enable_filter_intra = self.sp.enable_filter_intra
+            tdec.allow_palette = bool(fp.allow_screen_content_tools)
+            tdec.bit_depth = self.sp.bit_depth
+            if t0 is None:
+                t0 = tdec
+            for (r4, c4), d in tdec.decode(data).items():
+                decisions[(r4, c4 + s * 16)] = dataclasses.replace(
+                    d, c4=c4 + s * 16)
+        end_cdfs = end_nmv = None
+        if not fp.disable_frame_end_update_cdf:
+            end_cdfs, end_nmv = t0.cdfs, t0.nmv
+        recon = reconstruct_from_decisions(
+            decisions, coded_w, self.sp.height, fp.base_q_idx,
+            device=self.device,
+            tile_starts=tuple(s * 4 for s, _ in layout))
+        recon = apply_loop_filter(recon, fp)
+        if self.sp.enable_cdef:
+            recon = cdef_stage.cdef_apply(
+                recon, _skip_map(decisions, self.sp.height // 16,
+                                 coded_w // 16),
+                fp.cdef_strengths, fp.cdef_damping, bd=self.sp.bit_depth)
+        stored = {k: recon[k] for k in ("y", "u", "v")}
+        for i in range(8):
+            self.slots[i] = stored
+            self.slot_cdfs[i] = end_cdfs
+            self.slot_nmv[i] = end_nmv
+            self.slot_hints[i] = fp.order_hint
+            self.slot_mvfield[i] = None
         self.last_decisions = decisions
         self.last_frame_header = fp
         if not fp.show_frame:

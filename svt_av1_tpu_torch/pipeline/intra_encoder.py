@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -160,13 +160,18 @@ def _morton(r: int, c: int) -> int:
     return (((r & 2) << 2) | ((c & 2) << 1) | ((r & 1) << 1) | (c & 1))
 
 
-def tr_bl_avail(by: int, bx: int, gh: int, gw: int, m: int = 4):
+def tr_bl_avail(by: int, bx: int, gh: int, gw: int, m: int = 4,
+                col_lo: int = 0, col_hi: int = 0):
     """(top-right, bottom-left) reconstructed-sample availability for a
-    square block in the 64x64-SB z-order of a one-tile frame (a neighbor
-    is available iff its coding order precedes ours).  (by, bx) index the
-    block's own-size grid; ``m`` is blocks per SB side."""
+    square block in the 64x64-SB z-order (a neighbor is available iff its
+    coding order precedes ours).  (by, bx) index the block's own-size
+    grid; ``m`` is blocks per SB side.  col_lo/col_hi bound the block's
+    tile column in the same grid units (a tile clamps prediction as the
+    frame edge does; 0/0 = the whole frame)."""
+    if col_hi <= 0:
+        col_hi = gw
     r, c = by & (m - 1), bx & (m - 1)
-    if by == 0 or bx + 1 >= gw:
+    if by == 0 or bx + 1 >= col_hi:
         tr = False
     elif r == 0:
         tr = True
@@ -174,7 +179,7 @@ def tr_bl_avail(by: int, bx: int, gh: int, gw: int, m: int = 4):
         tr = False
     else:
         tr = _morton(r - 1, c + 1) < _morton(r, c)
-    if bx == 0 or by + 1 >= gh:
+    if bx <= col_lo or by + 1 >= gh:
         bl = False
     elif c == 0:
         bl = r < m - 1
@@ -207,9 +212,24 @@ def _natural_maxb(gh: int, gw: int) -> int:
     return max(1, min(gh, (gw + 1) // 2))
 
 
-def _schedule_arrays(gh, gw, maxb):
-    """Wave schedule + per-slot availability, each (n_waves, maxb), for a
-    frame of one tile."""
+def _tile_bounds_of(bx: int, tile_starts) -> Tuple[int, int]:
+    """(col_lo, col_hi) of the tile containing block column bx;
+    tile_starts: ascending block-column starts, the first 0."""
+    lo, hi = 0, 10 ** 9
+    for s in tile_starts:
+        if s <= bx:
+            lo = s
+        else:
+            hi = s
+            break
+    return lo, hi
+
+
+def _schedule_arrays(gh, gw, maxb, tile_starts=(0,)):
+    """Wave schedule + per-slot availability, each (n_waves, maxb).
+    tile_starts: the block-column starts of the tile columns (a tile
+    clamps left, top-right and bottom-left availability as the frame
+    edge does)."""
     waves = _wave_schedule(gh, gw, maxb)
     nw = len(waves)
     bys = np.zeros((nw, maxb), np.int32)
@@ -218,14 +238,17 @@ def _schedule_arrays(gh, gw, maxb):
     trs = np.zeros((nw, maxb), bool)
     bls = np.zeros((nw, maxb), bool)
     hls = np.zeros((nw, maxb), bool)
+    starts = set(tile_starts)
     for i, wave in enumerate(waves):
         nb = len(wave)
         bys[i, :nb] = [b[0] for b in wave]
         bxs[i, :nb] = [b[1] for b in wave]
         valid[i, :nb] = True
         for j, (by, bx) in enumerate(wave):
-            trs[i, j], bls[i, j] = tr_bl_avail(by, bx, gh, gw)
-            hls[i, j] = bx > 0
+            lo, hi = _tile_bounds_of(bx, tile_starts)
+            trs[i, j], bls[i, j] = tr_bl_avail(by, bx, gh, gw, col_lo=lo,
+                                               col_hi=min(hi, gw))
+            hls[i, j] = bx > 0 and bx not in starts
     return waves, bys, bxs, valid, trs, bls, hls
 
 
@@ -249,10 +272,13 @@ class WaveSlots(NamedTuple):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_schedule(gh: int, gw: int, nf: int, device):
-    """The static wave schedule for an F-frame batch, as WaveSlots."""
+def _device_schedule(gh: int, gw: int, nf: int, device, tile_starts=(0,)):
+    """The static wave schedule for an F-frame batch, as WaveSlots, with
+    the availability of the tile columns that start at ``tile_starts``
+    (block columns)."""
     maxb = _natural_maxb(gh, gw)
-    _, bys, bxs, valid, trs, bls, hls = _schedule_arrays(gh, gw, maxb)
+    _, bys, bxs, valid, trs, bls, hls = _schedule_arrays(gh, gw, maxb,
+                                                         tile_starts)
     t = lambda a, dt=torch.int64: torch.as_tensor(np.ascontiguousarray(a),
                                                   dtype=dt, device=device)
     fi = np.repeat(np.arange(nf), maxb)
@@ -701,7 +727,8 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
 
 
 def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
-                  angle_deltas=False, cfl=False, palette=None):
+                  angle_deltas=False, cfl=False, palette=None,
+                  tile_starts=(0,)):
     """Whole-frame MD for a batch of F frames: a Python loop over the
     waves, each running the luma and the chroma step on F x maxb slots.
 
@@ -722,7 +749,9 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     qu/qv (F, gh*gw, 64) int16 (levels of 16x16/8x8 transforms fit:
     |level| <= 32767 / dequant_min <= 16384), CfL alphas au/av (F, gh*gw)
     int8 and, with ``palette``, the (F, gh*gw) bool palette choice (such
-    blocks carry y mode DC_PRED and the palette's levels)."""
+    blocks carry y mode DC_PRED and the palette's levels).  tile_starts:
+    the block-column starts of the tile columns, which clamp the
+    neighbours' availability (the wave schedule is the same)."""
     nf, h, w = sy.shape
     gh, gw = h // BLK, w // BLK
     dev = sy.device
@@ -749,7 +778,7 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rates[:7]
     aq = qp.zbin.dim() == 2
     qp_w, lam_w = qp, lam
-    for ws in _device_schedule(gh, gw, nf, dev):
+    for ws in _device_schedule(gh, gw, nf, dev, tuple(tile_starts)):
         if aq:
             qp_w = quant.QuantParams(*(f[ws.bid] for f in qp))
             lam_w = lam[ws.bid]
@@ -817,13 +846,14 @@ def _check_slice(modes, bd, h, w):
 
 def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                                bd: int = 8, exact_rates: bool = False,
-                               device=None):
+                               tile_starts=(0,), device=None):
     """Enqueue the batched frame program (plain luma modes, with the
     filter-intra pseudo-modes at M0-M4, DCT_DCT) for
     frames = [(y, u, v), ...] (numpy, same dims, multiples of 16) on
     ``device`` (default: the current CUDA device).  On CUDA the work runs
     asynchronously; pair with encode_intra_frames_finish, so the host can
-    entropy-code the previous batch meanwhile."""
+    entropy-code the previous batch meanwhile.  tile_starts: the
+    block-column starts of the frames' tile columns."""
     h, w = frames[0][0].shape
     _check_slice(modes, bd, h, w)
     dev = device_mod.resolve(device)
@@ -834,7 +864,8 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                                .astype(np.uint8)).to(dev)
               for p in range(3)]
     rt = _rate_args(int(qindex), tuple(modes), bool(exact_rates), dev)
-    out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd)
+    out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
+                        tile_starts=tile_starts)
     return (out, h // BLK, w // BLK, len(frames))
 
 
@@ -1078,7 +1109,8 @@ II_TO_INTRA = (cc.DC_PRED, cc.V_PRED, cc.H_PRED, cc.SMOOTH_PRED)
 
 def reconstruct_from_decisions(decisions, width: int, height: int,
                                qindex: int, bd: int = 8, device=None,
-                               base=None, inter_intra=None):
+                               base=None, inter_intra=None,
+                               tile_starts=(0,)):
     """Decoder-side reconstruction from parsed BlockDecisions of a key
     frame: luma modes with angle deltas and tx types, filter-intra and
     palette blocks, chroma modes and CfL; a block whose decision carries
@@ -1107,11 +1139,17 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     predictions}) of the inter frame's inter-intra blocks, which
     ``decisions`` then holds too: each blends the intra prediction of its
     interintra_mode with its inter prediction under the smooth mask, and
-    inverts its residual at the signaled tx type."""
+    inverts its residual at the signaled tx type.
+
+    tile_starts: the tile columns' starts in 16x16 block columns; a tile
+    clamps left, top-right and bottom-left availability as the frame edge
+    does."""
     dev = device_mod.resolve(device)
+    tile_starts = tuple(tile_starts)
     if base is None and any(d.bsize != cc.BLOCK_16X16
                             for d in decisions.values()):
-        return _reconstruct_mixed(decisions, width, height, qindex, bd, dev)
+        return _reconstruct_mixed(decisions, width, height, qindex, bd, dev,
+                                  tile_starts)
     gh, gw = height // BLK, width // BLK
     nb = gh * gw
     ymode = [None] * nb        # (mode, delta), or "pal"
@@ -1188,7 +1226,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     if pal_pred is not None:
         pal_pred = torch.as_tensor(pal_pred, device=dev)
     coded = np.array([m is not None for m in ymode])
-    for ws in _device_schedule(gh, gw, 1, dev):
+    for ws in _device_schedule(gh, gw, 1, dev, tile_starts):
         rid = ws.rid.cpu().numpy()
         sel = ws.sel
         if base is not None:
@@ -1293,7 +1331,7 @@ def _sb_leaves(decisions, mi_rows: int, mi_cols: int, r4: int, c4: int,
 
 
 def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
-                       bd: int, dev):
+                       bd: int, dev, tile_starts=(0,)):
     """Reconstruction of a key frame with 16x16, 32x32 and 64x64 leaves
     (the reference's z-order walk, batched): 64x64 superblocks run in 2:1
     waves (every sample a superblock reads lies in an earlier wave), and
@@ -1305,7 +1343,8 @@ def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
     The reference's decoder counts whole grid cells only: it takes a
     64x64 leaf's top-right as unavailable where the frame's width is not
     a multiple of 64, while its encoder reads the zeros past the frame
-    there (ROADMAP.md queue C item 4 (c)).  Returns dict(y, u, v) uint8
+    there (ROADMAP.md queue C item 4 (c)).  tile_starts clamps the
+    availability to each leaf's tile column.  Returns dict(y, u, v) uint8
     planes on ``dev``."""
     mi_rows, mi_cols = height // 4, width // 4
     gh64, gw64 = (height + 63) // 64, (width + 63) // 64
@@ -1342,13 +1381,16 @@ def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
                     d = sb_leaves[sb][t]
                     by_size.setdefault(d.bsize, []).append(d)
             for bsize, ds in by_size.items():
-                _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev)
+                _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev,
+                              tile_starts)
     return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}
 
 
-def _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev):
+def _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev,
+                  tile_starts=(0,)):
     """Reconstruct a batch of independent same-size intra leaves into
-    ``rec`` (dict of (1, H, W) int32 planes) in place."""
+    ``rec`` (dict of (1, H, W) int32 planes) in place, each clamped to its
+    tile column (``tile_starts``, in 16x16 block columns)."""
     n = int(cc.block_size_wide[bsize])
     n4 = n >> 2
     # the leaf size's grid over the frame, a partial last row / column
@@ -1358,17 +1400,25 @@ def _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev):
     nl = len(ds)
     fl = torch.zeros(nl, dtype=torch.int64, device=dev)
     ar = torch.arange(nl, device=dev)
+    bounds = []
+    for d in ds:
+        lo16, hi16 = _tile_bounds_of(d.c4 // 4, tile_starts)
+        bounds.append((lo16 * 16 // n, min(hi16 * 16 // n, gw_n)))
     flags = np.array([tr_bl_avail(d.r4 // n4, d.c4 // n4, gh_n, gw_n,
-                                  m=16 // n4) for d in ds], bool)
+                                  m=16 // n4, col_lo=lo, col_hi=hi)
+                      for d, (lo, hi) in zip(ds, bounds)], bool)
     tr = torch.as_tensor(flags[:, 0], device=dev)
     bl = torch.as_tensor(flags[:, 1], device=dev)
+    tile_left = torch.as_tensor([d.c4 // n4 > lo
+                                 for d, (lo, _) in zip(ds, bounds)],
+                                device=dev)
     for p in ("y", "u", "v"):
         luma = p == "y"
         m = n if luma else n // 2
         sc = 4 if luma else 2
         ys = torch.as_tensor([d.r4 * sc for d in ds], device=dev)
         xs = torch.as_tensor([d.c4 * sc for d in ds], device=dev)
-        ha, hl = ys > 0, xs > 0
+        ha, hl = ys > 0, tile_left
         above, left, corner = _gather_neighbors(rec[p], fl, ys, xs, m, ha,
                                                 hl, bd=bd)
         if luma:

@@ -299,8 +299,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("intra_period_length", 15), ("rate_control_mode", 1),
-    ("encoder_bit_depth", 10), ("tile_columns", 1)])
+    ("intra_period_length", 15), ("encoder_bit_depth", 10)])
 def test_out_of_slice_configs_raise(field, value):
     cfg = EncoderConfig(source_width=64, source_height=64)
     setattr(cfg, field, value)

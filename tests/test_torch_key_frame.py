@@ -266,8 +266,7 @@ def test_presets_encode_with_filters(preset):
 @pytest.mark.parametrize("field,value,item", [
     # an IPPP GOP (hierarchical_levels 0): the hierarchical GOP is ported
     # at M10-M13, low-delay and IPPP structures are not
-    ("intra_period_length", 15, "item 7"),
-    ("tile_columns", 1, "item 7")])
+    ("intra_period_length", 15, "item 7")])
 def test_out_of_slice_still_raises(field, value, item):
     cfg = EncoderConfig(**CFG)
     setattr(cfg, field, value)

@@ -41,7 +41,8 @@ HOST_COPIES = (
     "utils/profiling.py", "api/config.py", "pipeline/presets.py",
     "pipeline/rate_control.py", "pipeline/rc_onepass.py",
     "native/ec_native.c", "ops/wedge.py", "ops/obmc.py",
-    "ops/interintra.py", "pipeline/gop.py", "pipeline/noise_model.py")
+    "ops/interintra.py", "pipeline/gop.py", "pipeline/noise_model.py",
+    "utils/metrics.py")
 DATA_FILES = (
     "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
     "av1_quant_tables", "av1_scan_tables", "md_rate_fit",
@@ -111,7 +112,7 @@ def test_no_import_of_the_jax_package():
             "pipeline/inter_encoder.py", "ops/satd.py", "ops/tf.py",
             "pipeline/tf_stage.py", "pipeline/tpl.py", "ops/resize.py",
             "ops/restoration.py", "pipeline/lr_stage.py",
-            "pipeline/noise_model.py"} <= scanned
+            "pipeline/noise_model.py", "utils/metrics.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
@@ -271,6 +272,23 @@ ENTRY_POINTS = {
     "tpl_group_stats": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.gop_fast").tpl_group_stats(
             [np.zeros((32, 32), np.uint8)] * 2, [None, [0]]),
+    "Encoder rate control": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, rate_control_mode=2,
+        max_bit_rate=0, stat_report=1, content_light="1000,400")),
+    "reconfigure": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, rate_control_mode=1)
+    ).reconfigure(target_bit_rate=50_000),
+    "get_stats": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, pass_=1)).get_stats(),
+    "get_stream_info": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, pass_=1)).get_stream_info(0),
+    "send_pictures tiles": lambda: Encoder(EncoderConfig(
+        source_width=128, source_height=32, tile_columns=1)
+    ).send_pictures(_frames(1, 128, 32)),
+    "reconstruct_from_decisions tiled": lambda: (
+        tie.reconstruct_from_decisions({}, 128, 32, 140, tile_starts=(0, 4))),
+    "Decoder tiled": lambda: Decoder()._decode_frame_tiled(
+        None, b"", 128, 2),
     "hierarchical_me": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
             np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),

@@ -49,6 +49,8 @@ TESTS = (
     "tests/test_torch_gop_m6.py::test_jax_decoder_decodes_port_stream",
     "tests/test_torch_restoration.py",
     "tests/test_torch_post_filters.py",
+    "tests/test_torch_rate_control.py",
+    "tests/test_torch_api_surface.py",
 )
 
 
