@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --this-slice   # phases 1-4, 35, 36 and 25 only
+    python3 chip_smoke.py --this-slice   # phases 1-4, 37, 38 and 25 only
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 35 and 36 (this slice), then
-32, 33 and 34, then 28, 31, 30 and 29, then 27 and 26 (the slices before
-it) run right after phase 4; the rest in order:
+failure raises and exits non-zero.  Phases 37 and 38 (this slice), then
+35 and 36, 32, 33 and 34, then 28, 31, 30 and 29, then 27 and 26 (the
+slices before it) run right after phase 4; the rest in order:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
@@ -25,7 +25,14 @@ it) run right after phase 4; the rest in order:
      and 16 for the varpart program's 16x16 steps), qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
-     version, qcoeff/dqcoeff exact on its own coefficients; at each size
+     version, qcoeff/dqcoeff exact on its own coefficients; the same on
+     10-bit residuals (uniform in [-1023, 1023], the first eight blocks
+     flat at +-1023 so that |coeff| + round passes the quantizer's int16
+     clamp) at qindex 1, 35, 128 and 255 with the 10-bit quantizer,
+     under the 10-bit tie rule below, the saturated blocks equal to the
+     plain version's, at the sizes the 10-bit paths give it (k1_batches10:
+     360 for the 1080p key frame of phase 37, 264 for its CIF x4 batch,
+     phase 38's), also timed on the 10-bit residuals; at each size
      the device time per launch of the kernel, the first kernel and the
      plain version (a CUDA graph of 20 launches on preallocated outputs,
      replayed 50 times between two CUDA events; three rounds in turns)
@@ -140,7 +147,8 @@ it) run right after phase 4; the rest in order:
      planes compared under the pixel tie rule (flips printed); the card's
      stream must code a delta-q key frame;
  25. K1 at any batch size the paths launched that phase 3 did not check
-     (checked and timed the same way); the sizes are recorded by the
+     (checked and timed the same way, at both bit depths); the sizes are
+     recorded by the
      wrapper (fused_txq.batches) from the end of phase 4 on;
  26. the main path of the M5-M9 slice, bench.py's primary config at a cut
      depth: the CIF x3 GOP (key + a 2-frame mini-GoP at flush; bench.py
@@ -198,9 +206,9 @@ it) run right after phase 4; the rest in order:
      upscale of CIF planes from half width and at denominators 9-16, and
      the LR search and apply of a CIF frame (tests/clips.lr_planes: the
      same unit choices and planes);
- 33. the main path of the slice before: CIF x2 M10 through send_picture / flush
-     with DLF + CDEF + loop restoration, then 720p x1 with LR, CIF x2
-     with superres + LR, CIF x1 each with film grain (parameters
+ 33. the main path of the post-filter slice: CIF x1 M10 through
+     send_picture / flush with DLF + CDEF + loop restoration, then 720p
+     x1 with LR, CIF x1 with superres + LR, CIF x1 each with film grain (parameters
      estimated from the source), AQ 1 and AQ 2, and a CIF x3 M10 GOP with
      LR on its key frame (phase 18's structure), each beside the same
      frames without the tool: seconds per frame, the restoration stage
@@ -215,15 +223,16 @@ it) run right after phase 4; the rest in order:
      M10, a 64x64 x5 GOP with LR on its key frame) on the CPU and on the
      card: every stream identical, each decoded on its device equal to
      its recon;
- 35. the main path of this slice: the CIF x9 GOP (phase 18's structure:
+ 35. the main path of the rate-control slice: the CIF x5 GOP (phase
+     18's structure:
      hierarchical_levels 3, keyint 15, DLF + CDEF) at M10 with the
      default MCTF under one-pass CBR at 100,000 bits/s at 30 fps through
      send_picture / flush, timed with recon_enabled off, beside the same
      frames at qp 35: fps, host dispatch seconds per inter frame, the
      achieved bits/s against the target, (poc, qindex, bytes) of every
      coded frame, the stat report's host seconds per CIF frame, K1's
-     launches (56 waves x 9 frames at B = 66), every shown frame decoded
-     on the card equal to the encoder's recon; then the CIF x5 two-pass
+     launches (56 waves x 5 frames at B = 66), every shown frame decoded
+     on the card equal to the encoder's recon; then the CIF x3 two-pass
      GOP (pass 1 at qp 35, its stats blob from get_stream_info(0); pass 2
      VBR at the target), all-intra CBR send_picture at 1,000,000 bits/s on
      four smooth CIF frames and a noise frame (one recode, at pts 4: the
@@ -237,7 +246,34 @@ it) run right after phase 4; the rest in order:
      tests/test_torch_api_surface.py on the CPU and on the card, each
      decoded on its device equal to its recon: streams and qindex
      sequences identical (a difference fails unless a tie counted in the
-     first frame that differs explains it).
+     first frame that differs explains it);
+ 37. the main path of this slice: one 1920x1080 10-bit frame (the bench
+     clip at 10 bits, coded 1920x1088) at M10 with DLF + CDEF + loop
+     restoration through send_picture / flush on the default device,
+     timed hot (a warm run of the same frame first) with recon_enabled
+     off: seconds, bytes, Y-PSNR (peak 1023), the stage seconds
+     (device_md_intra, dlf, cdef, restoration, host_ec), the filter
+     levels, strengths and LR types, K1's launches (one per luma wave:
+     254 at B = 360); decoded on the card to uint16 planes equal to
+     recon; then a CIF 10-bit M6 key frame with DLF + CDEF + LR
+     (BASELINE config 3's preset: tx search, CfL, no palette at 10 bits,
+     no K1), timed in turns beside the same frame at 8 bits, its tool
+     counts; send_pictures CIF x4 at 10 bits with DLF + CDEF (the
+     per-block route, K1 at B = 264), decoded on the card;
+ 38. the small streams of tests/test_torch_10bit.py (10-bit M10 + LR, M6,
+     M4, superres + LR, film grain, AQ 1, CBR with a recode,
+     send_pictures x2; an 8-bit stream at encoder_color_format 3 and a
+     levels-3 GOP with a scene cut) and tests/test_torch_avif.py (AVIF
+     stills at 8 and 10 bits) on the card, each decoded on the card equal
+     to its recon, against the CPU's stored streams: identical, with the
+     same qindex sequences.
+
+Phases 7, 12, 16, 20, 27, 31 and 34 hold the card's stream of each of
+their cases to the CPU's: a stream whose sha1 equals the digest that
+tools/record_cpu_streams.py stored for the case
+(tests/golden/torch_cpu_streams.json) is the CPU's stream; any other is
+encoded on the CPU in the run and held to the parity rule (phase 34: to
+identity), as before.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
@@ -252,7 +288,13 @@ Tie rule for the forward transform: the kernel's float32 sums run in
 another order than cuBLAS's, so a coefficient may differ from the plain
 version's by at most 1, and only where its float64 value lies within 1e-2
 of a half-integer; qcoeff/dqcoeff must equal the plain quantizer applied
-to the kernel's own coefficients, exactly.  Pixel tie rule of MCTF (a
+to the kernel's own coefficients, exactly.  10-bit residuals reach
+coefficients near 2^17, where one float32 step (2^-6) is wider than
+1e-2: there a coefficient may differ by 1 only where its float64 value
+lies within the float32 error bound of the two 16-term products,
+(16 + 16 + 1) x 2^-24 x (|fv| |resid| |fh|^T), of a half-integer
+(tests/tie_rule.py); every such mismatch is counted and printed with the
+largest distance seen.  Pixel tie rule of MCTF (a
 float32 weighted average with exp weights, which CUDA and the CPU round
 differently in the last bit): a filtered pixel may differ by 1 only where
 its float64 value lies within 1e-3 of a half-integer.
@@ -264,14 +306,16 @@ published rates); bytes bound it.  The inputs are timed as the encode
 leaves them: just written, so in the 50 MB L2.
 
 The script imports nothing of JAX or of the JAX package (the golden
-inputs come from svt_av1_tpu_torch/goldens.py; phase 36's cases and
-helpers from the two test modules, which import the JAX package only
+inputs come from svt_av1_tpu_torch/goldens.py; phase 36's and 38's
+cases and helpers from the test modules, which import the JAX package only
 inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
 record (its top-level numbers are K1's on this slice's main path, phase
-35's CIF x9 CBR GOP, at B = 66), the last line {"ok": true, "device":
-{...}}.
+37's 1080p 10-bit key frame, at B = 360 on 10-bit residuals; by_batch
+has every size, bd the residuals' bit depth), the last line {"ok":
+true, "device": {...}}.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -314,9 +358,9 @@ def synth_frames(n, w, h):
     return out
 
 
-def psnr(a, b):
+def psnr(a, b, peak=255.0):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+    return 99.0 if mse == 0 else float(10 * np.log10(peak ** 2 / mse))
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published datasheet rate
@@ -325,6 +369,40 @@ GRAPH_LAUNCHES = 20
 GRAPH_REPLAYS = 50
 # the depth of the all-intra send_pictures paths of the earlier slices
 CIF_FRAMES, HD_FRAMES = 4, 1
+# the sha1 digest of the CPU's stream of every cpu-vs-cuda case of
+# phases 7, 12, 16, 20, 27, 31 and 34 (tools/record_cpu_streams.py writes
+# them from a CPU run): a card stream equal to its case's digest is the
+# CPU's stream, and the case is not encoded on the CPU again
+CPU_STREAMS = os.path.join(REPO, "tests", "golden", "torch_cpu_streams.json")
+# the device of the card's side of those cases (None: the default
+# device), and while tools/record_cpu_streams.py runs them on the CPU,
+# the digests it collects
+CARD = None
+RECORDED = None
+
+
+def stream_digest(pkts):
+    """sha1 over the packets' lengths and bytes."""
+    h = hashlib.sha1()
+    for p in pkts:
+        h.update(len(p.data).to_bytes(8, "little"))
+        h.update(p.data)
+    return h.hexdigest()
+
+
+def stored_cpu_stream(key, pkts):
+    """Whether ``pkts``, the card's stream of the cpu-vs-cuda case ``key``,
+    is the CPU's stream as CPU_STREAMS stores it.  While recording, the
+    digest is collected instead, and the answer is True."""
+    digest = stream_digest(pkts)
+    if RECORDED is not None:
+        RECORDED[key] = digest
+        return True
+    try:
+        with open(CPU_STREAMS) as f:
+            return json.load(f).get(key) == digest
+    except FileNotFoundError:
+        return False
 
 
 def k1_batch(nframes, size, preset, fi=False):
@@ -371,6 +449,24 @@ def k1_batches():
     driven += [k1_batch(8, (64, 64), 10), k1_batch(32, (32, 32), 10),
                k1_batch(1, (32, 32), 10), k1_batch(3, (128, 64), 10)]
     return list(dict.fromkeys(driven))
+
+
+# this slice's main path: one 1080p frame (coded 1920x1088)
+P1080 = (1920, 1080)
+P1080_CODED = (1920, 1088)
+
+
+def k1_batches10():
+    """The batch sizes the 10-bit paths give K1 (10-bit residuals): phase
+    37's 1080p M10 key frame and CIF x4 send_pictures, phase 38's small
+    streams (M10 at 128x96, the superres frame at 80x96, 64x64 and the
+    96x64 AVIF still, send_pictures 64x64 x2, the M4 varpart frame's
+    16x16 steps)."""
+    sizes = [k1_batch(1, P1080_CODED, 10), k1_batch(CIF_FRAMES, CIF, 10)]
+    sizes += [k1_batch(1, s, 10)
+              for s in ((128, 96), (80, 96), (64, 64), (96, 64))]
+    sizes += [k1_batch(2, (64, 64), 10)] + k1_varpart_batches((128, 96), 4)
+    return list(dict.fromkeys(sizes))
 
 
 def graph_us(launch, n=GRAPH_LAUNCHES, replays=GRAPH_REPLAYS):
@@ -498,13 +594,14 @@ def v2_launcher(resid, qp):
     return launch
 
 
-def time_txq(resid, card, plain=True, tag="3"):
+def time_txq(resid, card, plain=True, tag="3", bd=8):
     """Device time per launch of the kernel, the first kernel and (when
-    ``plain``) the plain version at qindex 140, three rounds in turns, and
-    the host issue time of the wrapper and of the first wrapper."""
+    ``plain``) the plain version at qindex 140 (the quantizer of bit depth
+    ``bd``), three rounds in turns, and the host issue time of the wrapper
+    and of the first wrapper."""
     from svt_av1_tpu_torch.ops import fused_txq, quant
     b = resid.shape[0]
-    qp = quant.to_device(quant.make_quant_params(140), "cuda")
+    qp = quant.to_device(quant.make_quant_params(140, bd=bd), "cuda")
     v1 = V1(resid, qp)
     fns = dict(v2=v2_launcher(resid, qp), v1=v1.launch)
     if plain:
@@ -518,7 +615,8 @@ def time_txq(resid, card, plain=True, tag="3"):
     issue = host_issue_ms(lambda: fused_txq.fused_txq(resid, qp))
     issue_v1 = host_issue_ms(v1.call)
     plain_txt = (f"plain {med['plain']:.3f} us; " if plain else "")
-    log(f"phase {tag}: fused_txq B={b} qindex=140 device time per launch "
+    log(f"phase {tag}: fused_txq B={b} qindex=140 {bd}-bit device time "
+        f"per launch "
         f"(CUDA graph of {GRAPH_LAUNCHES} launches x {GRAPH_REPLAYS} "
         f"replays, median of 3 rounds in turns): kernel {med['v2']:.3f} us,"
         f" first kernel {med['v1']:.3f} us, {plain_txt}{nbytes} bytes, "
@@ -526,7 +624,7 @@ def time_txq(resid, card, plain=True, tag="3"):
         f"kernel at {bound_us / med['v2']:.1%} of its bound, first kernel "
         f"at {bound_us / med['v1']:.1%}; host issue per call: wrapper "
         f"{issue:.4f} ms, first wrapper {issue_v1:.4f} ms; {card}")
-    return dict(b=b, us=med["v2"], v1_us=med["v1"],
+    return dict(b=b, bd=bd, us=med["v2"], v1_us=med["v1"],
                 plain_us=med.get("plain"), bytes=nbytes, flop=flop,
                 bound_us=bound_us, bound_by=bound_by,
                 share=bound_us / med["v2"], v1_share=bound_us / med["v1"],
@@ -534,12 +632,72 @@ def time_txq(resid, card, plain=True, tag="3"):
                 rounds=times)
 
 
-def check_txq(b, card, rng, rec, driven=True, tag="3"):
+def check_txq10(b, rng, rec, tag="3"):
+    """K1 at batch b on 10-bit residuals: uniform in [-1023, 1023], the
+    first (up to) eight blocks flat at +-1023, whose DC passes the
+    quantizer's int16 clamp at every qindex; at qindex 1, 35, 128 and 255
+    with the 10-bit quantizer: bit-identity with the first kernel, the
+    10-bit tie rule against the plain version (tests/tie_rule.py: a
+    one-step difference only where the exact value lies within the
+    float32 error bound of the two products of a half-integer), the
+    quantizer exact on the kernel's own coefficients, and the saturated
+    blocks' qcoeff / dqcoeff equal to the plain version's.  Returns the
+    residual tensor."""
+    import torch
+    import tie_rule
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.ops import fused_txq, quant
+    from svt_av1_tpu_torch.ops import transforms as tf
+    fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
+    resid_np = rng.integers(-1023, 1024, (b, 16, 16)).astype(np.int32)
+    nflat = min(b, 8)
+    resid_np[:nflat] = 1023 * np.array([1, -1] * 4, np.int32)[:nflat, None,
+                                                              None]
+    exact = tie_rule.exact_coeffs(resid_np, fv, fh)
+    bound = tie_rule.coeff_error_bound(resid_np, fv, fh)
+    resid = torch.from_numpy(resid_np).cuda()
+    for qindex in (1, 35, 128, 255):
+        qp = quant.to_device(quant.make_quant_params(qindex, bd=10), "cuda")
+        ck, qk, dk = fused_txq.fused_txq(resid, qp)
+        v1 = V1(resid, qp).launch()
+        cp, qpl, dpl = fused_txq.fused_txq_plain(resid, qp)
+        torch.cuda.synchronize()
+        n_v1 = sum(int((a != o).sum()) for a, o in zip((ck, qk, dk), v1))
+        if n_v1:
+            _fail(f"B={b} qindex={qindex} 10-bit: {n_v1} values differ "
+                  "between the kernel and the first kernel")
+        q_ref, d_ref = quant.quantize(ck, qp, cc.TX_16X16)
+        if not (torch.equal(qk, q_ref) and torch.equal(dk, d_ref)):
+            _fail("10-bit: kernel qcoeff/dqcoeff differ from the quantizer "
+                  "on its own coefficients")
+        if not (torch.equal(qk[:nflat], qpl[:nflat])
+                and torch.equal(dk[:nflat], dpl[:nflat])):
+            _fail(f"B={b} qindex={qindex}: the saturated blocks differ "
+                  "from the plain version")
+        nmis, maxd, worst = tie_rule.tie_mismatches_bounded(
+            ck.cpu().numpy(), cp.cpu().numpy(), exact, bound)
+        rec["max_abs_err"] = max(rec["max_abs_err"], maxd)
+        rec["mismatches10"] += nmis
+        rec["worst10"] = max(rec["worst10"], worst)
+        log(f"phase {tag}: fused_txq B={b} qindex={qindex} 10-bit "
+            f"residuals ({nflat} flat +-1023 blocks, DC level "
+            f"{int(qk[0, 0, 0])} at the int16 clamp): 0 of "
+            f"{3 * resid.numel()} values differ from the first kernel; "
+            f"{nmis} of {resid.numel()} coefficients differ from the plain "
+            f"version (max |diff| {maxd}, each within the float32 error "
+            f"bound of a .5 tie, largest distance {worst:.3g}); qcoeff/"
+            f"dqcoeff exact, saturated blocks equal")
+    return resid
+
+
+def check_txq(b, card, rng, rec, driven=True, tag="3", ten=False):
     """K1 (fused_txq16) at batch b: bit-identity with the first kernel,
     the tie rule against the plain version, exact quantizer on the
     kernel's own coefficients, at qindex 140 and 255; then its timing
     (time_txq) appended to rec["by_batch"], marked ``driven`` (a size the
-    script's paths give K1) or not (timed for comparison only)."""
+    script's 8-bit paths give K1) or not (timed for comparison only);
+    with ``ten`` (a size the 10-bit paths give it) the same checks at
+    10-bit residuals (check_txq10) and their timing too."""
     import torch
     import tie_rule
     from svt_av1_tpu_torch.codec import constants as cc
@@ -573,8 +731,12 @@ def check_txq(b, card, rng, rec, driven=True, tag="3"):
             f"the first kernel; {nmis} of {resid.numel()} coefficients "
             f"differ from the plain version (all on rounding ties, max "
             f"|diff| {maxd}); qcoeff/dqcoeff exact")
+    resid10 = check_txq10(b, rng, rec, tag) if ten else None
     rec["by_batch"].append(dict(time_txq(resid, card, tag=tag),
                                 driven=driven))
+    if ten:
+        rec["by_batch"].append(dict(time_txq(resid10, card, tag=tag, bd=10),
+                                    driven=b in k1_batches10()))
 
 
 def phase_kernel(card):
@@ -583,9 +745,10 @@ def phase_kernel(card):
     import torch
     from svt_av1_tpu_torch.ops import quant
     rng = np.random.default_rng(7)
-    rec = dict(max_abs_err=0, by_batch=[])
-    for b in k1_batches():
-        check_txq(b, card, rng, rec)
+    rec = dict(max_abs_err=0, by_batch=[], mismatches10=0, worst10=0.0)
+    sizes8, sizes10 = k1_batches(), k1_batches10()
+    for b in dict.fromkeys(sizes8 + sizes10):
+        check_txq(b, card, rng, rec, driven=b in sizes8, ten=b in sizes10)
     # a batch far beyond the L2: bound by device memory
     resid = torch.randint(-255, 256, (135168, 16, 16), dtype=torch.int32,
                           device="cuda")
@@ -667,9 +830,9 @@ def encode(frames, w, h, device, preset=10, batched=True, **filters):
 
 
 def decode_check(pkts, device, headers=None):
-    """Port decoder on ``device``; every frame must equal Packet.recon.
-    Returns the parsed decisions per frame; appends each frame header to
-    ``headers`` when given."""
+    """Port decoder on ``device``; every frame, cropped to the render size,
+    must equal Packet.recon.  Returns the parsed decisions per frame;
+    appends each frame header to ``headers`` when given."""
     from svt_av1_tpu_torch.codec.decoder import Decoder
     dec = Decoder(device=device)
     decisions = []
@@ -678,7 +841,8 @@ def decode_check(pkts, device, headers=None):
         if len(frames) != 1:
             raise AssertionError("one displayed frame per packet expected")
         for k in ("y", "u", "v"):
-            if not np.array_equal(frames[0][k], p.recon[k]):
+            h, w = p.recon[k].shape
+            if not np.array_equal(frames[0][k][:h, :w], p.recon[k]):
                 raise AssertionError(f"decoder recon differs (plane {k}, "
                                      f"frame {p.pts})")
         decisions.append(frames[0]["decisions"])
@@ -853,6 +1017,11 @@ def phase_tools():
 
 
 def phase_cpu_vs_cuda_m6(frames, pkts_cuda, dec_cuda):
+    if stored_cpu_stream("12", pkts_cuda):
+        log(f"phase 12: {len(frames)} CIF frames at M6 (send_picture): the "
+            f"card's {sum(len(p.data) for p in pkts_cuda)} bytes are the "
+            "CPU's stream (stored digest): identical")
+        return
     pkts_cpu = encode(frames, *CIF, "cpu", 6, batched=False)
     dec_cpu = decode_check(pkts_cpu, "cpu")
     agree = block_agreement(dec_cpu, dec_cuda)
@@ -874,6 +1043,12 @@ def phase_cpu_vs_cuda_m6(frames, pkts_cuda, dec_cuda):
 
 
 def phase_cpu_vs_cuda(frames, pkts_cuda, dec_cuda):
+    n = len(frames)
+    if stored_cpu_stream("7", pkts_cuda[:n]):
+        log(f"phase 7: first {n} CIF frames: the card's "
+            f"{sum(len(p.data) for p in pkts_cuda[:n])} bytes are the CPU's "
+            "stream (stored digest): identical")
+        return
     pkts_cpu = encode(frames, *CIF, "cpu")
     dec_cpu = decode_check(pkts_cpu, "cpu")
     n = len(frames)
@@ -993,13 +1168,14 @@ def _sse(pkts, frames):
                for p, f in zip(pkts, frames) for i, k in enumerate("yuv"))
 
 
-def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered):
+def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered,
+                              profile=True):
     """M6 with DLF and CDEF through send_picture / flush on the default
     device, timed (the unfiltered phase of the same size warmed the frame
     program; the filters are eager ops of fixed shapes); every packet
     decoded on the card; the filtered SSE against ``unfiltered`` (the same
-    frames without filters); the filter stage of the first frame under
-    torch.profiler."""
+    frames without filters); with ``profile``, the filter stage of the
+    first frame under torch.profiler (its mode decision run again)."""
     import torch
     from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
     from svt_av1_tpu_torch.codec import obu
@@ -1021,14 +1197,23 @@ def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered):
     if sse_f > sse_u:
         raise AssertionError(f"phase {tag}: the filtered recon's SSE {sse_f} "
                              f"is above the unfiltered {sse_u}")
-    enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
-                                enc_mode=6, **FILTERS))
-    y, u, v = enc._pad(*frames[0])
-    qindex = enc._rc.frame_qindex()
-    dec0, rec0, _ = enc._mode_decision(y, u, v, qindex)
-    fp = obu.FrameParams(base_q_idx=qindex)
-    prof = kernel_profile.device_kernels(
-        lambda: enc._filter(dec0, rec0, fp, qindex, dict(y=y, u=u, v=v)))
+    prof_txt, prof = "", None
+    if profile:
+        enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
+                                    enc_mode=6, **FILTERS))
+        y, u, v = enc._pad(*frames[0])
+        qindex = enc._rc.frame_qindex()
+        dec0, rec0, _ = enc._mode_decision(y, u, v, qindex)
+        fp = obu.FrameParams(base_q_idx=qindex)
+        prof = kernel_profile.device_kernels(
+            lambda: enc._filter(dec0, rec0, fp, qindex,
+                                dict(y=y, u=u, v=v)))
+        prof_txt = (
+            f"; filter stage of frame 0: {prof['launches']} device kernels "
+            f"({prof['copies']} copies), device time {prof['device_ms']} "
+            f"ms, {prof['wall_s']:.3f} s wall under the profiler, levels "
+            f"{fp.filter_level[0]}/{fp.filter_level_uv}, strengths "
+            f"{fp.cdef_strengths}")
     sec = {k: stages.get(k, (0.0, 0))[0]
            for k in ("device_md_intra", "dlf", "cdef", "host_ec")}
     chosen = [(f.filter_level[0], f.filter_level_uv, f.cdef_strengths)
@@ -1045,17 +1230,19 @@ def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered):
         f"strengths) per frame {chosen}; {nbytes} bytes (per frame "
         f"{[len(p.data) for p in pkts]}), mean Y-PSNR {mpsnr:.4f} dB; SSE "
         f"Y+U+V filtered {sse_f} vs unfiltered {sse_u} "
-        f"({(sse_f - sse_u) / sse_u:+.3%}); filter stage of frame 0: "
-        f"{prof['launches']} device kernels ({prof['copies']} copies), "
-        f"device time {prof['device_ms']} ms, {prof['wall_s']:.3f} s wall "
-        f"under the profiler, levels {fp.filter_level[0]}/"
-        f"{fp.filter_level_uv}, strengths {fp.cdef_strengths}; fused_txq "
+        f"({(sse_f - sse_u) / sse_u:+.3%}){prof_txt}; fused_txq "
         f"launches {launches} ({card}); decoder on the default device "
         f"matches recon ({dec_s:.1f} s)")
     return pkts, decisions, headers, launches, prof
 
 
 def phase_cpu_vs_cuda_filters(frames, pkts_cuda, dec_cuda, hdr_cuda):
+    if stored_cpu_stream("16", pkts_cuda):
+        log(f"phase 16: {len(frames)} CIF frames at M6 with DLF + CDEF "
+            f"(send_picture): the card's "
+            f"{sum(len(p.data) for p in pkts_cuda)} bytes are the CPU's "
+            "stream (stored digest): identical")
+        return
     pkts_cpu = encode(frames, *CIF, "cpu", 6, batched=False, **FILTERS)
     hdr_cpu = []
     dec_cpu = decode_check(pkts_cpu, "cpu", hdr_cpu)
@@ -1362,10 +1549,22 @@ def gop_cpu_vs_cuda(name, frames, need=None, tag="20", preset=10,
     decisions) of the CPU's and the card's stream."""
     h, w = frames[0][0].shape
     clip = clip or (name if need else None)
+    pg = encode_gop(frames, w, h, CARD, preset, clip=clip, **kw)
+    cg, _ = gop_decode_check(pg, CARD)
+    n_g = gop_block_counts(cg)
+    for k in ((need,) if isinstance(need, str) else need or ()):
+        if n_g[k] <= 0:
+            raise AssertionError(f"the card's {name} stream codes no {k}")
+    what = (f"phase {tag}: GOP {name} {w}x{h} x{len(frames)} M{preset} {kw}"
+            + (" (order hints off, wedge priced out)" if name == "iris"
+               else ""))
+    if stored_cpu_stream(f"{tag}/{name}", pg):
+        log(f"{what} on the card: {sum(len(p.data) for p in pg)} bytes, "
+            f"the CPU's stream (stored digest): identical; inter-frame "
+            f"blocks {n_g}; decoded on the card equal to recon")
+        return None, cg
     pc = encode_gop(frames, w, h, "cpu", preset, clip=clip, **kw)
-    pg = encode_gop(frames, w, h, None, preset, clip=clip, **kw)
     cc_, _ = gop_decode_check(pc, "cpu")
-    cg, _ = gop_decode_check(pg, None)
     same = tot = wedge_ties = tx_flips = 0
     for (_, a), (_, b) in zip(cc_, cg):
         for k, blk in a.items():
@@ -1388,11 +1587,8 @@ def gop_cpu_vs_cuda(name, frames, need=None, tag="20", preset=10,
               - np.mean([psnr(frames[p.pts][0], p.recon["y"]) for p in pg
                          if p.displayed]))
     identical = [p.data for p in pc] == [p.data for p in pg]
-    n_c, n_g = gop_block_counts(cc_), gop_block_counts(cg)
-    log(f"phase {tag}: GOP {name} {w}x{h} x{len(frames)} M{preset} {kw}"
-        f"{' (order hints off, wedge priced out)' if name == 'iris' else ''}"
-        f" cpu vs cuda:"
-        f" {agree:.4%} of {tot} blocks equal, bytes {bc} vs {bg}, "
+    n_c = gop_block_counts(cc_)
+    log(f"{what} cpu vs cuda: {agree:.4%} of {tot} blocks equal, bytes {bc} vs {bg}, "
         f"|dY-PSNR| {dps:.4f} dB, streams identical: {identical}; counted "
         f"ties: frames whose GM model or interp pick differ {ties}, wedge "
         f"blocks whose option differs {wedge_ties}, blocks whose inter tx "
@@ -1402,9 +1598,6 @@ def gop_cpu_vs_cuda(name, frames, need=None, tag="20", preset=10,
             or abs(bc - bg) > MAX_DBYTES * bg):
         raise AssertionError(f"cpu and cuda GOP encodes of {name} disagree "
                              "beyond the slice's parity thresholds")
-    for k in ((need,) if isinstance(need, str) else need or ()):
-        if n_g[k] <= 0:
-            raise AssertionError(f"the card's {name} stream codes no {k}")
     return cc_, cg
 
 
@@ -2112,14 +2305,20 @@ def phase_m4_cpu_vs_cuda():
     total = {}
     for name, frames, preset, batched, filt in runs:
         h, w = frames[0][0].shape
-        pc = encode_key(frames, w, h, "cpu", preset, batched=batched, **filt)
-        pg = encode_key(frames, w, h, None, preset, batched=batched, **filt)
-        dc = decode_check(pc, "cpu")
-        dg = decode_check(pg, None)
-        agree = block_agreement(dc, dg)
+        pg = encode_key(frames, w, h, CARD, preset, batched=batched, **filt)
+        dg = decode_check(pg, CARD)
         n = m4_counts(dg)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
+        if stored_cpu_stream(f"31/{name}", pg):
+            log(f"phase 31: {name} on the card: "
+                f"{sum(len(p.data) for p in pg)} bytes, the CPU's stream "
+                f"(stored digest): identical; card blocks {n}; decoded on "
+                "the card equal to recon")
+            continue
+        pc = encode_key(frames, w, h, "cpu", preset, batched=batched, **filt)
+        dc = decode_check(pc, "cpu")
+        agree = block_agreement(dc, dg)
         identical = [p.data for p in pc] == [p.data for p in pg]
         log(f"phase 31: {name} cpu vs cuda: {agree:.4%} blocks equal, bytes "
             f"{sum(len(p.data) for p in pc)} vs "
@@ -2386,7 +2585,7 @@ def phase_post_filters(card, cif):
     hd = synth_frames(1, *HD)
     by_path = {}
     # the main path; the run without LR first warms the M10 program
-    key = cif[:2]
+    key = cif[:1]
     base = encode_key(key, w, h, None, 10, **FILTERS)
     # all-intra CQP: the first frame's packet is that frame coded alone
     plain = base[:1]
@@ -2400,19 +2599,19 @@ def phase_post_filters(card, cif):
               "predicted")
     if not any(k != "none" for f in units for p in f.values() for k in p):
         _fail("phase 33: LR chose RESTORE_NONE everywhere on the main path")
-    by_path["M10 send_picture DLF+CDEF+LR CIF x2"] = n
+    by_path["M10 send_picture DLF+CDEF+LR CIF x1"] = n
     main = n
     base = encode_key(hd, *HD, None, 10, **FILTERS)
     by_path["M10 send_picture DLF+CDEF+LR 720p x1"] = _tool_run(
         "33", "send_picture DLF + CDEF + LR", hd, LR, card, base=base)[1]
     sr = dict(superres_mode=1, **LR)
-    base = encode_key(cif[:2], w, h, None, 10, superres_mode=1, **FILTERS)
+    base = encode_key(cif[:1], w, h, None, 10, superres_mode=1, **FILTERS)
     _, n, _, batches, _ = _tool_run("33", "superres + DLF + CDEF + LR",
-                                    cif[:2], sr, card, base=base)
+                                    cif[:1], sr, card, base=base)
     sr_b = k1_batch(1, (w // 2, h), 10)
-    if n != 2 * waves_per_frame(w // 2, h) or batches != [sr_b]:
+    if n != waves_per_frame(w // 2, h) or batches != [sr_b]:
         _fail(f"phase 33: superres K1 {n} launches at {batches}")
-    by_path["M10 superres+LR CIF x2"] = n
+    by_path["M10 superres+LR CIF x1"] = n
     for what, extra in (("film grain", dict(film_grain_denoise_strength=8)),
                         ("AQ 1", dict(enable_adaptive_quantization=1)),
                         ("AQ 2", dict(enable_adaptive_quantization=2))):
@@ -2468,11 +2667,17 @@ def phase_post_cpu_vs_cuda():
         h, w = frames[0][0].shape
         qp = cfg.get("qp", 35)
         kw = {k: v for k, v in cfg.items() if k != "qp"}
-        pc = encode_key(frames, w, h, "cpu", preset, qp=qp, **kw)
-        pg = encode_key(frames, w, h, None, preset, qp=qp, **kw)
-        decode_check(pc, "cpu")
+        pg = encode_key(frames, w, h, CARD, preset, qp=qp, **kw)
         hg = []
-        decode_check(pg, None, hg)
+        decode_check(pg, CARD, hg)
+        if stored_cpu_stream(f"34/{name}", pg):
+            log(f"phase 34: {name} ({w}x{h} M{preset}) on the card: "
+                f"{sum(len(p.data) for p in pg)} bytes, the CPU's stream "
+                f"(stored digest): identical; lr_types {hg[0].lr_types}; "
+                "decoded on the card equal to recon")
+            continue
+        pc = encode_key(frames, w, h, "cpu", preset, qp=qp, **kw)
+        decode_check(pc, "cpu")
         identical = [p.data for p in pc] == [p.data for p in pg]
         log(f"phase 34: {name} ({w}x{h} M{preset}) cpu vs cuda: bytes "
             f"{sum(len(p.data) for p in pc)} vs "
@@ -2485,15 +2690,20 @@ def phase_post_cpu_vs_cuda():
     frames = clips.natural_clip(5, 64, 64, seed=1)
     kw = dict(hierarchical_levels=2, intra_period_length=4,
               enable_restoration_filtering=1)
-    pc = encode_gop(frames, 64, 64, "cpu", 10, **kw)
-    pg = encode_gop(frames, 64, 64, None, 10, **kw)
-    gop_decode_check(pc, "cpu")
-    coded, _ = gop_decode_check(pg, None)
-    identical = [p.data for p in pc] == [p.data for p in pg]
-    log(f"phase 34: GOP 64x64 x5 M10 {kw} cpu vs cuda: bytes "
-        f"{sum(len(p.data) for p in pc)} vs {sum(len(p.data) for p in pg)},"
-        f" streams identical: {identical}; lr_types per coded frame "
-        f"{[fp.lr_types for fp, _ in coded]}; both decoders match recon")
+    pg = encode_gop(frames, 64, 64, CARD, 10, **kw)
+    coded, _ = gop_decode_check(pg, CARD)
+    identical = stored_cpu_stream("34/gop_lr", pg)
+    how = "the CPU's stream (stored digest)"
+    if not identical:
+        pc = encode_gop(frames, 64, 64, "cpu", 10, **kw)
+        gop_decode_check(pc, "cpu")
+        identical = [p.data for p in pc] == [p.data for p in pg]
+        how = f"the CPU's {sum(len(p.data) for p in pc)} bytes"
+    log(f"phase 34: GOP 64x64 x5 M10 {kw} on the card: "
+        f"{sum(len(p.data) for p in pg)} bytes, {how}: streams identical: "
+        f"{identical}; lr_types per coded frame "
+        f"{[fp.lr_types for fp, _ in coded]}; decoded on the card equal to "
+        "recon")
     if not identical:
         _fail("phase 34: the card's GOP stream differs from the CPU's")
     if coded[0][0].lr_types == (0, 0, 0):
@@ -2524,8 +2734,8 @@ def frame_line(coded, pkts):
 
 def phase_rate_control(card, cif):
     """This slice's main path and its variants on the default device:
-    the CIF x9 M10 GOP under one-pass CBR (timed with recon_enabled off,
-    beside the same frames at qp 35), the CIF x5 two-pass GOP, all-intra
+    the CIF x5 M10 GOP under one-pass CBR (timed with recon_enabled off,
+    beside the same frames at qp 35), the CIF x3 two-pass GOP, all-intra
     CBR send_picture with a recode, send_pictures with tile columns
     (HDR metadata and stat reports ride on the CIF batch)."""
     import clips
@@ -2537,7 +2747,7 @@ def phase_rate_control(card, cif):
     waves = waves_per_frame(w, h)
     b66 = k1_batch(1, CIF, 10)
     by_path = {}
-    frames = cif[:9]
+    frames = cif[:5]
     fps = 30.0
     runs = {}
     for what, cfg in (("CBR", dict(rate_control_mode=2,
@@ -2575,13 +2785,13 @@ def phase_rate_control(card, cif):
             f"{batches} ({card}); stat report (PSNR + SSIM, numpy on the "
             f"host) {stat_s:.3f} s per CIF frame; decoded on the card equal "
             f"to the encoder's recon ({dec_s:.1f} s)")
-        by_path[f"M10 GOP {what} CIF x9"] = n
-    main = by_path["M10 GOP CBR CIF x9"]
+        by_path[f"M10 GOP {what} CIF x5"] = n
+    main = by_path["M10 GOP CBR CIF x5"]
     if (qindices_of(runs["CBR"][0]) == qindices_of(runs["qp 35"][0])):
         _fail("phase 35: CBR coded every frame at the CRF qindex")
 
     # two passes: CRF pass 1 (the stats blob), VBR pass 2 at the target
-    five = cif[:5]
+    five = cif[:3]
     p1, n1, _, _, dt1 = counted(lambda: encode_gop_enc(
         five, w, h, **dict(RC_GOP, pass_=1)))
     enc1, pk1 = p1
@@ -2601,7 +2811,7 @@ def phase_rate_control(card, cif):
         f"bits/s; (poc, qindex, bytes) {frame_line(coded2, pk2)}; fused_txq "
         f"{n1} + {n2} launches; both passes decoded on the card equal to "
         f"recon")
-    by_path["M10 two-pass GOP CIF x5 (pass 1 + pass 2)"] = n1 + n2
+    by_path["M10 two-pass GOP CIF x3 (pass 1 + pass 2)"] = n1 + n2
 
     # all-intra CBR send_picture: four smooth frames, then a noise frame
     # that overshoots 8x its budget and is coded again (a first frame
@@ -2785,6 +2995,179 @@ def phase_rate_control_cpu_vs_cuda():
                 _fail(f"phase 36: {name}: the card's stream differs from "
                       "the CPU's where no counted tie explains it")
 
+# -- this slice: the 10-bit all-intra encode and AVIF stills (37-38) --------
+
+TEN = dict(encoder_bit_depth=10)
+
+
+def frames10(n, w, h):
+    """The bench clip at 10 bits (tests/clips.py to_10bit)."""
+    import clips
+    return clips.to_10bit(synth_frames(n, w, h))
+
+
+def ten_bit_line(tag, what, pkts, frames, dt, n, batches, stages, dec_s,
+                 card, headers):
+    """One phase line of a 10-bit encode."""
+    import torch
+    h, w = frames[0][0].shape
+    ps = float(np.mean([psnr(f[0], p.recon["y"], 1023.0)
+                        for f, p in zip(frames, pkts)]))
+    sec = {k: round(stages[k][0], 3) for k in
+           ("device_md_intra", "dlf", "cdef", "restoration", "host_ec",
+            "device_dispatch", "device_wait_transfer") if k in stages}
+    log(f"phase {tag}: {what} {w}x{h} x{len(frames)} 10-bit on the default "
+        f"device ({torch.cuda.get_device_name(0)}): {dt / len(frames):.3f} "
+        f"s per frame ({dt:.3f} s), {sum(len(p.data) for p in pkts)} bytes, "
+        f"mean Y-PSNR {ps:.4f} dB (peak 1023); stage seconds {sec}; key "
+        f"frame levels {headers[0].filter_level[0]}/"
+        f"{headers[0].filter_level_uv}, CDEF {headers[0].cdef_strengths}, "
+        f"lr_types {headers[0].lr_types}; fused_txq launches {n} at B = "
+        f"{batches} ({card}); decoded on the card to uint16 planes equal to "
+        f"recon ({dec_s:.1f} s)")
+
+
+def phase_ten_bit(card):
+    """This slice's main path and its variants on the default device:
+    one 1080p 10-bit M10 frame (coded 1920x1088) with DLF + CDEF + loop
+    restoration through send_picture / flush, timed hot (a warm run of
+    the same frame first) with recon_enabled off as bench.py sets it,
+    K1 once per luma wave at B = 360; then the CIF 10-bit M6 key frame
+    with the filters (BASELINE config 3's preset: tx search, CfL, no
+    palette at 10 bits; no K1, as in the reference), timed beside the
+    same frame at 8 bits in turns; then send_pictures CIF x4 at 10 bits
+    (the per-block route: one chunk, K1 once per wave at B = 264).
+    Every packet is decoded on the card and must equal Packet.recon."""
+    w, h = P1080
+    frame = frames10(1, w, h)
+    by_path = {}
+
+    def main():
+        from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+        enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
+                                    **TEN, **LR))
+        enc.recon_enabled = False
+        enc.send_picture(*frame[0])
+        enc.flush()
+        return list(iter(enc.get_packet, None))
+
+    encode_key(frame, w, h, None, 10, **TEN, **LR)          # warm
+    pkts, n, batches, stages, dt = counted(main)
+    waves = waves_per_frame(*P1080_CODED)
+    b_main = k1_batch(1, P1080_CODED, 10)
+    if n != waves or batches != [b_main]:
+        _fail(f"phase 37: fused_txq {n} launches at {batches} on the main "
+              f"path, {waves} at B = {b_main} predicted")
+    if pkts[0].recon["y"].dtype != np.uint16:
+        _fail("phase 37: the 10-bit recon is not uint16")
+    headers = []
+    t1 = time.perf_counter()
+    decode_check(pkts, None, headers)
+    dec_s = time.perf_counter() - t1
+    if headers[0].lr_types == (0, 0, 0):
+        _fail("phase 37: LR chose RESTORE_NONE everywhere on the main path")
+    ten_bit_line("37", "the main path: M10 send_picture DLF + CDEF + LR, "
+                 "recon_enabled off, hot,", pkts, frame, dt, n, batches,
+                 stages, dec_s, card, headers)
+    by_path["10-bit M10 send_picture DLF+CDEF+LR 1080p x1"] = main_n = n
+
+    # BASELINE config 3's preset on a CIF key frame, 10 bits beside 8
+    cif8 = synth_frames(1, *CIF)
+    cif10 = frames10(1, *CIF)
+    times, runs = {}, {}
+    for bd, fr in ((10, cif10), (8, cif8), (10, cif10)):
+        runs[bd] = counted(lambda: encode_key(
+            fr, *CIF, None, 6, encoder_bit_depth=bd, **LR))
+        times.setdefault(bd, []).append(runs[bd][4])
+        if runs[bd][1]:
+            _fail(f"phase 37: the M6 {bd}-bit key frame launched K1 "
+                  f"{runs[bd][1]} times")
+    pk10, n, batches, stages, dt = runs[10]
+    headers10 = []
+    t1 = time.perf_counter()
+    dec10 = decode_check(pk10, None, headers10)
+    dec_s = time.perf_counter() - t1
+    counts = tool_counts(dec10)
+    if (not counts["tx"] or not counts["cfl"] or counts["palette"]
+            or headers10[0].allow_screen_content_tools):
+        _fail(f"phase 37: the 10-bit M6 frame's tools {counts}")
+    ten_bit_line("37", "M6 send_picture DLF + CDEF + LR (BASELINE config "
+                 "3's preset)", pk10, cif10, dt, n, batches, stages, dec_s,
+                 card, headers10)
+    log(f"phase 37: the CIF M6 key frame with DLF + CDEF + LR, 10 bits "
+        f"against 8 in turns (10, 8, 10; the first run cold): 10-bit "
+        f"{[round(t, 3) for t in times[10]]} s, 8-bit "
+        f"{[round(t, 3) for t in times[8]]} s, hot 10 / 8 = "
+        f"{times[10][-1] / times[8][-1]:.3f}; 10-bit blocks with a non-DCT "
+        f"tx type {counts['tx']}, CfL {counts['cfl']}, angle deltas "
+        f"{counts['delta']}, palette {counts['palette']}")
+    by_path["10-bit M6 send_picture DLF+CDEF+LR CIF x1"] = 0
+
+    cif4 = frames10(CIF_FRAMES, *CIF)
+    pk, n, batches, stages, dt = counted(lambda: encode(
+        cif4, *CIF, None, **TEN, **FILTERS))
+    b264 = k1_batch(CIF_FRAMES, CIF, 10)
+    if n != waves_per_frame(*CIF) or batches != [b264]:
+        _fail(f"phase 37: send_pictures 10-bit CIF x4: fused_txq {n} "
+              f"launches at {batches}")
+    headers = []
+    t1 = time.perf_counter()
+    decode_check(pk, None, headers)
+    ten_bit_line("37", "M10 send_pictures DLF + CDEF (the per-block route)",
+                 pk, cif4, dt, n, batches, stages,
+                 time.perf_counter() - t1, card, headers)
+    by_path["10-bit M10 send_pictures DLF+CDEF CIF x4"] = n
+    return main_n, by_path
+
+
+def phase_ten_bit_cpu_vs_cuda():
+    """The small streams of tests/test_torch_10bit.py and
+    tests/test_torch_avif.py on the card, each decoded on the card equal
+    to its recon, against the CPU's streams as the tests store them (the
+    JAX package's, which the CPU port equals byte for byte), found by
+    the fingerprint of the card's own packets; a stream with no stored
+    match is encoded on the CPU and must be identical.  Streams and
+    qindex sequences must be identical."""
+    ten = test_module("test_torch_10bit")
+    avif = test_module("test_torch_avif")
+    for name in ten.CASES:
+        frames = ten.CASES[name][0]()
+        pg = ten.encode(name, frames, None)
+        gop_decode_check(pg, None)
+        datas = [p.data for p in pg]
+        try:
+            ref = ten.stored(name, frames, datas)["data"]
+            how = "the CPU's stream (stored)"
+        except AssertionError:
+            ref = [p.data for p in ten.encode(name, frames, "cpu")]
+            how = "the CPU's stream (encoded now: no stored match)"
+        same = ref == datas and ten.qindices(ref) == ten.qindices(datas)
+        log(f"phase 38: 10-bit test stream {name} on the card: "
+            f"{sum(map(len, datas))} bytes, qindex {ten.qindices(datas)}; "
+            f"{how}: {'identical' if same else 'DIFFERENT'}; decoded on "
+            f"the card equal to recon")
+        if not same:
+            _fail(f"phase 38: {name}: the card's stream differs from the "
+                  "CPU's")
+    for bd in avif.CASES:
+        frame = avif.CASES[bd]()
+        pkt = avif.encode(bd, frame, None)
+        decode_check([pkt], None)
+        try:
+            ref = bytes(avif.stored(bd, frame, pkt.data)[0])
+            how = "stored"
+        except AssertionError:
+            ref = avif.encode(bd, frame, "cpu").data
+            how = "encoded now: no stored match"
+        log(f"phase 38: AVIF still {bd}-bit on the card: {len(pkt.data)} "
+            f"bytes; the CPU's ({how}): "
+            f"{'identical' if ref == pkt.data else 'DIFFERENT'}; decoded on "
+            f"the card equal to recon")
+        if ref != pkt.data:
+            _fail(f"phase 38: the {bd}-bit AVIF still differs from the "
+                  "CPU's")
+
+
 def _fail(msg):
     raise AssertionError(msg)
 
@@ -2827,14 +3210,19 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first (so that nothing the earlier paths left behind
-    # weighs on the main path's timing): rate control and the API surface,
-    # then the small streams of the CPU tests
-    cif17 = synth_frames(17, *CIF)
-    main_launches, by_path = phase_rate_control(card, cif17)
-    phase_rate_control_cpu_vs_cuda()
+    # weighs on the main path's timing): the 10-bit all-intra encode and
+    # its variants, then the small streams of the CPU tests
+    main_launches, by_path = phase_ten_bit(card)
+    phase_ten_bit_cpu_vs_cuda()
     if "--this-slice" in sys.argv[1:]:
-        # a short call while the slice is built: phases 1-4, 35, 36, 25
+        # a short call while the slice is built: phases 1-4, 37, 38, 25
         return finish(card, krec, main_launches, by_path, smi)
+
+    # the slice of the previous PR: rate control and the API surface,
+    # then its small streams
+    cif17 = synth_frames(17, *CIF)
+    by_path.update(phase_rate_control(card, cif17)[1])
+    phase_rate_control_cpu_vs_cuda()
 
     # the slice of the previous PR: the restoration ops, its main path and
     # variants, the small streams
@@ -2888,7 +3276,9 @@ def main():
     pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
         "14a", key_cif, *CIF, card, pk_m6)
     by_path["M6 send_picture DLF+CDEF CIF x2"] = n
-    n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd)[3]
+    # the filter stage's profile at CIF only (14a)
+    n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd,
+                                  profile=False)[3]
     by_path["M6 send_picture DLF+CDEF 720p x1"] = n
     by_path["M10 send_pictures DLF CIF x4"] = phase_encode(
         "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
@@ -2927,7 +3317,7 @@ def finish(card, krec, main_launches, by_path, smi):
                        - {r["b"] for r in krec["by_batch"]})
     rng = np.random.default_rng(22)
     for b in unchecked:
-        check_txq(b, card, rng, krec, tag="25")
+        check_txq(b, card, rng, krec, tag="25", ten=True)
     log(f"phase 25: K1 batch sizes launched by the paths "
         f"{sorted(fused_txq.batches)}; checked in phase 3 "
         f"{[r['b'] for r in krec['by_batch'] if r['driven']]}; checked "
@@ -2940,10 +3330,11 @@ def finish(card, krec, main_launches, by_path, smi):
         raise AssertionError(f"modules of JAX or of the JAX package were "
                              f"loaded: {leaked[:8]}")
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the CIF x9 M10 CBR GOP, the time at its batch (one frame
-    # x 11 wave slots x 6 modes); every size is under by_batch
+    # launches of the 1080p 10-bit M10 key frame, the time at its batch
+    # (one frame x 60 wave slots x 6 modes) on 10-bit residuals; every
+    # size is under by_batch (bd: the residuals' bit depth)
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, CIF, 10))
+              if r["b"] == k1_batch(1, P1080_CODED, 10) and r["bd"] == 10)
     print(smi, flush=True)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",
@@ -2954,6 +3345,8 @@ def finish(card, krec, main_launches, by_path, smi):
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         library_ms=None, bound_us=b0["bound_us"], share=b0["share"],
         host_issue_ms=b0["host_issue_ms"], v1_ms=b0["v1_us"] / 1000,
+        mismatches_10bit=krec["mismatches10"],
+        worst_tie_distance_10bit=krec["worst10"],
         launches_by_path=by_path, by_batch=krec["by_batch"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,12 @@ port's slice.
   enc.reconfigure(...)      ~ svt_av1_enc_set_parameter between pictures
   enc.get_stream_info(0)    ~ svt_av1_enc_get_stream_info (pass-1 stats)
 
-Slice: 8-bit 4:2:0 at every preset (M0-M13), DLF, CDEF and loop
-restoration on or off; either all-intra (intra_period_length -2 or 0), or
-the hierarchical (random-access) GOP of the reference's fast path with
-hierarchical_levels 1-3 and intra_period_length > 0, with or without the
+Slice: 4:2:0 at every preset (M0-M13), DLF, CDEF and loop restoration
+on or off; either all-intra (intra_period_length -2 or 0) at 8 or 10
+bits (uint16 planes; at 10 bits no palette, and send_pictures takes the
+per-block route, as in the reference), or the 8-bit hierarchical
+(random-access) GOP of the reference's fast path with hierarchical_levels
+1-3 and intra_period_length > 0, with or without the
 lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
 frames search the inter tx type and the OBMC and inter-intra motion
 modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third
@@ -23,7 +25,10 @@ is a multiple of 32), film grain (parameters estimated from the first
 frame's source, pipeline/noise_model.py) and adaptive quantization
 (enable_adaptive_quantization 1: a per-64x64 variance qindex map coded
 as delta-q; 2: the same deltas as SEG_LVL_ALT_Q segments) on
-``send_picture`` key frames at presets without varpart (M5-M13).
+``send_picture`` key frames at presets without varpart (M5-M13).  AVIF
+(avif) codes one still key frame with the reduced still-picture
+header; a second picture raises ValueError.  encoder_color_format is
+not read: every stream is 4:2:0, as in the reference.
 
 Rate control on every route: CQP/CRF, capped CRF (max_bit_rate), one-pass
 VBR / CBR (rate_control_mode 1 / 2: OnePassRC picks each frame's qindex,
@@ -44,12 +49,11 @@ As in the reference, a GOP codes without superres and without AQ, and its
 key frames take loop restoration (the DPB slot holds the restored planes;
 inter frames signal RESTORE_NONE).  What still raises NotImplementedError,
 naming the ROADMAP.md item that brings it (nothing falls back to the JAX
-package): a GOP with film grain or with more than one tile column (the
-reference codes both on its stage path, which is not ported), 10-bit
-input, chroma formats other than 4:2:0, low-delay and IPPP GOPs,
-hierarchical_levels 4-5, intra_period_length -1, AVIF and S-frames, and a
-feature override (SVT_TPU_FEAT) that turns on a tool no preset uses
-(hp_mv, rdoq).
+package): a GOP with film grain, with more than one tile column or at 10
+bits (the reference codes these on its stage path, which is not ported),
+low-delay and IPPP GOPs, hierarchical_levels 4-5, intra_period_length -1,
+S-frames, and a feature override (SVT_TPU_FEAT) that turns on a tool no
+preset uses (hp_mv, rdoq).
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
@@ -88,7 +92,8 @@ the batched program with the preset's plain luma modes (as the
 reference's does) and the array-native C tile coder, or, with CDEF or
 filter-intra on, the object coder and no source for the filters: the
 heuristic DLF level, CDEF signaled with zero strengths and loop
-restoration with RESTORE_NONE, as the reference does.  Mode decision and the filters run on ``device``
+restoration with RESTORE_NONE, as the reference does.  Mode decision and
+the filters run on ``device``
 (pipeline/intra_encoder.py, pipeline/varpart.py, pipeline/dlf_stage.py,
 pipeline/cdef_stage.py; default: the current CUDA device); recon stays
 there until the filtered planes are copied out.  Entropy coding is the
@@ -204,9 +209,9 @@ def _unsupported(cfg: EncoderConfig):
     or None."""
     gop = cfg.intra_period_length not in (-2, 0)
     checks = (
-        (cfg.encoder_bit_depth != 8, "10-bit input", "queue A item 7"),
-        (cfg.encoder_color_format != 1, "chroma formats other than 4:2:0",
-         "queue A item 7"),
+        (gop and cfg.encoder_bit_depth != 8,
+         "10-bit GOPs (the reference codes them on its stage path, which "
+         "is not ported)", "queue A item 7"),
         (gop and (cfg.pred_structure != 2 or cfg.hierarchical_levels == 0),
          "low-delay and IPPP GOPs (pred_structure != 2 or "
          "hierarchical_levels 0)", "queue A item 7"),
@@ -221,8 +226,7 @@ def _unsupported(cfg: EncoderConfig):
         (gop and cfg.film_grain_denoise_strength > 0,
          "film grain in a GOP (the reference codes it on its stage path, "
          "which is not ported)", "queue A item 7"),
-        (bool(cfg.avif) or cfg.sframe_dist > 0, "AVIF and S-frames",
-         "queue A item 7"),
+        (cfg.sframe_dist > 0, "S-frames", "queue A item 7"),
     )
     for bad, what, item in checks:
         if bad:
@@ -276,8 +280,11 @@ class Encoder:
                 and self.coded_w % 32 == 0):
             self.sr_denom = 16
         self.sr_w = (self.coded_w * 8 + self.sr_denom // 2) // self.sr_denom
+        self.bd = config.encoder_bit_depth
         self.sp = obu.SequenceParams(
-            width=self.coded_w, height=self.coded_h, bit_depth=8,
+            width=self.coded_w, height=self.coded_h, bit_depth=self.bd,
+            still_picture=config.avif,
+            reduced_still_picture_header=config.avif,
             enable_cdef=config.cdef_level > 0,
             enable_superres=self.sr_denom != 8,
             enable_restoration=config.enable_restoration_filtering > 0,
@@ -297,9 +304,10 @@ class Encoder:
                 raise NotImplementedError(
                     f"{what}: not ported yet (ROADMAP.md queue A item 7)")
         # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
-        # sequence header; a frame turns the tools on when it has
-        # palette candidates
-        self.sp.enable_screen_content = bool(self._feat.palette)
+        # sequence header at 8 bits; a frame turns the tools on when it
+        # has palette candidates
+        self.sp.enable_screen_content = bool(self._feat.palette
+                                             and self.bd == 8)
         # filter-intra: the sequence flag and the MD pseudo-modes
         self.sp.enable_filter_intra = self._feat.filter_intra
         self.sp.enable_interintra_compound = self._feat.interintra
@@ -376,9 +384,11 @@ class Encoder:
         return obu.write_sequence_header(self.sp)
 
     def send_picture(self, y, u, v, eos: bool = False):
-        """Feed one frame (planar uint8 numpy).  All-intra has no
-        lookahead, so the frame is coded before this returns; in a GOP the
-        frame waits until its mini-GoP is complete."""
+        """Feed one frame (planar numpy: uint8, or uint16 at 10 bits).
+        All-intra has no lookahead, so the frame is coded before this
+        returns; in a GOP the frame waits until its mini-GoP is complete.
+        AVIF codes one picture: a second raises ValueError."""
+        self._one_still(1)
         y, u, v = self._checked(y, u, v)
         if self._hier:
             self._detect_scene_cut(y)
@@ -465,7 +475,7 @@ class Encoder:
                                     max(qindex + 16, int(qindex * 1.25))))
         if self.cfg.stat_report:
             with stage("stat_report"):
-                pkt.stats = metrics.frame_stats(src_full, pkt.recon)
+                pkt.stats = metrics.frame_stats(src_full, pkt.recon, self.bd)
         self._rc.feedback(bits, qindex, True)
         if self._fp_stats is not None:
             self._fp_stats.append((bits, qindex, 1.0))
@@ -482,7 +492,7 @@ class Encoder:
         if varpart and qmap is None:
             with stage("device_md_intra"):
                 decisions, recon = varpart_mod.encode_intra_frame_varpart(
-                    y, u, v, qindex, modes=self._md_modes,
+                    y, u, v, qindex, modes=self._md_modes, bd=self.bd,
                     device=self.device)
             return decisions, recon, False
         pal_cands = None
@@ -493,7 +503,7 @@ class Encoder:
                     y, qindex, device=self.device)
         with stage("device_md_intra"):
             decisions, recon = intra_encoder.encode_intra_frame(
-                y, u, v, qindex, modes=self._md_modes,
+                y, u, v, qindex, modes=self._md_modes, bd=self.bd,
                 rdoq=self._feat.rdoq, tx_search=self._feat.tx_search,
                 angle_deltas=self._feat.angle_deltas, cfl=self._feat.cfl,
                 exact_rates=(self._feat.exact_rates
@@ -542,16 +552,19 @@ class Encoder:
             # restoration, which works at the full width with its
             # deblocked boundary rows upscaled the same way
             fp.superres_denom = self.sr_denom
-            recon = resize.upscale_frame(recon, self.coded_w)
-            deblocked = resize.upscale_frame(deblocked, self.coded_w)
+            recon = resize.upscale_frame(recon, self.coded_w, self.bd)
+            deblocked = resize.upscale_frame(deblocked, self.coded_w,
+                                             self.bd)
         lr_info = None
         if self.sp.enable_restoration and src is not None:
             with stage("restoration"):
                 lr_info = lr_mod.make_lr_info(self.coded_w, self.coded_h)
                 lr_stage.search_lr(src_full or src, recon, deblocked,
-                                   lr_info, eps_set=self._feat.lr_eps)
+                                   lr_info, bd=self.bd,
+                                   eps_set=self._feat.lr_eps)
                 fp.lr_types = tuple(i.frame_type for i in lr_info)
-                recon = lr_stage.apply_lr(recon, deblocked, lr_info)
+                recon = lr_stage.apply_lr(recon, deblocked, lr_info,
+                                          bd=self.bd)
         self._ref = recon
         tenc = TileEncoder(self.sr_w, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
@@ -561,7 +574,7 @@ class Encoder:
             tenc.set_lr(lr_info)
         tenc.enable_filter_intra = self.sp.enable_filter_intra
         tenc.allow_palette = bool(fp.allow_screen_content_tools)
-        tenc.bit_depth = 8
+        tenc.bit_depth = self.bd
         if delta_q:
             fp.delta_q_present = True
             fp.delta_q_res = 2
@@ -602,8 +615,8 @@ class Encoder:
         searches = ((self.cfg.enable_dlf_flag and self._feat.dlf_search)
                     or self.sp.enable_cdef)
         if src is not None and searches:
-            src = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device) for k, v in src.items()}
+            src = dict(zip(src, intra_encoder.source_planes(
+                src.values(), self.bd, self.device)))
         if self.cfg.enable_dlf_flag:
             # uniform filtering is conformant on the fixed 16x16 grid;
             # frames with varpart 32/64 leaves take the mask-aware filter
@@ -617,13 +630,15 @@ class Encoder:
                         device=self.device)
                     if self._feat.dlf_search and src is not None:
                         recon = dlf_stage.search_and_apply_masked(
-                            src, recon, fp, flens)
+                            src, recon, fp, flens, bd=self.bd)
                     else:
                         self._heuristic_dlf_levels(fp, qindex)
-                        recon = dlf_stage.apply_masked(recon, fp, flens)
+                        recon = dlf_stage.apply_masked(recon, fp, flens,
+                                                       bd=self.bd)
                 elif self._feat.dlf_search and src is not None:
                     # per-plane level search (dlf_process.c:106-131)
-                    recon = dlf_stage.search_and_apply(src, recon, fp)
+                    recon = dlf_stage.search_and_apply(src, recon, fp,
+                                                       bd=self.bd)
                 else:
                     self._heuristic_dlf_levels(fp, qindex)
                     recon = intra_encoder.apply_loop_filter(recon, fp)
@@ -636,21 +651,21 @@ class Encoder:
             with stage("cdef"):
                 if self._feat.cdef_sb:
                     bits, sets, cdef_idx = cdef_stage.cdef_search_sb(
-                        src, recon, skip16, qindex,
+                        src, recon, skip16, qindex, bd=self.bd,
                         max_candidates=self._feat.cdef_candidates)
                     fp.cdef_bits = bits
                     fp.cdef_strengths = sets[0]
                     fp.cdef_strength_list = sets if bits else None
                     recon = cdef_stage.cdef_apply(recon, skip16, sets,
-                                                  fp.cdef_damping,
+                                                  fp.cdef_damping, self.bd,
                                                   sb_idx=cdef_idx)
                 else:
                     fp.cdef_strengths = cdef_stage.cdef_search(
-                        src, recon, skip16, qindex,
+                        src, recon, skip16, qindex, bd=self.bd,
                         max_candidates=self._feat.cdef_candidates)
                     recon = cdef_stage.cdef_apply(recon, skip16,
                                                   fp.cdef_strengths,
-                                                  fp.cdef_damping)
+                                                  fp.cdef_damping, self.bd)
         return recon, deblocked, cdef_idx
 
     @staticmethod
@@ -661,16 +676,17 @@ class Encoder:
         fp.filter_level_uv = (lvl_uv, lvl_uv)
 
     def send_pictures(self, frames, eos: bool = False):
-        """Batched submit: frames = [(y, u, v), ...] uint8 planes.  Each
-        chunk of up to 32 frames runs as one device batch with the
-        preset's plain luma modes; the host entropy-codes chunk k while
-        the device works on chunk k+1.  As in the reference, frames take
+        """Batched submit: frames = [(y, u, v), ...] uint8 planes (uint16
+        at 10 bits).  Each chunk of up to 32 frames runs as one device
+        batch with the preset's plain luma modes; the host entropy-codes
+        chunk k while the device works on chunk k+1.  As in the reference, frames take
         the array tile coder unless CDEF or loop restoration is on (or
         qindex is 0): then the per-block route, whose packetization has no
         source, so DLF takes the heuristic level, CDEF is signaled with
-        zero strengths and loop restoration with RESTORE_NONE.  With
-        superres, frames go through send_picture one at a time, as in the
-        reference."""
+        zero strengths and loop restoration with RESTORE_NONE; 10-bit
+        frames take the per-block route too.  With superres, frames go
+        through send_picture one at a time, as in the reference."""
+        self._one_still(len(frames))
         if self.sr_denom != 8:
             for (y, u, v) in frames:
                 self.send_picture(y, u, v)
@@ -688,7 +704,8 @@ class Encoder:
         qindex = self._chunk_qindex()
         # filter-intra blocks take the object coder (the per-block route),
         # with the preset's pseudo-modes in the batch, as in the reference
-        arrays_ok = (qindex > 0 and not self.sp.enable_restoration
+        arrays_ok = (qindex > 0 and self.bd == 8
+                     and not self.sp.enable_restoration
                      and not self.sp.enable_cdef
                      and not self.sp.enable_filter_intra)
         padded = [self._pad(*self._checked(y, u, v))
@@ -707,7 +724,7 @@ class Encoder:
                     exact_rates=(self._feat.exact_rates
                                  and self._feat.exact_rates_intra),
                     tile_starts=self._tile_starts if arrays_ok else (0,),
-                    device=self.device)
+                    bd=self.bd, device=self.device)
             if pending is not None:
                 self._emit(*pending, arrays_ok)
             pending = (launched, q, chunk)
@@ -737,7 +754,8 @@ class Encoder:
             if self.cfg.stat_report:
                 with stage("stat_report"):
                     pkt.stats = metrics.frame_stats(
-                        dict(y=src[0], u=src[1], v=src[2]), pkt.recon)
+                        dict(y=src[0], u=src[1], v=src[2]), pkt.recon,
+                        self.bd)
             self._packets.append(pkt)
             bits = len(pkt.data) * 8
             self._rc.feedback(bits, qindex, True)
@@ -806,7 +824,8 @@ class Encoder:
         if not self._grain_estimated and y is not None:
             self._grain_estimated = True
             try:
-                p, _ = noise_model.estimate_grain_params(y, u, v, bd=8)
+                p, _ = noise_model.estimate_grain_params(y, u, v,
+                                                         bd=self.bd)
             except Exception:
                 p = None
             self._grain_params = p
@@ -860,10 +879,10 @@ class Encoder:
         (key frames always; shown GOP inter and show-existing frames only
         with ``recon_enabled``, as in the reference)."""
         ch, cw = (self.render_h + 1) // 2, (self.render_w + 1) // 2
-        return dict(
-            y=recon["y"][:self.render_h, :self.render_w].cpu().numpy(),
-            u=recon["u"][:ch, :cw].cpu().numpy(),
-            v=recon["v"][:ch, :cw].cpu().numpy())
+        host = intra_encoder.host_plane
+        return dict(y=host(recon["y"][:self.render_h, :self.render_w]),
+                    u=host(recon["u"][:ch, :cw]),
+                    v=host(recon["v"][:ch, :cw]))
 
     # -- hierarchical (random access) GOP ------------------------------------
     def _is_key_poc(self, poc: int) -> bool:
@@ -1281,7 +1300,8 @@ class Encoder:
     _FADE_TH = 3
 
     def _detect_scene_cut(self, y: np.ndarray) -> None:
-        yy = np.asarray(y).astype(np.int64)
+        # histograms of the 8-bit scale at any bit depth
+        yy = np.asarray(y).astype(np.int64) >> (self.bd - 8)
         h, w = yy.shape
         R = 4 if h >= 64 else 1
         C = 4 if w >= 64 else 1
@@ -1381,11 +1401,19 @@ class Encoder:
             raise ValueError(
                 f"picture plane shapes {y.shape}/{u.shape}/{v.shape} do not "
                 f"match the configured {ew}x{eh} 4:2:0 geometry")
-        if y.dtype != np.uint8 or u.dtype != np.uint8 or v.dtype != np.uint8:
+        want = np.uint8 if self.bd == 8 else np.uint16
+        if y.dtype != want or u.dtype != want or v.dtype != want:
             raise ValueError(f"picture dtype {y.dtype}/{u.dtype}/{v.dtype} "
-                             "does not match encoder_bit_depth=8 (expected "
-                             "uint8)")
+                             f"does not match encoder_bit_depth={self.bd} "
+                             f"(expected {np.dtype(want).name})")
         return y, u, v
+
+    def _one_still(self, n: int):
+        """AVIF (single-picture) mode codes exactly one picture: raise
+        ValueError before a second one is taken (as the reference's
+        enc_handle.c:5367-5373 rejects it)."""
+        if self.cfg.avif and self._pts + len(self._la) + n > 1:
+            raise ValueError("AVIF mode supports exactly one input picture")
 
     def _pad(self, y, u, v):
         """Edge-replicate to the coded (16-aligned) size."""

@@ -25,10 +25,13 @@ the all-intra array route codes with tile_columns) decodes tile by tile,
 each with its own contexts and CDFs, and reconstructs with
 tile-clamped intra availability; the frame-end CDFs are tile 0's.
 Metadata OBUs (HDR content light level, mastering display) are parsed
-into ``metadata`` by type.  Shown planes are copied out once, filtered.
-What still raises, naming its ROADMAP.md item: 1/8-pel MVs, 10-bit
-streams, superres on inter frames, tile rows, and tile columns on inter
-frames (the reference's encoder codes neither).
+into ``metadata`` by type.  Shown planes are copied out once, filtered
+(uint8, or uint16 at 10 bits).  10-bit key frames reconstruct and filter
+at the sequence's bit depth (int16 planes on the device), and the
+reduced still-picture header (AVIF) is read.  What still raises, naming
+its ROADMAP.md item: 1/8-pel MVs, 10-bit inter frames, superres on inter
+frames, tile rows, and tile columns on inter frames (the reference's
+encoder codes none of these on the paths the port has).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from svt_av1_tpu_torch.pipeline import cdef_stage, dlf_stage, lr_stage
 from svt_av1_tpu_torch.pipeline.inter_encoder import (
     reconstruct_inter_from_decisions)
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
-    apply_loop_filter, reconstruct_from_decisions)
+    apply_loop_filter, host_plane, reconstruct_from_decisions)
 from svt_av1_tpu_torch.utils.bitio import BitReader
 
 
@@ -97,7 +100,7 @@ class Decoder:
                 if self.slots[idx] is None:
                     raise ValueError(
                         f"show_existing_frame of empty slot {idx}")
-                frames.append({k: v.cpu().numpy()
+                frames.append({k: host_plane(v)
                                for k, v in self.slots[idx].items()})
             elif obu_type == obu.OBU_METADATA:
                 mtype, fields = obu.parse_metadata(payload)
@@ -116,8 +119,10 @@ class Decoder:
         coded_w = fp.coded_width(self.sp.width)
         n_tiles = len(obu.tile_cols_layout(coded_w, fp.log2_tile_cols)) \
             * (1 << fp.log2_tile_rows)
-        if self.sp.bit_depth != 8:
-            raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
+        bd = self.sp.bit_depth
+        if bd != 8 and not is_intra:
+            raise NotImplementedError(
+                "10-bit inter frames: ROADMAP.md queue A item 7")
         if n_tiles > 1:
             return self._decode_frame_tiled(fp, tile_data, coded_w, n_tiles)
         if not is_intra and fp.superres_denom != 8:
@@ -184,7 +189,7 @@ class Decoder:
         if is_intra:
             recon = reconstruct_from_decisions(decisions, coded_w,
                                                self.sp.height,
-                                               fp.base_q_idx,
+                                               fp.base_q_idx, bd=bd,
                                                device=self.device)
         else:
             refs = {e: self.slots[fp.ref_frame_idx[e - 1]]
@@ -203,7 +208,7 @@ class Decoder:
                 dlf_stage.maps_from_decisions(decisions, self.sp.height // 4,
                                               coded_w // 4),
                 device=self.device)
-            recon = dlf_stage.apply_masked(recon, fp, flens)
+            recon = dlf_stage.apply_masked(recon, fp, flens, bd=bd)
         else:
             recon = apply_loop_filter(recon, fp)
         deblocked = recon
@@ -213,16 +218,16 @@ class Decoder:
             if fp.cdef_bits:
                 recon = cdef_stage.cdef_apply(
                     recon, skip16, fp.cdef_strength_list, fp.cdef_damping,
-                    bd=self.sp.bit_depth, sb_idx=tdec.cdef_idx, skip8=skip8)
+                    bd=bd, sb_idx=tdec.cdef_idx, skip8=skip8)
             else:
                 recon = cdef_stage.cdef_apply(
                     recon, skip16, fp.cdef_strengths, fp.cdef_damping,
-                    bd=self.sp.bit_depth, skip8=skip8)
+                    bd=bd, skip8=skip8)
         if fp.superres_denom != 8:
-            recon = resize.upscale_frame(recon, self.sp.width)
-            deblocked = resize.upscale_frame(deblocked, self.sp.width)
+            recon = resize.upscale_frame(recon, self.sp.width, bd)
+            deblocked = resize.upscale_frame(deblocked, self.sp.width, bd)
         if lr_info is not None:
-            recon = lr_stage.apply_lr(recon, deblocked, lr_info)
+            recon = lr_stage.apply_lr(recon, deblocked, lr_info, bd=bd)
         refresh = fp.refresh_frame_flags
         if fp.frame_type == obu.KEY_FRAME and fp.show_frame:
             refresh = 0xFF
@@ -253,7 +258,7 @@ class Decoder:
         self.last_frame_header = fp
         if not fp.show_frame:
             return None, False
-        out = {k: v.cpu().numpy() for k, v in stored.items()}
+        out = {k: host_plane(v) for k, v in stored.items()}
         out["decisions"] = decisions
         return out, True
 
@@ -307,7 +312,7 @@ class Decoder:
             end_cdfs, end_nmv = t0.cdfs, t0.nmv
         recon = reconstruct_from_decisions(
             decisions, coded_w, self.sp.height, fp.base_q_idx,
-            device=self.device,
+            bd=self.sp.bit_depth, device=self.device,
             tile_starts=tuple(s * 4 for s, _ in layout))
         recon = apply_loop_filter(recon, fp)
         if self.sp.enable_cdef:
@@ -326,6 +331,6 @@ class Decoder:
         self.last_frame_header = fp
         if not fp.show_frame:
             return None, False
-        out = {k: v.cpu().numpy() for k, v in stored.items()}
+        out = {k: host_plane(v) for k, v in stored.items()}
         out["decisions"] = decisions
         return out, True

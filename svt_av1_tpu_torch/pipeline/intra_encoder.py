@@ -67,6 +67,27 @@ CBLK = 8
 FORBID = 1e18
 
 
+def pixel_dtype(bd: int) -> torch.dtype:
+    """The dtype of recon planes on the device: uint8 at 8 bits, int16 at
+    10 (samples up to 1023; torch's uint16 has few kernels).  The host
+    copies of 10-bit planes are uint16, as the reference's are."""
+    return torch.uint8 if bd == 8 else torch.int16
+
+
+def source_planes(planes, bd: int, device):
+    """Host source planes (uint8 or uint16 numpy, any leading axes) as
+    tensors of ``pixel_dtype(bd)`` on ``device``."""
+    dt = np.uint8 if bd == 8 else np.int16
+    return [torch.from_numpy(np.ascontiguousarray(np.asarray(p).astype(
+        dt, copy=False))).to(device) for p in planes]
+
+
+def host_plane(t: torch.Tensor) -> np.ndarray:
+    """A recon plane copied to the host: uint8 at 8 bits, uint16 at 10."""
+    a = t.cpu().numpy()
+    return a if a.dtype == np.uint8 else a.astype(np.uint16)
+
+
 def cand_angle(mode: int, delta: int) -> int:
     """Prediction angle of a candidate (0 = non-directional)."""
     if cc.V_PRED <= mode <= cc.D67_PRED:
@@ -732,21 +753,22 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     """Whole-frame MD for a batch of F frames: a Python loop over the
     waves, each running the luma and the chroma step on F x maxb slots.
 
-    sy: (F, H, W), su/sv: (F, H/2, W/2) uint8 tensors; qp/lam: the frame
-    quantizer and lambda, or (F*gh*gw, 2) / (F*gh*gw,) per-block rows in
-    raster block order (adaptive quantization), which each wave gathers
-    for its slots; rates: the md_rate_args tuple on the same device, its
-    mode_bits one per luma candidate.  tx_search/angle_deltas: the luma candidates are
-    ``expand_tx_cands(modes, angle_deltas)`` and the returned y modes
-    are indices into that list.  cfl: the chroma step gets the CfL
+    sy: (F, H, W), su/sv: (F, H/2, W/2) tensors of pixel_dtype(bd);
+    qp/lam: the frame quantizer and lambda, or (F*gh*gw, 2) / (F*gh*gw,)
+    per-block rows in raster block order (adaptive quantization), which
+    each wave gathers for its slots; rates: the md_rate_args tuple on the
+    same device, its mode_bits one per luma candidate.
+    tx_search/angle_deltas: the luma candidates are
+    ``expand_tx_cands(modes, angle_deltas)`` and the returned y modes are
+    indices into that list.  cfl: the chroma step gets the CfL
     candidate.  palette: optional (cost (F*nb,) float32, rec (F*nb, 16,
     16) int32, qy (F*nb, 256) int16) tensors in raster block order — a
     precomputed palette alternative per block, taken where it beats the
     best intra candidate.
 
-    Returns (recon_y, recon_u, recon_v) uint8 and, in raster block order,
-    y modes / uv modes (F, gh*gw) uint8, levels qy (F, gh*gw, 256),
-    qu/qv (F, gh*gw, 64) int16 (levels of 16x16/8x8 transforms fit:
+    Returns (recon_y, recon_u, recon_v) of pixel_dtype(bd) and, in raster
+    block order, y modes / uv modes (F, gh*gw) uint8, levels qy (F, gh*gw,
+    256), qu/qv (F, gh*gw, 64) int16 (levels of 16x16/8x8 transforms fit:
     |level| <= 32767 / dequant_min <= 16384), CfL alphas au/av (F, gh*gw)
     int8 and, with ``palette``, the (F, gh*gw) bool palette choice (such
     blocks carry y mode DC_PRED and the palette's levels).  tile_starts:
@@ -813,8 +835,9 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     if palette is not None:
         ym = torch.where(pchoose, cc.DC_PRED, ym).to(torch.uint8)
         qy = torch.where(pchoose[:, None], palette[2], qy)
-    out = (recon_y.to(torch.uint8), recon_u.to(torch.uint8),
-           recon_v.to(torch.uint8), ym.reshape(nf, -1),
+    pdt = pixel_dtype(bd)
+    out = (recon_y.to(pdt), recon_u.to(pdt),
+           recon_v.to(pdt), ym.reshape(nf, -1),
            um.reshape(nf, -1), qy.reshape(nf, gh * gw, -1),
            qu.reshape(nf, gh * gw, -1), qv.reshape(nf, gh * gw, -1),
            au.reshape(nf, -1), av.reshape(nf, -1))
@@ -835,8 +858,8 @@ def frame_lambda(qindex: int, bd: int = 8) -> np.float32:
 
 
 def _check_slice(modes, bd, h, w):
-    if bd != 8:
-        raise NotImplementedError("10-bit: ROADMAP.md queue A item 7")
+    if bd not in (8, 10):
+        raise ValueError(f"bit depth {bd} is not 8 or 10")
     bad = [m for m in modes if m not in ALL_MODES + FI_MODES]
     if bad:
         raise ValueError(f"{bad} are not luma intra modes")
@@ -860,9 +883,8 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
     qp = quant.params_on(int(qindex), dev, bd)
     lam = torch.tensor(frame_lambda(qindex, bd), dtype=torch.float32,
                        device=dev)
-    planes = [torch.from_numpy(np.stack([f[p] for f in frames])
-                               .astype(np.uint8)).to(dev)
-              for p in range(3)]
+    planes = source_planes([np.stack([f[p] for f in frames])
+                            for p in range(3)], bd, dev)
     rt = _rate_args(int(qindex), tuple(modes), bool(exact_rates), dev)
     out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
                         tile_starts=tile_starts)
@@ -871,11 +893,12 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
 
 def encode_intra_frames_finish(pending, as_arrays: bool = True):
     """Bring a launched batch's decisions to the host: [(decisions,
-    recon), ...] per frame, recon = dict(y, u, v) of uint8 tensors left on
-    the device (the in-loop filters run there; the caller copies out the
-    final planes).  With ``as_arrays`` the decisions are the array bundle
-    the native tile coder takes, (ym, um, qy, qu, qv, gh, gw); without,
-    per-block BlockDecisions for the object tile coder."""
+    recon), ...] per frame, recon = dict(y, u, v) of pixel_dtype(bd)
+    tensors left on the device (the in-loop filters run there; the caller
+    copies out the final planes).  With ``as_arrays`` the decisions are
+    the array bundle the native tile coder takes, (ym, um, qy, qu, qv,
+    gh, gw); without, per-block BlockDecisions for the object tile
+    coder."""
     out, gh, gw, nf = pending
     ym, um, qy, qu, qv, au, av = (o.cpu().numpy() for o in out[3:10])
     results = []
@@ -1016,8 +1039,8 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                        exact_rates=False, palette_cands=None, device=None):
     """Encode one key frame on ``device`` (default: the current CUDA
     device): the frame program at F = 1.  Returns ({(r4, c4):
-    BlockDecision}, recon dict(y, u, v) of uint8 tensors on ``device``,
-    where the in-loop filters take them).
+    BlockDecision}, recon dict(y, u, v) of pixel_dtype(bd) tensors on
+    ``device``, where the in-loop filters take them).
 
     palette_cands: the tuple ``palette_md_candidates`` returned for this
     frame, or None.  qmap: optional (sb_rows, sb_cols) int array of
@@ -1048,8 +1071,8 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
     if palette_cands is not None:
         pc, prc, pqy, pinfo = palette_cands
         palette = (pc.to(dev), prc.to(dev), pqy.to(dev))
-    planes = [torch.from_numpy(np.asarray(p, np.uint8)[None]).to(dev)
-              for p in (src_y, src_u, src_v)]
+    planes = source_planes([np.asarray(p)[None]
+                            for p in (src_y, src_u, src_v)], bd, dev)
     out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
                         tx_search=tx_search, angle_deltas=angle_deltas,
                         cfl=cfl, palette=palette)
@@ -1128,8 +1151,8 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
     device), grouped by (mode, delta) for prediction and by tx type for
     the inverse, with the encoder's top-right/bottom-left flags.  CfL
     chroma of a wave reads that wave's reconstructed luma.  Returns
-    dict(y, u, v) of uint8 planes on ``device`` (the decoder filters them
-    there before it copies them out).
+    dict(y, u, v) of pixel_dtype(bd) planes on ``device`` (the decoder
+    filters them there before it copies them out).
 
     base: the (H, W) / (H/2, W/2) int32 planes of an inter frame with its
     inter blocks already reconstructed; ``decisions`` then holds its intra
@@ -1301,7 +1324,7 @@ def reconstruct_from_decisions(decisions, width: int, height: int,
             recon = _select_by(tx_types, lambda t: tf.inv_txfm2d_add(
                 dq, pred, t, tx, bd=bd))
             _scatter_blocks(rec[p], recon, fi, ys, xs, ar)
-    return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}
+    return {p: rec[p][0].to(pixel_dtype(bd)) for p in ("y", "u", "v")}
 
 
 def _luma_key(d):
@@ -1344,8 +1367,8 @@ def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
     64x64 leaf's top-right as unavailable where the frame's width is not
     a multiple of 64, while its encoder reads the zeros past the frame
     there (ROADMAP.md queue C item 4 (c)).  tile_starts clamps the
-    availability to each leaf's tile column.  Returns dict(y, u, v) uint8
-    planes on ``dev``."""
+    availability to each leaf's tile column.  Returns dict(y, u, v)
+    pixel_dtype(bd) planes on ``dev``."""
     mi_rows, mi_cols = height // 4, width // 4
     gh64, gw64 = (height + 63) // 64, (width + 63) // 64
     sb_leaves = {}
@@ -1383,7 +1406,7 @@ def _reconstruct_mixed(decisions, width: int, height: int, qindex: int,
             for bsize, ds in by_size.items():
                 _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev,
                               tile_starts)
-    return {p: rec[p][0].to(torch.uint8) for p in ("y", "u", "v")}
+    return {p: rec[p][0].to(pixel_dtype(bd)) for p in ("y", "u", "v")}
 
 
 def _recon_leaves(rec, ds, bsize, width, height, qp, bd, dev,

@@ -310,9 +310,9 @@ def _per_unit(per_chunk: np.ndarray, unit: np.ndarray, n_units: int):
 def _xq_from_sums(sums, r0: int, r1: int) -> Tuple[int, int]:
     """_solve_xq of the reference (restoration_pick.c get_proj_subspace +
     encode_xq) from its five dot products (h00, h11, h01, c0, c1).  They
-    are sums of integer products each under 2^26 over at most ~2^18
-    samples, so the int64 sums made on the device equal the reference's
-    float64 ones exactly, whatever the order; the solve and round (half
+    are sums of integer products each under 2^26 (2^30 at 10 bits) over
+    at most ~2^18 samples, so the int64 sums made on the device equal the
+    reference's float64 ones exactly, whatever the order; the solve and round (half
     even) then run on the host as the reference's do."""
     h00, h11, h01, c0, c1 = (float(v) for v in sums)
     x0 = x1 = 0.0

@@ -44,7 +44,7 @@ from svt_av1_tpu_torch.codec.syntax import BlockDecision
 from svt_av1_tpu_torch.ops import quant
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
     MODES, _check_slice, _rd_step, _rd_step_chroma, _scatter_blocks,
-    _wave_schedule, frame_lambda, split_fi_mode, tr_bl_avail)
+    _wave_schedule, frame_lambda, pixel_dtype, split_fi_mode, tr_bl_avail)
 
 # z-order of sub-blocks within their parent
 _SUBS = ((0, 0), (0, 1), (1, 0), (1, 1))
@@ -223,7 +223,8 @@ def encode_intra_frame_varpart(src_y, src_u, src_v, qindex: int,
                                ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
     """Intra frame with 64/32/16 square partition decisions on ``device``
     (default: the current CUDA device).  Returns ({(r4, c4):
-    BlockDecision}, recon dict(y, u, v) of uint8 tensors on ``device``)."""
+    BlockDecision}, recon dict(y, u, v) of pixel_dtype(bd) tensors on
+    ``device``)."""
     h, w = src_y.shape
     _check_slice(modes, bd, h, w)
     dev = device_mod.resolve(device)
@@ -293,9 +294,10 @@ def encode_intra_frame_varpart(src_y, src_u, src_v, qindex: int,
                         qcoeff_u=a["qu16"][j, q, s],
                         qcoeff_v=a["qv16"][j, q, s],
                         filter_intra_mode=fi16)
-    recon = dict(y=ry[0, :h, :w].to(torch.uint8),
-                 u=ru[0, :h // 2, :w // 2].to(torch.uint8),
-                 v=rv[0, :h // 2, :w // 2].to(torch.uint8))
+    pdt = pixel_dtype(bd)
+    recon = dict(y=ry[0, :h, :w].to(pdt),
+                 u=ru[0, :h // 2, :w // 2].to(pdt),
+                 v=rv[0, :h // 2, :w // 2].to(pdt))
     return decisions, recon
 
 

@@ -2,7 +2,9 @@
 from a seed with numpy only (so they also exist where JAX is not
 installed).
 
-``natural_clip`` is the bench's clip shape: moving sinusoids plus noise.
+``natural_clip`` is the bench's clip shape: moving sinusoids plus noise;
+``natural_clip10`` the same at 10 bits; ``scene_cut_clip`` the same with
+a scene cut.
 ``fault_clip``, ``seam_clip``, ``gradient_wipe_clip`` and ``boundary_clip``
 are the M5-M9 GOP clips: the reference's round-trip fault, OBMC,
 inter-intra and the 8x8 split.
@@ -40,6 +42,20 @@ def natural_clip(n, w, h, seed=0, chroma_noise=True):
         out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
                          for p in (y, u, v)))
     return out
+
+
+def to_10bit(frames, seed=0):
+    """8-bit frames at 10 bits: each sample times 4 plus two random low
+    bits, so that every 10-bit value occurs (uint16 planes)."""
+    rng = np.random.default_rng(seed + 1000)
+    return [tuple((p.astype(np.uint16) * 4
+                   + rng.integers(0, 4, p.shape)).astype(np.uint16)
+                  for p in f) for f in frames]
+
+
+def natural_clip10(n, w, h, seed=0):
+    """``natural_clip`` at 10 bits (``to_10bit``)."""
+    return to_10bit(natural_clip(n, w, h, seed=seed), seed)
 
 
 def varpart_frame(h=96, w=128, seed=2):
@@ -97,6 +113,13 @@ def _two_scenes(h, w):
     rng = np.random.default_rng(5)
     return tuple(_smooth(rng.integers(0, 255, (h, w)).astype(np.float32))
                  .astype(np.uint8) for _ in range(2))
+
+
+def scene_cut_clip(n=9, cut=5, w=64, h=64, seed=1):
+    """``natural_clip`` whose luma is inverted from frame ``cut`` on: a
+    scene cut that the encoder's histogram detector flags there."""
+    out = natural_clip(n, w, h, seed=seed)
+    return out[:cut] + [(255 - y, v, u) for y, u, v in out[cut:]]
 
 
 def wipe_clip(n=5, h=64, w=64):

@@ -8,8 +8,9 @@ GOP at M6, M8, M10 and M12 (round trip on the card, parity with the CPU),
 the GOP clips that code wedge, diffwtd and warped blocks (the card's
 stream codes each tool, round trip, parity with the CPU), a GOP with the
 lookahead (MCTF + TPL, a delta-q key frame) on the card against the CPU,
-and the M0-M4 predictors (filter-intra, D45 / D67 / D203) and an M2
-varpart key frame with the filters on the card against the CPU.
+the M0-M4 predictors (filter-intra, D45 / D67 / D203) and an M2
+varpart key frame with the filters on the card against the CPU, and a
+10-bit M10 frame with DLF + CDEF + LR on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -431,3 +432,32 @@ def test_m2_varpart_key_frame_on_cuda_matches_cpu():
     _parity(frames, pk_g, dec_g, pk_c, dec_c)
     sizes = {b.bsize for b in dec_g[0].values()}
     assert {cc.BLOCK_16X16, cc.BLOCK_32X32} <= sizes
+
+
+@pytest.mark.cuda
+def test_ten_bit_frame_on_cuda_matches_cpu():
+    """A 64x64 10-bit M10 frame with DLF + CDEF + LR on the card: the same
+    stream as on the CPU (K1 launched on every luma wave at 10-bit
+    residuals), decoded on the card to the uint16 recon."""
+    _need_card()
+    (frame,) = clips.natural_clip10(1, 64, 64, seed=4)
+
+    def run(device):
+        enc = Encoder(EncoderConfig(source_width=64, source_height=64, qp=35,
+                                    encoder_bit_depth=10, enable_dlf_flag=1,
+                                    cdef_level=1,
+                                    enable_restoration_filtering=1),
+                      device=device)
+        enc.send_picture(*frame)
+        enc.flush()
+        return enc.get_packet()
+
+    before = fused_txq.launches
+    card = run("cuda")
+    assert fused_txq.launches > before
+    cpu = run("cpu")
+    assert card.data == cpu.data
+    (rec,) = Decoder(device="cuda").decode_temporal_unit(card.data)
+    for k in "yuv":
+        assert rec[k].dtype == card.recon[k].dtype == np.uint16
+        assert np.array_equal(rec[k], card.recon[k])

@@ -301,8 +301,12 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("field,value", [
     ("intra_period_length", 15), ("encoder_bit_depth", 10)])
 def test_out_of_slice_configs_raise(field, value):
+    """An IPPP GOP, and 10 bits in a GOP (all-intra 10-bit streams are
+    ported: tests/test_torch_10bit.py)."""
     cfg = EncoderConfig(source_width=64, source_height=64)
     setattr(cfg, field, value)
+    if field == "encoder_bit_depth":
+        cfg.intra_period_length, cfg.hierarchical_levels = 15, 3
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Encoder(cfg, device="cpu")
 

@@ -276,19 +276,25 @@ def test_out_of_slice_still_raises(field, value, item):
 
 def test_encode_intra_frame_refuses_aq_and_other_modes():
     """RDOQ (with or without the qmap of a TPL delta-q key frame, which is
-    ported) and 10-bit raise, naming their ROADMAP.md item; an id that is
-    no luma mode (nor a filter-intra pseudo-mode) is refused.  (The luma
-    modes of M0-M4, D45/D67/D203 and filter-intra, are ported.)"""
+    ported) raises, naming its ROADMAP.md item; an id that is no luma mode
+    (nor a filter-intra pseudo-mode) and a bit depth other than 8 or 10
+    are refused.  (The luma modes of M0-M4, D45/D67/D203 and
+    filter-intra, are ported, at 10 bits too.)"""
     y, u, v = clips.natural_clip(1, 32, 32)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tie.encode_intra_frame(y, u, v, 140, qmap=np.full((1, 1), 120),
                                rdoq=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tie.encode_intra_frame(y, u, v, 140, rdoq=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="bit depth"):
         tie.encode_intra_frame(y, u, v, 140, modes=(cc.DC_PRED,
-                                                    cc.D45_PRED), bd=10,
+                                                    cc.D45_PRED), bd=12,
                                device="cpu")
+    _, rec = tie.encode_intra_frame(*(p.astype(np.uint16) * 4
+                                      for p in (y, u, v)), 140,
+                                    modes=(cc.DC_PRED, cc.D45_PRED), bd=10,
+                                    device="cpu")
+    assert rec["y"].dtype == torch.int16 and int(rec["y"].max()) > 255
     with pytest.raises(ValueError, match="not luma intra modes"):
         tie.encode_intra_frame(y, u, v, 140,
                                modes=(cc.DC_PRED, cc.UV_CFL_PRED),

@@ -254,6 +254,11 @@ ENTRY_POINTS = {
         source_width=64, source_height=64, enable_restoration_filtering=1,
         superres_mode=1, film_grain_denoise_strength=8,
         enable_adaptive_quantization=2)),
+    "Encoder 10-bit": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, encoder_bit_depth=10,
+        enable_restoration_filtering=1)),
+    "Encoder AVIF": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, avif=True)),
     "Encoder GOP": lambda: Encoder(EncoderConfig(
         source_width=32, source_height=32, intra_period_length=4,
         hierarchical_levels=1, enable_tf=0)),

@@ -15,7 +15,8 @@ as delta-q; AQ 2: the same deltas as SEG_LVL_ALT_Q segments).
   TileEncoder.encode takes the C array walk, which has none, for plain
   16x16 DCT frames), so its stream does not decode (ROADMAP.md queue C
   item 4 (d)); the port codes them as the specification reads them, its
-  recon equals the reference's, and both decoders decode its stream.
+  recon equals the reference's, and both decoders decode its stream; at
+  10 bits too (the reference's decoder fails on its own stream).
 - Where the JAX package ignores a tool the port ignores it the same way:
   a GOP codes without superres and without AQ; send_pictures' array
   route signals RESTORE_NONE and the preset grain; a GOP with film grain
@@ -196,6 +197,56 @@ def test_aq2_reference_fault():
     except NotImplementedError:
         ok = False
     assert not ok
+
+
+def _jax_aq2_10bit(frame, port_data):
+    """The JAX package's AQ 2 M10 stream of a 10-bit picture, its recon,
+    whether its own decoder reproduces that recon from it, and its
+    decoder's planes of the port's stream."""
+    from svt_av1_tpu.api.config import EncoderConfig as JConfig
+    from svt_av1_tpu.api.encoder import Encoder as JEncoder
+    from svt_av1_tpu.codec.decoder import Decoder as JDecoder
+    enc = JEncoder(JConfig(source_width=128, source_height=96, qp=35,
+                           encoder_bit_depth=10,
+                           enable_adaptive_quantization=2))
+    enc.send_picture(*frame, eos=True)
+    pkt = enc.get_packet()
+    try:
+        (own,) = JDecoder().decode_temporal_unit(pkt.data)
+        ok = all(np.array_equal(np.asarray(own[k]), pkt.recon[k])
+                 for k in "yuv")
+    except Exception:
+        ok = False
+    (dec,) = JDecoder().decode_temporal_unit(port_data)
+    return ((np.frombuffer(pkt.data, np.uint8), np.array(ok))
+            + tuple(pkt.recon[k] for k in "yuv")
+            + tuple(np.asarray(dec[k]) for k in "yuv"))
+
+
+def test_aq2_reference_fault_10bit():
+    """AQ 2 at M10 at 10 bits behaves as at 8: the reference's stream
+    codes no segment ids, and its own decoder does not reproduce its
+    recon from it (stored: it raises); the port codes them, its recon
+    equals the reference's, and both decoders decode its stream
+    exactly."""
+    frame = clips.to_10bit([clips.varpart_frame()])[0]
+    enc = Encoder(EncoderConfig(source_width=128, source_height=96, qp=35,
+                                encoder_bit_depth=10,
+                                enable_adaptive_quantization=2),
+                  device="cpu")
+    pkts = _encode(enc, [frame])
+    data = pkts[0].data
+    ref = port_refs.jax_ref("post_filters_aq2_m10_10bit",
+                            lambda: _jax_aq2_10bit(frame, data), *frame,
+                            np.frombuffer(data, np.uint8))
+    jdata, jok = bytes(ref[0]), bool(ref[1])
+    assert not jok and data != jdata
+    (rec,), (fp,) = _decode([data])
+    assert fp.segmentation is not None
+    for k, jrec, jdec in zip("yuv", ref[2:5], ref[5:8]):
+        np.testing.assert_array_equal(pkts[0].recon[k], jrec)
+        np.testing.assert_array_equal(rec[k], pkts[0].recon[k])
+        np.testing.assert_array_equal(jdec, pkts[0].recon[k])
 
 
 def test_gop_key_frame_slot_holds_restored_planes(monkeypatch):

@@ -51,6 +51,8 @@ TESTS = (
     "tests/test_torch_post_filters.py",
     "tests/test_torch_rate_control.py",
     "tests/test_torch_api_surface.py",
+    "tests/test_torch_10bit.py",
+    "tests/test_torch_avif.py",
 )
 
 
