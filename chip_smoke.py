@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --this-slice   # phases 1-4, 37, 38 and 25 only
+    python3 chip_smoke.py --this-slice   # phases 1-4, 39-41 and 25 only
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 37 and 38 (this slice), then
-35 and 36, 32, 33 and 34, then 28, 31, 30 and 29, then 27 and 26 (the
-slices before it) run right after phase 4; the rest in order:
+failure raises and exits non-zero.  Phases 39, 40 and 41 (this slice)
+run alone right after phase 4.  Then the earlier slices run in two
+processes that share the card: this one runs 37 and 38, 35 and 36, 32,
+33 and 34, then 28, 31, 30 and 29, while a second process that it starts
+and waits for (this script with --earlier-slices; its lines are printed
+after this one's, its launch counts and K1 batch sizes returned in a
+result file) runs 27 and 26, then 5-24 in order.  While both run, no
+time is measured (it would include the other process's load): the
+times on those phases' lines print as nan and their kernel profiles are
+left out; those phases check streams, decodes and K1's launch counts.
+Then phase 25 and the last lines.  The phases:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
      exits non-zero without CUDA;
   2. build of the CUDA kernels from svt_av1_tpu_torch/csrc (nvcc, sm_90a)
      into build/kernels/;
   3. the fused transform+quantize kernel (K1) on the card, at every batch
      size B that the paths below give it (frames in one program x wave
-     slots x luma modes, k1_batches: 264 and 240 for M10 send_pictures at
-     CIF x4 and 720p x1, 352 and 320 for M6; 66, 44 and 240 for a
+     slots x luma modes, k1_batches: 132 and 240 for M10 send_pictures at
+     CIF x2 and 720p x1, 176 and 320 for M6; 66, 44 and 240 for a
      send_picture key frame or the pass B of one inter frame at CIF M10,
      CIF M12 and 720p M10; 18, 12, 18 and 24 for phase 20's small GOPs;
      88 for pass B at CIF M6, 16 and 32 for phase 27's; at M0-M4 110
-     and 22 for pass B at CIF M4 and 64x64 M2, 660, 165 and 60 for M4
+     and 22 for pass B at CIF M4 and 64x64 M2, 330, 165 and 60 for M4
      send_pictures with the five filter-intra pseudo-modes, 15, 30, 45
-     and 16 for the varpart program's 16x16 steps), qindex 140 and
+     and 16 for the varpart program's 16x16 steps, 20 for phase 31's M4
+     pass B; 24, 12, 18, 8 and 10 for phase 40's rect clip, CLI cases,
+     64x64 M12 GOP and 32x32 M4 GOP),
+     qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; the same on
@@ -31,7 +42,7 @@ slices before it) run right after phase 4; the rest in order:
      clamp) at qindex 1, 35, 128 and 255 with the 10-bit quantizer,
      under the 10-bit tie rule below, the saturated blocks equal to the
      plain version's, at the sizes the 10-bit paths give it (k1_batches10:
-     360 for the 1080p key frame of phase 37, 264 for its CIF x4 batch,
+     360 for the 1080p key frame of phase 37, 132 for its CIF x2 batch,
      phase 38's), also timed on the 10-bit residuals; at each size
      the device time per launch of the kernel, the first kernel and the
      plain version (a CUDA graph of 20 launches on preallocated outputs,
@@ -41,14 +52,14 @@ slices before it) run right after phase 4; the rest in order:
      the L2 (bound by device memory);
   4. the inverse transform and the DC/V/H/SMOOTH/PAETH predictors on the
      card against the C-reference goldens in tests/golden/ (bit-exact);
-  5. the all-intra batch: CIF 352x288, 4 frames, preset M10, qp 35, through
+  5. the all-intra batch: CIF 352x288, 2 frames, preset M10, qp 35, through
      Encoder(cfg).send_pictures on the default device (the card), once to
      warm and once timed; the kernel's launch count over the timed run
      must be > 0; every packet is decoded by the port's decoder on the
      card and must equal Packet.recon exactly;
   6. the same encode and decode check at 1280x720, 1 frame (no warm run:
      phase 35 ran the program at 720p);
-  7. the first 4 CIF frames encoded on the CPU with the plain versions,
+  7. the 2 CIF frames encoded on the CPU with the plain versions,
      against the card's: >= 99% of blocks equal, |dPSNR| <= 0.05 dB,
      |dbytes| <= 1%;
   8. the zone-1/zone-3 directional predictors, the CfL AC buffer and
@@ -64,7 +75,7 @@ slices before it) run right after phase 4; the rest in order:
  10. the same at 1280x720, 1 clip frame (no warm frame; palette is
      required of phase 9's screen frame only);
  11. M6 through send_pictures (the batched program with the preset's 8
-     plain luma modes): CIF x4 and 720p x1, hot fps, bytes, PSNR, K1
+     plain luma modes): CIF x2 and 720p x1, hot fps, bytes, PSNR, K1
      launches > 0, decoder exact;
  12. 1 clip frame and 1 screen-content CIF frame at M6 on the CPU against
      the card's: >= 99% of blocks equal (mode, tx type, delta, uv mode,
@@ -85,7 +96,7 @@ slices before it) run right after phase 4; the rest in order:
      filtered recon's SSE over Y+U+V not above the unfiltered recon's of
      phases 9-10 (the same decisions: key-frame MD does not see the
      filters, and both searches include "off");
- 15. M10 through send_pictures, CIF x4, with DLF only (array route) and
+ 15. M10 through send_pictures, CIF x2, with DLF only (array route) and
      with DLF + CDEF (per-block route, CDEF signaled at strength 0 as in
      the reference): hot fps, bytes, PSNR, K1 launches > 0, decoder exact;
  16. the first clip frame and the screen-content frame at M6 with both
@@ -100,8 +111,8 @@ slices before it) run right after phase 4; the rest in order:
      under its own (a differing option only where the float64 SSEs of the
      two picks lie within 1e-6 relative), ties counted;
  18. the hierarchical GOP of the previous slice through send_picture /
-     flush on the default device, at a cut depth: CIF x5 (key and a
-     mini-GoP of 4), hierarchical_levels 3, keyint 15, M10, qp 35, MCTF
+     flush on the default device, at a cut depth: CIF x3 (key and a
+     mini-GoP of 2), hierarchical_levels 3, keyint 15, M10, qp 35, MCTF
      and TPL off, DLF + CDEF; no warm run: fps, host dispatch seconds per
      inter frame, the host stage seconds, the inter blocks by kind (inter,
      intra, compound, wedge, diffwtd, warp, merged), K1 launches > 0;
@@ -120,7 +131,7 @@ slices before it) run right after phase 4; the rest in order:
      references, MVs, warp, compound type, wedge option, qcoeff),
      |dPSNR| <= 0.05 dB, |dbytes| <= 1%, identity, and the GM / interp /
      wedge-pick ties printed;
- 21. M12 (no subpel ring, 4 intra modes): CIF x5 GOP, timed (no warm
+ 21. M12 (no subpel ring, 4 intra modes): CIF x3 GOP, timed (no warm
      run), decoded;
  22. the lookahead's device ops on the card against the port's CPU run
      at CIF: satd and TPL's group stats (gop_fast.tpl_group_stats over a
@@ -128,8 +139,8 @@ slices before it) run right after phase 4; the rest in order:
      tail) exact; the temporal filter on 99 32x32 blocks (F = 3) and
      mctf_filter_frame (the key's 2 neighbours, the base's 3) under the
      pixel tie rule below, flips counted;
- 23. the lookahead slice's main path at a cut depth: the CIF x5 GOP (key
-     and a 4-frame mini-GoP at flush) of
+ 23. the lookahead slice's main path at a cut depth: the CIF x3 GOP (key
+     and a 2-frame mini-GoP at flush) of
      phase 18's structure with the reference's default tools, MCTF and
      TPL on (delta-q key frames), M10, DLF + CDEF, with recon_enabled off
      as bench.py runs it (phases 18-22 ran every program at CIF, so no
@@ -180,7 +191,7 @@ slices before it) run right after phase 4; the rest in order:
      mask-aware DLF search, per-SB CDEF; seconds, bytes, Y-PSNR, levels,
      cdef_bits and strengths, the blocks of each leaf size, filter-intra
      and D45 / D67 (each must be > 0 over the two, and cdef_bits > 0 on
-     one); then send_pictures x4 (K1 at B = 660); every packet decoded on
+     one); then send_pictures x2 (K1 at B = 330); every packet decoded on
      the card equal to Packet.recon;
  30. the main path of the M0-M4 slice: the CIF x7 GOP (key + a 6-frame
      3-level mini-GoP at flush; at x5 no block takes GOLDEN) at M4 with MCTF + TPL, DLF + CDEF, run after phase 31
@@ -223,7 +234,7 @@ slices before it) run right after phase 4; the rest in order:
      M10, a 64x64 x5 GOP with LR on its key frame) on the CPU and on the
      card: every stream identical, each decoded on its device equal to
      its recon;
- 35. the main path of the rate-control slice: the CIF x5 GOP (phase
+ 35. the main path of the rate-control slice: the CIF x3 GOP (phase
      18's structure:
      hierarchical_levels 3, keyint 15, DLF + CDEF) at M10 with the
      default MCTF under one-pass CBR at 100,000 bits/s at 30 fps through
@@ -231,49 +242,84 @@ slices before it) run right after phase 4; the rest in order:
      frames at qp 35: fps, host dispatch seconds per inter frame, the
      achieved bits/s against the target, (poc, qindex, bytes) of every
      coded frame, the stat report's host seconds per CIF frame, K1's
-     launches (56 waves x 5 frames at B = 66), every shown frame decoded
+     launches (56 waves x 3 frames at B = 66), every shown frame decoded
      on the card equal to the encoder's recon; then the CIF x3 two-pass
      GOP (pass 1 at qp 35, its stats blob from get_stream_info(0); pass 2
      VBR at the target), all-intra CBR send_picture at 1,000,000 bits/s on
      four smooth CIF frames and a noise frame (one recode, at pts 4: the
      controller gives a first frame the worst qindex, so it cannot
-     overshoot), send_pictures with tile columns on CIF x4 (2 tiles, with
+     overshoot), send_pictures with tile columns on CIF x2 (2 tiles, with
      HDR metadata and stat reports) and 720p x1 (4 tiles), each beside one
      tile (bytes, the entropy-coding seconds), decoded on the card by the
-     tiled decoder; one 720p frame's tiled packetization 20 times (the
+     tiled decoder; one 720p frame's tiled packetization 5 times (the
      same bytes each time);
  36. the small streams of tests/test_torch_rate_control.py and
      tests/test_torch_api_surface.py on the CPU and on the card, each
      decoded on its device equal to its recon: streams and qindex
      sequences identical (a difference fails unless a tie counted in the
      first frame that differs explains it);
- 37. the main path of this slice: one 1920x1080 10-bit frame (the bench
-     clip at 10 bits, coded 1920x1088) at M10 with DLF + CDEF + loop
+ 37. the main path of the 10-bit slice: one 1920x1080 10-bit frame (the
+     bench clip at 10 bits, coded 1920x1088) at M10 with DLF + CDEF + loop
      restoration through send_picture / flush on the default device,
-     timed hot (a warm run of the same frame first) with recon_enabled
-     off: seconds, bytes, Y-PSNR (peak 1023), the stage seconds
+     timed with recon_enabled off (cold: no warm run):
+     seconds, bytes, Y-PSNR (peak 1023), the stage seconds
      (device_md_intra, dlf, cdef, restoration, host_ec), the filter
      levels, strengths and LR types, K1's launches (one per luma wave:
      254 at B = 360); decoded on the card to uint16 planes equal to
      recon; then a CIF 10-bit M6 key frame with DLF + CDEF + LR
      (BASELINE config 3's preset: tx search, CfL, no palette at 10 bits,
      no K1), timed in turns beside the same frame at 8 bits, its tool
-     counts; send_pictures CIF x4 at 10 bits with DLF + CDEF (the
-     per-block route, K1 at B = 264), decoded on the card;
+     counts; send_pictures CIF x2 at 10 bits with DLF + CDEF (the
+     per-block route, K1 at B = 132), decoded on the card;
  38. the small streams of tests/test_torch_10bit.py (10-bit M10 + LR, M6,
      M4, superres + LR, film grain, AQ 1, CBR with a recode,
      send_pictures x2; an 8-bit stream at encoder_color_format 3 and a
      levels-3 GOP with a scene cut) and tests/test_torch_avif.py (AVIF
      stills at 8 and 10 bits) on the card, each decoded on the card equal
      to its recon, against the CPU's stored streams: identical, with the
-     same qindex sequences.
+     same qindex sequences;
+ 39. the main path of this slice: the port's command-line app
+     (svt_av1_tpu_torch.app.cli.main, in this process, on the default
+     device) on the CIF bench clip x17 written as a y4m, with BASELINE.json
+     config 1's arguments (--preset 12 --crf 35) at --keyint -1 and
+     --svtav1-params hierarchical-levels=4:enable-tpl-la=1 (MCTF on by
+     default): a key frame and one 16-frame mini-GoP, which codes every
+     layer 0-4 of config 2's pyramid; the native range coder's build (or
+     load) timed apart first; the CLI's own fps / Y-PSNR line, wall
+     seconds cold (this process's first encode) and of the same run again
+     warm (the same IVF), their difference the first-use cost, the IVF
+     bytes, the mini-GoPs, the coded frames per temporal layer (each of
+     0-4 must be coded), the most DPB slots live, the host stage seconds,
+     K1's launches (56 waves x the inter frames and the key frames without
+     delta-q, at B = 44); the IVF decoded on the card; the IVF's digest
+     and the decoded frames' digest must equal the CPU's
+     (tools/record_cpu_streams.py);
+ 40. the small streams of this slice's CPU tests on the card, each decoded
+     on the card: the GOP shapes of tests/test_torch_gop_shapes.py at
+     keyint -1 (levels 4 and 5) and the reference's rect clip at keyint -1
+     (tests/test_torch_gop_m6.py) against the stored JAX streams (the
+     CPU's, byte for byte); the CLI cases of tests/test_torch_cli.py (the
+     reference's case, two channels, a 10-bit y4m) against the JAX CLI's
+     stored IVF files, and the first of them once more through python -m
+     svt_av1_tpu_torch.app.cli in a new process; a 32x32 x33 M4 GOP at
+     levels 5 (one 32-frame mini-GoP with GOLDEN) against the CPU's
+     digest; the C ABI case of tests/test_torch_capi.py through the Python
+     API against the stored JAX stream;
+ 41. the C ABI (svt_av1_tpu_torch/native/capi.c and capi_client.c) built
+     on this machine with gcc and python3-config --embed, the client run
+     with SVT_AV1_TORCH_DEVICE unset, so on the CUDA device: its stream
+     must equal the stored JAX stream of the case, and it decodes on the
+     card; only where python3-config gives no flags to embed Python is
+     the phase left out, and a line says so and why (a shim or client
+     that does not compile or link fails the script).
 
 Phases 7, 12, 16, 20, 27, 31 and 34 hold the card's stream of each of
 their cases to the CPU's: a stream whose sha1 equals the digest that
 tools/record_cpu_streams.py stored for the case
 (tests/golden/torch_cpu_streams.json) is the CPU's stream; any other is
 encoded on the CPU in the run and held to the parity rule (phase 34: to
-identity), as before.
+identity), as before.  Phases 39 and 40 hold their digest cases to the
+stored digests alone.
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
@@ -311,9 +357,8 @@ cases and helpers from the test modules, which import the JAX package only
 inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
 record (its top-level numbers are K1's on this slice's main path, phase
-37's 1080p 10-bit key frame, at B = 360 on 10-bit residuals; by_batch
-has every size, bd the residuals' bit depth), the last line {"ok":
-true, "device": {...}}.
+39's CLI GOP at CIF M12, at B = 44; by_batch has every size, bd the
+residuals' bit depth), the last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -338,6 +383,26 @@ T0 = time.perf_counter()
 def log(msg):
     """One phase line, with the seconds since the script started."""
     print(f"{msg} [t={time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+# True while two processes share the card (the second process throughout,
+# this one from the second's start to its end): no phase time is measured
+# then, for it would include the other process's load; clock() and
+# stage_stats() give nan, and the kernel profiles are left out
+SHARED = False
+
+
+def clock():
+    """time.perf_counter(), or nan while SHARED."""
+    return float("nan") if SHARED else time.perf_counter()
+
+
+def stage_stats():
+    """The port's host stage (seconds, calls), the seconds nan while
+    SHARED."""
+    from svt_av1_tpu_torch.utils import profiling
+    return {k: (float("nan") if SHARED else t, c)
+            for k, (t, c) in profiling.stage_stats().items()}
 
 
 def synth_frames(n, w, h):
@@ -368,7 +433,7 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 GRAPH_LAUNCHES = 20
 GRAPH_REPLAYS = 50
 # the depth of the all-intra send_pictures paths of the earlier slices
-CIF_FRAMES, HD_FRAMES = 4, 1
+CIF_FRAMES, HD_FRAMES = 2, 1
 # the sha1 digest of the CPU's stream of every cpu-vs-cuda case of
 # phases 7, 12, 16, 20, 27, 31 and 34 (tools/record_cpu_streams.py writes
 # them from a CPU run): a card stream equal to its case's digest is the
@@ -381,20 +446,30 @@ CARD = None
 RECORDED = None
 
 
-def stream_digest(pkts):
-    """sha1 over the packets' lengths and bytes."""
+def data_digest(datas):
+    """sha1 over the byte strings' lengths and bytes."""
     h = hashlib.sha1()
-    for p in pkts:
-        h.update(len(p.data).to_bytes(8, "little"))
-        h.update(p.data)
+    for d in datas:
+        h.update(len(d).to_bytes(8, "little"))
+        h.update(d)
     return h.hexdigest()
 
 
-def stored_cpu_stream(key, pkts):
-    """Whether ``pkts``, the card's stream of the cpu-vs-cuda case ``key``,
-    is the CPU's stream as CPU_STREAMS stores it.  While recording, the
-    digest is collected instead, and the answer is True."""
-    digest = stream_digest(pkts)
+def stream_digest(pkts):
+    """sha1 over the packets' lengths and bytes."""
+    return data_digest([p.data for p in pkts])
+
+
+def frames_digest(frames):
+    """sha1 over the y, u, v planes of decoded frames."""
+    return data_digest([np.ascontiguousarray(f[k]).tobytes()
+                        for f in frames for k in "yuv"])
+
+
+def stored_digest(key, digest):
+    """Whether ``digest`` equals the CPU's digest of the case ``key`` as
+    CPU_STREAMS stores it.  While recording, the digest is collected
+    instead, and the answer is True."""
     if RECORDED is not None:
         RECORDED[key] = digest
         return True
@@ -403,6 +478,12 @@ def stored_cpu_stream(key, pkts):
             return json.load(f).get(key) == digest
     except FileNotFoundError:
         return False
+
+
+def stored_cpu_stream(key, pkts):
+    """Whether ``pkts``, the card's stream of the cpu-vs-cuda case ``key``,
+    is the CPU's stream as CPU_STREAMS stores it (stored_digest)."""
+    return stored_digest(key, stream_digest(pkts))
 
 
 def k1_batch(nframes, size, preset, fi=False):
@@ -433,7 +514,7 @@ def k1_batches():
     driven += [k1_batch(1, size, 6) for size in (CIF, (64, 64), (128, 96))]
     # M0-M4: pass B at M4 (10 modes, CIF, phase 30) and M2 (11 modes,
     # 64x64, phase 31); send_pictures with the five filter-intra
-    # pseudo-modes (CIF x4, 64x64 x2); the varpart program's 16x16 steps
+    # pseudo-modes (CIF x2, 64x64 x2); the varpart program's 16x16 steps
     # (the one-frame batch is phase 29's warm run)
     driven += [k1_batch(1, CIF, 4), k1_batch(1, (64, 64), 2),
                k1_batch(CIF_FRAMES, CIF, 4, fi=True),
@@ -448,6 +529,12 @@ def k1_batches():
     # 32 and one of 1), the tiled 128x64 / 352x64 x3
     driven += [k1_batch(8, (64, 64), 10), k1_batch(32, (32, 32), 10),
                k1_batch(1, (32, 32), 10), k1_batch(3, (128, 64), 10)]
+    # phase 31's M4 pass B (64x64); phase 40: the rect clip's pass B
+    # (96x96 M6), the CLI cases' key frames (64x48 and 96x64 M10), the C
+    # ABI case's M12 GOP (64x64), the M4 levels-5 GOP's pass B (32x32)
+    driven += [k1_batch(1, (64, 64), 4), k1_batch(1, (96, 96), 6),
+               k1_batch(1, (64, 48), 10), k1_batch(1, (96, 64), 10),
+               k1_batch(1, (64, 64), 12), k1_batch(1, (32, 32), 4)]
     return list(dict.fromkeys(driven))
 
 
@@ -458,7 +545,7 @@ P1080_CODED = (1920, 1088)
 
 def k1_batches10():
     """The batch sizes the 10-bit paths give K1 (10-bit residuals): phase
-    37's 1080p M10 key frame and CIF x4 send_pictures, phase 38's small
+    37's 1080p M10 key frame and CIF x2 send_pictures, phase 38's small
     streams (M10 at 128x96, the superres frame at 80x96, 64x64 and the
     96x64 AVIF still, send_pictures 64x64 x2, the M4 varpart frame's
     16x16 steps)."""
@@ -505,10 +592,10 @@ def host_issue_ms(call, n=200):
     for _ in range(10):
         call()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = clock()
     for _ in range(n):
         call()
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     torch.cuda.synchronize()
     return dt * 1000.0 / n
 
@@ -854,20 +941,20 @@ def decode_check(pkts, device, headers=None):
 def phase_encode(tag, frames, w, h, card, preset=10, warm=True, **filters):
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
-    if warm:
+    if warm and not SHARED:   # no warm-up for untimed runs
         encode(frames, w, h, None, preset, **filters)
     torch.cuda.synchronize()
     fused_txq.launches = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     pkts = encode(frames, w, h, None, preset, **filters)
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     launches = fused_txq.launches
     if launches <= 0:
         raise AssertionError("the main path never launched fused_txq")
     nbytes = sum(len(p.data) for p in pkts)
     mpsnr = float(np.mean([psnr(f[0], p.recon["y"])
                            for f, p in zip(frames, pkts)]))
-    t1 = time.perf_counter()
+    t1 = clock()
     decisions = decode_check(pkts, None)
     what = ("" if not filters else
             " with DLF" + (" + CDEF" if filters.get("cdef_level") else ""))
@@ -877,7 +964,7 @@ def phase_encode(tag, frames, w, h, card, preset=10, warm=True, **filters):
         f"{len(frames) / dt:.3f} fps hot ({dt:.3f} s), {nbytes} bytes, "
         f"mean Y-PSNR {mpsnr:.4f} dB, fused_txq launches {launches} "
         f"({card}); decoder on the default device matches recon "
-        f"({time.perf_counter() - t1:.1f} s)")
+        f"({clock() - t1:.1f} s)")
     return pkts, decisions, launches
 
 
@@ -903,22 +990,22 @@ def phase_key_frames(tag, frames, w, h, card, warm=True,
     import torch
     from svt_av1_tpu_torch.ops import fused_txq
     from svt_av1_tpu_torch.utils import profiling
-    if warm:
+    if warm and not SHARED:
         encode(frames[:1], w, h, None, 6, batched=False)
     torch.cuda.synchronize()
     profiling.reset_stages()
     fused_txq.launches = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     pkts = encode(frames, w, h, None, 6, batched=False)
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     launches = fused_txq.launches
-    stages = profiling.stage_stats()
+    stages = stage_stats()
     nbytes = sum(len(p.data) for p in pkts)
     mpsnr = float(np.mean([psnr(f[0], p.recon["y"])
                            for f, p in zip(frames, pkts)]))
-    t1 = time.perf_counter()
+    t1 = clock()
     decisions = decode_check(pkts, None)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     n = tool_counts(decisions)
     sec = {k: stages.get(k, (0.0, 0))[0]
            for k in ("palette_md", "device_md_intra", "host_ec")}
@@ -1184,21 +1271,23 @@ def phase_filtered_key_frames(tag, frames, w, h, card, unfiltered,
     torch.cuda.synchronize()
     profiling.reset_stages()
     fused_txq.launches = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     pkts = encode(frames, w, h, None, 6, batched=False, **FILTERS)
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     launches = fused_txq.launches
-    stages = profiling.stage_stats()
+    stages = stage_stats()
     headers = []
-    t1 = time.perf_counter()
+    t1 = clock()
     decisions = decode_check(pkts, None, headers)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     sse_f, sse_u = _sse(pkts, frames), _sse(unfiltered, frames)
     if sse_f > sse_u:
         raise AssertionError(f"phase {tag}: the filtered recon's SSE {sse_f} "
                              f"is above the unfiltered {sse_u}")
     prof_txt, prof = "", None
-    if profile:
+    if profile and SHARED:
+        prof_txt = "; the filter stage's profile left out (card shared)"
+    elif profile:
         enc = Encoder(EncoderConfig(source_width=w, source_height=h, qp=35,
                                     enc_mode=6, **FILTERS))
         y, u, v = enc._pad(*frames[0])
@@ -1335,14 +1424,14 @@ def counted(run):
     fused_txq.launches = 0
     seen, fused_txq.batches = fused_txq.batches, set()
     try:
-        t0 = time.perf_counter()
+        t0 = clock()
         out = run()
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = clock() - t0
     finally:
         batches = sorted(fused_txq.batches)
         fused_txq.batches = seen | fused_txq.batches
-    return out, fused_txq.launches, batches, profiling.stage_stats(), dt
+    return out, fused_txq.launches, batches, stage_stats(), dt
 
 
 def timed_gop(frames, w, h, preset, **cfg):
@@ -1378,7 +1467,7 @@ def decode_against(tag, pkts, recon, frames):
     and decisions, mean Y-PSNR of the shown frames, seconds)."""
     from svt_av1_tpu_torch.codec import obu
     from svt_av1_tpu_torch.codec.decoder import Decoder
-    t0 = time.perf_counter()
+    t0 = clock()
     dec = Decoder()
     coded, ys = [], []
     for p in pkts:
@@ -1394,7 +1483,7 @@ def decode_against(tag, pkts, recon, frames):
             coded.append((dec.last_frame_header, dec.last_decisions))
     if len(ys) != len(frames):
         _fail(f"phase {tag}: {len(ys)} frames shown of {len(frames)}")
-    return coded, float(np.mean(ys)), time.perf_counter() - t0
+    return coded, float(np.mean(ys)), clock() - t0
 
 
 def gop_block_counts(coded):
@@ -1435,14 +1524,14 @@ def inter_frame_profile(frames, w, h, preset=10):
     from svt_av1_tpu_torch.utils import kernel_profile
     dispatch, collect = kernel_profile.inter_frame(frames, w, h, preset)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = clock()
     pend = dispatch()
-    t_dispatch = time.perf_counter() - t0
+    t_dispatch = clock() - t0
     torch.cuda.synchronize()
-    t_all = time.perf_counter() - t0
-    t1 = time.perf_counter()
+    t_all = clock() - t0
+    t1 = clock()
     collect(pend)
-    t_collect = time.perf_counter() - t1
+    t_collect = clock() - t1
     prof = kernel_profile.device_kernels(lambda: collect(dispatch()), top=8)
     busy = (prof["device_ms"] / 1000.0 / prof["wall_s"]
             if isinstance(prof["device_ms"], float) else "not measured")
@@ -1467,18 +1556,18 @@ def phase_gop(tag, frames, w, h, card, preset=10, warm=None,
     torch.cuda.synchronize()
     profiling.reset_stages()
     fused_txq.launches = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     pkts = encode_gop(frames, w, h, None, preset)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     launches = fused_txq.launches
-    stages = profiling.stage_stats()
+    stages = stage_stats()
     if launches <= 0:
         raise AssertionError(f"phase {tag}: the GOP path never launched "
                              "fused_txq")
-    t1 = time.perf_counter()
+    t1 = clock()
     coded, shown = gop_decode_check(pkts, None, shown_limit)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     n = gop_block_counts(coded)
     for k in ("inter", "compound"):
         if n[k] <= 0:
@@ -1806,9 +1895,9 @@ def phase_lookahead_ops():
     for name, (group, deps) in groups.items():
         st_c = gop_fast.tpl_group_stats(group, deps, device="cpu")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = clock()
         st_g = gop_fast.tpl_group_stats(group, deps, device=None)
-        t_tpl[name] = time.perf_counter() - t0
+        t_tpl[name] = clock() - t0
         for a, b in zip(st_c, st_g):
             for k in ("intra", "inter", "mv", "ref_sel"):
                 if not np.array_equal(a[k], b[k]):
@@ -1838,9 +1927,9 @@ def phase_lookahead_ops():
         out_c = tf_stage.mctf_filter_frame(frames[c], neighbors,
                                            device="cpu")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = clock()
         out_g = tf_stage.mctf_filter_frame(frames[c], neighbors, device=None)
-        t = time.perf_counter() - t0
+        t = clock() - t0
         mctf[name] = (mctf_flips(frames[c], neighbors, out_g, out_c), t)
     log(f"phase 22: lookahead ops cuda vs cpu at CIF: satd on {len(d)} "
         f"8x8 blocks exact; tpl_group_stats exact over the key chain (9 "
@@ -2163,7 +2252,7 @@ def phase_m4_key_frames(card):
     with DLF + CDEF (the varpart program, the mask-aware DLF level search,
     the per-SB CDEF search) on the bench clip's first frame (qp 35) and on
     the clip / screen composite (qp 25, where per-SB strengths pay); then
-    send_pictures x4 at M4 (the batched program with the five filter-intra
+    send_pictures x2 at M4 (the batched program with the five filter-intra
     pseudo-modes, K1 at B = 4 x 11 x 15).  Each packet decoded on the card
     equal to Packet.recon; the M0-M4 tools counted."""
     import torch
@@ -2179,12 +2268,12 @@ def phase_m4_key_frames(card):
         torch.cuda.synchronize()
         profiling.reset_stages()
         fused_txq.launches = 0
-        t0 = time.perf_counter()
+        t0 = clock()
         pkts = encode_key(frames, w, h, None, 4, qp=qp, **FILTERS)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        dt = clock() - t0
         launches[name] = fused_txq.launches
-        stages = profiling.stage_stats()
+        stages = stage_stats()
         hdrs = []
         dec = decode_check(pkts, None, hdrs)
         n = m4_counts(dec)
@@ -2212,10 +2301,10 @@ def phase_m4_key_frames(card):
     encode_key(cif[:1], w, h, None, 4, batched=True)           # warm
     torch.cuda.synchronize()
     fused_txq.launches = 0
-    t0 = time.perf_counter()
+    t0 = clock()
     pkts = encode_key(cif, w, h, None, 4, batched=True)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = clock() - t0
     launches["batch"] = fused_txq.launches
     if launches["batch"] <= 0:
         _fail("phase 29: send_pictures at M4 never launched fused_txq")
@@ -2491,14 +2580,14 @@ def _tool_run(tag, what, frames, cfg, card, base=None, gop=False):
             encode_key(frames, w, h, None, 10, **cfg))
     finally:
         undo()
-    t1 = time.perf_counter()
+    t1 = clock()
     if gop:
         coded, _ = gop_decode_check(pkts, None)
         headers = [fp for fp, _ in coded]
     else:
         headers = []
         decode_check(pkts, None, headers)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     shown = [p for p in pkts if p.displayed]
     ps = float(np.mean([psnr(f[0], p.recon["y"])
                         for f, p in zip(frames, shown)]))
@@ -2557,10 +2646,10 @@ def restoration_profile():
 
     stage()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = clock()
     stage()
     torch.cuda.synchronize()
-    hot = time.perf_counter() - t0
+    hot = clock() - t0
     prof = kernel_profile.device_kernels(stage)
     busy = (prof["device_ms"] / 1000.0 / hot
             if isinstance(prof["device_ms"], float) else "not measured")
@@ -2629,6 +2718,10 @@ def phase_post_filters(card, cif):
     if n != len(gop_frames) * waves or batches != [k1_batch(1, CIF, 10)]:
         _fail(f"phase 33: the GOP's K1 {n} launches at {batches}")
     by_path["M10 GOP LR CIF x3"] = n
+    if SHARED:
+        log("phase 33: the restoration stage's profile left out (the card "
+            "is shared with the second process)")
+        return main, by_path
     prof, hot, busy = restoration_profile()
     log(f"phase 33: the restoration stage of one CIF M10 key frame (search "
         f"over the preset's 4 self-guided sets + Wiener, then apply): "
@@ -2734,7 +2827,7 @@ def frame_line(coded, pkts):
 
 def phase_rate_control(card, cif):
     """This slice's main path and its variants on the default device:
-    the CIF x5 M10 GOP under one-pass CBR (timed with recon_enabled off,
+    the CIF x3 M10 GOP under one-pass CBR (timed with recon_enabled off,
     beside the same frames at qp 35), the CIF x3 two-pass GOP, all-intra
     CBR send_picture with a recode, send_pictures with tile columns
     (HDR metadata and stat reports ride on the CIF batch)."""
@@ -2747,7 +2840,7 @@ def phase_rate_control(card, cif):
     waves = waves_per_frame(w, h)
     b66 = k1_batch(1, CIF, 10)
     by_path = {}
-    frames = cif[:5]
+    frames = cif[:3]
     fps = 30.0
     runs = {}
     for what, cfg in (("CBR", dict(rate_control_mode=2,
@@ -2763,13 +2856,13 @@ def phase_rate_control(card, cif):
         n_inter = sum(fp.frame_type == obu.INTER_FRAME for fp, _ in coded)
         per_inter = stages.get("dispatch_inter", (0.0, 0))[0] / n_inter
         runs[what] = (pkts, recon)
-        t0 = time.perf_counter()
+        t0 = clock()
         for p in pkts:
             if p.displayed:
                 rec = p.recon or {k: v.cpu().numpy()
                                   for k, v in recon[p.pts].items()}
                 metrics.frame_stats(dict(zip("yuv", frames[p.pts])), rec)
-        stat_s = (time.perf_counter() - t0) / len(frames)
+        stat_s = (clock() - t0) / len(frames)
         rate = bits * fps / len(frames)
         log(f"phase 35: GOP {w}x{h} x{len(frames)} M10 {what} "
             f"hierarchical_levels 3 keyint 15 MCTF DLF + CDEF through "
@@ -2785,8 +2878,8 @@ def phase_rate_control(card, cif):
             f"{batches} ({card}); stat report (PSNR + SSIM, numpy on the "
             f"host) {stat_s:.3f} s per CIF frame; decoded on the card equal "
             f"to the encoder's recon ({dec_s:.1f} s)")
-        by_path[f"M10 GOP {what} CIF x5"] = n
-    main = by_path["M10 GOP CBR CIF x5"]
+        by_path[f"M10 GOP {what} CIF x{len(frames)}"] = n
+    main = by_path[f"M10 GOP CBR CIF x{len(frames)}"]
     if (qindices_of(runs["CBR"][0]) == qindices_of(runs["qp 35"][0])):
         _fail("phase 35: CBR coded every frame at the CRF qindex")
 
@@ -2843,10 +2936,11 @@ def phase_rate_control(card, cif):
     # tile columns on the all-intra batch, beside one tile; the CIF batch
     # carries the HDR metadata and stat reports
     for tag, fr, size, cols, extra in (
-            ("CIF x4", cif[:4], CIF, 1, dict(HDR, stat_report=1)),
+            ("CIF x2", cif[:2], CIF, 1, dict(HDR, stat_report=1)),
             ("720p x1", synth_frames(1, *HD), HD, 2, {})):
         tw, th = size
-        encode(fr, tw, th, None, **extra)                  # warm
+        if not SHARED:
+            encode(fr, tw, th, None, **extra)              # warm
         res = {c: counted(lambda: encode(fr, tw, th, None, tile_columns=c,
                                          **extra)) for c in (0, cols)}
         pk, n, batches, stages, dt = res[cols]
@@ -2874,7 +2968,7 @@ def phase_rate_control(card, cif):
                "s" if extra else "")
             + "; decoded on the card equal to recon")
         by_path[f"M10 send_pictures tiles {tag}"] = n
-    # the tiled coder's threads: one 720p frame packetized 20 times
+    # the tiled coder's threads: one 720p frame packetized 5 times
     enc = Encoder(EncoderConfig(source_width=HD[0], source_height=HD[1],
                                 tile_columns=2))
     from svt_av1_tpu_torch.pipeline import intra_encoder
@@ -2883,10 +2977,10 @@ def phase_rate_control(card, cif):
             synth_frames(1, *HD), 140, modes=enc._feat.intra_modes,
             tile_starts=enc._tile_starts))
     datas = set()
-    for _ in range(20):
+    for _ in range(5):
         enc._seq_hdr_sent = True
         datas.add(enc._packetize_arrays(bundle, recon, 140, 0).data)
-    log(f"phase 35: one 720p frame's four-tile packetization 20 times: "
+    log(f"phase 35: one 720p frame's four-tile packetization 5 times: "
         f"{len(datas)} distinct stream(s)")
     if len(datas) != 1:
         _fail("phase 35: the tiled coder's bytes depend on its threads")
@@ -3028,15 +3122,16 @@ def ten_bit_line(tag, what, pkts, frames, dt, n, batches, stages, dec_s,
 
 
 def phase_ten_bit(card):
-    """This slice's main path and its variants on the default device:
-    one 1080p 10-bit M10 frame (coded 1920x1088) with DLF + CDEF + loop
-    restoration through send_picture / flush, timed hot (a warm run of
-    the same frame first) with recon_enabled off as bench.py sets it,
-    K1 once per luma wave at B = 360; then the CIF 10-bit M6 key frame
-    with the filters (BASELINE config 3's preset: tx search, CfL, no
-    palette at 10 bits; no K1, as in the reference), timed beside the
-    same frame at 8 bits in turns; then send_pictures CIF x4 at 10 bits
-    (the per-block route: one chunk, K1 once per wave at B = 264).
+    """The 10-bit slice's main path and its variants on the default
+    device: one 1080p 10-bit M10 frame (coded 1920x1088) with DLF + CDEF
+    + loop restoration through send_picture / flush, timed with
+    recon_enabled off as bench.py sets it (no warm run: the first 1080p
+    frame of the script), K1 once per luma wave at B = 360;
+    then the CIF 10-bit M6 key frame with the filters (BASELINE config
+    3's preset: tx search, CfL, no palette at 10 bits; no K1, as in the
+    reference), timed beside the same frame at 8 bits in turns; then
+    send_pictures CIF x2 at 10 bits (the per-block route: one chunk, K1
+    once per wave at B = 132).
     Every packet is decoded on the card and must equal Packet.recon."""
     w, h = P1080
     frame = frames10(1, w, h)
@@ -3051,7 +3146,6 @@ def phase_ten_bit(card):
         enc.flush()
         return list(iter(enc.get_packet, None))
 
-    encode_key(frame, w, h, None, 10, **TEN, **LR)          # warm
     pkts, n, batches, stages, dt = counted(main)
     waves = waves_per_frame(*P1080_CODED)
     b_main = k1_batch(1, P1080_CODED, 10)
@@ -3061,21 +3155,21 @@ def phase_ten_bit(card):
     if pkts[0].recon["y"].dtype != np.uint16:
         _fail("phase 37: the 10-bit recon is not uint16")
     headers = []
-    t1 = time.perf_counter()
+    t1 = clock()
     decode_check(pkts, None, headers)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     if headers[0].lr_types == (0, 0, 0):
         _fail("phase 37: LR chose RESTORE_NONE everywhere on the main path")
-    ten_bit_line("37", "the main path: M10 send_picture DLF + CDEF + LR, "
-                 "recon_enabled off, hot,", pkts, frame, dt, n, batches,
-                 stages, dec_s, card, headers)
+    ten_bit_line("37", "the 10-bit main path: M10 send_picture DLF + CDEF "
+                 "+ LR, recon_enabled off, cold,", pkts, frame, dt, n,
+                 batches, stages, dec_s, card, headers)
     by_path["10-bit M10 send_picture DLF+CDEF+LR 1080p x1"] = main_n = n
 
     # BASELINE config 3's preset on a CIF key frame, 10 bits beside 8
     cif8 = synth_frames(1, *CIF)
     cif10 = frames10(1, *CIF)
     times, runs = {}, {}
-    for bd, fr in ((10, cif10), (8, cif8), (10, cif10)):
+    for bd, fr in ((10, cif10), (8, cif8)):
         runs[bd] = counted(lambda: encode_key(
             fr, *CIF, None, 6, encoder_bit_depth=bd, **LR))
         times.setdefault(bd, []).append(runs[bd][4])
@@ -3084,9 +3178,9 @@ def phase_ten_bit(card):
                   f"{runs[bd][1]} times")
     pk10, n, batches, stages, dt = runs[10]
     headers10 = []
-    t1 = time.perf_counter()
+    t1 = clock()
     dec10 = decode_check(pk10, None, headers10)
-    dec_s = time.perf_counter() - t1
+    dec_s = clock() - t1
     counts = tool_counts(dec10)
     if (not counts["tx"] or not counts["cfl"] or counts["palette"]
             or headers10[0].allow_screen_content_tools):
@@ -3095,28 +3189,28 @@ def phase_ten_bit(card):
                  "3's preset)", pk10, cif10, dt, n, batches, stages, dec_s,
                  card, headers10)
     log(f"phase 37: the CIF M6 key frame with DLF + CDEF + LR, 10 bits "
-        f"against 8 in turns (10, 8, 10; the first run cold): 10-bit "
+        f"against 8 in turns (10, 8): 10-bit "
         f"{[round(t, 3) for t in times[10]]} s, 8-bit "
-        f"{[round(t, 3) for t in times[8]]} s, hot 10 / 8 = "
+        f"{[round(t, 3) for t in times[8]]} s, 10 / 8 = "
         f"{times[10][-1] / times[8][-1]:.3f}; 10-bit blocks with a non-DCT "
         f"tx type {counts['tx']}, CfL {counts['cfl']}, angle deltas "
         f"{counts['delta']}, palette {counts['palette']}")
     by_path["10-bit M6 send_picture DLF+CDEF+LR CIF x1"] = 0
 
-    cif4 = frames10(CIF_FRAMES, *CIF)
+    cifn = frames10(CIF_FRAMES, *CIF)
     pk, n, batches, stages, dt = counted(lambda: encode(
-        cif4, *CIF, None, **TEN, **FILTERS))
-    b264 = k1_batch(CIF_FRAMES, CIF, 10)
-    if n != waves_per_frame(*CIF) or batches != [b264]:
-        _fail(f"phase 37: send_pictures 10-bit CIF x4: fused_txq {n} "
-              f"launches at {batches}")
+        cifn, *CIF, None, **TEN, **FILTERS))
+    bn = k1_batch(CIF_FRAMES, CIF, 10)
+    if n != waves_per_frame(*CIF) or batches != [bn]:
+        _fail(f"phase 37: send_pictures 10-bit CIF x{CIF_FRAMES}: "
+              f"fused_txq {n} launches at {batches}")
     headers = []
-    t1 = time.perf_counter()
+    t1 = clock()
     decode_check(pk, None, headers)
     ten_bit_line("37", "M10 send_pictures DLF + CDEF (the per-block route)",
-                 pk, cif4, dt, n, batches, stages,
-                 time.perf_counter() - t1, card, headers)
-    by_path["10-bit M10 send_pictures DLF+CDEF CIF x4"] = n
+                 pk, cifn, dt, n, batches, stages,
+                 clock() - t1, card, headers)
+    by_path[f"10-bit M10 send_pictures DLF+CDEF CIF x{CIF_FRAMES}"] = n
     return main_n, by_path
 
 
@@ -3168,8 +3262,491 @@ def phase_ten_bit_cpu_vs_cuda():
                   "CPU's")
 
 
+# this slice's main path: BASELINE.json config 1's command line (CIF, M12,
+# CRF 35) at keyint -1 with config 2's 5-layer pyramid (hierarchical
+# levels 4: a 16-frame mini-GoP) and TPL; MCTF is on by default
+MAIN_ARGS = ["--preset", "12", "--crf", "35", "--keyint", "-1",
+             "--svtav1-params", "hierarchical-levels=4:enable-tpl-la=1"]
+MAIN_FRAMES = 17
+MAIN_LEVELS = 4
+
+
+def run_main_path(frames, device, folder):
+    """The port's CLI in this process on ``frames`` (written as a y4m)
+    with MAIN_ARGS on ``device``: (exit code, the IVF's bytes, the CLI's
+    last stderr line, the mini-GoPs scheduled as (first poc, frames),
+    {temporal layer: inter frames}, the most DPB slots live at once)."""
+    import contextlib
+    import io
+    from collections import Counter
+    from svt_av1_tpu_torch.api.encoder import Encoder
+    from svt_av1_tpu_torch.app import cli
+    from svt_av1_tpu_torch.utils.y4m import write_y4m
+    src = os.path.join(folder, "main.y4m")
+    out = os.path.join(folder, "main.ivf")
+    write_y4m(src, frames)
+    minigops, layers, live = [], Counter(), [0]
+    orig_mg, orig_dis = Encoder._encode_minigop, Encoder._dispatch_inter_fast
+
+    def minigop(self, p0, n):
+        minigops.append((p0, n))
+        return orig_mg(self, p0, n)
+
+    def dispatch(self, ev, qindex):
+        rec = orig_dis(self, ev, qindex)
+        layers[ev.layer] += 1
+        live[0] = max(live[0], 8 - len(self._slot_free))
+        return rec
+
+    Encoder._encode_minigop, Encoder._dispatch_inter_fast = minigop, dispatch
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-i", src, "-b", out, *MAIN_ARGS,
+                           "--progress", "0"], device=device)
+    finally:
+        Encoder._encode_minigop = orig_mg
+        Encoder._dispatch_inter_fast = orig_dis
+    with open(out, "rb") as f:
+        ivf = f.read()
+    line = err.getvalue().strip().splitlines()[-1]
+    return rc, ivf, line, minigops, dict(sorted(layers.items())), live[0]
+
+
+def decode_ivf(path, device):
+    """The port's decoder on ``device`` over an IVF file: (the shown
+    frames as host planes, the coded frames' headers)."""
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.codec.decoder import Decoder
+    from svt_av1_tpu_torch.utils.ivf import read_ivf
+    _, pkts = read_ivf(path)
+    dec = Decoder(device=device)
+    shown, headers = [], []
+    for _, data in pkts:
+        shown += dec.decode_temporal_unit(data)
+        if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(data)]:
+            headers.append(dec.last_frame_header)
+    return shown, headers
+
+
+def main_path_digests(frames, device, folder):
+    """(the IVF's digest, the decoded frames' digest) of the main path on
+    ``device``; the CPU's are what tools/record_cpu_streams.py stores."""
+    rc, ivf, *_ = run_main_path(frames, device, folder)
+    if rc:
+        _fail(f"the CLI exited {rc}")
+    shown, _ = decode_ivf(os.path.join(folder, "main.ivf"), device)
+    return data_digest([ivf]), frames_digest(shown)
+
+
+def phase_main_path(card, frames):
+    """Phase 39: this slice's main path, the port's CLI on the default
+    device (see MAIN_ARGS) on the CIF bench clip, K1's count set to 0
+    before and read after; the IVF decoded on the card; the IVF and the
+    decoded frames held to the CPU's digests.  The native range coder is
+    built (or loaded) first and timed apart, as a user builds it once;
+    the run is then timed cold (the first encode of this process: every
+    program's first-call set-up) and once more warm, and the difference
+    is the first-use cost."""
+    import tempfile
+    from svt_av1_tpu_torch import native
+    from svt_av1_tpu_torch.codec import obu
+    w, h = CIF
+    t0 = clock()
+    native.get_ec()
+    ec_s = clock() - t0
+    with tempfile.TemporaryDirectory() as folder:
+        (rc, ivf, line, minigops, layers, live), n, batches, stages, dt = \
+            counted(lambda: run_main_path(frames, None, folder))
+        if rc:
+            _fail(f"phase 39: the CLI exited {rc}")
+        t1 = clock()
+        shown, headers = decode_ivf(os.path.join(folder, "main.ivf"), None)
+        dec_s = clock() - t1
+        t1 = clock()
+        rc, ivf_warm, line_warm, *_ = run_main_path(frames, None, folder)
+        warm = clock() - t1
+    if rc or ivf_warm != ivf:
+        _fail(f"phase 39: the warm run exited {rc} or wrote another IVF")
+    if len(shown) != len(frames):
+        _fail(f"phase 39: {len(shown)} frames decoded of {len(frames)}")
+    if sorted(layers) != list(range(MAIN_LEVELS + 1)) or not any(
+            fp.frame_type == obu.KEY_FRAME for fp in headers):
+        _fail(f"phase 39: the layers coded {layers} (mini-GoPs {minigops}) "
+              f"miss one of 0-{MAIN_LEVELS}")
+    keys = [fp for fp in headers if fp.frame_type == obu.KEY_FRAME]
+    n_inter = len(headers) - len(keys)
+    dq = sum(fp.delta_q_present for fp in keys)
+    waves = waves_per_frame(w, h)
+    b44 = k1_batch(1, CIF, 12)
+    want = waves * (n_inter + len(keys) - dq)
+    if n != want or batches != [b44]:
+        _fail(f"phase 39: fused_txq {n} launches at {batches}, {want} at B "
+              f"= {b44} predicted")
+    ivf_ok = stored_digest("39/ivf", data_digest([ivf]))
+    dec_ok = stored_digest("39/decoded", frames_digest(shown))
+    per_layer = dict(layers)
+    per_layer[0] = per_layer.get(0, 0) + len(keys)
+    sec = {k: round(v[0], 3) for k, v in sorted(stages.items())}
+    log(f"phase 39: the main path, the CLI on the default device "
+        f"({card}): {' '.join(MAIN_ARGS)} on the CIF bench clip x"
+        f"{len(frames)} (y4m): the CLI's line: {line!r}; wall {dt:.3f} s "
+        f"cold ({len(frames) / dt:.3f} fps), {len(ivf)} bytes of IVF; the "
+        f"native range coder built or loaded before it in {ec_s:.2f} s; "
+        f"the same run again, warm: {warm:.3f} s "
+        f"({len(frames) / warm:.3f} fps; the CLI's line {line_warm!r}), "
+        f"the same IVF; first-use cost {dt - warm:.3f} s "
+        f"({(dt - warm) / dt:.1%} of the cold wall)")
+    log(f"phase 39: mini-GoPs {minigops}; coded frames per temporal layer "
+        f"{dict(sorted(per_layer.items()))} (the key frame in layer 0); "
+        f"most DPB slots live {live} of 8; delta-q key frames {dq} of "
+        f"{len(keys)}; host stage seconds of the cold run {sec}")
+    log(f"phase 39: fused_txq launches {n} = {waves} waves x {n_inter} "
+        f"inter frames + {len(keys) - dq} key frame(s) without delta-q, at "
+        f"B = {b44}; the IVF {'equals' if ivf_ok else 'DIFFERS FROM'} the "
+        f"CPU's digest; decoded on the card ({dec_s:.1f} s), the frames "
+        f"{'equal' if dec_ok else 'DIFFER FROM'} the CPU's decoded digest")
+    if not (ivf_ok and dec_ok):
+        _fail("phase 39: the card's stream or its decode differs from the "
+              "CPU's")
+    return n, {"CLI M12 GOP levels 4 keyint -1 TPL+MCTF CIF x17": n}
+
+
+def digest_cases(device):
+    """{key: digest} of this slice's case that is held to the CPU's digest
+    (too slow for the CPU tests): the 32x32 x33 M4 GOP at levels 5 (one
+    32-frame mini-GoP: its mid frames search GOLDEN, the key frame kept
+    by keep_poc, beside LAST and ALTREF; 32x32 rather than the 64x64 of
+    the CPU tests, for the script's time)."""
+    import clips
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    tg = test_module("test_torch_gop")
+    spec = (lambda: clips.seam_clip(33, h=32, w=32, back=True),
+            dict(qp=35, intra_period_length=-1, hierarchical_levels=5), 4)
+    frames = spec[0]()
+    pkts = tg._run(Encoder(tg._config(EncoderConfig, spec, frames),
+                           device=device), "m4_levels5", frames, gop_fast)
+    gop_decode_check(pkts, device)
+    return {"40/m4_levels5": stream_digest(pkts)}
+
+
+def phase_slice_streams():
+    """Phase 40: the small streams of this slice's CPU tests on the card,
+    each decoded on the card: the GOP shapes at keyint -1 (levels 4 and
+    5) and the rect clip at keyint -1 against the JAX package's stored
+    streams (the CPU's, byte for byte), three CLI cases (in this
+    process, and one once more through python -m) against the JAX CLI's
+    stored IVF files, the M4 levels-5 GOP and the C ABI case's Python
+    API stream against the CPU's digests."""
+    import contextlib
+    import io
+    import subprocess as sp
+    import tempfile
+    tg = test_module("test_torch_gop")
+    gs = test_module("test_torch_gop_shapes")
+    m6 = test_module("test_torch_gop_m6")
+    tcli = test_module("test_torch_cli")
+    # the keyint -1 shapes (levels 4 and 5); levels 4 at keyint 9 and the
+    # CLI's levels-4 GOP stay on the CPU (time)
+    for name in ("levels4_keyint_m1", "levels5_keyint_m1"):
+        t0 = clock()
+        frames, pkts, jax = tg.stream_slice(name, gs.SHAPES[name],
+                                            device=None)
+        dt = clock() - t0
+        gop_decode_check(pkts, None)
+        same = [p.data for p in pkts] == jax["data"]
+        log(f"phase 40: GOP shape {name} (64x64 x{len(frames)}) on the "
+            f"card: {dt:.2f} s, {len(pkts)} packets, "
+            f"{sum(len(p.data) for p in pkts)} bytes; the stored JAX "
+            f"(= CPU) stream: {'identical' if same else 'DIFFERENT'}; "
+            f"decoded on the card equal to recon")
+        if not same:
+            _fail(f"phase 40: {name} differs from the CPU's stream")
+    pkts, jax = m6._rect_stream(None)
+    gop_decode_check(pkts, None)
+    same = [p.data for p in pkts] == jax
+    log(f"phase 40: the rect clip (96x96 x5 M6, keyint -1) on the card: "
+        f"{'identical to' if same else 'DIFFERENT from'} the stored JAX "
+        f"(= CPU) stream; decoded on the card equal to recon")
+    if not same:
+        _fail("phase 40: the rect clip differs from the CPU's stream")
+    for name in ("roundtrip", "multichannel", "tenbit"):
+        with tempfile.TemporaryDirectory() as folder:
+            t0 = clock()
+            with contextlib.redirect_stderr(io.StringIO()):
+                ivfs = tcli.run(tcli.cli.main, name, folder)
+            dt = clock() - t0
+            for i, data in enumerate(ivfs):
+                path = os.path.join(folder, f"check{i}.ivf")
+                with open(path, "wb") as f:
+                    f.write(data)
+                shown, _ = decode_ivf(path, None)
+                if len(shown) != len(tcli.CASES[name][0]()[i][0]):
+                    _fail(f"phase 40: CLI {name}: {len(shown)} frames "
+                          "decoded")
+        same = ivfs == tcli.stored(name)
+        log(f"phase 40: CLI case {name} on the card: {dt:.2f} s, "
+            f"{[len(d) for d in ivfs]} bytes of IVF; the stored JAX CLI's "
+            f"(= CPU) IVF: {'identical' if same else 'DIFFERENT'}; decoded "
+            f"on the card")
+        if not same:
+            _fail(f"phase 40: CLI {name} differs from the CPU's IVF")
+    with tempfile.TemporaryDirectory() as folder:
+        argv, outs, _ = tcli.write_inputs("roundtrip", folder)
+        t0 = clock()
+        proc = sp.run([sys.executable, "-m", "svt_av1_tpu_torch.app.cli",
+                       *argv], cwd=REPO, capture_output=True, text=True,
+                      timeout=300)
+        dt = clock() - t0
+        if proc.returncode:
+            _fail(f"phase 40: python -m svt_av1_tpu_torch.app.cli exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(outs[0], "rb") as f:
+            same = [f.read()] == tcli.stored("roundtrip")
+    log(f"phase 40: python -m svt_av1_tpu_torch.app.cli (a new process, "
+        f"{dt:.1f} s) on the roundtrip case: {proc.stderr.strip()!r}; the "
+        f"IVF {'equals' if same else 'DIFFERS FROM'} the stored JAX CLI's")
+    if not same:
+        _fail("phase 40: the python -m CLI's IVF differs")
+    t0 = clock()
+    digests = digest_cases(None)
+    dt = clock() - t0
+    ok = {k: stored_digest(k, v) for k, v in digests.items()}
+    log(f"phase 40: the M4 levels-5 GOP on the card (32x32 x33, one "
+        f"32-frame mini-GoP, GOLDEN; {dt:.1f} s; decoded on the card equal "
+        f"to recon): equal to the CPU's digest {ok}")
+    if not all(ok.values()):
+        _fail("phase 40: a stream differs from the CPU's digest")
+    tcapi = test_module("test_torch_capi")
+    frames = tcapi.CASE[0]()
+    t0 = clock()
+    pkts = tcapi.python_api_stream(frames, *tcapi.CASE[1:], device=None)
+    dt = clock() - t0
+    same = pkts == tcapi.jax_stream(frames, *tcapi.CASE[1:])
+    log(f"phase 40: the C ABI case (64x64 x3 M12, keyint -1, levels 1) "
+        f"through the Python API on the card ({dt:.1f} s): "
+        f"{'identical to' if same else 'DIFFERENT from'} the stored JAX "
+        f"stream")
+    if not same:
+        _fail("phase 40: the C ABI case differs from the JAX stream")
+
+
+def phase_capi():
+    """Phase 41: the C ABI shim and its client built on this machine (gcc,
+    python3-config --embed), the client run with SVT_AV1_TORCH_DEVICE
+    unset (the CUDA device) on the C ABI test's frames; its stream must
+    equal the stored JAX stream of the case.  Only where this machine's
+    python3-config cannot give the flags to embed Python is the phase left
+    out, with the reason on its own line; a shim or client that does not
+    compile or link fails the script."""
+    import shutil
+    import tempfile
+    from svt_av1_tpu_torch.native import capi
+    from svt_av1_tpu_torch.utils.ivf import read_ivf
+    tcapi = test_module("test_torch_capi")
+    try:
+        flags = capi._python_config("--ldflags", "--embed")
+    except RuntimeError as e:
+        log(f"phase 41: LEFT OUT: this machine cannot embed Python: "
+            f"{str(e)[-1500:]!r}")
+        return False
+    shutil.rmtree(capi.BUILD_DIR, ignore_errors=True)   # build it here
+    t0 = clock()
+    capi.build()
+    build_s = clock() - t0
+    frames = tcapi.CASE[0]()
+    with tempfile.TemporaryDirectory() as folder:
+        out = os.path.join(folder, "capi.ivf")
+        t0 = clock()
+        proc = capi.run_client(frames, out, *tcapi.CASE[1:])
+        dt = clock() - t0
+        if proc.returncode or "CAPI OK" not in proc.stdout:
+            _fail(f"phase 41: the C client exited {proc.returncode}: "
+                  f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        _, pkts = read_ivf(out)
+        shown, _ = decode_ivf(out, None)
+    same = [d for _, d in pkts] == tcapi.jax_stream(frames, *tcapi.CASE[1:])
+    log(f"phase 41: the C ABI shim and client built in {build_s:.1f} s "
+        f"({capi.LIB}; python3-config --ldflags --embed: "
+        f"{' '.join(flags)}); the client on the CUDA device "
+        f"(SVT_AV1_TORCH_DEVICE unset; {dt:.1f} s with the embedded "
+        f"interpreter's start): "
+        f"{len(pkts)} packets, {sum(len(d) for _, d in pkts)} bytes, "
+        f"{len(shown)} frames decoded on the card; the stored JAX stream: "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same or len(shown) != len(frames):
+        _fail("phase 41: the C ABI stream differs from the JAX stream")
+    return True
+
+
 def _fail(msg):
     raise AssertionError(msg)
+
+
+def later_slices(card, cif17, by_path):
+    """The paths of slices 8-11 (phases 37-38, 35-36, 32-34, 28-31), in
+    this process, the newest first."""
+    # the 10-bit all-intra encode and its variants, then its small streams
+    by_path.update(phase_ten_bit(card)[1])
+    phase_ten_bit_cpu_vs_cuda()
+
+    # rate control and the API surface, then its small streams
+    by_path.update(phase_rate_control(card, cif17)[1])
+    phase_rate_control_cpu_vs_cuda()
+
+    # the restoration ops, that slice's main path and variants, the small
+    # streams
+    phase_restoration_ops()
+    by_path.update(phase_post_filters(card, cif17)[1])
+    phase_post_cpu_vs_cuda()
+
+    # the M0-M4 slice: its ops and small clips, then the M4 GOP,
+    # then the M4 key frames
+    phase_quality_ops()
+    phase_m4_cpu_vs_cuda()
+    by_path["M4 GOP MCTF+TPL CIF x7"] = phase_m4_gop(card, cif17[:7])
+    kl = phase_m4_key_frames(card)
+    by_path["M4 send_picture DLF+CDEF CIF clip"] = kl["clip"]
+    by_path["M4 send_picture DLF+CDEF CIF composite"] = kl["composite"]
+    by_path[f"M4 send_pictures CIF x{CIF_FRAMES}"] = kl["batch"]
+
+
+def earlier_slices(card, cif17, by_path):
+    """The paths of slices 1-7 (phases 27 and 26, then 5-24), run by the
+    second process (--earlier-slices)."""
+    # the GOP at M5-M9, its tools on small clips, then bench.py's primary
+    # config at a cut depth (x3)
+    phase_m6_tools_cpu_vs_cuda()
+    by_path["M6 GOP MCTF+TPL CIF x3"] = phase_m6_gop(card, cif17[:3])
+
+    import clips
+    # the paths of the earlier slices at a cut depth (2 CIF / 1 720p
+    # frames a batch, 2 CIF and 1 720p key frames at M6), so that the
+    # whole script fits the time limit
+    cif = synth_frames(CIF_FRAMES, *CIF)
+    hd = synth_frames(HD_FRAMES, *HD)
+    pkts_cif, dec_cif, by_path[f"M10 send_pictures CIF x{CIF_FRAMES}"] = \
+        phase_encode("5", cif, *CIF, card)
+    by_path["M10 send_pictures 720p x1"] = phase_encode(
+        "6", hd, *HD, card, warm=False)[2]
+    phase_cpu_vs_cuda(cif, pkts_cif, dec_cif)
+    del pkts_cif, dec_cif
+
+    phase_tools()
+    key_cif = cif[:1] + [clips.screen_frame(*CIF, seed=1)]
+    pk_m6, dec_m6, by_path["M6 send_picture CIF x2"] = phase_key_frames(
+        "9", key_cif, *CIF, card)
+    key_hd = [hd[0]]          # palette: the CIF screen frame of phase 9
+    pk_m6_hd, _, by_path["M6 send_picture 720p x1"] = phase_key_frames(
+        "10", key_hd, *HD, card, warm=False, need=("tx", "delta", "cfl"))
+    by_path[f"M6 send_pictures CIF x{CIF_FRAMES}"] = phase_encode(
+        "11a", cif, *CIF, card, preset=6)[2]
+    by_path["M6 send_pictures 720p x1"] = phase_encode(
+        "11b", hd, *HD, card, preset=6)[2]
+    phase_cpu_vs_cuda_m6(key_cif, pk_m6, dec_m6)
+
+    phase_filter_ops()
+    pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
+        "14a", key_cif, *CIF, card, pk_m6)
+    by_path["M6 send_picture DLF+CDEF CIF x2"] = n
+    # the filter stage's profile at CIF only (14a)
+    n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd,
+                                  profile=False)[3]
+    by_path["M6 send_picture DLF+CDEF 720p x1"] = n
+    by_path[f"M10 send_pictures DLF CIF x{CIF_FRAMES}"] = phase_encode(
+        "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
+    by_path[f"M10 send_pictures DLF+CDEF CIF x{CIF_FRAMES}"] = phase_encode(
+        "15b", cif, *CIF, card, **FILTERS)[2]
+    phase_cpu_vs_cuda_filters(key_cif, pk_f, dec_f, hdr_f)
+
+    # the GOP slice (MCTF and TPL off) at a cut depth: CIF x3 and 720p x3,
+    # no warm run
+    phase_motion_ops()
+    by_path["M10 GOP CIF x3"] = phase_gop("18", cif17[:3], *CIF, card,
+                                          warm=0, profile=False)[2]
+    by_path["M10 GOP 720p x3"] = phase_gop(
+        "19", synth_frames(3, *HD), *HD, card, warm=0, shown_limit=3,
+        profile=False)[2]
+    phase_gop_cpu_vs_cuda()
+    by_path["M12 GOP CIF x3"] = phase_gop("21", cif17[:3], *CIF, card,
+                                          preset=12, warm=0,
+                                          profile=False)[2]
+
+    # the lookahead (MCTF, TPL, delta-q key frames)
+    phase_lookahead_ops()
+    _, launches = phase_lookahead_gop(card, cif17[:3])
+    by_path["M10 GOP MCTF+TPL CIF x3"] = launches
+    phase_lookahead_cpu_vs_cuda()
+
+
+EARLIER = "--earlier-slices"
+
+
+def start_earlier_slices(folder):
+    """The second process: this script with --earlier-slices, ``folder``
+    (where it writes its output, earlier.log, and its result,
+    earlier.json) and the seconds elapsed here."""
+    with open(os.path.join(folder, "earlier.log"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), EARLIER, folder,
+             f"{time.perf_counter() - T0:.3f}"], cwd=REPO, stdout=out,
+            stderr=subprocess.STDOUT)
+
+
+def join_earlier_slices(proc, folder, timeout):
+    """Wait for the second process (killed if it outlives ``timeout``
+    seconds), print its lines, and return its (by_path, batches)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    with open(os.path.join(folder, "earlier.log")) as f:
+        print(f.read(), end="", flush=True)
+    if rc != 0:
+        _fail(f"the second process (--earlier-slices) ended with {rc}")
+    with open(os.path.join(folder, "earlier.json")) as f:
+        result = json.load(f)
+    return result["by_path"], set(result["batches"])
+
+
+def run_earlier_slices():
+    """The second process: the earlier slices' phases on the card (the
+    parent built the kernels), then its result file (the launches by
+    path, the batch sizes K1 had) for the parent."""
+    global T0, SHARED
+    import torch
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from svt_av1_tpu_torch import device as device_mod
+    from svt_av1_tpu_torch.ops import fused_txq
+    folder = sys.argv[2]
+    T0 = time.perf_counter() - float(sys.argv[3])
+    SHARED = True
+    device_mod.resolve("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    by_path = {}
+    fused_txq.batches.clear()
+    earlier_slices(card, synth_frames(17, *CIF), by_path)
+    torch.cuda.synchronize()
+    check_no_jax()
+    with open(os.path.join(folder, "earlier.json"), "w") as f:
+        json.dump(dict(by_path=by_path, batches=sorted(fused_txq.batches)),
+                  f)
+    return 0
+
+
+def check_no_jax():
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax.")
+                    or m == "svt_av1_tpu" or m.startswith("svt_av1_tpu."))
+    if leaked:
+        raise AssertionError(f"modules of JAX or of the JAX package were "
+                             f"loaded: {leaked[:8]}")
 
 
 def main():
@@ -3178,6 +3755,8 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [EARLIER]:
+        return run_earlier_slices()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from svt_av1_tpu_torch import device as device_mod
@@ -3209,101 +3788,39 @@ def main():
     from svt_av1_tpu_torch.ops import fused_txq
     fused_txq.batches.clear()           # from here on: the paths' batches
 
-    # this slice first (so that nothing the earlier paths left behind
-    # weighs on the main path's timing): the 10-bit all-intra encode and
-    # its variants, then the small streams of the CPU tests
-    main_launches, by_path = phase_ten_bit(card)
-    phase_ten_bit_cpu_vs_cuda()
+    # this slice first and alone (so that nothing else weighs on the main
+    # path's timing): the CLI's deep GOP, then the small streams of the
+    # CPU tests, then the C ABI on this machine
+    cif17 = synth_frames(17, *CIF)
+    main_launches, by_path = phase_main_path(card, cif17[:MAIN_FRAMES])
+    phase_slice_streams()
+    phase_capi()
     if "--this-slice" in sys.argv[1:]:
-        # a short call while the slice is built: phases 1-4, 37, 38, 25
+        # a short call while the slice is built: phases 1-4, 39-41, 25
         return finish(card, krec, main_launches, by_path, smi)
 
-    # the slice of the previous PR: rate control and the API surface,
-    # then its small streams
-    cif17 = synth_frames(17, *CIF)
-    by_path.update(phase_rate_control(card, cif17)[1])
-    phase_rate_control_cpu_vs_cuda()
-
-    # the slice of the previous PR: the restoration ops, its main path and
-    # variants, the small streams
-    phase_restoration_ops()
-    by_path.update(phase_post_filters(card, cif17)[1])
-    phase_post_cpu_vs_cuda()
-
-    # the M0-M4 slice: its ops and small clips, then the M4 GOP,
-    # then the M4 key frames
-    phase_quality_ops()
-    phase_m4_cpu_vs_cuda()
-    by_path["M4 GOP MCTF+TPL CIF x7"] = phase_m4_gop(card, cif17[:7])
-    kl = phase_m4_key_frames(card)
-    by_path["M4 send_picture DLF+CDEF CIF clip"] = kl["clip"]
-    by_path["M4 send_picture DLF+CDEF CIF composite"] = kl["composite"]
-    by_path["M4 send_pictures CIF x4"] = kl["batch"]
-
-    # the slice of the previous PR: the GOP at M5-M9, its tools on small
-    # clips, then bench.py's primary config at a cut depth (x3)
-    phase_m6_tools_cpu_vs_cuda()
-    by_path["M6 GOP MCTF+TPL CIF x3"] = phase_m6_gop(card, cif17[:3])
-
-    import clips
-    # the paths of the earlier slices at a cut depth (4 CIF / 1 720p
-    # frames a batch, 3 CIF and 1 720p key frames at M6), so that the
-    # whole script fits the time limit
-    cif = synth_frames(CIF_FRAMES, *CIF)
-    hd = synth_frames(HD_FRAMES, *HD)
-    pkts_cif, dec_cif, by_path["M10 send_pictures CIF x4"] = phase_encode(
-        "5", cif, *CIF, card)
-    # phase 35's tiled run warmed the 720p M10 program
-    by_path["M10 send_pictures 720p x1"] = phase_encode(
-        "6", hd, *HD, card, warm=False)[2]
-    phase_cpu_vs_cuda(cif[:4], pkts_cif, dec_cif)
-    del pkts_cif, dec_cif
-
-    phase_tools()
-    key_cif = cif[:1] + [clips.screen_frame(*CIF, seed=1)]
-    pk_m6, dec_m6, by_path["M6 send_picture CIF x2"] = phase_key_frames(
-        "9", key_cif, *CIF, card)
-    key_hd = [hd[0]]          # palette: the CIF screen frame of phase 9
-    pk_m6_hd, _, by_path["M6 send_picture 720p x1"] = phase_key_frames(
-        "10", key_hd, *HD, card, warm=False, need=("tx", "delta", "cfl"))
-    by_path["M6 send_pictures CIF x4"] = phase_encode(
-        "11a", cif, *CIF, card, preset=6)[2]
-    by_path["M6 send_pictures 720p x1"] = phase_encode(
-        "11b", hd, *HD, card, preset=6)[2]
-    phase_cpu_vs_cuda_m6(key_cif, pk_m6, dec_m6)
-
-    phase_filter_ops()
-    pk_f, dec_f, hdr_f, n, _ = phase_filtered_key_frames(
-        "14a", key_cif, *CIF, card, pk_m6)
-    by_path["M6 send_picture DLF+CDEF CIF x2"] = n
-    # the filter stage's profile at CIF only (14a)
-    n = phase_filtered_key_frames("14b", key_hd, *HD, card, pk_m6_hd,
-                                  profile=False)[3]
-    by_path["M6 send_picture DLF+CDEF 720p x1"] = n
-    by_path["M10 send_pictures DLF CIF x4"] = phase_encode(
-        "15a", cif, *CIF, card, enable_dlf_flag=1)[2]
-    by_path["M10 send_pictures DLF+CDEF CIF x4"] = phase_encode(
-        "15b", cif, *CIF, card, **FILTERS)[2]
-    phase_cpu_vs_cuda_filters(key_cif, pk_f, dec_f, hdr_f)
-
-    # the GOP slice of the earlier PR (MCTF and TPL off) at a cut depth:
-    # CIF x5 and 720p x3, no warm run
-    phase_motion_ops()
-    by_path["M10 GOP CIF x5"] = phase_gop("18", cif17[:5], *CIF, card,
-                                          warm=0, profile=False)[2]
-    by_path["M10 GOP 720p x3"] = phase_gop(
-        "19", synth_frames(3, *HD), *HD, card, warm=0, shown_limit=3,
-        profile=False)[2]
-    phase_gop_cpu_vs_cuda()
-    by_path["M12 GOP CIF x5"] = phase_gop("21", cif17[:5], *CIF, card,
-                                          preset=12, warm=0,
-                                          profile=False)[2]
-
-    # this slice: the lookahead (MCTF, TPL, delta-q key frames)
-    phase_lookahead_ops()
-    _, launches = phase_lookahead_gop(card, cif17[:5])
-    by_path["M10 GOP MCTF+TPL CIF x5"] = launches
-    phase_lookahead_cpu_vs_cuda()
+    # the earlier slices in two processes that share the card: slices
+    # 8-11 here, slices 1-7 in a second process started now; no phase
+    # time is measured while both run (SHARED)
+    global SHARED
+    import tempfile
+    log("phases 5-38: in two processes that share the card (this one and "
+        "a second, whose lines follow this one's); their times are not "
+        "measured and print as nan")
+    with tempfile.TemporaryDirectory() as folder:
+        child = start_earlier_slices(folder)
+        SHARED = True
+        try:
+            later_slices(card, cif17, by_path)
+        except BaseException:
+            child.kill()
+            child.wait()
+            raise
+        child_paths, child_batches = join_earlier_slices(child, folder,
+                                                         timeout=900)
+        SHARED = False
+    by_path.update(child_paths)
+    fused_txq.batches |= child_batches
     return finish(card, krec, main_launches, by_path, smi)
 
 
@@ -3323,18 +3840,13 @@ def finish(card, krec, main_launches, by_path, smi):
         f"{[r['b'] for r in krec['by_batch'] if r['driven']]}; checked "
         f"now {unchecked}")
 
-    leaked = sorted(m for m in sys.modules
-                    if m == "jax" or m.startswith("jax.")
-                    or m == "svt_av1_tpu" or m.startswith("svt_av1_tpu."))
-    if leaked:
-        raise AssertionError(f"modules of JAX or of the JAX package were "
-                             f"loaded: {leaked[:8]}")
+    check_no_jax()
     # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the 1080p 10-bit M10 key frame, the time at its batch
-    # (one frame x 60 wave slots x 6 modes) on 10-bit residuals; every
-    # size is under by_batch (bd: the residuals' bit depth)
+    # launches of the CLI's CIF M12 GOP, the time at its batch (one frame
+    # x 11 wave slots x 4 modes); every size is under by_batch (bd: the
+    # residuals' bit depth)
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, P1080_CODED, 10) and r["bd"] == 10)
+              if r["b"] == k1_batch(1, CIF, 12) and r["bd"] == 8)
     print(smi, flush=True)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", route="cuda",

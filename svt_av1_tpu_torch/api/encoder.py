@@ -15,7 +15,8 @@ on or off; either all-intra (intra_period_length -2 or 0) at 8 or 10
 bits (uint16 planes; at 10 bits no palette, and send_pictures takes the
 per-block route, as in the reference), or the 8-bit hierarchical
 (random-access) GOP of the reference's fast path with hierarchical_levels
-1-3 and intra_period_length > 0, with or without the
+1-5 (mini-GoPs of 2-32 frames) and intra_period_length > 0 or -1 (one key
+frame, then key frames at scene cuts only), with or without the
 lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
 frames search the inter tx type and the OBMC and inter-intra motion
 modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third
@@ -51,9 +52,8 @@ inter frames signal RESTORE_NONE).  What still raises NotImplementedError,
 naming the ROADMAP.md item that brings it (nothing falls back to the JAX
 package): a GOP with film grain, with more than one tile column or at 10
 bits (the reference codes these on its stage path, which is not ported),
-low-delay and IPPP GOPs, hierarchical_levels 4-5, intra_period_length -1,
-S-frames, and a feature override (SVT_TPU_FEAT) that turns on a tool no
-preset uses (hp_mv, rdoq).
+low-delay and IPPP GOPs, S-frames, and a feature override (SVT_TPU_FEAT)
+that turns on a tool no preset uses (hp_mv, rdoq).
 
 In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
 ``flush``), then codes it in decode order: the base frame, the mid
@@ -215,10 +215,6 @@ def _unsupported(cfg: EncoderConfig):
         (gop and (cfg.pred_structure != 2 or cfg.hierarchical_levels == 0),
          "low-delay and IPPP GOPs (pred_structure != 2 or "
          "hierarchical_levels 0)", "queue A item 7"),
-        (gop and (cfg.hierarchical_levels > 3
-                  or cfg.intra_period_length < 0),
-         "GOPs with hierarchical_levels 4-5 or intra_period_length -1",
-         "queue A item 7"),
         (gop and len(_tile_layout(_align16(cfg.source_width),
                                   cfg.tile_columns)) > 1,
          "tile columns in a GOP (the reference codes it on its stage path, "
@@ -887,7 +883,11 @@ class Encoder:
     # -- hierarchical (random access) GOP ------------------------------------
     def _is_key_poc(self, poc: int) -> bool:
         period = self.cfg.intra_period_length
-        return poc == 0 or poc in self._h_cuts or poc % (period + 1) == 0
+        if poc == 0 or poc in self._h_cuts:
+            return True
+        if period == -1:
+            return False           # one key frame, then scene cuts only
+        return poc % (period + 1) == 0
 
     def _tf_active(self) -> bool:
         return (self.cfg.enable_tf > 0

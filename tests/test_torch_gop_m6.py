@@ -495,21 +495,58 @@ def test_feature_overrides_outside_the_slice_raise(monkeypatch, feature):
         Encoder(cfg, device="cpu")
 
 
+# the reference's rect-partition test setting (tests/test_rect_partition.py)
+RECT = dict(source_width=96, source_height=96, qp=35, intra_period_length=-1,
+            hierarchical_levels=2, enc_mode=6)
+
+
+@functools.lru_cache(maxsize=None)
+def _rect_stream(device="cpu"):
+    """(the port's packets on ``device`` of the reference's rect-partition
+    clip at its own settings, the JAX package's stored packet bytes)."""
+    frames = clips.two_motion_clip(True)
+    pkts = tg._run(Encoder(EncoderConfig(**RECT), device=device), "rect",
+                   frames, tgf)
+
+    def jax_stream():
+        from svt_av1_tpu.api.config import EncoderConfig as JConfig
+        from svt_av1_tpu.api.encoder import Encoder as JEncoder
+        from svt_av1_tpu.pipeline import gop_fast as jgf
+        jp = tg._run(JEncoder(JConfig(**RECT)), "rect", frames, jgf)
+        return [np.array([len(jp)])] + [np.frombuffer(p.data, np.uint8)
+                                        for p in jp]
+
+    ref = port_refs.jax_ref("gop_m6_rect_keyint_m1", jax_stream,
+                            *[a for f in frames for a in f],
+                            np.array(sorted(RECT.items()), str))
+    return pkts, [bytes(a) for a in ref[1:1 + int(ref[0][0])]]
+
+
+def test_rect_clip_keyint_m1_matches_jax():
+    """The reference's rect-partition clip at intra_period_length -1
+    (one key frame, a 4-frame mini-GoP at levels 2, M6, MCTF on):
+    byte-identical to the JAX package's stored stream, and decoded by the
+    port's decoder to every shown frame's recon."""
+    pkts, jax = _rect_stream()
+    shown, _ = tg._decode([p.data for p in pkts])
+    disp = [p for p in pkts if p.displayed]
+    assert len(shown) == len(disp) == 5
+    for rec, p in zip(shown, disp):
+        for k in "yuv":
+            np.testing.assert_array_equal(rec[k], p.recon[k])
+    assert sum(p.frame_type == tg.obu.KEY_FRAME for p in pkts) == 1
+    assert [p.data for p in pkts] == jax
+
+
 @pytest.mark.xfail(strict=True, reason=(
     "ROADMAP.md queue C item 4: on the clip of tests/test_rect_partition.py "
     "no block codes as skip at qp 35 (the rolled, low-passed texture leaves "
     "a residual after MC), so no skip pair merges into a 32x16 / 16x32 leaf "
     "at any preset, in either package; the reference's test fails on it"))
 def test_rect_clip_codes_rect_leaves():
-    """The reference's rect-partition clip at M6 (intra_period_length 31:
-    its -1 is not ported, queue A item 7; the same 5 frames under one key
-    frame) codes a rect skip leaf."""
-    frames = clips.two_motion_clip(True)
-    enc = Encoder(EncoderConfig(source_width=96, source_height=96, qp=35,
-                                intra_period_length=31,
-                                hierarchical_levels=2, enc_mode=6),
-                  device="cpu")
-    pkts = tg._run(enc, "rect", frames, tgf)
+    """The reference's rect-partition clip at its own settings (M6,
+    intra_period_length -1, levels 2) codes a rect skip leaf."""
+    pkts, _ = _rect_stream()
     _, decisions = tg._decode([p.data for p in pkts])
     assert any(b.bsize in (cc.BLOCK_32X16, cc.BLOCK_16X32)
                for d in decisions for b in d.values())

@@ -167,33 +167,61 @@ def _psnr(a, b):
     return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
 
 
+def _stored_jax(key, frames, cfg, port_pkts):
+    """The JAX package's outputs for an M10 send_pictures encode of
+    ``frames`` (stored in tests/golden/torch_port_refs.npz, fingerprinted
+    by the frames, the settings and the port's packets): its packets'
+    bytes, its recon luma, and its decoder's frames of the port's
+    stream."""
+    def compute():
+        pk_j = _encode(JEncoder(JEncoderConfig(**cfg)), frames)
+        jdec = JDecoder()
+        by_jax = [jdec.decode_temporal_unit(p.data)[0] for p in port_pkts]
+        return ([np.array([len(pk_j)])]
+                + [np.frombuffer(p.data, np.uint8) for p in pk_j]
+                + [np.stack([p.recon["y"] for p in pk_j])]
+                + [np.stack([r[k] for r in by_jax]) for k in "yuv"])
+
+    ref = port_refs.jax_ref(key, compute, *[a for f in frames for a in f],
+                            np.array(repr(sorted(cfg.items()))),
+                            *[np.frombuffer(p.data, np.uint8)
+                              for p in port_pkts])
+    n = int(ref[0][0])
+    return dict(data=[bytes(a) for a in ref[1:1 + n]], recon_y=ref[1 + n],
+                by_jax=[dict(zip("yuv", planes))
+                        for planes in zip(*ref[2 + n:5 + n])])
+
+
 def test_slice_matches_jax_package():
+    """The port's M10 send_pictures stream against the JAX package's
+    (stored): the JAX decoder's frames of the port's stream and the
+    port's decoder equal the port's recon; the parity rule against the
+    JAX encoder's stream (its decisions parsed by the port's decoder)."""
     frames = _clip(2, 64, 64)
     cfg = dict(source_width=64, source_height=64, qp=35, enc_mode=10)
-    pk_j = _encode(JEncoder(JEncoderConfig(**cfg)), frames)
     pk_t = _encode(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
-    assert len(pk_t) == len(pk_j) == 2
-    jdec_t, jdec_j, tdec = JDecoder(), JDecoder(), Decoder(device="cpu")
+    jax = _stored_jax("intra_slice_m10", frames, cfg, pk_t)
+    assert len(pk_t) == len(jax["data"]) == 2
+    tdec, tdec_j = Decoder(device="cpu"), Decoder(device="cpu")
     same = total = 0
-    for f, a, b in zip(frames, pk_j, pk_t):
-        (rec,) = jdec_t.decode_temporal_unit(b.data)
-        for k in "yuv":
-            assert np.array_equal(rec[k], b.recon[k]), k
+    for f, a, recon_y, b, by_jax in zip(frames, jax["data"], jax["recon_y"],
+                                        pk_t, jax["by_jax"]):
         (rec2,) = tdec.decode_temporal_unit(b.data)
         for k in "yuv":
+            assert np.array_equal(by_jax[k], b.recon[k]), k
             assert np.array_equal(rec2[k], b.recon[k]), k
-        jdec_j.decode_temporal_unit(a.data)
-        for key, d in jdec_t.last_decisions.items():
-            e = jdec_j.last_decisions[key]
+        tdec_j.decode_temporal_unit(a)
+        for key, d in tdec.last_decisions.items():
+            e = tdec_j.last_decisions[key]
             total += 1
             same += (d.y_mode == e.y_mode and d.uv_mode == e.uv_mode
                      and all(np.array_equal(getattr(d, q), getattr(e, q))
                              for q in ("qcoeff_y", "qcoeff_u", "qcoeff_v")))
-        assert abs(_psnr(f[0], a.recon["y"])
+        assert abs(_psnr(f[0], recon_y)
                    - _psnr(f[0], b.recon["y"])) <= MAX_DPSNR
-    nb_j = sum(len(p.data) for p in pk_j)
+    nb_j = sum(len(d) for d in jax["data"])
     nb_t = sum(len(p.data) for p in pk_t)
-    identical = all(a.data == b.data for a, b in zip(pk_j, pk_t))
+    identical = all(a == b.data for a, b in zip(jax["data"], pk_t))
     print(f"blocks equal {same}/{total}, bytes {nb_t} vs {nb_j}, "
           f"identical streams: {identical}")
     assert same / total >= MIN_AGREE
@@ -205,8 +233,9 @@ def test_slice_matches_jax_package():
 
 @pytest.mark.parametrize("filters", ["dlf", "dlf+cdef"])
 def test_send_pictures_filters_match_jax(filters):
-    """M10 send_pictures with the in-loop filters, on the frames (and so
-    the JAX package's compiled programs) of the slice test above.  DLF
+    """M10 send_pictures with the in-loop filters, on the frames of the
+    slice test above, against the JAX package's stored stream and its
+    decoder's stored frames of the port's stream.  DLF
     alone keeps the array route with the heuristic level; with CDEF both
     packages take the per-block route, which has no source: the heuristic
     DLF level, and CDEF signaled with strengths (0, 0, 0, 0) at damping 3
@@ -214,13 +243,12 @@ def test_send_pictures_filters_match_jax(filters):
     frames = _clip(2, 64, 64)
     cfg = dict(source_width=64, source_height=64, qp=35, enc_mode=10,
                enable_dlf_flag=1, cdef_level=int(filters == "dlf+cdef"))
-    pk_j = _encode(JEncoder(JEncoderConfig(**cfg)), frames)
     pk_t = _encode(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
-    assert len(pk_t) == len(pk_j) == 2
-    assert all(a.data == b.data for a, b in zip(pk_j, pk_t))
-    jdec, tdec = JDecoder(), Decoder(device="cpu")
-    for b in pk_t:
-        (rec,) = jdec.decode_temporal_unit(b.data)
+    jax = _stored_jax(f"intra_slice_m10_{filters}", frames, cfg, pk_t)
+    assert len(pk_t) == len(jax["data"]) == 2
+    assert all(a == b.data for a, b in zip(jax["data"], pk_t))
+    tdec = Decoder(device="cpu")
+    for b, rec in zip(pk_t, jax["by_jax"]):
         (rec2,) = tdec.decode_temporal_unit(b.data)
         for k in "yuv":
             assert np.array_equal(rec[k], b.recon[k]), k
@@ -291,7 +319,9 @@ def test_port_never_imports_jax():
         assert not read, f"opened under svt_av1_tpu/: {read}"
         print("ok")
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # two threads, as the test processes use: torch's default of one a
+    # core contends with the other test workers
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", \

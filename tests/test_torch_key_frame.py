@@ -9,7 +9,8 @@ against the JAX Encoder on the same frames the parity rule holds: >= 99%
 of blocks equal (mode, angle delta, tx type, uv mode, CfL alphas,
 palette, levels), Y-PSNR within 0.05 dB, bytes within 1%.  Where the
 streams are byte-identical (they are in every CPU run so far) that is
-asserted too.
+asserted too.  The JAX package's stream, recon and decoder output are
+stored (tests/port_refs.py; tools/make_torch_port_refs.py remakes them).
 ``send_pictures`` at M6 runs the batched program with the preset's eight
 plain modes, as the reference's does.
 """
@@ -93,20 +94,39 @@ def _same_block(d, e):
 def m6():
     """Both packages' M6 encodes of a natural and a screen-content frame
     through send_picture with DLF and CDEF on, and what three decoders make
-    of them."""
+    of them: the JAX package's (stored in tests/golden/torch_port_refs.npz,
+    fingerprinted by the frames and the port's packets: its stream, its
+    recon luma, its decoder's frames of the port's stream) and the port's
+    decoder on both streams."""
     frames = _frames()
     cfg = dict(CFG, **FILTERS)
-    pk_j = _send_each(JEncoder(JEncoderConfig(**cfg)), frames)
     pk_t = _send_each(Encoder(EncoderConfig(**cfg), device="cpu"), frames)
-    jdec_t, jdec_j, tdec = JDecoder(), JDecoder(), Decoder(device="cpu")
+
+    def jax_outputs():
+        pk_j = _send_each(JEncoder(JEncoderConfig(**cfg)), frames)
+        jdec = JDecoder()
+        by_jax = [jdec.decode_temporal_unit(p.data)[0] for p in pk_t]
+        return ([np.array([len(pk_j)])]
+                + [np.frombuffer(p.data, np.uint8) for p in pk_j]
+                + [np.stack([p.recon["y"] for p in pk_j])]
+                + [np.stack([r[k] for r in by_jax]) for k in "yuv"])
+
+    ref = port_refs.jax_ref("key_frame_m6_filters", jax_outputs,
+                            *(p for f in frames for p in f),
+                            np.array(repr(sorted(cfg.items()))),
+                            *[np.frombuffer(p.data, np.uint8) for p in pk_t])
+    n = int(ref[0][0])
+    pk_j = [SimpleNamespace(data=bytes(a), recon=dict(y=y))
+            for a, y in zip(ref[1:1 + n], ref[1 + n])]
+    by_jax = [dict(zip("yuv", planes)) for planes in zip(*ref[2 + n:5 + n])]
+    tdec, tdec_j = Decoder(device="cpu"), Decoder(device="cpu")
     dec = []
-    for a, b in zip(pk_j, pk_t):
-        (by_jax,) = jdec_t.decode_temporal_unit(b.data)
+    for a, b, rec_j in zip(pk_j, pk_t, by_jax):
         (by_port,) = tdec.decode_temporal_unit(b.data)
-        jdec_j.decode_temporal_unit(a.data)
-        dec.append(dict(by_jax=by_jax, by_port=by_port,
-                        port_decisions=dict(jdec_t.last_decisions),
-                        jax_decisions=dict(jdec_j.last_decisions),
+        tdec_j.decode_temporal_unit(a.data)
+        dec.append(dict(by_jax=rec_j, by_port=by_port,
+                        port_decisions=dict(tdec.last_decisions),
+                        jax_decisions=dict(tdec_j.last_decisions),
                         header=tdec.last_frame_header))
     return dict(frames=frames, pk_j=pk_j, pk_t=pk_t, dec=dec)
 

@@ -42,7 +42,7 @@ HOST_COPIES = (
     "pipeline/rate_control.py", "pipeline/rc_onepass.py",
     "native/ec_native.c", "ops/wedge.py", "ops/obmc.py",
     "ops/interintra.py", "pipeline/gop.py", "pipeline/noise_model.py",
-    "utils/metrics.py")
+    "utils/metrics.py", "utils/y4m.py", "utils/ivf.py")
 DATA_FILES = (
     "av1_default_cdfs", "av1_intra_tables", "av1_inv_txfm_programs",
     "av1_quant_tables", "av1_scan_tables", "md_rate_fit",
@@ -112,7 +112,8 @@ def test_no_import_of_the_jax_package():
             "pipeline/inter_encoder.py", "ops/satd.py", "ops/tf.py",
             "pipeline/tf_stage.py", "pipeline/tpl.py", "ops/resize.py",
             "ops/restoration.py", "pipeline/lr_stage.py",
-            "pipeline/noise_model.py", "utils/metrics.py"} <= scanned
+            "pipeline/noise_model.py", "utils/metrics.py",
+            "app/cli.py", "native/capi.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
@@ -294,6 +295,11 @@ ENTRY_POINTS = {
         tie.reconstruct_from_decisions({}, 128, 32, 140, tile_starts=(0, 4))),
     "Decoder tiled": lambda: Decoder()._decode_frame_tiled(
         None, b"", 128, 2),
+    "cli.main": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.app.cli").main(["-i", "in.y4m", "-b", "out.ivf"]),
+    "Encoder GOP levels 5 keyint -1": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, intra_period_length=-1,
+        hierarchical_levels=5)),
     "hierarchical_me": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
             np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),

@@ -25,7 +25,10 @@ TESTS = (
     "tests/test_torch_intra_tools.py::"
     "test_luma_wave_palette_override_matches_jax",
     "tests/test_torch_intra_tools.py::test_chroma_wave_cfl_matches_jax",
+    "tests/test_torch_intra_encoder.py::test_slice_matches_jax_package",
+    "tests/test_torch_intra_encoder.py::test_send_pictures_filters_match_jax",
     "tests/test_torch_key_frame.py::test_send_pictures_m6_matches_jax",
+    "tests/test_torch_key_frame.py::test_parity_with_the_jax_encoder",
     "tests/test_torch_gop.py::test_p1_matches_jax",
     "tests/test_torch_gop.py::test_p2_matches_jax",
     "tests/test_torch_gop.py::test_gop_parity_with_jax",
@@ -47,12 +50,16 @@ TESTS = (
     "tests/test_torch_gop_m4.py::test_m2_gop_matches_jax",
     "tests/test_torch_gop_m4.py::test_m4_gop_levels3_golden_dpb",
     "tests/test_torch_gop_m6.py::test_jax_decoder_decodes_port_stream",
+    "tests/test_torch_gop_m6.py::test_rect_clip_keyint_m1_matches_jax",
     "tests/test_torch_restoration.py",
     "tests/test_torch_post_filters.py",
     "tests/test_torch_rate_control.py",
     "tests/test_torch_api_surface.py",
     "tests/test_torch_10bit.py",
     "tests/test_torch_avif.py",
+    "tests/test_torch_gop_shapes.py",
+    "tests/test_torch_cli.py",
+    "tests/test_torch_capi.py",
 )
 
 

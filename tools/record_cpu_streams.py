@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Record tests/golden/torch_cpu_streams.json: the sha1 digest of the
 CPU's stream of every cpu-vs-cuda case of chip_smoke.py (phases 7, 12,
-16, 20, 27, 31 and 34).  chip_smoke.py holds the card's stream of each
-case to its digest instead of encoding the case on the CPU again; a card
-stream that does not match is encoded on the CPU there and held to the
-parity rule, as before.
+16, 20, 27, 31 and 34), and of the cases that phases 39-41 hold to the
+CPU's digest alone (the CLI's main path at CIF x17 and its decoded
+frames, the M4 levels-5 GOP).  chip_smoke.py holds the
+card's stream of each case to its digest instead of encoding the case on
+the CPU again; in phases 7-34 a card stream that does not match is
+encoded on the CPU there and held to the parity rule, as before.
 
-    python tools/record_cpu_streams.py      # a few minutes on the CPU
+    python tools/record_cpu_streams.py      # about ten minutes on the CPU
 
 Runs the same phase functions with the card's side on the CPU
 (chip_smoke.CARD = "cpu"), collecting each stream's digest
@@ -16,6 +18,7 @@ encode path that these phases drive changes its output.
 import json
 import os
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,7 +31,8 @@ def main():
     cs.RECORDED = {}
     # phases 7, 12 and 16 compare the packets of phases 5, 9 and 14 (the
     # frames main() gives them)
-    cif = cs.synth_frames(cs.CIF_FRAMES, *cs.CIF)
+    cif17 = cs.synth_frames(17, *cs.CIF)
+    cif = cif17[:cs.CIF_FRAMES]
     cs.phase_cpu_vs_cuda(cif, cs.encode(cif, *cs.CIF, "cpu"), None)
     key_cif = cif[:1] + [clips.screen_frame(*cs.CIF, seed=1)]
     cs.phase_cpu_vs_cuda_m6(
@@ -40,6 +44,13 @@ def main():
     cs.phase_m6_tools_cpu_vs_cuda()
     cs.phase_m4_cpu_vs_cuda()
     cs.phase_post_cpu_vs_cuda()
+    for key, digest in cs.digest_cases("cpu").items():
+        cs.stored_digest(key, digest)
+    with tempfile.TemporaryDirectory() as folder:
+        ivf, decoded = cs.main_path_digests(cif17[:cs.MAIN_FRAMES], "cpu",
+                                            folder)
+    cs.stored_digest("39/ivf", ivf)
+    cs.stored_digest("39/decoded", decoded)
     with open(cs.CPU_STREAMS, "w") as f:
         json.dump(dict(sorted(cs.RECORDED.items())), f, indent=1)
         f.write("\n")
