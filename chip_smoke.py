@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --this-slice   # phases 1-4, 39-41 and 25 only
+    python3 chip_smoke.py --this-slice   # phases 1-4, 42, 43 and 25 only
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 39, 40 and 41 (this slice)
-run alone right after phase 4.  Then the earlier slices run in two
-processes that share the card: this one runs 37 and 38, 35 and 36, 32,
-33 and 34, then 28, 31, 30 and 29, while a second process that it starts
-and waits for (this script with --earlier-slices; its lines are printed
-after this one's, its launch counts and K1 batch sizes returned in a
-result file) runs 27 and 26, then 5-24 in order.  While both run, no
-time is measured (it would include the other process's load): the
+failure raises and exits non-zero.  Phases 42 and 43 (this slice) run
+alone right after phase 4.  Then the earlier slices run in five
+processes that share the card: this one runs 39, 40 and 41, while four
+workers that it starts and waits for (this script with --worker NAME;
+their lines are printed after this one's, their launch counts and K1
+batch sizes returned in result files) run 27 and 26, then 5-24 in order
+(earlier); 37 and 38, then 35 and 36 (ten_bit_rate); 32, 33 and 34
+(post_filters); 28, 31, 30 and 29 (m4).  While they run, no
+time is measured (it would include the other processes' load): the
 times on those phases' lines print as nan and their kernel profiles are
 left out; those phases check streams, decodes and K1's launch counts.
 Then phase 25 and the last lines.  The phases:
@@ -32,7 +33,8 @@ Then phase 25 and the last lines.  The phases:
      send_pictures with the five filter-intra pseudo-modes, 15, 30, 45
      and 16 for the varpart program's 16x16 steps, 20 for phase 31's M4
      pass B; 24, 12, 18, 8 and 10 for phase 40's rect clip, CLI cases,
-     64x64 M12 GOP and 32x32 M4 GOP),
+     64x64 M12 GOP and 32x32 M4 GOP; 1440, 264 and 88 for phase 42's
+     four 1080p key frames, its CIF S = 4 step and phase 43's key frames),
      qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
@@ -48,8 +50,16 @@ Then phase 25 and the last lines.  The phases:
      plain version (a CUDA graph of 20 launches on preallocated outputs,
      replayed 50 times between two CUDA events; three rounds in turns)
      beside the launch's bytes, FLOP and bound, and the host time of one
-     wrapper call; then the two kernels at B = 135168, a batch far beyond
-     the L2 (bound by device memory);
+     wrapper call; K1's per-row form (svt_fused_txq16_rows: a quantizer
+     row per block, one per stream) at the sizes the multi-stream paths
+     give it (k1_rows_batches: 1440 for phase 42's pass B, 264 for its
+     CIF S = 4 step, 32 and 16 for phase 43's), over
+     rows at qindex 1, 100, 121 and 255 with eight flat +-1023 blocks at
+     the int16 clamp: the bounded tie rule against its plain twin, the
+     quantizer exact on its own coefficients, every block equal to the
+     frame form at its row's quantizer, timed the same way with its
+     twin; then K1 at B = 135168, a batch far beyond the L2 (bound by
+     device memory);
   4. the inverse transform and the DC/V/H/SMOOTH/PAETH predictors on the
      card against the C-reference goldens in tests/golden/ (bit-exact);
   5. the all-intra batch: CIF 352x288, 2 frames, preset M10, qp 35, through
@@ -278,7 +288,7 @@ Then phase 25 and the last lines.  The phases:
      stills at 8 and 10 bits) on the card, each decoded on the card equal
      to its recon, against the CPU's stored streams: identical, with the
      same qindex sequences;
- 39. the main path of this slice: the port's command-line app
+ 39. the main path of slice 12: the port's command-line app
      (svt_av1_tpu_torch.app.cli.main, in this process, on the default
      device) on the CIF bench clip x17 written as a y4m, with BASELINE.json
      config 1's arguments (--preset 12 --crf 35) at --keyint -1 and
@@ -294,7 +304,7 @@ Then phase 25 and the last lines.  The phases:
      delta-q, at B = 44); the IVF decoded on the card; the IVF's digest
      and the decoded frames' digest must equal the CPU's
      (tools/record_cpu_streams.py);
- 40. the small streams of this slice's CPU tests on the card, each decoded
+ 40. the small streams of slice 12's CPU tests on the card, each decoded
      on the card: the GOP shapes of tests/test_torch_gop_shapes.py at
      keyint -1 (levels 4 and 5) and the reference's rect clip at keyint -1
      (tests/test_torch_gop_m6.py) against the stored JAX streams (the
@@ -311,15 +321,39 @@ Then phase 25 and the last lines.  The phases:
      must equal the stored JAX stream of the case, and it decodes on the
      card; only where python3-config gives no flags to embed Python is
      the phase left out, and a line says so and why (a shim or client
-     that does not compile or link fails the script).
+     that does not compile or link fails the script);
+ 42. the main path of this slice, multi-stream encoding
+     (svt_av1_tpu_torch/parallel/multistream.py, BASELINE config 5's
+     shape): four streams of the 1080p bench clip (coded 1920x1088, stream
+     s shifted 8 s px) at M10 through encode_gop_streams: one batched key
+     frame step at qindex 120 (K1's frame form, 254 launches at B =
+     1440), a P step from LAST and a compound B step from LAST + ALTREF
+     at qindices 100, 115, 130, 145 with DLF + CDEF (K1's per-row form,
+     508 launches at B = 1440); each step's wall and host dispatch
+     seconds, stream-frames / s, peak device memory, Y-PSNR, inter and
+     compound blocks, DLF levels, CDEF picks; then streams 0 and 3 alone
+     (S = 1, K1's frame form only; stream 0 before the batched run,
+     stream 3 after it), whose decisions, recon, DLF levels and CDEF
+     picks must equal their batched ones bit for bit; each step's S = 4
+     wall over four of stream 3's; HME's peak memory and time at 1080p
+     for S = 1 and 4; the device kernels of one CIF compound B step by
+     named range (kernel_profile.range_kernels) at S = 1 and 4, whose
+     1080p count takes about 45 s (tools/hme_launches.py makes it):
+     pass B's at most 48 a wave above S = 1's (its per-stream gathers),
+     HME's, pass A's, the compound pairs' and P2's at most 5% above;
+ 43. the multi-stream cases of tests/test_torch_multistream.py on the
+     card (64x64, four streams): the batched key frames, the three inter
+     cases and the reference demo's sequence, each held to the CPU's
+     digest, else to the stored JAX outputs by the parity rule (>= 99% of
+     blocks equal); nothing is encoded on the CPU.
 
 Phases 7, 12, 16, 20, 27, 31 and 34 hold the card's stream of each of
 their cases to the CPU's: a stream whose sha1 equals the digest that
 tools/record_cpu_streams.py stored for the case
 (tests/golden/torch_cpu_streams.json) is the CPU's stream; any other is
 encoded on the CPU in the run and held to the parity rule (phase 34: to
-identity), as before.  Phases 39 and 40 hold their digest cases to the
-stored digests alone.
+identity), as before.  Phases 39, 40 and 43 hold their digest cases to
+the stored digests alone (43 falls back to the stored JAX outputs).
 
 K1's launch count is set to 0 before each encode path and read after it;
 the send_pictures paths (with and without the filters) and the GOP paths
@@ -356,9 +390,11 @@ inputs come from svt_av1_tpu_torch/goldens.py; phase 36's and 38's
 cases and helpers from the test modules, which import the JAX package only
 inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
-record (its top-level numbers are K1's on this slice's main path, phase
-39's CLI GOP at CIF M12, at B = 44; by_batch has every size, bd the
-residuals' bit depth), the last line {"ok": true, "device": {...}}.
+record: K1 (fused_txq16) and its per-row form (fused_txq16_rows), each
+with its launches on this slice's main path (phase 42's batched run)
+and its time at that path's batch (B = 1440); by_batch has every size
+(bd the residuals' bit depth).  The last line is {"ok": true, "device":
+{...}}.
 """
 import hashlib
 import json
@@ -385,9 +421,9 @@ def log(msg):
     print(f"{msg} [t={time.perf_counter() - T0:.0f} s]", flush=True)
 
 
-# True while two processes share the card (the second process throughout,
-# this one from the second's start to its end): no phase time is measured
-# then, for it would include the other process's load; clock() and
+# True while several processes share the card (a worker throughout, this
+# one from the workers' start to their end): no phase time is measured
+# then, for it would include the other processes' load; clock() and
 # stage_stats() give nan, and the kernel profiles are left out
 SHARED = False
 
@@ -500,6 +536,13 @@ def k1_batch(nframes, size, preset, fi=False):
             * (len(features_for(preset).intra_modes) + (5 if fi else 0)))
 
 
+def wave_slots(size):
+    """The natural wave size of a w x h frame's 16x16 grid."""
+    from svt_av1_tpu_torch.pipeline import intra_encoder
+    w, h = size
+    return intra_encoder._natural_maxb(-(-h // 16), -(-w // 16))
+
+
 def k1_batches():
     """The batch sizes of the paths this script drives."""
     driven = [k1_batch(CIF_FRAMES, CIF, 10), k1_batch(HD_FRAMES, HD, 10),
@@ -535,7 +578,24 @@ def k1_batches():
     driven += [k1_batch(1, (64, 64), 4), k1_batch(1, (96, 96), 6),
                k1_batch(1, (64, 48), 10), k1_batch(1, (96, 64), 10),
                k1_batch(1, (64, 64), 12), k1_batch(1, (32, 32), 4)]
+    # phase 42: the four streams' key frames at 1080p and at CIF (its
+    # launch counts; one quantizer); phase 43: the 64x64 key frames of S
+    # = 4 streams (all eleven luma modes)
+    driven += [k1_batch(MS_STREAMS, P1080_CODED, 10),
+               k1_batch(MS_STREAMS, CIF, 10),
+               MS_STREAMS * wave_slots((64, 64)) * 11]
     return list(dict.fromkeys(driven))
+
+
+def k1_rows_batches():
+    """The batch sizes the multi-stream paths give K1's per-row form:
+    phase 42's pass B (four 1080p streams x wave slots x M10's modes) and
+    its CIF launch count at S = 4; phase 43's 64x64 streams, S = 4 (the
+    inter cases at four modes, the demo at two)."""
+    slots64 = MS_STREAMS * wave_slots((64, 64))
+    return list(dict.fromkeys([
+        MS_STREAMS * k1_batch(1, P1080_CODED, 10),
+        MS_STREAMS * k1_batch(1, CIF, 10), slots64 * 4, slots64 * 2]))
 
 
 # this slice's main path: one 1080p frame (coded 1920x1088)
@@ -826,16 +886,138 @@ def check_txq(b, card, rng, rec, driven=True, tag="3", ten=False):
                                     driven=b in k1_batches10()))
 
 
+ROWS_QINDICES = (1, 100, 121, 255)
+
+
+def txq_rows_bound(b, n_rows):
+    """(bytes, FLOP, bound in us, bound_by) of one per-row launch: K1's,
+    plus the (n_rows, 10) table and the b row indices read once."""
+    nbytes, flop, _, _ = txq_bound(b)
+    nbytes += (n_rows - 1) * 40 + 4 * b
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e6
+    t_op = flop / FP32_FLOP_PER_S * 1e6
+    return nbytes, flop, max(t_mem, t_op), ("bytes" if t_mem >= t_op
+                                            else "operations")
+
+
+def rows_launcher(resid, sq):
+    """K1's per-row form (svt_fused_txq16_rows) on preallocated outputs,
+    through its C entry point (not counted as a wrapper launch)."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    fn = fused_txq.entry("svt_fused_txq16_rows")
+    fvt, fht = fused_txq.matrices_t(resid.get_device())
+    rows = sq.sid.to(torch.int32)
+    out = torch.empty((3,) + tuple(resid.shape), dtype=torch.int32,
+                      device=resid.device)
+
+    def launch():
+        rc = fn(resid.data_ptr(), resid.shape[0], fvt.data_ptr(),
+                fht.data_ptr(), sq.table.data_ptr(), rows.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_txq16_rows launch failed: CUDA "
+                               f"error {rc}")
+        return out
+    return launch
+
+
+def check_txq_rows(b, card, rng, rec, tag="3"):
+    """K1's per-row form at batch b: residuals uniform in [-255, 255], the
+    first (up to) eight blocks flat at +-1023 (their DC passes the int16
+    clamp), each block's row drawn over an (S, 10) table at qindices
+    ROWS_QINDICES (the first blocks cycling through every row): the tie
+    rule against its plain twin (tests/tie_rule.py, the bounded form), the
+    quantizer exact on the kernel's own coefficients, each block equal to
+    the frame form at its row's quantizer, the flat blocks' qcoeff /
+    dqcoeff equal to the twin's; then timed like K1 (CUDA graph) with its
+    twin, appended to rec["rows_by_batch"]."""
+    import torch
+    import tie_rule
+    from svt_av1_tpu_torch.codec import constants as cc
+    from svt_av1_tpu_torch.ops import fused_txq, quant
+    from svt_av1_tpu_torch.ops import transforms as tf
+    fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
+    resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
+    nflat = min(b, 8)
+    resid_np[:nflat] = 1023 * np.array([1, -1] * 4, np.int32)[:nflat, None,
+                                                              None]
+    sid_np = rng.integers(0, len(ROWS_QINDICES), b)
+    sid_np[:nflat] = np.arange(nflat) % len(ROWS_QINDICES)
+    exact = tie_rule.exact_coeffs(resid_np, fv, fh)
+    bound = tie_rule.coeff_error_bound(resid_np, fv, fh)
+    resid = torch.from_numpy(resid_np).cuda()
+    sq = quant.StreamQuant(quant.stream_table(ROWS_QINDICES, resid.device),
+                           torch.from_numpy(sid_np).cuda())
+    ck, qk, dk = fused_txq.fused_txq_rows(resid, sq)
+    cp, qpl, dpl = fused_txq.fused_txq_rows_plain(resid, sq)
+    q_ref, d_ref = quant.quantize(ck, sq, cc.TX_16X16)
+    if not (torch.equal(qk, q_ref) and torch.equal(dk, d_ref)):
+        _fail(f"phase {tag}: per-row K1 B={b}: qcoeff/dqcoeff differ from "
+              "the quantizer on its own coefficients")
+    if not (torch.equal(qk[:nflat], qpl[:nflat])
+            and torch.equal(dk[:nflat], dpl[:nflat])):
+        _fail(f"phase {tag}: per-row K1 B={b}: the saturated blocks differ "
+              "from the plain twin")
+    n_frame = 0
+    for s, q in enumerate(ROWS_QINDICES):
+        m = sq.sid == s
+        if not bool(m.any()):
+            continue
+        one = fused_txq.fused_txq(resid[m].contiguous(),
+                                  quant.params_on(q, resid.device))
+        n_frame += sum(int((a[m] != o).sum()) for a, o in
+                       zip((ck, qk, dk), one))
+    if n_frame:
+        _fail(f"phase {tag}: per-row K1 B={b}: {n_frame} values differ "
+              "from the frame form at the rows' quantizers")
+    nmis, maxd, worst = tie_rule.tie_mismatches_bounded(
+        ck.cpu().numpy(), cp.cpu().numpy(), exact, bound)
+    rec["rows_max_abs_err"] = max(rec["rows_max_abs_err"], maxd)
+    log(f"phase {tag}: fused_txq_rows B={b} over {len(ROWS_QINDICES)} "
+        f"rows (qindex {list(ROWS_QINDICES)}; {nflat} flat +-1023 blocks, "
+        f"DC levels {qk[:nflat, 0, 0].tolist()} at the int16 clamp): "
+        f"{nmis} of {resid.numel()} coefficients differ from the plain "
+        f"twin (max |diff| {maxd}, each within the float32 error bound of a "
+        f".5 tie, largest distance {worst:.3g}); qcoeff/dqcoeff exact; 0 "
+        f"values differ from the frame form at each row's quantizer")
+    launch = rows_launcher(resid, sq)
+    fns = dict(rows=launch,
+               plain=lambda: fused_txq.fused_txq_rows_plain(resid, sq))
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns)):
+        for k in order:
+            times[k].append(graph_us(fns[k]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    nbytes, flop, bound_us, bound_by = txq_rows_bound(b, len(ROWS_QINDICES))
+    issue = host_issue_ms(lambda: fused_txq.fused_txq_rows(resid, sq))
+    log(f"phase {tag}: fused_txq_rows B={b} device time per launch (CUDA "
+        f"graph of {GRAPH_LAUNCHES} launches x {GRAPH_REPLAYS} replays, "
+        f"median of 3 rounds in turns): kernel {med['rows']:.3f} us, plain "
+        f"twin {med['plain']:.3f} us; {nbytes} bytes, {flop} FLOP; bound "
+        f"{bound_us:.3f} us ({bound_by}, 3.35 TB/s); kernel at "
+        f"{bound_us / med['rows']:.1%} of its bound; host issue per call "
+        f"{issue:.4f} ms; {card}")
+    rec["rows_by_batch"].append(dict(
+        b=b, rows=len(ROWS_QINDICES), us=med["rows"], plain_us=med["plain"],
+        bytes=nbytes, flop=flop, bound_us=bound_us, bound_by=bound_by,
+        share=bound_us / med["rows"], host_issue_ms=issue, rounds=times))
+
+
 def phase_kernel(card):
     """K1 at the batch sizes of the driven paths and at the comparison
-    sizes (check_txq), then at a batch far beyond the L2."""
+    sizes (check_txq), its per-row form at the multi-stream paths' sizes
+    (check_txq_rows), then K1 at a batch far beyond the L2."""
     import torch
     from svt_av1_tpu_torch.ops import quant
     rng = np.random.default_rng(7)
-    rec = dict(max_abs_err=0, by_batch=[], mismatches10=0, worst10=0.0)
+    rec = dict(max_abs_err=0, by_batch=[], mismatches10=0, worst10=0.0,
+               rows_max_abs_err=0, rows_by_batch=[])
     sizes8, sizes10 = k1_batches(), k1_batches10()
     for b in dict.fromkeys(sizes8 + sizes10):
         check_txq(b, card, rng, rec, driven=b in sizes8, ten=b in sizes10)
+    for b in k1_rows_batches():
+        check_txq_rows(b, card, rng, rec)
     # a batch far beyond the L2: bound by device memory
     resid = torch.randint(-255, 256, (135168, 16, 16), dtype=torch.int32,
                           device="cuda")
@@ -2720,7 +2902,7 @@ def phase_post_filters(card, cif):
     by_path["M10 GOP LR CIF x3"] = n
     if SHARED:
         log("phase 33: the restoration stage's profile left out (the card "
-            "is shared with the second process)")
+            "is shared with the other processes)")
         return main, by_path
     prof, hot, busy = restoration_profile()
     log(f"phase 33: the restoration stage of one CIF M10 key frame (search "
@@ -3262,7 +3444,7 @@ def phase_ten_bit_cpu_vs_cuda():
                   "CPU's")
 
 
-# this slice's main path: BASELINE.json config 1's command line (CIF, M12,
+# slice 12's main path: BASELINE.json config 1's command line (CIF, M12,
 # CRF 35) at keyint -1 with config 2's 5-layer pyramid (hierarchical
 # levels 4: a 16-frame mini-GoP) and TPL; MCTF is on by default
 MAIN_ARGS = ["--preset", "12", "--crf", "35", "--keyint", "-1",
@@ -3340,7 +3522,7 @@ def main_path_digests(frames, device, folder):
 
 
 def phase_main_path(card, frames):
-    """Phase 39: this slice's main path, the port's CLI on the default
+    """Phase 39: slice 12's main path, the port's CLI on the default
     device (see MAIN_ARGS) on the CIF bench clip, K1's count set to 0
     before and read after; the IVF decoded on the card; the IVF and the
     decoded frames held to the CPU's digests.  The native range coder is
@@ -3413,7 +3595,7 @@ def phase_main_path(card, frames):
 
 
 def digest_cases(device):
-    """{key: digest} of this slice's case that is held to the CPU's digest
+    """{key: digest} of slice 12's case that is held to the CPU's digest
     (too slow for the CPU tests): the 32x32 x33 M4 GOP at levels 5 (one
     32-frame mini-GoP: its mid frames search GOLDEN, the key frame kept
     by keep_poc, beside LAST and ALTREF; 32x32 rather than the 64x64 of
@@ -3432,7 +3614,7 @@ def digest_cases(device):
 
 
 def phase_slice_streams():
-    """Phase 40: the small streams of this slice's CPU tests on the card,
+    """Phase 40: the small streams of slice 12's CPU tests on the card,
     each decoded on the card: the GOP shapes at keyint -1 (levels 4 and
     5) and the rect clip at keyint -1 against the JAX package's stored
     streams (the CPU's, byte for byte), three CLI cases (in this
@@ -3580,29 +3762,399 @@ def phase_capi():
     return True
 
 
+# -- this slice: multi-stream encoding (42-43) -------------------------------
+
+# BASELINE config 5's shape: four live encodes of the 1080p bench clip
+# (coded 1920x1088) on one card, M10's modes and P1 flags; the key frames
+# at one qindex (K1's frame form), the inter steps each stream at its own
+# qindex across the q-context band at 120 (K1's per-row form)
+MS_STREAMS = 4
+MS_KEY_Q = 120
+MS_QINDICES = (100, 115, 130, 145)
+MS_ALONE = (0, 3)
+MS_RANGES = ("p1.hme", "p1.gm_fit", "p1.interp_pick", "p1.warp",
+             "p1.pass_a", "p1.compound", "p1.pass_b", "p1.merges", "p2")
+
+
+def ms_streams(n_streams, size, n=3, step=8):
+    """bench.py's clip at ``size``, n frames; stream s is the window
+    ``step`` * s px right of stream 0 in one clip generated wider, its
+    height coded up to a multiple of 16 by repeating the last row (as the
+    encoder pads)."""
+    w, h = size
+    wide = synth_frames(n, w + step * (n_streams - 1), h)
+    extra = -h % 16
+    pad = lambda a, k: np.pad(a, ((0, k), (0, 0)), mode="edge")
+    return [[(pad(y[:, step * s:step * s + w], extra),
+              pad(u[:, step * s // 2:(step * s + w) // 2], extra // 2),
+              pad(v[:, step * s // 2:(step * s + w) // 2], extra // 2))
+             for y, u, v in wide] for s in range(n_streams)]
+
+
+def ms_options(preset=10):
+    """run_inter_frames_batched's options at a preset (the encoder's), and
+    the key frames' luma modes."""
+    from svt_av1_tpu_torch.pipeline import cdef_stage
+    from svt_av1_tpu_torch.pipeline.presets import features_for
+    f = features_for(preset)
+    return dict(modes=f.intra_modes, ring=f.subpel_ring, rad2=f.hme_rad2,
+                rad0=f.hme_rad0,
+                cdef_cands=cdef_stage.SEARCH_SET[:f.cdef_candidates],
+                exact_rates=f.exact_rates, skip_mode=True, obmc=f.obmc,
+                interintra=f.interintra, tx_search=f.tx_search,
+                split8=f.part8, key_modes=f.intra_modes)
+
+
+# the device kernels that one inter step may launch at S > 1 beyond its
+# S = 1 count: pass B's per-stream gathers (quantizer rows, lambdas,
+# rate tables by stream) per wave, a share for the stages that run once a
+# step (pass A, the compound pairs, P2: the same gathers, and P2's
+# per-line DLF thresholds and per-block CDEF damping where the streams'
+# differ; HME: the same ops, of which a few pick their kernels by size)
+MS_PASS_B_PER_WAVE = 48
+MS_ONCE_SHARE = 0.05
+
+
+def ms_check_launches(one, many, waves):
+    """Fail where a range's device kernels at S = MS_STREAMS exceed its
+    S = 1 count by more than its allowance: pass B MS_PASS_B_PER_WAVE a
+    wave; HME, pass A, the compound pairs and P2 MS_ONCE_SHARE of their
+    S = 1 count.  The GM fit and the warp run per stream and are not held
+    (PERF.md)."""
+    allow = {"p1.pass_b": MS_PASS_B_PER_WAVE * waves}
+    for name in ("p1.hme", "p1.pass_a", "p1.compound", "p2"):
+        allow[name] = int(MS_ONCE_SHARE * one[name])
+    for name, a in allow.items():
+        if many[name] > one[name] + a:
+            _fail(f"phase 42: {name}'s device kernels grow with the "
+                  f"streams: {one[name]} at S = 1, {many[name]} at S = "
+                  f"{MS_STREAMS}, allowed {one[name] + a}")
+
+
+def ms_encode(streams, qindices):
+    """encode_gop_streams on the default device with K1's counters and
+    batch records set aside: (results, headers, step timings, K1 dict,
+    wall seconds, peak device bytes)."""
+    import torch
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.parallel import multistream as ms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_txq.launches = fused_txq.launches_rows = 0
+    seen = fused_txq.batches, fused_txq.batches_rows
+    fused_txq.batches, fused_txq.batches_rows = set(), set()
+    try:
+        t0 = clock()
+        res, hdrs, steps = ms.encode_gop_streams(
+            streams, MS_KEY_Q, [list(qindices)] * (len(streams[0]) - 1),
+            **ms_options())
+        torch.cuda.synchronize()
+        dt = clock() - t0
+    finally:
+        k1 = dict(frame=fused_txq.launches,
+                  frame_batches=sorted(fused_txq.batches),
+                  rows=fused_txq.launches_rows,
+                  rows_batches=sorted(fused_txq.batches_rows))
+        fused_txq.batches = seen[0] | fused_txq.batches
+        fused_txq.batches_rows = seen[1] | fused_txq.batches_rows
+    return res, hdrs, steps, k1, dt, torch.cuda.max_memory_allocated()
+
+
+def ms_arrays(results):
+    """A stream's frames as comparable arrays: each frame's recon planes
+    on the host, its decision table and levels (the CPU test's _flat)."""
+    tms = test_module("test_torch_multistream")
+    return tms._flat(results)
+
+
+def ms_launches(streams, qindices):
+    """Device kernels of one compound B step at M10 (the third frame of
+    ``streams``, coded from the key frames' recon and the second frame's
+    source) by named range (kernel_profile.range_kernels), the streams
+    batched: (range_kernels' dict, K1 frame-form and per-row launches of
+    the step)."""
+    import torch
+    from svt_av1_tpu_torch.codec import mv_pred
+    from svt_av1_tpu_torch.ops import fused_txq
+    from svt_av1_tpu_torch.parallel import multistream as ms
+    from svt_av1_tpu_torch.pipeline import gop_fast
+    from svt_av1_tpu_torch.utils import kernel_profile
+    opts = ms_options()
+    key_modes = opts.pop("key_modes")
+    keys = ms.encode_intra_frames_batched([s[0] for s in streams],
+                                          MS_KEY_Q, key_modes)
+    planes = lambda f: {k: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                        for k, a in zip("yuv", f)}
+    dpb = [{mv_pred.LAST_FRAME: dict(k[1]),
+            mv_pred.ALTREF_FRAME: planes(s[1])} for k, s in zip(keys,
+                                                                  streams)]
+    src = [np.concatenate([s[2][0], np.concatenate(s[2][1:], axis=1)])
+           for s in streams]
+    step = lambda: [gop_fast.collect_inter_frame(p) for p in
+                    ms.run_inter_frames_batched(src, dpb, list(qindices),
+                                                **opts)]
+    torch.cuda.synchronize()
+    fused_txq.launches = fused_txq.launches_rows = 0
+    prof = kernel_profile.range_kernels(step, MS_RANGES)
+    return prof, (fused_txq.launches, fused_txq.launches_rows)
+
+
+def phase_multistream(card):
+    """Phase 42, this slice's main path: four streams of the 1080p bench
+    clip (coded 1920x1088) through demo_gop_streams' sequence at M10 (a
+    batched key frame, a P step from LAST and a compound B step from
+    LAST + ALTREF, DLF + CDEF), the inter steps at qindices MS_QINDICES,
+    batched between stream 0 alone and stream 3 alone (S = 1), which
+    must equal their batched encodes bit for bit (decisions, recon, DLF
+    levels, CDEF picks).  Each batched step's wall is held against four
+    times the step of stream 3, the run after it.  Prints each run's
+    step seconds (host dispatch and wall), K1's launches and batches in
+    both forms, the peak device memory and streams x frames / wall;
+    HME's peak memory and time at 1080p for S = 1 and 4; the device
+    kernels of one CIF compound B step by named range at S = 1 and 4,
+    which must not grow with the streams (ms_check_launches).  Returns
+    (the main path's K1 launches (frame form, per-row form), launches by
+    path)."""
+    import torch
+    from svt_av1_tpu_torch.pipeline import me as me_pipe
+    streams = ms_streams(MS_STREAMS, P1080)
+    w, h = P1080_CODED
+    nf = len(streams[0])
+    first, last = MS_ALONE
+    alone = {first: ms_encode([streams[first]],
+                              MS_QINDICES[first:first + 1])}
+    res, hdrs, steps, k1, dt, peak = ms_encode(streams, MS_QINDICES)
+    alone[last] = ms_encode([streams[last]], MS_QINDICES[last:last + 1])
+    gh, gw = h // 16, w // 16
+    waves = waves_per_frame(w, h)
+    nm = len(ms_options()["modes"])
+    b_rows = MS_STREAMS * k1_batch(1, P1080_CODED, 10)
+    if (k1["rows"] != 2 * waves or k1["rows_batches"] != [b_rows]
+            or k1["frame"] != waves or k1["frame_batches"] != [b_rows]):
+        _fail(f"phase 42: K1 {k1}; predicted {waves} frame-form launches "
+              f"(the keys) and {2 * waves} per-row ones, each at B = "
+              f"{b_rows} ({MS_STREAMS} streams x "
+              f"{b_rows // MS_STREAMS // nm} slots x {nm} modes)")
+    comp = [sum(d.ref2 != 0 for d in st[2][0].values()) for st in res]
+    inter = [sum(d.is_inter for d in st[t][0].values())
+             for st in res for t in (1, 2)]
+    if not all(comp) or not all(inter):
+        _fail(f"phase 42: inter blocks {inter}, compound blocks {comp}")
+    for s in range(MS_STREAMS):
+        for t in range(nf):
+            rec = {k: res[s][t][1][k].cpu().numpy() for k in "yuv"}
+            if not all(np.isfinite(rec[k]).all() for k in rec):
+                _fail("phase 42: recon not finite")
+    ps = [[round(psnr(streams[s][t][0], res[s][t][1]["y"].cpu().numpy()),
+                  3) for t in range(nf)] for s in range(MS_STREAMS)]
+    log(f"phase 42: the main path, {MS_STREAMS} streams x {nf} frames of "
+        f"the 1080p bench clip (coded {w}x{h}) at M10 (keys at qindex "
+        f"{MS_KEY_Q}, P + compound B steps at {list(MS_QINDICES)}), DLF + "
+        f"CDEF, batched (S = {MS_STREAMS}), after stream {first} alone: "
+        f"{dt:.3f} s, {MS_STREAMS * nf / dt:.3f} stream-frames/s; steps "
+        f"(host dispatch s, wall s) "
+        f"{[(round(a, 3), round(b, 3)) for a, b in steps]}"
+        f"; K1 frame form {k1['frame']} launches at B = "
+        f"{k1['frame_batches']}, per-row form {k1['rows']} at B = "
+        f"{k1['rows_batches']} ({waves} waves a frame); peak device memory "
+        f"{peak / 2**30:.3f} GiB; Y-PSNR per stream and frame {ps}; inter "
+        f"blocks {inter}, compound {comp} (of {gh * gw} a frame); DLF "
+        f"levels {[[hd['dlf_levels'] for hd in st] for st in hdrs]}, CDEF "
+        f"picks {[[hd['cdef']['best_ci'] for hd in st] for st in hdrs]} "
+        f"({card})")
+    main_k1 = (k1["frame"], k1["rows"])
+    by_path = {f"multi-stream M10 1080p S={MS_STREAMS} x{nf} (frame form)":
+               k1["frame"],
+               f"multi-stream M10 1080p S={MS_STREAMS} x{nf} (per-row form)":
+               k1["rows"]}
+    for s in MS_ALONE:
+        one, hd1, steps1, k1a, dt1, peak1 = alone[s]
+        same = all(np.array_equal(a, b) for a, b in zip(
+            ms_arrays(res[s]), ms_arrays(one[0])))
+        same_hdr = hd1[0] == hdrs[s]
+        log(f"phase 42: stream {s} alone (S = 1, qindex "
+            f"{MS_QINDICES[s]}, {'before' if s == first else 'after'} the "
+            f"batched run): {dt1:.3f} s, {nf / dt1:.3f} frames/s; steps "
+            f"{[(round(a, 3), round(b, 3)) for a, b in steps1]}; K1 "
+            f"frame form {k1a['frame']} at B = {k1a['frame_batches']}, "
+            f"per-row {k1a['rows']}; peak device memory "
+            f"{peak1 / 2**30:.3f} GiB; decisions and recon "
+            f"{'IDENTICAL' if same else 'DIFFERENT'} to the batched "
+            f"stream's, DLF levels and CDEF picks "
+            f"{'identical' if same_hdr else 'DIFFERENT'}")
+        if not (same and same_hdr):
+            _fail(f"phase 42: stream {s} alone differs from its batched "
+                  "encode")
+        if k1a["rows"]:
+            _fail("phase 42: a one-stream encode launched the per-row form")
+        by_path[f"multi-stream M10 1080p S=1 x{nf}"] = k1a["frame"]
+    steps1 = alone[last][2]
+    ratio = [round(steps[t][1] / (MS_STREAMS * steps1[t][1]), 3)
+             for t in range(nf)]
+    log(f"phase 42: each step's wall at S = {MS_STREAMS} over "
+        f"{MS_STREAMS} x stream {last}'s alone, both after a 1080p run "
+        f"(key, P, B): {ratio}; {card}")
+
+    # HME's peak memory over the four streams at 1080p
+    from svt_av1_tpu_torch.pipeline.gop_fast import _edge_pad_to
+    h64, w64 = (h + 63) & ~63, (w + 63) & ~63
+    run = me_pipe.hme_core(h64, w64, ms_options()["rad2"], 8,
+                           ms_options()["rad0"])
+    src, ref = (_edge_pad_to(torch.from_numpy(np.stack(
+        [st[t][0] for st in streams])).cuda(), h64, w64) for t in (1, 0))
+    for n in (1, MS_STREAMS):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = clock()
+        run(src[:n], ref[:n])
+        torch.cuda.synchronize()
+        log(f"phase 42: hme_core 1080p S = {n}: peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+            f"above the inputs, {clock() - t0:.3f} s")
+    del src, ref
+
+    # at CIF: profiling a 1080p step and reading its ~600,000 kernels
+    # takes about 45 s a count (tools/hme_launches.py counts it there)
+    counts = {}
+    cif_waves = waves_per_frame(*CIF)
+    for n in (1, MS_STREAMS):
+        prof, k1s = ms_launches(ms_streams(n, CIF), MS_QINDICES[:n])
+        counts[n] = prof["by_range"]
+        log(f"phase 42: one compound B step at CIF, S = {n}, M10: "
+            f"{prof['kernels']} device kernels ({prof['unlinked']} with "
+            f"neither a launch call nor a linked op); by range "
+            f"{prof['by_range']}; K1 frame form {k1s[0]}, per-row "
+            f"{k1s[1]} ({cif_waves} waves); step {prof['wall_s']:.3f} s "
+            f"under the profiler, count {prof['parse_s']:.3f} s ({card})")
+        if prof["unlinked"]:
+            _fail(f"phase 42: {prof['unlinked']} of {prof['kernels']} "
+                  "kernels have neither a launch call nor a linked op: the "
+                  "count by range is incomplete")
+        if k1s != ((cif_waves, 0) if n == 1 else (0, cif_waves)):
+            _fail(f"phase 42: K1 launches {k1s} in the counted step at S = "
+                  f"{n}; predicted {cif_waves} in the "
+                  f"{'frame' if n == 1 else 'per-row'} form")
+    ms_check_launches(counts[1], counts[MS_STREAMS], cif_waves)
+    return main_k1, by_path
+
+
+def phase_multistream_small():
+    """Phase 43: the CPU tests' multi-stream cases on the card (64x64, S =
+    4): the batched key frames, the three inter cases (one reference;
+    LAST + ALTREF with exact rates and skip mode; the M6 tools) and the
+    demo's sequence.  Each is held to its CPU digest
+    (tools/record_cpu_streams.py); where the card's differs, to the stored
+    JAX outputs by the CPU test's parity rule (>= 99% of blocks equal).
+    Nothing is encoded on the CPU."""
+    tms = test_module("test_torch_multistream")
+    from svt_av1_tpu_torch.parallel import multistream as ms
+    for key, run, ref_key in ms_small_cases(tms, ms):
+        t0 = clock()
+        arrays = run()
+        dt = clock() - t0
+        digest = data_digest([np.ascontiguousarray(a).tobytes()
+                              for a in arrays])
+        same = stored_digest(f"43/{key}", digest)
+        how = "equal to the CPU's digest"
+        if not same:
+            ref = ms_small_ref(tms, ref_key)
+            agree = ms_agreement(tms, key, arrays, ref)
+            how = (f"DIFFERENT from the CPU's digest; {agree:.2%} of blocks "
+                   f"equal to the stored JAX outputs")
+            if agree < 0.99:
+                _fail(f"phase 43: {key} differs from the CPU and the JAX "
+                      "outputs")
+        log(f"phase 43: {key} (64x64, S = {tms.NS}) on the card: {dt:.2f} s; "
+            f"{how}")
+
+
+def ms_small_cases(tms, ms):
+    """(key, run -> arrays, stored JAX key) of phase 43's cases; the
+    arrays are what tools/record_cpu_streams.py digests."""
+    def inter(name):
+        kind, kw = tms.INTER[name]
+        srcs, refs, qs = tms._inter_inputs(kind)
+        pends = ms.run_inter_frames_batched(srcs, refs, qs, tms.MODES,
+                                            device=CARD, **kw)
+        return [t.cpu().numpy() for t in tms._stacked_t(pends)]
+
+    def intra():
+        return tms._flat(ms.encode_intra_frames_batched(
+            tms._intra_frames(), 140, device=CARD))
+
+    def demo():
+        return [a for st in ms.demo_gop_streams(tms.NS, device=CARD)
+                for a in tms._flat(st)]
+
+    return ([("intra", intra, "multistream_intra")]
+            + [(f"inter_{n}", lambda n=n: inter(n), f"multistream_inter_{n}")
+               for n in tms.INTER]
+            + [("demo", demo, "multistream_demo_gop")])
+
+
+def ms_small_ref(tms, key):
+    """The stored JAX outputs of a phase-43 case (read without inputs'
+    fingerprint: the CPU test checks it)."""
+    z = tms.port_refs._stored()
+    return [z[f"{key}/{i}"] for i in range(int(z[f"{key}/n"]))]
+
+
+def ms_agreement(tms, key, got, ref):
+    """Share of blocks whose decisions equal the stored JAX outputs'."""
+    if key.startswith("inter"):
+        n = tms.NS
+        fields = [tms.P1_OUT.index(k) for k in tms.BLOCK_FIELDS]
+        same = []
+        for s in range(n):
+            nb = got[tms.P1_OUT.index("choose")][s].shape[0]
+            ok = np.ones(nb, bool)
+            for i in fields:
+                ok &= (got[i][s].reshape(nb, -1).astype(np.int64)
+                       == ref[i][s].reshape(nb, -1).astype(np.int64)).all(1)
+            same.append(ok.mean())
+        return float(np.mean(same))
+    tables = [(a, b) for a, b in zip(got, ref)
+              if a.ndim == 2 and a.dtype == np.int64]
+    rows = sum(len(a) for a, _ in tables)
+    eq = sum(int((a == b).all(axis=1).sum()) for a, b in tables
+             if a.shape == b.shape)
+    return eq / max(rows, 1)
+
+
 def _fail(msg):
     raise AssertionError(msg)
 
 
-def later_slices(card, cif17, by_path):
-    """The paths of slices 8-11 (phases 37-38, 35-36, 32-34, 28-31), in
-    this process, the newest first."""
-    # the 10-bit all-intra encode and its variants, then its small streams
+def front_end_slices(card, cif17, by_path):
+    """Slice 12's paths (phases 39-41), in this process: the CLI's deep
+    GOP, the small streams of the CPU tests, the C ABI on this machine."""
+    by_path.update(phase_main_path(card, cif17[:MAIN_FRAMES])[1])
+    phase_slice_streams()
+    phase_capi()
+
+
+def ten_bit_and_rate_slices(card, cif17, by_path):
+    """Slices 11 and 10 (phases 37-38, then 35-36): the 10-bit all-intra
+    encode and its variants, then its small streams; rate control and the
+    API surface, then its small streams."""
     by_path.update(phase_ten_bit(card)[1])
     phase_ten_bit_cpu_vs_cuda()
-
-    # rate control and the API surface, then its small streams
     by_path.update(phase_rate_control(card, cif17)[1])
     phase_rate_control_cpu_vs_cuda()
 
-    # the restoration ops, that slice's main path and variants, the small
-    # streams
+
+def post_filter_slices(card, cif17, by_path):
+    """Slice 9 (phases 32-34): the restoration ops, that slice's main path
+    and variants, the small streams."""
     phase_restoration_ops()
     by_path.update(phase_post_filters(card, cif17)[1])
     phase_post_cpu_vs_cuda()
 
-    # the M0-M4 slice: its ops and small clips, then the M4 GOP,
-    # then the M4 key frames
+
+def m4_slices(card, cif17, by_path):
+    """Slice 8 (phases 28, 31, 30, 29): the M0-M4 ops and small clips,
+    then the M4 GOP, then the M4 key frames."""
     phase_quality_ops()
     phase_m4_cpu_vs_cuda()
     by_path["M4 GOP MCTF+TPL CIF x7"] = phase_m4_gop(card, cif17[:7])
@@ -3613,8 +4165,7 @@ def later_slices(card, cif17, by_path):
 
 
 def earlier_slices(card, cif17, by_path):
-    """The paths of slices 1-7 (phases 27 and 26, then 5-24), run by the
-    second process (--earlier-slices)."""
+    """The paths of slices 1-7 (phases 27 and 26, then 5-24)."""
     # the GOP at M5-M9, its tools on small clips, then bench.py's primary
     # config at a cut depth (x3)
     phase_m6_tools_cpu_vs_cuda()
@@ -3680,49 +4231,70 @@ def earlier_slices(card, cif17, by_path):
     phase_lookahead_cpu_vs_cuda()
 
 
-EARLIER = "--earlier-slices"
+WORKER = "--worker"
+# the groups of earlier slices that run each in a process of its own,
+# beside front_end_slices in this one (about 200-290 s each on the H100)
+WORKERS = {"earlier": earlier_slices, "ten_bit_rate": ten_bit_and_rate_slices,
+           "post_filters": post_filter_slices, "m4": m4_slices}
 
 
-def start_earlier_slices(folder):
-    """The second process: this script with --earlier-slices, ``folder``
-    (where it writes its output, earlier.log, and its result,
-    earlier.json) and the seconds elapsed here."""
-    with open(os.path.join(folder, "earlier.log"), "w") as out:
+def start_worker(name, folder):
+    """A worker: this script with --worker ``name``, ``folder`` (where it
+    writes its output, <name>.log, and its result, <name>.json) and the
+    seconds elapsed here."""
+    with open(os.path.join(folder, f"{name}.log"), "w") as out:
         return subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), EARLIER, folder,
+            [sys.executable, os.path.abspath(__file__), WORKER, name, folder,
              f"{time.perf_counter() - T0:.3f}"], cwd=REPO, stdout=out,
             stderr=subprocess.STDOUT)
 
 
-def join_earlier_slices(proc, folder, timeout):
-    """Wait for the second process (killed if it outlives ``timeout``
-    seconds), print its lines, and return its (by_path, batches)."""
-    try:
-        rc = proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
+def join_workers(procs, folder, timeout):
+    """Wait for the workers (``procs``: name -> process; each killed if it
+    outlives ``timeout`` seconds from now), print their lines in turn, and
+    return their launches by path and K1's batch sizes (both forms)."""
+    deadline = time.perf_counter() + timeout
+    rcs = {}
+    for name, proc in procs.items():
+        try:
+            rcs[name] = proc.wait(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rcs[name] = "killed at its time limit"
+    by_path, batches, batches_rows = {}, set(), set()
+    for name in procs:
+        with open(os.path.join(folder, f"{name}.log")) as f:
+            print(f.read(), end="", flush=True)
+    for name, rc in rcs.items():
+        if rc != 0:
+            _fail(f"the worker {name} (--worker) ended with {rc}")
+        with open(os.path.join(folder, f"{name}.json")) as f:
+            result = json.load(f)
+        by_path.update(result["by_path"])
+        batches |= set(result["batches"])
+        batches_rows |= set(result["batches_rows"])
+    return by_path, batches, batches_rows
+
+
+def kill_workers(procs):
+    for proc in procs.values():
         proc.kill()
         proc.wait()
-        rc = "killed at its time limit"
-    with open(os.path.join(folder, "earlier.log")) as f:
-        print(f.read(), end="", flush=True)
-    if rc != 0:
-        _fail(f"the second process (--earlier-slices) ended with {rc}")
-    with open(os.path.join(folder, "earlier.json")) as f:
-        result = json.load(f)
-    return result["by_path"], set(result["batches"])
 
 
-def run_earlier_slices():
-    """The second process: the earlier slices' phases on the card (the
-    parent built the kernels), then its result file (the launches by
-    path, the batch sizes K1 had) for the parent."""
+def run_worker():
+    """A worker: one group of the earlier slices' phases on the card (the
+    parent built the kernels), then its result file (the launches by path,
+    the batch sizes K1 had in both forms) for the parent."""
     global T0, SHARED
     import torch
     sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     from svt_av1_tpu_torch import device as device_mod
     from svt_av1_tpu_torch.ops import fused_txq
-    folder = sys.argv[2]
-    T0 = time.perf_counter() - float(sys.argv[3])
+    name, folder = sys.argv[2], sys.argv[3]
+    T0 = time.perf_counter() - float(sys.argv[4])
     SHARED = True
     device_mod.resolve("cuda")
     card = subprocess.run(
@@ -3731,12 +4303,13 @@ def run_earlier_slices():
         check=True).stdout.strip().splitlines()[0]
     by_path = {}
     fused_txq.batches.clear()
-    earlier_slices(card, synth_frames(17, *CIF), by_path)
+    fused_txq.batches_rows.clear()
+    WORKERS[name](card, synth_frames(17, *CIF), by_path)
     torch.cuda.synchronize()
     check_no_jax()
-    with open(os.path.join(folder, "earlier.json"), "w") as f:
-        json.dump(dict(by_path=by_path, batches=sorted(fused_txq.batches)),
-                  f)
+    with open(os.path.join(folder, f"{name}.json"), "w") as f:
+        json.dump(dict(by_path=by_path, batches=sorted(fused_txq.batches),
+                       batches_rows=sorted(fused_txq.batches_rows)), f)
     return 0
 
 
@@ -3755,8 +4328,8 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
-    if sys.argv[1:2] == [EARLIER]:
-        return run_earlier_slices()
+    if sys.argv[1:2] == [WORKER]:
+        return run_worker()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from svt_av1_tpu_torch import device as device_mod
@@ -3789,38 +4362,38 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first and alone (so that nothing else weighs on the main
-    # path's timing): the CLI's deep GOP, then the small streams of the
-    # CPU tests, then the C ABI on this machine
+    # path's timing): four 1080p streams batched and two of them alone,
+    # then the CPU tests' multi-stream cases on the card
     cif17 = synth_frames(17, *CIF)
-    main_launches, by_path = phase_main_path(card, cif17[:MAIN_FRAMES])
-    phase_slice_streams()
-    phase_capi()
+    main_launches, by_path = phase_multistream(card)
+    phase_multistream_small()
     if "--this-slice" in sys.argv[1:]:
-        # a short call while the slice is built: phases 1-4, 39-41, 25
+        # a short call while the slice is built: phases 1-4, 42, 43, 25
         return finish(card, krec, main_launches, by_path, smi)
 
-    # the earlier slices in two processes that share the card: slices
-    # 8-11 here, slices 1-7 in a second process started now; no phase
-    # time is measured while both run (SHARED)
+    # the earlier slices in five processes that share the card: slice 12
+    # here, the other groups each in a worker started now; no phase time
+    # is measured while they run (SHARED)
     global SHARED
     import tempfile
-    log("phases 5-38: in two processes that share the card (this one and "
-        "a second, whose lines follow this one's); their times are not "
-        "measured and print as nan")
+    log(f"phases 5-41: in {len(WORKERS) + 1} processes that share the card "
+        f"(this one and the workers {', '.join(WORKERS)}, whose lines "
+        f"follow this one's in that order); their times are not measured "
+        f"and print as nan")
     with tempfile.TemporaryDirectory() as folder:
-        child = start_earlier_slices(folder)
+        procs = {name: start_worker(name, folder) for name in WORKERS}
         SHARED = True
         try:
-            later_slices(card, cif17, by_path)
+            front_end_slices(card, cif17, by_path)
         except BaseException:
-            child.kill()
-            child.wait()
+            kill_workers(procs)
             raise
-        child_paths, child_batches = join_earlier_slices(child, folder,
-                                                         timeout=900)
+        child_paths, child_batches, child_rows = join_workers(
+            procs, folder, timeout=900)
         SHARED = False
     by_path.update(child_paths)
     fused_txq.batches |= child_batches
+    fused_txq.batches_rows |= child_rows
     return finish(card, krec, main_launches, by_path, smi)
 
 
@@ -3835,31 +4408,46 @@ def finish(card, krec, main_launches, by_path, smi):
     rng = np.random.default_rng(22)
     for b in unchecked:
         check_txq(b, card, rng, krec, tag="25", ten=True)
+    unchecked_rows = sorted(fused_txq.batches_rows
+                            - {r["b"] for r in krec["rows_by_batch"]})
+    for b in unchecked_rows:
+        check_txq_rows(b, card, rng, krec, tag="25")
     log(f"phase 25: K1 batch sizes launched by the paths "
         f"{sorted(fused_txq.batches)}; checked in phase 3 "
         f"{[r['b'] for r in krec['by_batch'] if r['driven']]}; checked "
-        f"now {unchecked}")
+        f"now {unchecked}; its per-row form's "
+        f"{sorted(fused_txq.batches_rows)}, checked now {unchecked_rows}")
 
     check_no_jax()
-    # the line's top-level numbers are K1's on this slice's main path: the
-    # launches of the CLI's CIF M12 GOP, the time at its batch (one frame
-    # x 11 wave slots x 4 modes); every size is under by_batch (bd: the
-    # residuals' bit depth)
+    # the line's top-level numbers are K1's on this slice's main path
+    # (phase 42): the launches of its two forms in the batched run, each
+    # timed at that run's batch (four streams x 60 wave slots x 6 modes);
+    # every size is under by_batch (bd: the residuals' bit depth)
+    b_main = MS_STREAMS * k1_batch(1, P1080_CODED, 10)
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == k1_batch(1, CIF, 12) and r["bd"] == 8)
+              if r["b"] == b_main and r["bd"] == 8)
+    r0 = next(r for r in krec["rows_by_batch"] if r["b"] == b_main)
     print(smi, flush=True)
+    src = dict(route="cuda", source="svt_av1_tpu_torch/csrc/fused_txq.cu",
+               replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
+               library_ms=None)
     print(json.dumps({"kernels": [dict(
-        name="fused_txq16", route="cuda",
-        source="svt_av1_tpu_torch/csrc/fused_txq.cu",
-        replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
-        launches=main_launches, max_abs_err=krec["max_abs_err"],
+        name="fused_txq16", **src,
+        launches=main_launches[0], max_abs_err=krec["max_abs_err"],
         ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
-        library_ms=None, bound_us=b0["bound_us"], share=b0["share"],
+        bound_us=b0["bound_us"], share=b0["share"],
         host_issue_ms=b0["host_issue_ms"], v1_ms=b0["v1_us"] / 1000,
         mismatches_10bit=krec["mismatches10"],
         worst_tie_distance_10bit=krec["worst10"],
-        launches_by_path=by_path, by_batch=krec["by_batch"])]}))
+        launches_by_path=by_path, by_batch=krec["by_batch"]), dict(
+        name="fused_txq16_rows", **src,
+        launches=main_launches[1], max_abs_err=krec["rows_max_abs_err"],
+        ms=r0["us"] / 1000, plain_ms=r0["plain_us"] / 1000,
+        bound_ms=r0["bound_us"] / 1000, bound_by=r0["bound_by"],
+        bound_us=r0["bound_us"], share=r0["share"],
+        host_issue_ms=r0["host_issue_ms"],
+        by_batch=krec["rows_by_batch"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

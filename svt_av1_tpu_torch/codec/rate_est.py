@@ -28,7 +28,7 @@ from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import tables as tb
 from svt_av1_tpu_torch.codec.cdf import FrameCDFs, get_q_ctx
 from svt_av1_tpu_torch.codec.coeff import eob_pos_token
-from svt_av1_tpu_torch.ops.coef_rate import CoefTables
+from svt_av1_tpu_torch.ops.coef_rate import CoefTables, stack_tables
 
 MAX_LEVEL = 63   # cost tables cover |level| 0..MAX_LEVEL
 
@@ -294,4 +294,24 @@ def rate_args_to(rt, device) -> tuple:
         else:
             out.append(torch.as_tensor(np.asarray(a, np.float32),
                                        device=device))
+    return tuple(out)
+
+
+def stack_rate_args(rts) -> tuple:
+    """The md_rate_args tuples of S streams (one qindex each, on one
+    device) as one tuple whose tensors carry a leading stream axis, read
+    per block through the block's stream index (``_txb_bits``,
+    ``txb_bits_exact``); CoefTables are stacked field-wise, as the
+    reference stacks its per-stream rate pytrees
+    (svt_av1_tpu/parallel/multistream.py:211-215).  txb_base is stacked
+    plane-major, (2, S), so that ``txb_base[plane]`` selects a plane as in
+    a one-stream tuple."""
+    out = []
+    for k, slot in enumerate(zip(*rts)):
+        if isinstance(slot[0], CoefTables):
+            out.append(stack_tables(slot))
+        elif k == 2:
+            out.append(torch.stack(slot, dim=1))
+        else:
+            out.append(torch.stack(slot))
     return tuple(out)

@@ -10,8 +10,17 @@
 //   qcoeff, dqcoeff = quantize_b epilogue with the DC constants at
 //   (0, 0) and the AC constants elsewhere.
 //
-// Two entry points share the arithmetic:
-//   svt_fused_txq16     the kernel the encode runs (below);
+// Three entry points share the arithmetic:
+//   svt_fused_txq16     the kernel the encode runs (below), one set of
+//                       quantizer constants for the whole batch;
+//   svt_fused_txq16_rows the same kernel with a quantizer row per block:
+//                       an (S, 10) table of packed constants and an int32
+//                       row index per block (a batch of S independent
+//                       streams, each at its own qindex; the reference
+//                       reaches this form when jax.vmap batches the
+//                       pallas_call over streams with a per-stream qparams
+//                       row).  Each block reads its row's ten constants
+//                       before its epilogue;
 //   svt_fused_txq16_v1  the first, simple kernel (one thread per
 //                       coefficient, 4 blocks per 1024-thread block),
 //                       kept to hold the redesign bit-identical to it and
@@ -165,11 +174,23 @@ __device__ __forceinline__ void load_block(const int32_t* resid,
   bulk_g2s(dst, resid + blk * kCoeffs, kBlockBytes, bar);
 }
 
+__device__ __forceinline__ void load_quant(const int32_t* qc, Quant& kdc,
+                                           Quant& kac) {
+  kdc = Quant{__ldg(qc + 0), __ldg(qc + 2), __ldg(qc + 4), __ldg(qc + 6),
+              __ldg(qc + 8)};
+  kac = Quant{__ldg(qc + 1), __ldg(qc + 3), __ldg(qc + 5), __ldg(qc + 7),
+              __ldg(qc + 9)};
+}
+
+// kRows: qc is an (S, 10) table and rows[blk] picks each block's row;
+// else qc holds the ten constants of the whole batch (rows unused).
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 fused_txq16_kernel(const int32_t* __restrict__ resid, long long n_blocks,
                    const float* __restrict__ fvt,
                    const float* __restrict__ fht,
                    const int32_t* __restrict__ qc,
+                   const int32_t* __restrict__ rows,
                    int32_t* __restrict__ coeff, int32_t* __restrict__ qcoeff,
                    int32_t* __restrict__ dqcoeff) {
   __shared__ __align__(128) int32_t s_in[kStages][kCoeffs];
@@ -196,15 +217,14 @@ fused_txq16_kernel(const int32_t* __restrict__ resid, long long n_blocks,
       if (blk < n_blocks) load_block(resid, blk, s_in[s], &s_bar[s]);
     }
   }
-  const Quant kdc{__ldg(qc + 0), __ldg(qc + 2), __ldg(qc + 4), __ldg(qc + 6),
-                  __ldg(qc + 8)};
-  const Quant kac{__ldg(qc + 1), __ldg(qc + 3), __ldg(qc + 5), __ldg(qc + 7),
-                  __ldg(qc + 9)};
+  Quant kdc, kac;
+  if (!kRows) load_quant(qc, kdc, kac);
   __syncthreads();  // barriers initialised
 
   int it = 0;
   for (long long blk = blockIdx.x; blk < n_blocks; blk += stride, ++it) {
     const int s = it % kStages;
+    if (kRows) load_quant(qc + 10 * (long long)__ldg(rows + blk), kdc, kac);
     mbar_wait(&s_bar[s], (it / kStages) & 1);
 
     // pass 1: y1[r1..r1+3][w1] = fv[r1..r1+3, :] @ x[:, w1]
@@ -330,6 +350,24 @@ fused_txq16_v1_kernel(const int32_t* __restrict__ resid, long long n_blocks,
 
 }  // namespace
 
+// The persistent grid: kMaxPerSm thread blocks per SM of the current
+// device, fewer for a small batch.  Returns a CUDA error code.
+static int persistent_grid(long long n_blocks, unsigned* grid) {
+  static int sms[64];  // SM count per device, read once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long slots = (long long)sms[dev] * kMaxPerSm;
+  *grid = (unsigned)(n_blocks < slots ? n_blocks : slots);
+  return 0;
+}
+
 // Launches on `stream` (PyTorch's current stream); allocates nothing and
 // does not synchronise.  fvt and fht are device pointers to the two
 // float32 (16, 16) matrices TRANSPOSED (fvt[h][i] = fv[i][h], fht[w][j] =
@@ -343,21 +381,32 @@ extern "C" int svt_fused_txq16(const int32_t* resid, long long n_blocks,
                                const int32_t* qc, int32_t* out,
                                void* stream) {
   if (n_blocks <= 0) return 0;
-  static int sms[64];  // SM count per device, read once
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long slots = (long long)sms[dev] * kMaxPerSm;
-  const unsigned grid = (unsigned)(n_blocks < slots ? n_blocks : slots);
+  unsigned grid = 0;
+  const int err = persistent_grid(n_blocks, &grid);
+  if (err) return err;
   const long long plane = n_blocks * kCoeffs;
-  fused_txq16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      resid, n_blocks, fvt, fht, qc, out, out + plane, out + 2 * plane);
+  fused_txq16_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      resid, n_blocks, fvt, fht, qc, nullptr, out, out + plane,
+      out + 2 * plane);
+  return (int)cudaGetLastError();
+}
+
+// The per-row form: qtab is a device pointer to an (n_rows, 10) int32
+// table of packed constants (each row laid out as qc above) and rows a
+// device pointer to n_blocks int32 row indices in [0, n_rows); the
+// caller checks the range.  Same grid, same arithmetic.
+extern "C" int svt_fused_txq16_rows(const int32_t* resid, long long n_blocks,
+                                    const float* fvt, const float* fht,
+                                    const int32_t* qtab, const int32_t* rows,
+                                    int32_t* out, void* stream) {
+  if (n_blocks <= 0) return 0;
+  unsigned grid = 0;
+  const int err = persistent_grid(n_blocks, &grid);
+  if (err) return err;
+  const long long plane = n_blocks * kCoeffs;
+  fused_txq16_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      resid, n_blocks, fvt, fht, qtab, rows, out, out + plane,
+      out + 2 * plane);
   return (int)cudaGetLastError();
 }
 

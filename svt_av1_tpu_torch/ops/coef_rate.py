@@ -74,10 +74,23 @@ def _statics_on(n: int, device):
     return tuple(torch.as_tensor(a, device=device) for a in _statics(n))
 
 
-def _lut(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather from a small flat table, indices clamped into range."""
-    flat = table.reshape(-1)
-    return flat[idx.clamp(0, flat.numel() - 1).long()]
+def _lut(table: torch.Tensor, idx: torch.Tensor, sid=None) -> torch.Tensor:
+    """Gather from a small flat table, indices clamped into range.  With
+    ``sid`` (the (B,) stream of each block of idx (B, ...)), ``table`` has
+    a leading stream axis and each block reads its stream's table."""
+    if sid is None:
+        flat = table.reshape(-1)
+        return flat[idx.clamp(0, flat.numel() - 1).long()]
+    flat = table.reshape(table.shape[0], -1)
+    n = flat.shape[1]
+    s = sid.reshape((-1,) + (1,) * (idx.dim() - 1))
+    return flat.reshape(-1)[idx.clamp(0, n - 1).long() + s * n]
+
+
+def stack_tables(tables) -> CoefTables:
+    """The CoefTables of S streams stacked field-wise (a leading stream
+    axis), as the reference stacks its per-stream rate pytrees."""
+    return CoefTables(*(torch.stack(f) for f in zip(*tables)))
 
 
 def _nsum(p: torch.Tensor, n: int, offs) -> torch.Tensor:
@@ -90,11 +103,13 @@ def _nsum(p: torch.Tensor, n: int, offs) -> torch.Tensor:
     return out
 
 
-def txb_bits_exact(qabs: torch.Tensor, t: CoefTables, n: int
+def txb_bits_exact(qabs: torch.Tensor, t: CoefTables, n: int, sid=None
                    ) -> torch.Tensor:
     """Context-exact coded bits for a batch of 2-D-class txbs.
 
-    qabs: (B, n, n) int32 |quantized levels| in raster order.
+    qabs: (B, n, n) int32 |quantized levels| in raster order.  sid: the
+    (B,) stream of each block when ``t`` holds S streams' tables
+    (``stack_tables``).
     Returns (B,) float32 bits including the txb_skip flag (the skip cost
     for all-zero blocks).  Exact vs the range coder up to the DC sign
     (priced at the ctx-0 mean) and the coder's 1/32768 probability
@@ -113,14 +128,14 @@ def txb_bits_exact(qabs: torch.Tensor, t: CoefTables, n: int
     is_eob = pos == (e3 - 1)
 
     sym = lv3
-    base_cost = _lut(t.base, ctxb * 4 + sym)
+    base_cost = _lut(t.base, ctxb * 4 + sym, sid)
     base_sum = torch.where(before, base_cost, 0.0).sum(dim=(1, 2))
 
     # the eob coefficient codes coeff_base_eob (symbols level-1 in 0..2)
     ectx = ectx_tbl[eob.clamp(0, ectx_tbl.numel() - 1).long()]
     sym_e = torch.where(is_eob, sym, 0).sum(dim=(1, 2),
                                             dtype=torch.int32) - 1
-    eob_coef = _lut(t.base_eob, ectx * 3 + sym_e.clamp(0, 2))
+    eob_coef = _lut(t.base_eob, ectx * 3 + sym_e.clamp(0, 2), sid)
 
     # base-range rounds (level >= 3); same ctx every round
     lv15 = torch.clamp(qabs, max=15)
@@ -130,8 +145,9 @@ def txb_bits_exact(qabs: torch.Tensor, t: CoefTables, n: int
     brr = torch.clamp(qabs - 3, 0, 12)
     full = brr // 3
     extra = brr - 3 * full
-    br_cost = (full.to(torch.float32) * _lut(t.br, ctxr * 4 + 3)
-               + torch.where(brr < 12, _lut(t.br, ctxr * 4 + extra), 0.0))
+    br_cost = (full.to(torch.float32) * _lut(t.br, ctxr * 4 + 3, sid)
+               + torch.where(brr < 12, _lut(t.br, ctxr * 4 + extra, sid),
+                             0.0))
     br_sum = torch.where(qabs >= 3, br_cost, 0.0).sum(dim=(1, 2))
 
     # golomb tail (level > 14): write_golomb(level-15) = 2*len(l-14)-1
@@ -145,9 +161,12 @@ def txb_bits_exact(qabs: torch.Tensor, t: CoefTables, n: int
     # signs: 1 bit each; DC re-priced with the ctx-0 mean symbol cost
     nz_cnt = nzm.sum(dim=(1, 2)).to(torch.float32)
     dc_nz = nzm[:, 0, 0]
-    sign_sum = nz_cnt + torch.where(dc_nz, t.dc_sign - 1.0, 0.0)
+    dc_sign, skip = t.dc_sign, t.skip
+    if sid is not None:
+        dc_sign, skip = dc_sign[sid], skip[sid].T
+    sign_sum = nz_cnt + torch.where(dc_nz, dc_sign - 1.0, 0.0)
 
-    eob_bits = t.eob[eob.clamp(0, t.eob.numel() - 1).long()]
-    coded = (t.skip[0] + eob_bits
+    eob_bits = _lut(t.eob, eob, sid)
+    coded = (skip[0] + eob_bits
              + base_sum + eob_coef + br_sum + gl_sum + sign_sum)
-    return torch.where(eob > 0, coded, t.skip[1])
+    return torch.where(eob > 0, coded, skip[1])

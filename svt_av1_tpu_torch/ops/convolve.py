@@ -10,7 +10,8 @@ int32 with the reference's rounding.
 Layout: callers pass padded reference windows of shape (B, h + 7, w + 7)
 whose (3, 3) offset is the integer-aligned position.  The filter kind is
 a Python int or a 0-d integer tensor (the frame's interp pick stays on
-the device).
+the device), or a (B,) tensor, one per block (a stream batch's blocks
+each take their own stream's pick).
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ def _table_on(kind, device) -> torch.Tensor:
 
 
 def _tab_of(kind, device) -> torch.Tensor:
-    """(16, 8) filter table for an int ``kind`` or a 0-d tensor."""
+    """(16, 8) filter table for an int ``kind`` or a 0-d tensor; (B, 16,
+    8) for a (B,) tensor."""
     if isinstance(kind, torch.Tensor):
         return _table_on(None, device)[kind.to(device).long()]
     return _table_on(int(kind), device)
@@ -80,11 +82,20 @@ def _round_pow2(x, n):
     return (x + (1 << (n - 1))) >> n if n > 0 else x
 
 
+def _phase_taps(tab, phase):
+    """(B, 8) taps of each block's phase from a (16, 8) table or a (B, 16,
+    8) per-block one."""
+    if tab.dim() == 3:
+        return tab[torch.arange(tab.shape[0], device=tab.device),
+                   phase.long()]
+    return tab[phase.long()]
+
+
 def _filter2d(windows, spx, spy, w, h, tab_x, tab_y, bd, round1):
     """The two separable 8-tap passes: horizontal rounded by ROUND0, then
     vertical rounded by ``round1`` (0: not rounded), offsets kept in."""
-    fx = tab_x[spx.long()]
-    fy = tab_y[spy.long()]
+    fx = _phase_taps(tab_x, spx)
+    fy = _phase_taps(tab_y, spy)
     x = windows.to(torch.int32)
     b = x.shape[0]
     acc = torch.full((b, h + 7, w), 1 << (bd + FILTER_BITS - 1),

@@ -50,13 +50,15 @@ def filter_lines(lines: torch.Tensor, blimit: int, limit: int, thresh: int,
 
     lines: (L, 14) int32, samples p6..p0 (cols 0..6) then q0..q6
            (cols 7..13); the edge sits between cols 6 and 7.
-    filter_len in {4, 6, 8, 14}.  Returns filtered (L, 14) int32.
+    filter_len in {4, 6, 8, 14}.  The thresholds are ints, or (L,)
+    tensors with one value per line (a stream batch's lines, each at its
+    stream's level).  Returns filtered (L, 14) int32.
     Bit-exact with svt_aom_lpf_*_{4,6,8,14}_c and the highbd variants
     (thresholds/clamps scaled by bd-8)."""
     sh = bd - 8
-    blimit <<= sh
-    limit <<= sh
-    thresh <<= sh
+    blimit = blimit << sh
+    limit = limit << sh
+    thresh = thresh << sh
     flat_th = 1 << sh
     x = lines.to(torch.int32)
     p = {i: x[:, 6 - i] for i in range(7)}
@@ -213,20 +215,21 @@ def edge_flens(tx_ext, blk_ext, skip, is_luma: bool) -> torch.Tensor:
     (set_lpf_parameters, deblocking_filter.c:160-280, with a uniform
     nonzero level).
 
-    tx_ext / blk_ext: (n_r, n_c) transform / prediction-block extents
-    along the direction in mi units (pass transposed maps, and transpose
-    the result, for horizontal edges); skip: coded skip AND inter.
-    Returns (n_r, n_c) int32 in {0, 4, 6, 8, 14}; column 0 (the frame
-    edge) is 0."""
+    tx_ext / blk_ext: (..., n_r, n_c) transform / prediction-block
+    extents along the direction in mi units (pass transposed maps, and
+    transpose the result, for horizontal edges); skip: coded skip AND
+    inter.  Leading axes (a stream batch) are independent maps.
+    Returns (..., n_r, n_c) int32 in {0, 4, 6, 8, 14}; column 0 (the
+    frame edge) is 0."""
     tx_ext = torch.as_tensor(tx_ext).to(torch.int32)
     blk_ext = torch.as_tensor(blk_ext, device=tx_ext.device).to(torch.int32)
     skip = torch.as_tensor(skip, device=tx_ext.device).to(torch.bool)
-    c = torch.arange(tx_ext.shape[1], dtype=torch.int32,
-                     device=tx_ext.device)[None, :]
+    c = torch.arange(tx_ext.shape[-1], dtype=torch.int32,
+                     device=tx_ext.device)
     tx_edge = (c % tx_ext) == 0
     pu_edge = (c % blk_ext) == 0
-    prev_tx = torch.cat([tx_ext[:, :1], tx_ext[:, :-1]], dim=1)
-    prev_skip = torch.cat([skip[:, :1], skip[:, :-1]], dim=1)
+    prev_tx = torch.cat([tx_ext[..., :1], tx_ext[..., :-1]], dim=-1)
+    prev_skip = torch.cat([skip[..., :1], skip[..., :-1]], dim=-1)
     # both-skip (inter) edges filter only on a prediction-block boundary
     on = tx_edge & (~(skip & prev_skip) | pu_edge) & (c > 0)
     min_t = torch.minimum(tx_ext, prev_tx)
@@ -239,26 +242,35 @@ def edge_flens(tx_ext, blk_ext, skip, is_luma: bool) -> torch.Tensor:
 
 def _filter_edges_masked(x, epos, flen_line, blimit, limit, thresh, lens,
                          bd):
-    """Filter the vertical edges at column positions ``epos`` with
-    per-line filter lengths (0 = off).  Exact under overlap: only the span
-    a filter modifies adds a nonzero delta, and the spec's flen <= min(tx
-    extents) rule keeps modified spans of adjacent edges disjoint."""
-    h, w = x.shape
+    """Filter the vertical edges at column positions ``epos`` of an (h, w)
+    plane, or of (S, h, w) planes, with per-line filter lengths (0 = off;
+    flen_line (h, nE), or (S, h, nE)).  The thresholds are ints, or per
+    line tensors (stream-major, see filter_lines).  Exact under overlap:
+    only the span a filter modifies adds a nonzero delta, and the spec's
+    flen <= min(tx extents) rule keeps modified spans of adjacent edges
+    disjoint."""
+    h, w = x.shape[-2:]
     dev = x.device
     cols = (torch.as_tensor(np.asarray(epos), device=dev)[None, :, None]
             + torch.arange(-7, 7, device=dev)[None, None, :]).clamp(0, w - 1)
     rows = torch.arange(h, device=dev)[:, None, None]
-    lines = x[rows, cols]                      # (h, nE, 14)
+    ci = cols.expand(h, -1, -1)
+    ri = rows.expand_as(ci)
+    idx = (ri, ci)
+    if x.dim() == 3:
+        si = torch.arange(x.shape[0], device=dev)[:, None, None, None]
+        idx = (si.expand((x.shape[0],) + ci.shape), ri.expand(
+            (x.shape[0],) + ci.shape), ci.expand((x.shape[0],) + ci.shape))
+    lines = x[idx]                             # (..., h, nE, 14)
     flat = lines.reshape(-1, 14)
     sel = flen_line.reshape(-1, 1)
     out = flat
     for fl in lens:
         out = torch.where(sel == fl, filter_lines(flat, blimit, limit,
                                                   thresh, fl, bd), out)
-    delta = (out - flat).reshape(h, -1, 14)
-    ci = cols.expand(h, -1, -1)
+    delta = (out - flat).reshape(lines.shape)
     x = x.clone()
-    x.index_put_((rows.expand_as(ci), ci), delta, accumulate=True)
+    x.index_put_(idx, delta, accumulate=True)
     return x
 
 

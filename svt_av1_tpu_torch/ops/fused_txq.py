@@ -6,7 +6,10 @@ reference.  On a CUDA tensor ``fused_txq`` launches the hand-written
 kernel in csrc/fused_txq.cu (sm_90a; built by kernels.py); on a CPU
 tensor it runs ``fused_txq_plain``, the same function written with the
 port's ops (fwd_txfm2d + quantize).  There is no fallback between the
-two: a CUDA tensor launches the kernel or raises.
+two: a CUDA tensor launches the kernel or raises.  ``fused_txq_rows`` is
+the same kernel with a quantizer row per block (a StreamQuant: one row
+per stream of a multi-stream batch, the form the reference's jax.vmap of
+the pallas_call takes), its plain twin ``fused_txq_rows_plain``.
 
 Bound on the H100: about 16 KFLOP per 4 KB moved for each 16x16 block,
 so memory-bound (see the source note in csrc/fused_txq.cu).  The
@@ -37,6 +40,8 @@ N = 16
 
 launches = 0   # kernel launches made by fused_txq (the wrapper only)
 batches = set()   # the batch sizes B those launches had
+launches_rows = 0   # the same for fused_txq_rows
+batches_rows = set()
 
 _P = ctypes.c_void_p
 
@@ -44,11 +49,14 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=None)
 def entry(name: str = "svt_fused_txq16"):
     """A C entry point of csrc/fused_txq.cu with its argtypes declared:
-    ``svt_fused_txq16`` (the encode's kernel) or ``svt_fused_txq16_v1``
-    (the first kernel, kept for comparison)."""
+    ``svt_fused_txq16`` (the encode's kernel), ``svt_fused_txq16_rows``
+    (its per-row form) or ``svt_fused_txq16_v1`` (the first kernel, kept
+    for comparison)."""
     fn = getattr(kernels.lib(), name)
     if name == "svt_fused_txq16":
         fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P]
+    elif name == "svt_fused_txq16_rows":
+        fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P]
     else:
         fn.argtypes = [_P, ctypes.c_longlong] + [_P] * 11
     fn.restype = ctypes.c_int
@@ -85,7 +93,15 @@ def fused_txq_plain(resid: torch.Tensor, qp: quant.QuantParams):
     return coeff, qc, dq
 
 
-def _check(resid: torch.Tensor, qp: quant.QuantParams):
+def fused_txq_rows_plain(resid: torch.Tensor, sq: quant.StreamQuant):
+    """The per-row form's plain twin: fwd_txfm2d + quantize with each
+    block's row gathered from the table."""
+    coeff = tf.fwd_txfm2d(resid, cc.DCT_DCT, cc.TX_16X16)
+    qc, dq = quant.quantize(coeff, sq, cc.TX_16X16)
+    return coeff, qc, dq
+
+
+def _check_resid(resid: torch.Tensor):
     if resid.dtype is not torch.int32:
         raise TypeError(f"resid must be int32, got {resid.dtype}")
     if resid.dim() != 3 or resid.shape[1:] != (N, N):
@@ -95,6 +111,10 @@ def _check(resid: torch.Tensor, qp: quant.QuantParams):
         raise ValueError("resid must be contiguous")
     if resid.data_ptr() % 16:
         raise ValueError("resid must start on a 16-byte boundary")
+
+
+def _check(resid: torch.Tensor, qp: quant.QuantParams):
+    _check_resid(resid)
     dev = resid.device
     for name, a in zip(qp._fields, qp):
         if (type(a) is not torch.Tensor or a.dtype is not torch.int32
@@ -128,4 +148,51 @@ def fused_txq(resid: torch.Tensor, qp: quant.QuantParams):
         raise RuntimeError(f"fused_txq16 launch failed: CUDA error {rc}")
     launches += 1
     batches.add(int(resid.shape[0]))
+    return out.unbind(0)
+
+
+def _check_rows(resid: torch.Tensor, sq: quant.StreamQuant):
+    _check_resid(resid)
+    dev = resid.device
+    t, sid = sq.table, sq.sid
+    if (type(t) is not torch.Tensor or t.dtype is not torch.int32
+            or t.dim() != 3 or t.shape[1:] != (5, 2) or t.device != dev
+            or not t.is_contiguous()):
+        raise ValueError(f"the quantizer table must be a contiguous int32 "
+                         f"(S, 5, 2) tensor on {dev}")
+    if (type(sid) is not torch.Tensor or sid.dim() != 1
+            or sid.shape[0] != resid.shape[0] or sid.device != dev):
+        raise ValueError(f"the row index must be a ({resid.shape[0]},) "
+                         f"tensor on {dev}")
+    if sid.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"the row index must be integer, got {sid.dtype}")
+
+
+def fused_txq_rows(resid: torch.Tensor, sq: quant.StreamQuant):
+    """K1 with a quantizer row per block: resid (B, 16, 16) int32 and a
+    StreamQuant whose sid (B,) picks each block's row of its (S, 5, 2)
+    table.  Returns (coeff, qcoeff, dqcoeff), each (B, 16, 16) int32.
+    The row indices are the caller's (a stream index, in range by
+    construction)."""
+    global launches_rows
+    if resid.device.type == "cpu":
+        return fused_txq_rows_plain(resid, sq)
+    if resid.device.type != "cuda":
+        raise ValueError(f"fused_txq_rows runs on cpu or cuda, not "
+                         f"{resid.device}")
+    _check_rows(resid, sq)
+    rows = sq.sid.to(torch.int32)
+    fvt, fht = matrices_t(resid.get_device())
+    out = torch.empty((3,) + tuple(resid.shape), dtype=torch.int32,
+                      device=resid.device)
+    with torch.cuda.device(resid.device):
+        stream = torch.cuda.current_stream(resid.device).cuda_stream
+        rc = entry("svt_fused_txq16_rows")(
+            resid.data_ptr(), resid.shape[0], fvt.data_ptr(), fht.data_ptr(),
+            sq.table.data_ptr(), rows.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_txq16_rows launch failed: CUDA error "
+                           f"{rc}")
+    launches_rows += 1
+    batches_rows.add(int(resid.shape[0]))
     return out.unbind(0)

@@ -2,7 +2,7 @@
 
 Block-matching cost over a dense candidate grid as SSD(c) = ||ref_c||^2
 - 2<src, ref_c> + ||src||^2.  The cross term is one batched float32
-matmul of each block against the im2col patches of its own window (the
+matmul of each block against the patches of its own window (the
 reference runs it as a grouped conv on the MXU).  For 8-bit 16x16 blocks
 every partial sum is an integer below 2^24, so the float32 result is
 exact in any order of summation, provided the matmul runs in full
@@ -34,10 +34,12 @@ def ssd_search(src_blocks: torch.Tensor, windows: torch.Tensor
     _, wh, ww = windows.shape
     oh, ow = wh - h + 1, ww - w + 1
     winf = windows.to(torch.float32)
-    filt = src_blocks.to(torch.float32).reshape(b, 1, h * w)
-    # (B, h*w, oh*ow) patches: column l is the window at offset l
-    patches = F.unfold(winf[:, None], (h, w))
-    cross = torch.bmm(filt, patches).reshape(b, oh, ow)
+    filt = src_blocks.to(torch.float32).reshape(b, h * w, 1)
+    # (B, oh*ow, h*w) patches: row l is the window at offset l, one
+    # strided copy for the whole batch (F.unfold's CUDA im2col launches
+    # a kernel per block)
+    patches = winf.unfold(1, h, 1).unfold(2, w, 1).reshape(b, oh * ow, h * w)
+    cross = torch.bmm(patches, filt).reshape(b, oh, ow)
     ref_sq = _box_sum(windows.to(torch.int32) ** 2, h, w)
     src_sq = (filt * filt).sum(dim=(1, 2))
     return ref_sq.to(torch.float32) - 2.0 * cross + src_sq[:, None, None]

@@ -96,6 +96,61 @@ def params_on(qindex: int, device, bd: int = 8) -> QuantParams:
     return to_device(make_quant_params(qindex, bd=bd), device)
 
 
+class StreamQuant(NamedTuple):
+    """The quantizers of a stream batch (several independent encodes run
+    as one program, parallel/multistream.py): ``table`` is (S, 5, 2)
+    int32, the packed QuantParams of stream s in row s (``to_device``'s
+    layout), and ``sid`` the (B,) int64 stream index of every block of
+    the batch the quantizer serves.  Unlike the per-block rows of
+    adaptive quantization, every block of a stream shares its stream's
+    row, so the 16x16 DCT_DCT luma step may take K1's per-row form
+    (ops/fused_txq.fused_txq_rows)."""
+    table: torch.Tensor
+    sid: torch.Tensor
+
+    def rows(self) -> QuantParams:
+        """The per-block (B, 2) rows of ``quantize`` (one gather)."""
+        g = self.table[self.sid]
+        return QuantParams(*(g[:, k] for k in range(5)))
+
+    def repeat(self, k: int) -> "StreamQuant":
+        """The quantizer of k stacked copies of the batch (candidate-major:
+        block j of the result is block j % B)."""
+        return StreamQuant(self.table, self.sid.repeat(k))
+
+    def take(self, idx) -> "StreamQuant":
+        return StreamQuant(self.table, self.sid[idx])
+
+
+def stream_table(qindices, device, bd: int = 8) -> torch.Tensor:
+    """(S, 5, 2) int32 quantizer table of a stream batch, one row per
+    qindex (``StreamQuant.table``)."""
+    return torch.stack([torch.stack(tuple(params_on(int(q), device, bd)))
+                        for q in qindices])
+
+
+def repeat_rows(qp, k: int):
+    """The quantizer of k candidate-major copies of a block batch: a
+    frame quantizer as it is, per-block rows or a StreamQuant repeated."""
+    if isinstance(qp, StreamQuant):
+        return qp.repeat(k)
+    if qp.zbin.dim() == 2:
+        return QuantParams(*(a.repeat(k, 1) for a in qp))
+    return qp
+
+
+def take_rows(qp, idx):
+    """The quantizer of the blocks ``idx`` of a batch: a StreamQuant's
+    rows, a frame quantizer as it is."""
+    return qp.take(idx) if isinstance(qp, StreamQuant) else qp
+
+
+def stream_ids(qp):
+    """The per-block stream index of a StreamQuant, else None (the rate
+    tables then hold one stream)."""
+    return qp.sid if isinstance(qp, StreamQuant) else None
+
+
 def tx_log_scale(tx_size: int) -> int:
     """av1_get_tx_scale: 0 (<=16pt), 1 (32pt), 2 (64pt) by square-up size."""
     up = int(cc.tx_size_sqr_up[tx_size])
@@ -124,11 +179,13 @@ def quantize(coeffs: torch.Tensor, qp: QuantParams, tx_size: int):
 
     coeffs: (B, H, W) int32 in the transform domain (coded region);
     qp: QuantParams of int32 (2,) tensors on the coeffs' device, or of
-    (B, 2) rows, one per block.
+    (B, 2) rows, one per block, or a StreamQuant.
     Returns (qcoeff, dqcoeff), each (B, H, W) int32; dqcoeff is the
     normative dequantized value, so inv_txfm2d_add(dqcoeff, ...) is the
     decoder's reconstruction.  All products stay below 2^31: |tmp| is
     clipped to 32767, |quant| <= 2^15 and quant_shift <= 2^14."""
+    if isinstance(qp, StreamQuant):
+        qp = qp.rows()
     log_scale = tx_log_scale(tx_size)
     _, h, w = coeffs.shape
     sel = _dc_select(h, w, coeffs.device)

@@ -47,10 +47,14 @@ def _pad_vl(plane, n=2):
                                    value=cdef_ops.CDEF_VERY_LARGE)
 
 
-def _windows(padded, ys, xs, n):
+def _windows(padded, ys, xs, n, sid=None):
+    """(B, n+4, n+4) windows of a padded plane; with ``sid``, of (S, ...)
+    planes, window b from plane sid[b]."""
     offs = torch.arange(n + 4, device=padded.device)
     rows = ys[:, None, None] + offs[None, :, None]
     cols = xs[:, None, None] + offs[None, None, :]
+    if sid is not None:
+        return padded[sid[:, None, None], rows, cols]
     return padded[rows, cols]
 
 

@@ -24,6 +24,16 @@ Each inter frame runs as
                  frame-uniform pick and the apply.
   host         — one bundled copy of the decision arrays, entropy coding.
 
+Both programs run over a batch of S independent streams
+(``run_inter_frames``; parallel/multistream.py): the streams' blocks are
+stacked on the block axis, stream-major, planes carry a leading stream
+axis and every block reads its own stream's planes, quantizer, lambda
+and rate tables through its stream index, so one HME level, one wave of
+pass B, one DLF ladder step or one CDEF candidate is one set of launches
+for all S (at S > 1 with a fixed set of per-stream gathers added); the
+GM fit, the warp and the wedge pick's matmul loop over the streams.
+``run_inter_frame`` is the S = 1 call, with the frame quantizer.
+
 Here a "program" is a Python function of eager PyTorch ops on one device:
 every tensor of a frame stays there (the final recon is the DPB entry of
 later frames), and the copies the host needs are issued, non-blocking,
@@ -68,7 +78,8 @@ from svt_av1_tpu_torch.pipeline.dlf_stage import _ladder, default_filter_level
 from svt_av1_tpu_torch.pipeline.inter_encoder import _SUBPEL_RING, _mv_bits
 from svt_av1_tpu_torch.pipeline.intra_encoder import (
     BLK, CBLK, II_TO_INTRA, UV_MODES, _device_schedule, _gather_neighbors,
-    _rd_step, _rd_step_chroma, _scan_pos_on, _txb_bits, frame_lambda)
+    _rd_step, _rd_step_chroma, _scan_pos_on, _txb_bits, frame_lambda,
+    stream_params)
 
 WM = 1 << 16  # WARPEDMODEL_PREC_BITS unit
 # named ranges of the two programs, read by torch.profiler
@@ -101,6 +112,17 @@ _II_EXTRA_BITS = 3.0
 
 def _t(a, dev, dtype=torch.int32):
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def _rep(x, k):
+    """k candidate-major copies of a per-block tensor (sid, lambda, filter
+    kind); a 0-d tensor or None as it is."""
+    return x if x is None or x.dim() == 0 else x.repeat(k)
+
+
+def _take(x, idx):
+    """The entries ``idx`` of a per-block tensor; a 0-d one as it is."""
+    return x if x.dim() == 0 else x[idx]
 
 
 # --------------------------------------------------------------------------
@@ -309,33 +331,43 @@ def _clamp_cands(cand, ys, xs, blk, h, w, pad=mc.PAD, blk_h=None):
     return torch.stack([r & ~1, c & ~1], dim=-1)
 
 
-def _interp_pick(src_y, refp0_y, hme0, ys, xs, h, w, bd=8):
+def _interp_pick(src_y, refp0_y, hme0, ys, xs, h, w, bd=8, sid=None):
     """The frame's interpolation filter (choose_interp_filter role): the
     kind of the three (REGULAR, SMOOTH, SHARP) whose MC of every block at
     its HME MV (+ a quarter pel) from reference 0 has the least SSE.  The
     SSEs are exact int64 sums (the reference sums in float32).  Returns
-    (kind 0-d int32, the three SSEs)."""
+    (kind 0-d int32, the three SSEs); with ``sid`` (a stream batch:
+    (S, ...) planes, blocks stream-major) one kind per stream, (S,), and
+    the SSEs (S, 3)."""
     probe_mv = _clamp_cands((hme0 + 2)[:, None], ys, xs, BLK, h, w)[:, 0]
-    srcb = _blocks_at(src_y, ys, xs, BLK)
+    srcb = _blocks_at(src_y, ys, xs, BLK, sid)
     sses = []
     for kind in (0, 1, 2):
         pp = mc.mc_blocks(refp0_y, ys, xs, probe_mv, BLK, mc.PAD, 0, bd,
-                          kind=kind)
+                          kind=kind, sid=sid)
         d = (srcb - pp).to(torch.int64)
-        sses.append((d * d).sum())
-    sses = torch.stack(sses)
-    return sses.argmin().to(torch.int32), sses
+        if sid is None:
+            sses.append((d * d).sum())
+        else:
+            sses.append((d * d).sum(dim=(1, 2)).reshape(src_y.shape[0],
+                                                         -1).sum(dim=1))
+    sses = torch.stack(sses, dim=-1)
+    return sses.argmin(dim=-1).to(torch.int32), sses
 
 
 # --------------------------------------------------------------------------
 # pass A (multi-reference, merged on the device)
 # --------------------------------------------------------------------------
 
-def _blocks_at(plane, ys, xs, n):
-    """(B, n, n) blocks of an (H, W) plane at per-block offsets."""
+def _blocks_at(plane, ys, xs, n, sid=None):
+    """(B, n, n) blocks of an (H, W) plane at per-block offsets; with
+    ``sid``, of (S, H, W) planes, block b from plane sid[b]."""
     ar = torch.arange(n, device=plane.device)
-    return plane[(ys[:, None, None] + ar[:, None]).long(),
-                 (xs[:, None, None] + ar).long()]
+    rows = (ys[:, None, None] + ar[:, None]).long()
+    cols = (xs[:, None, None] + ar).long()
+    if sid is not None:
+        return plane[sid[:, None, None], rows, cols]
+    return plane[rows, cols]
 
 
 def _sq_sum(x):
@@ -346,14 +378,16 @@ def _sq_sum(x):
 
 def _txq_rd(resid, qp, tx_type, tx_size, coef, txbb_k, eob, lam):
     """Forward transform + quantize one batch of residuals: (q, dq,
-    distortion, coefficient bits)."""
+    distortion, coefficient bits).  qp: the frame quantizer, or a
+    StreamQuant of the batch (the rate tables then hold the streams')."""
     coeffs = tf.fwd_txfm2d(resid, tx_type, tx_size)
     qc, dq = quant.quantize(coeffs, qp, tx_size)
     s2 = float(np.float32(tf.coeff_sse_scale(tx_size, tx_type)))
     err = coeffs.to(torch.float32) - dq.to(torch.float32)
     dist = s2 * (err * err).sum(dim=(1, 2))
     bits = _txb_bits(qc.abs(), coef, txbb_k, eob,
-                     _scan_pos_on(tx_size, resid.device))
+                     _scan_pos_on(tx_size, resid.device),
+                     quant.stream_ids(qp))
     return qc, dq, dist, bits
 
 
@@ -408,15 +442,18 @@ def _tx_funnel(resid, pred, bq, rec_coded, coded, chroma, mvb, qp, lam, rt,
 
 
 def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
-                 qp, lam, rt, bd, interp, nb, K, h, w):
+                 qp, lam, rt, bd, interp, nb, K, h, w, sid=None):
     """The 8x8 partition-split alternative of a 16x16 block against ONE
     reference: each of the four 8x8 subs picks its own MV from the
     parent's candidates, codes TX_8X8 luma and TX_4X4 chroma and decides
     skip on its own.  Returns (cost, cost_y, sub MVs (nb, 4, 2), sub skips
     (nb, 4), qy, rec_y (nb, 16, 16), qu, rec_u, qv, rec_v (nb, 8, 8)):
-    each sub's coefficients and recon in its quadrant."""
+    each sub's coefficients and recon in its quadrant.  sid, qp, lam and
+    interp as in _eval_ref."""
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
+    sidK, interpK = _rep(sid, K), _rep(interp, K)
+    qpK, lamK = quant.repeat_rows(qp, K), _rep(lam, K)
     SUB, CSUB = BLK // 2, CBLK // 2
     ar = torch.arange(nb, device=dev)
     s2c4 = float(np.float32(tf.coeff_sse_scale(cc.TX_4X4, cc.DCT_DCT)))
@@ -432,15 +469,15 @@ def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
         mvsK = cand_s.permute(1, 0, 2).reshape(nb * K, 2)
         ysK, xsK = ys_s.repeat(K), xs_s.repeat(K)
         pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, SUB, mc.PAD, 0, bd,
-                            kind=interp)
-        resid = _blocks_at(src_y, ysK, xsK, SUB) - pred
+                            kind=interpK, sid=sidK)
+        resid = _blocks_at(src_y, ysK, xsK, SUB, sidK) - pred
         # luma TX_8X8 priced with the 8-wide table set (an MD
         # approximation, as in the reference)
-        qc, dq, dist, bits = _txq_rd(resid, qp, cc.DCT_DCT, cc.TX_8X8,
-                                     coef_uv, txbb[1], eob_uv, lam)
+        qc, dq, dist, bits = _txq_rd(resid, qpK, cc.DCT_DCT, cc.TX_8X8,
+                                     coef_uv, txbb[1], eob_uv, lamK)
         mvb = _mv_bits(mvsK)
-        cost_coded = dist + lam * (bits + mvb)
-        cost_skip = _sq_sum(resid) + lam * (mvb + 2.0)
+        cost_coded = dist + lamK * (bits + mvb)
+        cost_skip = _sq_sum(resid) + lamK * (mvb + 2.0)
         kbest = torch.minimum(cost_coded, cost_skip).reshape(K, nb).argmin(
             dim=0)
         pick = lambda a: a.reshape((K, nb) + a.shape[1:])[kbest, ar]
@@ -451,8 +488,8 @@ def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
         ch = []
         for refp_c, src_c in ((refp_u, src_u), (refp_v, src_v)):
             pred_c = mc.mc_blocks(refp_c, cys_s, cxs_s, bmv, CSUB, mc.PAD, 1,
-                                  bd, kind=interp)
-            resid_c = _blocks_at(src_c, cys_s, cxs_s, CSUB) - pred_c
+                                  bd, kind=interp, sid=sid)
+            resid_c = _blocks_at(src_c, cys_s, cxs_s, CSUB, sid) - pred_c
             cf = tf.fwd_txfm2d(resid_c, cc.DCT_DCT, cc.TX_4X4)
             qcc, dqc = quant.quantize(cf, qp, cc.TX_4X4)
             err = cf.to(torch.float32) - dqc.to(torch.float32)
@@ -490,31 +527,37 @@ def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
 
 def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
               wref_v, cand, is_warp0, ys, xs, qp, lam, rt, bd, interp, nb,
-              K, h, w, tx_search=False, split8=False):
+              K, h, w, tx_search=False, split8=False, sid=None):
     """Pass-A candidate evaluation against ONE reference (skip-aware).
 
     cand: (nb, K, 2) clamped MVs (slot 0 = the global-motion candidate,
-    signaling-only when is_warp0).  tx_search: the inter tx-type search on
-    the winner's residual (_tx_funnel); split8: the 8x8 split alternative
-    (_eval_split8).  Returns the per-block winner: (cost_tot, cost_y, mv,
-    skip, qy, rec_y, qu, rec_u, qv, rec_v, warp_flag, tx index, split,
-    sub MVs, sub skips)."""
+    signaling-only where is_warp0, (nb,) bool).  tx_search: the inter
+    tx-type search on the winner's residual (_tx_funnel); split8: the 8x8
+    split alternative (_eval_split8).  A stream batch passes (S, ...)
+    planes and sid, the (nb,) stream of each block; qp/lam are then the
+    blocks' StreamQuant and (nb,) lambdas and interp (nb,) filter kinds
+    (one stream: the frame quantizer, 0-d lambda and kind).  Returns the
+    per-block winner: (cost_tot, cost_y, mv, skip, qy, rec_y, qu, rec_u,
+    qv, rec_v, warp_flag, tx index, split, sub MVs, sub skips)."""
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
     ar = torch.arange(nb, device=dev)
     ysK = ys.repeat(K)
     xsK = xs.repeat(K)
+    sidK, interpK = _rep(sid, K), _rep(interp, K)
+    qpK, lamK = quant.repeat_rows(qp, K), _rep(lam, K)
     mvsK = cand.permute(1, 0, 2).reshape(nb * K, 2)
     pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, BLK, mc.PAD, 0, bd,
-                        kind=interp)
-    wslice = _blocks_at(wref_y, ys, xs, BLK)
-    pred = torch.cat([torch.where(is_warp0, wslice, pred[:nb]), pred[nb:]])
-    resid = _blocks_at(src_y, ysK, xsK, BLK) - pred
-    qc, dq, dist, bits = _txq_rd(resid, qp, cc.DCT_DCT, cc.TX_16X16, coef_y,
-                                 txbb[0], eob_y, lam)
+                        kind=interpK, sid=sidK)
+    wslice = _blocks_at(wref_y, ys, xs, BLK, sid)
+    pred = torch.cat([torch.where(is_warp0[:, None, None], wslice,
+                                  pred[:nb]), pred[nb:]])
+    resid = _blocks_at(src_y, ysK, xsK, BLK, sidK) - pred
+    qc, dq, dist, bits = _txq_rd(resid, qpK, cc.DCT_DCT, cc.TX_16X16, coef_y,
+                                 txbb[0], eob_y, lamK)
     mvb = _mv_bits(mvsK)
-    cost_coded = dist + lam * (bits + mvb)
-    cost_skip = _sq_sum(resid) + lam * (mvb + 2.0)
+    cost_coded = dist + lamK * (bits + mvb)
+    cost_skip = _sq_sum(resid) + lamK * (mvb + 2.0)
     skip_k = cost_skip < cost_coded
     cost = torch.where(skip_k, cost_skip, cost_coded).reshape(K, nb)
     kbest = cost.argmin(dim=0)
@@ -531,10 +574,10 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
     for refp_c, wref_c, src_c in ((refp_u, wref_u, src_u),
                                   (refp_v, wref_v, src_v)):
         pred_c = mc.mc_blocks(refp_c, cys, cxs, bmv, CBLK, mc.PAD, 1, bd,
-                              kind=interp)
+                              kind=interp, sid=sid)
         pred_c = torch.where(warp_flag[:, None, None],
-                             _blocks_at(wref_c, cys, cxs, CBLK), pred_c)
-        resid_c = _blocks_at(src_c, cys, cxs, CBLK) - pred_c
+                             _blocks_at(wref_c, cys, cxs, CBLK, sid), pred_c)
+        resid_c = _blocks_at(src_c, cys, cxs, CBLK, sid) - pred_c
         ch.append((pred_c, resid_c, _sq_sum(resid_c)))
     (pred_u, resid_u, su), (pred_v, resid_v, sv) = ch
     cpr = (pred_u, pred_v, resid_u, resid_v)
@@ -543,7 +586,7 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
     btx = torch.zeros(nb, dtype=torch.int32, device=dev)
     if tx_search:
         bcoded, bq, rec_coded, btx, chroma = _tx_funnel(
-            _blocks_at(src_y, ys, xs, BLK) - bpred, bpred, bq, rec_coded,
+            _blocks_at(src_y, ys, xs, BLK, sid) - bpred, bpred, bq, rec_coded,
             bcoded, chroma + [cpr], _mv_bits(bmv), qp, lam, rt, bd)
     (qu, rec_u, cu), (qv_, rec_v, cvq) = chroma
     # joint skip decision across planes (one skip flag covers all)
@@ -564,7 +607,7 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
            torch.zeros((nb, 4), dtype=torch.bool, device=dev)]
     if split8:
         sp = _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand,
-                          ys, xs, qp, lam, rt, bd, interp, nb, K, h, w)
+                          ys, xs, qp, lam, rt, bd, interp, nb, K, h, w, sid)
         take = sp[0] < out[0]
         t3 = take[:, None, None]
         out[0] = torch.where(take, sp[0], out[0])
@@ -604,21 +647,22 @@ def _wedge_pick(d1, e, M, M2):
 
 
 def _eval_pair(src_y, src_u, src_v, p0, p1, mv0, mv1, ys, xs, qp, lam, rt,
-               bd, interp, nb, wedge=True, sm=False):
+               bd, interp, nb, wedge=True, sm=False, sid=None):
     """Compound (mv0, mv1) pair evaluation with a joint skip decision:
     COMPOUND_AVERAGE, then (wedge=True) the wedge mask picked by
     prediction-SSE algebra over all 32 sign/index options and priced by
     one exact masked-blend RD, then COMPOUND_DIFFWTD with its mask type
     picked the same way.  sm: this is the skip-mode pair, whose all-skip
-    blocks cost one skip_mode symbol.  Returns (cost, cost_y, skip, qy,
-    rec_y, qu, rec_u, qv, rec_v, code) where code is -1 average,
-    sign * 16 + index for wedge, 64 + mask_type for diffwtd."""
+    blocks cost one skip_mode symbol.  sid, qp, lam and interp as in
+    _eval_ref.  Returns (cost, cost_y, skip, qy, rec_y, qu, rec_u, qv,
+    rec_v, code) where code is -1 average, sign * 16 + index for wedge,
+    64 + mask_type for diffwtd."""
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
-    srcb = _blocks_at(src_y, ys, xs, BLK)
+    srcb = _blocks_at(src_y, ys, xs, BLK, sid)
     cys, cxs = ys // 2, xs // 2
-    src_cs = (_blocks_at(src_u, cys, cxs, CBLK),
-              _blocks_at(src_v, cys, cxs, CBLK))
+    src_cs = (_blocks_at(src_u, cys, cxs, CBLK, sid),
+              _blocks_at(src_v, cys, cxs, CBLK, sid))
     mvb = _mv_bits(mv0) + _mv_bits(mv1) + 2.0
 
     def rd(pred, pred_u, pred_v, extra_bits, sm_ok=False):
@@ -658,19 +702,24 @@ def _eval_pair(src_y, src_u, src_v, p0, p1, mv0, mv1, ys, xs, qp, lam, rt,
 
     comp = lambda pl, yy, xx, n, ss, mask=None: mc.mc_blocks_compound(
         p0[pl], p1[pl], yy, xx, mv0, mv1, n, mc.PAD, ss, bd, kind=interp,
-        mask=mask)
+        mask=mask, sid=sid)
     best = rd(comp(0, ys, xs, BLK, 0), comp(1, cys, cxs, CBLK, 1),
               comp(2, cys, cxs, CBLK, 1), 0.0, sm_ok=True)
     code = torch.full((nb,), -1, dtype=torch.int32, device=dev)
     if wedge:
         M, M2, m_y_all, m_uv_all = _wedge_masks_on(dev)
         pA = mc.mc_blocks(p0[0], ys, xs, mv0, BLK, mc.PAD, 0, bd,
-                          kind=interp)
+                          kind=interp, sid=sid)
         pB = mc.mc_blocks(p1[0], ys, xs, mv1, BLK, mc.PAD, 0, bd,
-                          kind=interp)
+                          kind=interp, sid=sid)
         d1 = (srcb - pB).to(torch.float32).reshape(nb, -1)
         e = (pA - pB).to(torch.float32).reshape(nb, -1)
-        widx = _wedge_pick(d1, e, M, M2)
+        # one matmul per stream, at the shape of a one-stream frame: the
+        # float32 sums of a larger matmul may be ordered differently,
+        # which would tie a batched stream's pick to its batch
+        ns = 1 if sid is None else src_y.shape[0]
+        widx = torch.cat([_wedge_pick(a, b, M, M2) for a, b in
+                          zip(d1.chunk(ns), e.chunk(ns))])
         m_y = m_y_all[widx.long()]
         m_uv = m_uv_all[widx.long()]
         wrd = rd(comp(0, ys, xs, BLK, 0, m_y),
@@ -688,7 +737,7 @@ def _eval_pair(src_y, src_u, src_v, p0, p1, mv0, mv1, ys, xs, qp, lam, rt,
         inv = (sse_d1 < sse_d0).to(torch.int32)
         pred_dw, m16 = mc.mc_blocks_compound_diffwtd(
             p0[0], p1[0], ys, xs, mv0, mv1, BLK, mc.PAD, inv, bd,
-            kind=interp)
+            kind=interp, sid=sid)
         m_uv_d = (m16[:, ::2, ::2] + m16[:, 1::2, ::2] + m16[:, ::2, 1::2]
                   + m16[:, 1::2, 1::2] + 2) >> 2
         drd = rd(pred_dw, comp(1, cys, cxs, CBLK, 1, m_uv_d),
@@ -723,12 +772,16 @@ class _AltEnv:
     """Pass B's motion-mode alternatives of a wave's blocks (M5-M8): OBMC
     and inter-intra predictions built on the pass-A winner's MV, each
     priced by a joint luma + chroma RD through the same tx funnel as the
-    pass-A winner (``rd_joint``), the reference's motion-mode MD."""
+    pass-A winner (``rd_joint``), the reference's motion-mode MD.  Planes
+    are (S, ...) and the per-block tensors (sid, interp kinds, lambdas,
+    pass A's winners) cover the S streams' blocks in raster order; a
+    wave's slots read them at their raster ids."""
 
     def __init__(self, src_y, src_u, src_v, refps, imv, iref_idx, icomp,
                  iwarp, isplit, ismv, cost_tot, qp, lam, rt, bd, interp, gw,
-                 tx_search):
+                 tx_search, sid):
         self.src = (src_y, src_u, src_v)
+        self.sid = sid
         self.refps = refps
         self.imv, self.iref_idx, self.ismv = imv, iref_idx, ismv
         self.icomp, self.iwarp, self.isplit = icomp, iwarp, isplit
@@ -771,34 +824,38 @@ class _AltEnv:
                 ow = ow & ~iw
         return ow, iimode, alt
 
-    def sel_ref_mc(self, ys, xs, mvs, ridx, plane):
-        """MC of each block from its reference (ridx), plane 0/1/2."""
+    def sel_ref_mc(self, bid, ys, xs, mvs, ridx, plane):
+        """MC of each block (raster ids ``bid``) from its reference (ridx),
+        plane 0/1/2."""
         n, ss = (BLK, 0) if plane == 0 else (CBLK, 1)
         if ss:
             ys, xs = ys // 2, xs // 2
         out = None
         for r, rp in enumerate(self.refps):
             pr = mc.mc_blocks(rp[plane], ys, xs, mvs, n, mc.PAD, ss, self.bd,
-                              kind=self.interp)
+                              kind=self.interp[bid], sid=self.sid[bid])
             out = pr if out is None else torch.where(
                 (ridx == r)[:, None, None], pr, out)
         return out
 
     def base_preds(self, bid, ys, xs):
         mv, ridx = self.imv[bid], self.iref_idx[bid].to(torch.int32)
-        return tuple(self.sel_ref_mc(ys, xs, mv, ridx, p) for p in range(3))
+        return tuple(self.sel_ref_mc(bid, ys, xs, mv, ridx, p)
+                     for p in range(3))
 
-    def rd_joint(self, pred, pred_u, pred_v, mvb, ys, xs):
+    def rd_joint(self, pred, pred_u, pred_v, mvb, bid, ys, xs):
         """Joint luma + chroma RD of an alternative prediction, as pass A
         prices its winner (the tx funnel included).  Returns (cost, skip,
         cost_y, rec_y, qy, rec_u, qu, rec_v, qv, tx index)."""
         src_y, src_u, src_v = self.src
-        qp, lam, bd = self.qp, self.lam, self.bd
+        qp = quant.take_rows(self.qp, bid)
+        lam, bd = _take(self.lam, bid), self.bd
+        sid = self.sid[bid]
         coef_y, coef_uv, txbb, eob_y, eob_uv = self.rt
-        resid = _blocks_at(src_y, ys, xs, BLK) - pred
+        resid = _blocks_at(src_y, ys, xs, BLK, sid) - pred
         cys, cxs = ys // 2, xs // 2
-        resid_u = _blocks_at(src_u, cys, cxs, CBLK) - pred_u
-        resid_v = _blocks_at(src_v, cys, cxs, CBLK) - pred_v
+        resid_u = _blocks_at(src_u, cys, cxs, CBLK, sid) - pred_u
+        resid_v = _blocks_at(src_v, cys, cxs, CBLK, sid) - pred_v
         qc, dq, dist, bits = _txq_rd(resid, qp, cc.DCT_DCT, cc.TX_16X16,
                                      coef_y, txbb[0], eob_y, lam)
         coded_y = dist + lam * (bits + mvb)
@@ -851,7 +908,8 @@ class _AltEnv:
             nridx = self.iref_idx[nbid].to(torch.int32).repeat(2)
             for p in range(3):
                 n = BLK if p == 0 else CBLK
-                pn = self.sel_ref_mc(ys.repeat(2), xs.repeat(2), mvs, nridx, p)
+                pn = self.sel_ref_mc(bid.repeat(2), ys.repeat(2), xs.repeat(2),
+                                     mvs, nridx, p)
                 # the first half of the edge (columns above, rows left)
                 # from the first segment's MV, the rest from the second's
                 half = torch.arange(n, device=bid.device) < n // 2
@@ -862,7 +920,7 @@ class _AltEnv:
                                        fn(preds[p], pn, my if p == 0 else mc8),
                                        preds[p])
         out = self.rd_joint(*preds, _mv_bits(self.imv[bid]) + _OBMC_FLAG_BITS,
-                            ys, xs)
+                            bid, ys, xs)
         return (el & (out[0] < self.cost_tot[bid]),) + out
 
     def ii_alt(self, ry, ru, rv, fi, bid, va, ha, hl, base, ys, xs):
@@ -872,7 +930,7 @@ class _AltEnv:
         Returns (eligible, mode) + rd_joint."""
         bd = self.bd
         el = va & ~self.icomp[bid] & ~self.iwarp[bid] & ~self.isplit[bid]
-        srcb = _blocks_at(self.src[0], ys, xs, BLK)
+        srcb = _blocks_at(self.src[0], ys, xs, BLK, self.sid[bid])
         pred, pred_u, pred_v = base
         _, _, my, muv = self.masks
         nbr = _gather_neighbors(ry, fi, ys, xs, BLK, ha, hl, bd=bd)
@@ -903,7 +961,8 @@ class _AltEnv:
                     pv = torch.where(t3, ii_ops.blend(ipc, pred_v, muv[mi]),
                                      pv)
         out = self.rd_joint(pick, pu, pv,
-                            _mv_bits(self.imv[bid]) + _II_EXTRA_BITS, ys, xs)
+                            _mv_bits(self.imv[bid]) + _II_EXTRA_BITS, bid, ys,
+                            xs)
         return (el, best) + out
 
 
@@ -917,10 +976,22 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
              skip_mode=False, tx_search=False, split8=False):
     """P1 for an (h, w) frame with R references: returns p1(src_y, src_u,
     src_v, refs_y, refs_u, refs_v, qp, lam, rt) -> the reference's 30
-    outputs (see the end of ``p1``).  src planes: int32 (H, W) / (H/2,
-    W/2); refs_*: (R, ...) uint8 or int32; qp: QuantParams tensors; lam:
-    float32 0-d tensor; rt: md_rate_args(..., inter_frame=True) on the
-    same device."""
+    outputs (see the end of ``p1_streams``).  src planes: int32 (H, W) /
+    (H/2, W/2); refs_*: (R, ...) uint8 or int32; qp: QuantParams tensors;
+    lam: float32 0-d tensor; rt: md_rate_args(..., inter_frame=True) on
+    the same device.
+
+    p1 is the one-stream call of ``p1.streams``, the same program over a
+    batch of S independent streams (parallel/multistream.py): src planes
+    (S, H, W) / (S, H/2, W/2), refs_* (S, R, ...); for S > 1 qp a
+    StreamQuant with sid = arange(S), lam (S,) and rt
+    rate_est.stack_rate_args of the streams' tuples (for S = 1 the
+    one-stream forms).  The streams' blocks are stacked on the block axis,
+    stream-major, so each stage's launches serve every stream; every
+    output gains a leading S.  Stages that loop over the streams: the GM
+    fit (float32 sums over one frame's field: a batched reduction could
+    order them differently), the warp of the references by each stream's
+    model, and the wedge pick's matmul (_eval_pair)."""
     _check_p1_tools(hp)
     gh, gw = h // BLK, w // BLK
     nb = gh * gw
@@ -931,92 +1002,111 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
     K = 1 + len(ring_np) + 2   # gm + ring + (above, left) neighbour MVs
     modes = tuple(modes)
 
-    def p1(src_y, src_u, src_v, refs_y, refs_u, refs_v, qp, lam, rt):
+    def p1_streams(src_y, src_u, src_v, refs_y, refs_u, refs_v, qp, lam,
+                   rt):
+        ns = src_y.shape[0]
         dev = src_y.device
         cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rt[:7]
         rt5 = (cy_t, cuv_t, txbb, eoby, eobuv)
-        ar = torch.arange(nb, device=dev)
-        ys = (ar // gw * BLK).to(torch.int32)
-        xs = (ar % gw * BLK).to(torch.int32)
-        refs = [tuple(p[r].to(torch.int32) for p in (refs_y, refs_u, refs_v))
-                for r in range(R)]
+        nbt = ns * nb
+        ar = torch.arange(nbt, device=dev)
+        sid = ar // nb
+        loc = ar % nb
+        ys = (loc // gw * BLK).to(torch.int32)
+        xs = (loc % gw * BLK).to(torch.int32)
+        # the quantizer and lambda of every block (one stream: the frame's)
+        streams = isinstance(qp, quant.StreamQuant)
+        qp_b = qp.take(sid) if streams else qp
+        lam_b = lam[sid] if streams else lam
+        refs = [tuple(p[:, r].to(torch.int32)
+                      for p in (refs_y, refs_u, refs_v)) for r in range(R)]
         src64 = _edge_pad_to(src_y, h64, w64)
 
-        # per-reference HME + GM
+        # per-reference HME (all streams in one search) + GM
         hmes, fields = [], []
         with _region("p1.hme"):
             for r in range(R):
                 mvy, mvx, _ = hme_run(src64,
                                       _edge_pad_to(refs[r][0], h64, w64))
-                fields.append((mvy[:gh, :gw], mvx[:gh, :gw]))
+                fields.append((mvy[:, :gh, :gw], mvx[:, :gh, :gw]))
                 hmes.append(torch.stack(
-                    [fields[-1][0].reshape(nb) * 8,
-                     fields[-1][1].reshape(nb) * 8], dim=-1).to(torch.int32))
+                    [fields[-1][0].reshape(nbt) * 8,
+                     fields[-1][1].reshape(nbt) * 8], dim=-1).to(torch.int32))
         with _region("p1.gm_fit"):
-            gms = [_gm_fit(mvy, mvx, gh, gw) for mvy, mvx in fields]
+            gms = [[_gm_fit(mvy[si], mvx[si], gh, gw) for si in range(ns)]
+                   for mvy, mvx in fields]
 
         # padded reference planes, shared by pass A and the compound
-        # pairs, and the frame's interp filter
+        # pairs, and each stream's interp filter
         with _region("p1.interp_pick"):
             refps = [(mc.pad_plane(ry, mc.PAD),
                       mc.pad_plane(ru, mc.PAD // 2),
                       mc.pad_plane(rv, mc.PAD // 2)) for ry, ru, rv in refs]
             interp = _interp_pick(src_y, refps[0][0], hmes[0], ys, xs, h, w,
-                                  bd)[0]
+                                  bd, sid)[0]
+        interp_b = interp[sid]
 
         # pass A per reference, merged on the device
         best = None
-        iref_idx = torch.zeros(nb, dtype=torch.int32, device=dev)
+        iref_idx = torch.zeros(nbt, dtype=torch.int32, device=dev)
         ring_t = _t(ring_np, dev)
         for r in range(R):
-            mat, trans, kind = gms[r]
-            is_warp0 = kind == 2
             ry_, ru_, rv_ = refs[r]
             with _region("p1.warp"):
-                shear = _shear_device(mat)[:4]
-                wy = _warp_plane_traced(ry_, mat, shear, w, h, bd, 0)
-                wu = _warp_plane_traced(ru_, mat, shear, w // 2, h // 2, bd,
-                                        1)
-                wv = _warp_plane_traced(rv_, mat, shear, w // 2, h // 2, bd,
-                                        1)
+                warped, gm_blk = [], []
+                for si in range(ns):
+                    mat = gms[r][si][0]
+                    shear = _shear_device(mat)[:4]
+                    warped.append((
+                        _warp_plane_traced(ry_[si], mat, shear, w, h, bd, 0),
+                        _warp_plane_traced(ru_[si], mat, shear, w // 2,
+                                           h // 2, bd, 1),
+                        _warp_plane_traced(rv_[si], mat, shear, w // 2,
+                                           h // 2, bd, 1)))
+                    gm_blk.append(_gm_block_mvs(mat, gh, gw))
+                wy, wu, wv = (torch.stack(p) for p in zip(*warped))
+            kinds = torch.stack([g[2] for g in gms[r]])[sid]
+            trans = torch.stack([g[1] for g in gms[r]])[sid]
+            is_warp0 = kinds == 2
             gm_mv = torch.where(
-                is_warp0, _gm_block_mvs(mat, gh, gw),
-                torch.where(kind == 1, trans.expand(nb, 2),
-                            torch.zeros((nb, 2), dtype=torch.int32,
+                is_warp0[:, None], torch.cat(gm_blk),
+                torch.where((kinds == 1)[:, None], trans,
+                            torch.zeros((nbt, 2), dtype=torch.int32,
                                         device=dev)))
             hme = hmes[r]
-            above = torch.roll(hme.reshape(gh, gw, 2), 1, dims=0)
-            above[0] = 0
-            left = torch.roll(hme.reshape(gh, gw, 2), 1, dims=1)
-            left[:, 0] = 0
+            above = torch.roll(hme.reshape(ns, gh, gw, 2), 1, dims=1)
+            above[:, 0] = 0
+            left = torch.roll(hme.reshape(ns, gh, gw, 2), 1, dims=2)
+            left[:, :, 0] = 0
             cand = torch.cat([gm_mv[:, None], hme[:, None] + ring_t[None],
-                              above.reshape(nb, 1, 2),
-                              left.reshape(nb, 1, 2)], dim=1)
+                              above.reshape(nbt, 1, 2),
+                              left.reshape(nbt, 1, 2)], dim=1)
             cand = _clamp_cands(cand, ys, xs, BLK, h, w)
             # warp candidate 0 signals the exact projection; ring
             # candidates that collide with it are nudged (the syntax
             # would map them to GLOBALMV and the decoder would warp)
-            cand[:, 0] = torch.where(is_warp0, gm_mv, cand[:, 0])
-            coll = (cand[:, 1:] == cand[:, :1]).all(dim=2) & is_warp0
+            cand[:, 0] = torch.where(is_warp0[:, None], gm_mv, cand[:, 0])
+            coll = (cand[:, 1:] == cand[:, :1]).all(dim=2) & is_warp0[:, None]
             cand[:, 1:, 1] += coll.to(torch.int32) * 2
             with _region("p1.pass_a"):
                 out = _eval_ref(src_y, src_u, src_v, *refps[r], wy, wu, wv,
-                                cand, is_warp0, ys, xs, qp, lam, rt5, bd,
-                                interp, nb, K, h, w, tx_search, split8)
+                                cand, is_warp0, ys, xs, qp_b, lam_b, rt5, bd,
+                                interp_b, nbt, K, h, w, tx_search, split8,
+                                sid)
             if best is None:
                 best = list(out)
             else:
                 take = out[0] < best[0]
                 iref_idx = torch.where(take, r, iref_idx)
                 for fi in range(len(best)):
-                    t_ = take.reshape((nb,) + (1,) * (best[fi].ndim - 1))
+                    t_ = take.reshape((nbt,) + (1,) * (best[fi].ndim - 1))
                     best[fi] = torch.where(t_, out[fi], best[fi])
         (cost_tot, cost_y, imv, iskip, iqy, irec_y, iqu, irec_u, iqv,
          irec_v, iwarp, itx, isplit, ismv, issk) = best
 
-        icomp = torch.zeros(nb, dtype=torch.bool, device=dev)
-        imv2 = torch.zeros((nb, 2), dtype=torch.int32, device=dev)
-        iwedge = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+        icomp = torch.zeros(nbt, dtype=torch.bool, device=dev)
+        imv2 = torch.zeros((nbt, 2), dtype=torch.int32, device=dev)
+        iwedge = torch.full((nbt,), -1, dtype=torch.int32, device=dev)
         if compound and R >= 2:
             # the pair is (first, last) reference: LAST is index 0 and
             # ALTREF (the backward reference) index R-1
@@ -1029,14 +1119,14 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                 with _region("p1.compound"):
                     outc = list(_eval_pair(
                         src_y, src_u, src_v, refps[0], refps[R - 1], m0, m1,
-                        ys, xs, qp, lam, rt5, bd, interp, nb,
-                        sm=skip_mode and pi == 1)) + [m0, m1]
+                        ys, xs, qp_b, lam_b, rt5, bd, interp_b, nbt,
+                        sm=skip_mode and pi == 1, sid=sid)) + [m0, m1]
                 if merged is None:
                     merged = outc
                 else:
                     tk = outc[0] < merged[0]
                     for fi in range(len(merged)):
-                        sh_ = (nb,) + (1,) * (merged[fi].ndim - 1)
+                        sh_ = (nbt,) + (1,) * (merged[fi].ndim - 1)
                         merged[fi] = torch.where(tk.reshape(sh_), outc[fi],
                                                  merged[fi])
             (ccost, ccost_y, cskip, cqy, crec_y, cqu, crec_u, cqv, crec_v,
@@ -1060,32 +1150,37 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
             iqv = torch.where(t3, cqv, iqv)
             irec_v = torch.where(t3, crec_v, irec_v)
 
-        # ---- pass B: the intra wave loop with the inter override ----
-        ry = torch.zeros((1, h, w), dtype=torch.int32, device=dev)
-        ru = torch.zeros((1, h // 2, w // 2), dtype=torch.int32, device=dev)
+        # ---- pass B: the intra wave loop with the inter override, one
+        # wave of every stream per step ----
+        ry = torch.zeros((ns, h, w), dtype=torch.int32, device=dev)
+        ru = torch.zeros((ns, h // 2, w // 2), dtype=torch.int32,
+                         device=dev)
         rv = torch.zeros_like(ru)
-        sy, su, sv = src_y[None], src_u[None], src_v[None]
-        ymode = torch.zeros(nb, dtype=torch.int32, device=dev)
-        umode = torch.zeros(nb, dtype=torch.int32, device=dev)
-        choose = torch.zeros(nb, dtype=torch.bool, device=dev)
-        qyB = torch.zeros((nb, BLK * BLK), dtype=torch.int16, device=dev)
-        quB = torch.zeros((nb, CBLK * CBLK), dtype=torch.int16, device=dev)
+        sy, su, sv = src_y, src_u, src_v
+        ymode = torch.zeros(nbt, dtype=torch.int32, device=dev)
+        umode = torch.zeros(nbt, dtype=torch.int32, device=dev)
+        choose = torch.zeros(nbt, dtype=torch.bool, device=dev)
+        qyB = torch.zeros((nbt, BLK * BLK), dtype=torch.int16, device=dev)
+        quB = torch.zeros((nbt, CBLK * CBLK), dtype=torch.int16, device=dev)
         qvB = torch.zeros_like(quB)
         # the motion-mode alternatives' flags, skips, tx indices and
         # coefficients, raster order
-        iobmc = torch.zeros(nb, dtype=torch.bool, device=dev)
-        iimodes = torch.full((nb,), -1, dtype=torch.int32, device=dev)
-        osa = torch.zeros(nb, dtype=torch.bool, device=dev)
-        txo = torch.zeros(nb, dtype=torch.int32, device=dev)
+        iobmc = torch.zeros(nbt, dtype=torch.bool, device=dev)
+        iimodes = torch.full((nbt,), -1, dtype=torch.int32, device=dev)
+        osa = torch.zeros(nbt, dtype=torch.bool, device=dev)
+        txo = torch.zeros(nbt, dtype=torch.int32, device=dev)
         qyo, quo, qvo = (torch.zeros_like(a) for a in (qyB, quB, qvB))
         alts = obmc or interintra
         if alts:
             alt_env = _AltEnv(src_y, src_u, src_v, refps, imv, iref_idx,
-                              icomp, iwarp, isplit, ismv, cost_tot, qp, lam,
-                              rt5, bd, interp, gw, tx_search)
+                              icomp, iwarp, isplit, ismv, cost_tot, qp_b,
+                              lam_b, rt5, bd, interp_b, gw, tx_search, sid)
+        qp_w, lam_w = qp, lam
         with _region("p1.pass_b"):
-            for ws in _device_schedule(gh, gw, 1, dev):
+            for ws in _device_schedule(gh, gw, ns, dev):
                 bid = ws.bid
+                if streams:
+                    qp_w, lam_w = qp.take(ws.fi), lam[ws.fi]
                 icost, irec = cost_y[bid], irec_y[bid]
                 irec_u_b, irec_v_b = irec_u[bid], irec_v[bid]
                 if alts:
@@ -1101,12 +1196,13 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                     irec_v_b = torch.where(a3, alt[7], irec_v_b)
                 m, q, ry, ch_ = _rd_step(
                     ry, sy, ws.fi, ws.by * BLK, ws.bx * BLK, ws.sel, ws.ha,
-                    ws.hl, qp, lam, modes, (cy_t, txbb, modeb, eoby), bd=bd,
-                    tr_avail=ws.tr, bl_avail=ws.bl, inter=(icost, irec))
+                    ws.hl, qp_w, lam_w, modes, (cy_t, txbb, modeb, eoby),
+                    bd=bd, tr_avail=ws.tr, bl_avail=ws.bl,
+                    inter=(icost, irec))
                 um, qu_, qv2, ru, rv = _rd_step_chroma(
                     ru, rv, su, sv, ws.fi, ws.by * CBLK, ws.bx * CBLK, ws.sel,
-                    ws.ha, ws.hl, qp, lam, (cuv_t, txbb, uvb, eobuv), bd=bd,
-                    inter=(ch_, irec_u_b, irec_v_b))
+                    ws.ha, ws.hl, qp_w, lam_w, (cuv_t, txbb, uvb, eobuv),
+                    bd=bd, inter=(ch_, irec_u_b, irec_v_b))
                 rid, sel = ws.rid, ws.sel
                 ymode[rid] = m[sel].to(torch.int32)
                 umode[rid] = um[sel].to(torch.int32)
@@ -1124,7 +1220,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                         acc[rid] = a[sel].reshape(-1, n_ * n_).to(
                             torch.int16)
 
-        iqy, iqu, iqv = (a.reshape(nb, -1) for a in (iqy, iqu, iqv))
+        iqy, iqu, iqv = (a.reshape(nbt, -1) for a in (iqy, iqu, iqv))
         if alts:
             alt_b = iobmc | (iimodes >= 0)
             o2 = alt_b[:, None]
@@ -1137,46 +1233,60 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
         qy_f = torch.where(c2, iqy.to(torch.int16), qyB)
         qu_f = torch.where(c2, iqu.to(torch.int16), quB)
         qv_f = torch.where(c2, iqv.to(torch.int16), qvB)
-        gm_mats = torch.stack([g[0] for g in gms])
-        gm_trans = torch.stack([g[1] for g in gms])
-        gm_kinds = torch.stack([g[2] for g in gms])
+        gm_mats, gm_trans, gm_kinds = (
+            torch.stack([torch.stack([gms[r][si][k] for r in range(R)])
+                         for si in range(ns)]) for k in range(3))
         with _region("p1.merges"):
             merge32, merge64, mergeH, mergeV = _skip_merges(
                 choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2, gh,
-                gw, h, w, isplit, iobmc, iimodes)
-        return (ry[0].to(torch.uint8), ru[0].to(torch.uint8),
-                rv[0].to(torch.uint8), ymode.to(torch.uint8),
-                umode.to(torch.uint8), choose, iskip & choose,
-                imv.to(torch.int16), imv2.to(torch.int16),
-                iref_idx.to(torch.uint8), icomp, iwarp & choose,
-                iwedge.to(torch.int8), iobmc, iimodes.to(torch.int8), qy_f,
-                qu_f, qv_f, gm_mats, gm_trans, gm_kinds, interp, merge32,
-                merge64, itx.to(torch.int8), isplit & choose,
-                ismv.to(torch.int16), issk, mergeH, mergeV)
+                gw, h, w, isplit, iobmc, iimodes, ns)
+        per = lambda a: a.reshape((ns, nb) + a.shape[1:])
+        return (ry.to(torch.uint8), ru.to(torch.uint8),
+                rv.to(torch.uint8), per(ymode.to(torch.uint8)),
+                per(umode.to(torch.uint8)), per(choose),
+                per(iskip & choose), per(imv.to(torch.int16)),
+                per(imv2.to(torch.int16)), per(iref_idx.to(torch.uint8)),
+                per(icomp), per(iwarp & choose), per(iwedge.to(torch.int8)),
+                per(iobmc), per(iimodes.to(torch.int8)), per(qy_f),
+                per(qu_f), per(qv_f), gm_mats, gm_trans, gm_kinds, interp,
+                merge32, merge64, per(itx.to(torch.int8)),
+                per(isplit & choose), per(ismv.to(torch.int16)), per(issk),
+                mergeH, mergeV)
 
+    def p1(src_y, src_u, src_v, refs_y, refs_u, refs_v, qp, lam, rt):
+        outs = p1_streams(src_y[None], src_u[None], src_v[None],
+                          refs_y[None], refs_u[None], refs_v[None], qp, lam,
+                          rt)
+        return tuple(o[0] for o in outs)
+
+    p1.streams = p1_streams
     return p1
 
 
 def _edge_pad_to(plane, hh, ww):
-    """Edge-replicate an (H, W) plane to (hh, ww) at the bottom/right."""
-    h, w = plane.shape
+    """Edge-replicate an (..., H, W) plane to (hh, ww) at the
+    bottom/right."""
+    h, w = plane.shape[-2:]
     if (h, w) == (hh, ww):
         return plane.to(torch.int32)
     dev = plane.device
     rows = torch.arange(hh, device=dev).clamp(max=h - 1)
     cols = torch.arange(ww, device=dev).clamp(max=w - 1)
-    return plane.to(torch.int32)[rows[:, None], cols[None, :]]
+    return plane.to(torch.int32)[..., rows[:, None], cols[None, :]]
 
 
 def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
-                 gh, gw, h, w, isplit, iobmc, iimodes):
+                 gh, gw, h, w, isplit, iobmc, iimodes, ns=1):
     """The partition-level skip merges: 2x2 groups of inter-skip winners
     sharing (ref, mv) — or the same compound pair — without warp or a
     masked compound become one 32x32 skip leaf, 2x2 merged 32s sharing
     them once more a 64x64 leaf, and 2x2 groups whose halves agree
     internally a HORZ/VERT pair of rect skip leaves.  The merged recon is
     bit-identical, so this is a pure rate win (product_coding_loop.c's
-    partition decision restricted to the lossless case)."""
+    partition decision restricted to the lossless case).  The per-block
+    inputs hold ``ns`` streams' blocks, stream-major; the outputs are
+    (ns, gh//2 * gw//2) merge32 / mergeh / mergev and (ns, gh//4 * gw//4)
+    merge64 (at least one entry per stream)."""
     dev = choose.device
     gh2, gw2 = gh // 2, gw // 2
     # wedge, OBMC, inter-intra and split blocks keep their 16x16 leaves
@@ -1184,87 +1294,89 @@ def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
                 & ~iobmc & (iimodes < 0))
 
     def grp(a):
-        a2 = a.reshape(gh, gw, -1)[:gh2 * 2, :gw2 * 2]
-        return a2.reshape(gh2, 2, gw2, 2, a2.shape[-1])
+        """(ns, gh2, 2, gw2, 2, C): the 2x2 groups of a per-block map."""
+        a2 = a.reshape(ns, gh, gw, -1)[:, :gh2 * 2, :gw2 * 2]
+        return a2.reshape(ns, gh2, 2, gw2, 2, a2.shape[-1])
+
+    def same4(g):
+        """(ns, g_h, g_w): every member of each group equals its first."""
+        return (g == g[:, :, :1, :, :1]).all(dim=-1).all(dim=4).all(dim=2)
 
     def clamp_ok(mv, yy, xx, blk, blk_h=None):
+        yy, xx = yy.repeat(ns), xx.repeat(ns)
         cl = _clamp_cands(mv[:, None], yy, xx, blk, h, w, blk_h=blk_h)[:, 0]
         return (cl == mv).all(dim=-1)
 
     ref_i = iref_idx[:, None].to(torch.int32)
     comp_i = icomp[:, None].to(torch.int32)
     el4 = grp(eligible[:, None].to(torch.int32))[..., 0]
-    ok = el4.to(torch.bool).all(dim=3).all(dim=1)
+    ok = el4.to(torch.bool).all(dim=4).all(dim=2)
     for f in (ref_i, comp_i):
-        g = grp(f)[..., 0]
-        ok &= (g == g[:, :1, :, :1]).all(dim=3).all(dim=1)
+        ok &= same4(grp(f))
     a32 = torch.arange(gh2 * gw2, device=dev)
     ys32 = (a32 // gw2 * 32).to(torch.int32)
     xs32 = (a32 % gw2 * 32).to(torch.int32)
     for mva in (imv, imv2):
         mvg = grp(mva)
-        ok &= (mvg == mvg[:, :1, :, :1]).all(dim=4).all(dim=3).all(dim=1)
-        mv32 = mvg[:, 0, :, 0].reshape(-1, 2)
-        ok &= clamp_ok(mv32, ys32, xs32, 2 * BLK).reshape(gh2, gw2)
-    merge32 = ok.reshape(-1)
+        ok &= same4(mvg)
+        mv32 = mvg[:, :, 0, :, 0].reshape(-1, 2)
+        ok &= clamp_ok(mv32, ys32, xs32, 2 * BLK).reshape(ns, gh2, gw2)
+    merge32 = ok.reshape(ns, -1)
 
     gh4, gw4 = gh2 // 2, gw2 // 2
     if gh4 and gw4:
         def grp64(a):
-            a2 = a.reshape(gh2, gw2, -1)[:gh4 * 2, :gw4 * 2]
-            return a2.reshape(gh4, 2, gw4, 2, a2.shape[-1])
+            a2 = a.reshape(ns, gh2, gw2, -1)[:, :gh4 * 2, :gw4 * 2]
+            return a2.reshape(ns, gh4, 2, gw4, 2, a2.shape[-1])
 
         def grp16_64(a):
-            a2 = a.reshape(gh, gw, -1)[:gh4 * 4, :gw4 * 4]
-            return a2.reshape(gh4, 4, gw4, 4, a2.shape[-1])
+            a2 = a.reshape(ns, gh, gw, -1)[:, :gh4 * 4, :gw4 * 4]
+            return a2.reshape(ns, gh4, 4, gw4, 4, a2.shape[-1])
 
-        ok64 = grp64(ok.reshape(gh2, gw2)[..., None])[..., 0].all(
-            dim=3).all(dim=1)
+        ok64 = grp64(ok[..., None])[..., 0].all(dim=4).all(dim=2)
         for f in (ref_i, comp_i):
-            g = grp16_64(f)[..., 0]
-            ok64 &= (g == g[:, :1, :, :1]).all(dim=3).all(dim=1)
+            ok64 &= same4(grp16_64(f))
         a64 = torch.arange(gh4 * gw4, device=dev)
         ys64 = (a64 // gw4 * 64).to(torch.int32)
         xs64 = (a64 % gw4 * 64).to(torch.int32)
         for mva in (imv, imv2):
             mvg = grp16_64(mva)
-            ok64 &= (mvg == mvg[:, :1, :, :1]).all(dim=4).all(dim=3).all(
-                dim=1)
-            mv64 = mvg[:, 0, :, 0].reshape(-1, 2)
-            ok64 &= clamp_ok(mv64, ys64, xs64, 4 * BLK).reshape(gh4, gw4)
-        merge64 = ok64.reshape(-1)
+            ok64 &= same4(mvg)
+            mv64 = mvg[:, :, 0, :, 0].reshape(-1, 2)
+            ok64 &= clamp_ok(mv64, ys64, xs64, 4 * BLK).reshape(ns, gh4, gw4)
+        merge64 = ok64.reshape(ns, -1)
     else:
-        merge64 = torch.zeros(max(gh4, 1) * max(gw4, 1), dtype=torch.bool,
-                              device=dev)
+        merge64 = torch.zeros((ns, max(gh4, 1) * max(gw4, 1)),
+                              dtype=torch.bool, device=dev)
 
     # rect (HORZ/VERT) merges at the 32 extent: each half agrees
     # internally, the full 2x2 does not
-    elig_all = el4.to(torch.bool).all(dim=3).all(dim=1)
+    elig_all = el4.to(torch.bool).all(dim=4).all(dim=2)
     okH = elig_all & ~ok
     okV = elig_all & ~ok
     for f in (ref_i, comp_i, imv, imv2):
         fg = grp(f)
-        okH &= (fg == fg[:, :, :, :1]).all(dim=4).all(dim=3).all(dim=1)
-        okV &= (fg == fg[:, :1]).all(dim=4).all(dim=1).all(dim=-1)
+        okH &= (fg == fg[:, :, :, :, :1]).all(dim=-1).all(dim=4).all(dim=2)
+        okV &= (fg == fg[:, :, :1]).all(dim=-1).all(dim=2).all(dim=-1)
     for mva in (imv, imv2):
         g = grp(mva)
-        top = g[:, 0, :, 0].reshape(-1, 2)
-        bot = g[:, 1, :, 0].reshape(-1, 2)
+        top = g[:, :, 0, :, 0].reshape(-1, 2)
+        bot = g[:, :, 1, :, 0].reshape(-1, 2)
         okH &= (clamp_ok(top, ys32, xs32, 2 * BLK, BLK)
                 & clamp_ok(bot, ys32 + BLK, xs32, 2 * BLK, BLK)
-                ).reshape(gh2, gw2)
-        lef = g[:, 0, :, 0].reshape(-1, 2)
-        rig = g[:, 0, :, 1].reshape(-1, 2)
+                ).reshape(ns, gh2, gw2)
+        lef = g[:, :, 0, :, 0].reshape(-1, 2)
+        rig = g[:, :, 0, :, 1].reshape(-1, 2)
         okV &= (clamp_ok(lef, ys32, xs32, BLK, 2 * BLK)
                 & clamp_ok(rig, ys32, xs32 + BLK, BLK, 2 * BLK)
-                ).reshape(gh2, gw2)
+                ).reshape(ns, gh2, gw2)
     if gh4 and gw4:
-        cov64 = torch.zeros((gh2, gw2), dtype=torch.bool, device=dev)
-        cov64[:gh4 * 2, :gw4 * 2] = _up(merge64.reshape(gh4, gw4), 2)
+        cov64 = torch.zeros((ns, gh2, gw2), dtype=torch.bool, device=dev)
+        cov64[:, :gh4 * 2, :gw4 * 2] = _up(merge64.reshape(ns, gh4, gw4), 2)
         okH &= ~cov64
         okV &= ~cov64
     okV &= ~okH
-    return merge32, merge64, okH.reshape(-1), okV.reshape(-1)
+    return merge32, merge64, okH.reshape(ns, -1), okV.reshape(ns, -1)
 
 
 # --------------------------------------------------------------------------
@@ -1272,95 +1384,119 @@ def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
 # --------------------------------------------------------------------------
 
 def _sse_plane(a, b):
-    """Frame SSE, exact (int64)."""
+    """Frame SSE per plane of an (S, H, W) batch, exact (int64): (S,)."""
     d = a.to(torch.int64) - b.to(torch.int64)
-    return (d * d).sum()
+    return (d * d).sum(dim=(-2, -1))
+
+
+def _per_line(thr, n):
+    """Deblocking thresholds for a stream batch's lines, stream-major with
+    n lines a stream: ints as they are, (S,) tensors one value a line."""
+    return tuple(t if isinstance(t, int) else t.repeat_interleave(n)
+                 for t in thr)
 
 
 def _dlf_plane_traced(x, step, blimit, limit, thresh, flen, bd, on_v=None,
                       on_h=None):
-    """loop_filter_plane_uniform with per-line edge enables: on_v (h, E) /
-    on_h (E, w) switch lines off (interior edges of merged blocks and
-    both-skip non-PU edges); filter lengths stay uniform, since the
-    minimum transform extent is 16 px luma / 8 px chroma on this grid.
-    Deltas are added with index_add_ (windows overlap, modified spans do
-    not)."""
-    h, w = x.shape
+    """loop_filter_plane_uniform over (S, h, w) planes with per-line edge
+    enables: on_v (S, h, E) / on_h (S, E, w) switch lines off (interior
+    edges of merged blocks and both-skip non-PU edges); filter lengths
+    stay uniform, since the minimum transform extent is 16 px luma / 8 px
+    chroma on this grid.  The thresholds are ints or (S,) tensors (each
+    stream at its own level).  Deltas are added with index_add_ (windows
+    overlap, modified spans do not)."""
+    ns, h, w = x.shape
     x = x.to(torch.int32, copy=True)
     dev = x.device
     taps = torch.arange(-7, 7, device=dev)
     edges = torch.arange(step, w, step, device=dev)
     if len(edges):
         cols = edges[:, None] + taps[None]
-        lines = x[:, cols].permute(1, 0, 2).reshape(-1, 14)
-        f = dlf_ops.filter_lines(lines, blimit, limit, thresh, flen, bd)
+        lines = x[:, :, cols].reshape(-1, 14)          # (S, h, E) lines
+        f = dlf_ops.filter_lines(
+            lines, *_per_line((blimit, limit, thresh), h * len(edges)),
+            flen, bd)
         if on_v is not None:
-            f = torch.where(on_v.T.reshape(-1, 1), f, lines)
-        d = (f - lines).reshape(len(edges), h, 14).permute(1, 0, 2)
-        x.index_add_(1, cols.reshape(-1), d.reshape(h, -1))
+            f = torch.where(on_v.reshape(-1, 1), f, lines)
+        x.index_add_(2, cols.reshape(-1), (f - lines).reshape(ns, h, -1))
     redges = torch.arange(step, h, step, device=dev)
     if len(redges):
         rows = redges[:, None] + taps[None]
-        lines = x[rows, :].permute(0, 2, 1).reshape(-1, 14)
-        f = dlf_ops.filter_lines(lines, blimit, limit, thresh, flen, bd)
+        lines = x[:, rows, :].permute(0, 1, 3, 2).reshape(-1, 14)
+        f = dlf_ops.filter_lines(
+            lines, *_per_line((blimit, limit, thresh), w * len(redges)),
+            flen, bd)
         if on_h is not None:
             f = torch.where(on_h.reshape(-1, 1), f, lines)
-        d = (f - lines).reshape(len(redges), w, 14).permute(0, 2, 1)
-        x.index_add_(0, rows.reshape(-1), d.reshape(-1, w))
+        d = (f - lines).reshape(ns, len(redges), w, 14).permute(0, 1, 3, 2)
+        x.index_add_(1, rows.reshape(-1), d.reshape(ns, -1, w))
     return x
 
 
 def _up(a, k):
-    """Repeat a 2-D map k times along both axes."""
-    return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+    """Repeat a map k times along its last two axes."""
+    return a.repeat_interleave(k, -2).repeat_interleave(k, -1)
 
 
 def _dlf_plane_flens(x, step, blimit, limit, thresh, bd, fl_v, fl_h, lens):
-    """Plane deblock at ``step``-px edge spacing with per-edge-line filter
-    lengths (8x8 leaves: luma edges every 8 px with flen in {0, 8, 14},
-    chroma every 4 px with flen in {0, 4, 6})."""
-    h, w = x.shape
+    """Deblock of (S, h, w) planes at ``step``-px edge spacing with
+    per-edge-line filter lengths (8x8 leaves: luma edges every 8 px with
+    flen in {0, 8, 14}, chroma every 4 px with flen in {0, 4, 6});
+    thresholds as in _dlf_plane_traced."""
+    ns, h, w = x.shape
     epos_v = np.arange(step, w, step)
     if len(epos_v):
-        x = dlf_ops._filter_edges_masked(x, epos_v, fl_v, blimit, limit,
-                                         thresh, lens, bd)
+        x = dlf_ops._filter_edges_masked(
+            x, epos_v, fl_v, *_per_line((blimit, limit, thresh),
+                                        h * len(epos_v)), lens, bd)
     epos_h = np.arange(step, h, step)
     if len(epos_h):
-        x = dlf_ops._filter_edges_masked(x.T, epos_h, fl_h.T, blimit, limit,
-                                         thresh, lens, bd).T
+        x = dlf_ops._filter_edges_masked(
+            x.transpose(-1, -2), epos_h, fl_h.transpose(-1, -2),
+            *_per_line((blimit, limit, thresh), w * len(epos_h)), lens,
+            bd).transpose(-1, -2)
     return x
 
 
 def _derive_skip8(qy_f, qu_f, qv_f, skip16, split16, gh, gw):
     """(2gh, 2gw) coded-skip map per 8x8 unit: the quadrant's coefficients
     for split blocks, the block's flag elsewhere (the decoder's per-leaf
-    skip at 8-px granularity)."""
-    nz = lambda q, n: (q.reshape(gh, gw, 2, n, 2, n) != 0).any(dim=5).any(
-        dim=3)
-    subz = ~(nz(qy_f, 8) | nz(qu_f, 4) | nz(qv_f, 4))      # (gh, gw, 2, 2)
-    skip8 = torch.where(split16[:, :, None, None], subz,
-                        skip16[:, :, None, None])
-    return skip8.permute(0, 2, 1, 3).reshape(2 * gh, 2 * gw)
+    skip at 8-px granularity).  Leading axes (a stream batch: qy_f (S, nb,
+    256), skip16 / split16 (S, gh, gw)) carry through."""
+    lead = qy_f.shape[:-2]
+    nz = lambda q, n: (q.reshape(lead + (gh, gw, 2, n, 2, n)) != 0).any(
+        dim=-1).any(dim=-2)
+    subz = ~(nz(qy_f, 8) | nz(qu_f, 4) | nz(qv_f, 4))    # (..., gh, gw, 2, 2)
+    skip8 = torch.where(split16[..., None, None], subz,
+                        skip16[..., None, None])
+    return skip8.transpose(-3, -2).reshape(lead + (2 * gh, 2 * gw))
 
 
 def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
                   mergev, split16=None, skip8m=None):
-    """Per-line DLF enables of the masked P2 (spec 7.14 derivation):
-    {"y": (on_v, on_h), "c": (on_v, on_h)}.  With 8x8 leaves (split16,
-    skip8m given) the maps are per-line filter lengths at 8-px (luma) /
-    4-px (chroma) edge spacing instead."""
+    """Per-line DLF enables of the masked P2 (spec 7.14 derivation) for S
+    streams' maps (skip16 / inter16 / split16 (S, gh, gw), the merges (S,
+    n), skip8m (S, 2gh, 2gw)): {"y": (on_v, on_h), "c": (on_v, on_h)},
+    on_v (S, h, E) and on_h (S, E, w).  With 8x8 leaves (split16, skip8m
+    given) the maps are per-line filter lengths at 8-px (luma) / 4-px
+    (chroma) edge spacing instead."""
     dev = skip16.device
+    ns = skip16.shape[0]
     split8 = split16 is not None
     gh2, gw2 = gh // 2, gw // 2
     gh4, gw4 = gh2 // 2, gw2 // 2
-    z = lambda: torch.zeros((gh, gw), dtype=torch.bool, device=dev)
+    z = lambda: torch.zeros((ns, gh, gw), dtype=torch.bool, device=dev)
     merged16, rect_h16, rect_v16, merged64_16 = z(), z(), z(), z()
     if gh2 and gw2:
-        merged16[:gh2 * 2, :gw2 * 2] = _up(merge32.reshape(gh2, gw2), 2)
-        rect_h16[:gh2 * 2, :gw2 * 2] = _up(mergeh.reshape(gh2, gw2), 2)
-        rect_v16[:gh2 * 2, :gw2 * 2] = _up(mergev.reshape(gh2, gw2), 2)
+        merged16[:, :gh2 * 2, :gw2 * 2] = _up(merge32.reshape(ns, gh2, gw2),
+                                              2)
+        rect_h16[:, :gh2 * 2, :gw2 * 2] = _up(mergeh.reshape(ns, gh2, gw2),
+                                              2)
+        rect_v16[:, :gh2 * 2, :gw2 * 2] = _up(mergev.reshape(ns, gh2, gw2),
+                                              2)
     if gh4 and gw4:
-        merged64_16[:gh4 * 4, :gw4 * 4] = _up(merge64.reshape(gh4, gw4), 4)
+        merged64_16[:, :gh4 * 4, :gw4 * 4] = _up(
+            merge64.reshape(ns, gh4, gw4), 4)
 
     def szmap(v64, v32, vrh, vrv, dflt, dsplit=None):
         base = torch.where(split16, dsplit, dflt) if split8 else dflt
@@ -1370,6 +1506,7 @@ def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
                     rect_h16, vrh, torch.where(rect_v16, vrv, base)))
         ).to(torch.int32)
 
+    tr = lambda a: a.transpose(-1, -2)
     if split8:
         # per-direction tx extents in mi units
         txwmi = _up(szmap(16, 8, 8, 4, 4, 2), 4)
@@ -1382,26 +1519,27 @@ def _edge_enables(gh, gw, skip16, inter16, merge32, merge64, mergeh,
         txhmi = _up(szmap(16, 8, 4, 8, 4), 4)
         skmi = _up(skdlf, 4)
     flv = dlf_ops.edge_flens(txwmi, txwmi, skmi, True)
-    flh = dlf_ops.edge_flens(txhmi.T, txhmi.T, skmi.T, True).T
+    flh = tr(dlf_ops.edge_flens(tr(txhmi), tr(txhmi), tr(skmi), True))
     if split8:
         ctxwmi = _up(szmap(8, 4, 4, 2, 2, 1), 2)
         ctxhmi = _up(szmap(8, 4, 2, 4, 2, 1), 2)
         cskmi = skdlf                    # the chroma mi grid is the 8-px one
         cflv = dlf_ops.edge_flens(ctxwmi, ctxwmi, cskmi, False)
-        cflh = dlf_ops.edge_flens(ctxhmi.T, ctxhmi.T, cskmi.T, False).T
-        return {"y": (flv[:, 2::2].repeat_interleave(4, 0),
-                      flh[2::2, :].repeat_interleave(4, 1)),
-                "c": (cflv[:, 1:].repeat_interleave(4, 0),
-                      cflh[1:, :].repeat_interleave(4, 1))}
-    ons = {"y": (flv[:, 4::4].repeat_interleave(4, 0) > 0,
-                 flh[4::4, :].repeat_interleave(4, 1) > 0)}
+        cflh = tr(dlf_ops.edge_flens(tr(ctxhmi), tr(ctxhmi), tr(cskmi),
+                                     False))
+        return {"y": (flv[..., 2::2].repeat_interleave(4, -2),
+                      flh[..., 2::2, :].repeat_interleave(4, -1)),
+                "c": (cflv[..., 1:].repeat_interleave(4, -2),
+                      cflh[..., 1:, :].repeat_interleave(4, -1))}
+    ons = {"y": (flv[..., 4::4].repeat_interleave(4, -2) > 0,
+                 flh[..., 4::4, :].repeat_interleave(4, -1) > 0)}
     ctxwmi = _up(szmap(8, 4, 4, 2, 2), 2)
     ctxhmi = _up(szmap(8, 4, 2, 4, 2), 2)
     cskmi = _up(skdlf, 2)
     cflv = dlf_ops.edge_flens(ctxwmi, ctxwmi, cskmi, False)
-    cflh = dlf_ops.edge_flens(ctxhmi.T, ctxhmi.T, cskmi.T, False).T
-    ons["c"] = (cflv[:, 2::2].repeat_interleave(4, 0) > 0,
-                cflh[2::2, :].repeat_interleave(4, 1) > 0)
+    cflh = tr(dlf_ops.edge_flens(tr(ctxhmi), tr(ctxhmi), tr(cskmi), False))
+    ons["c"] = (cflv[..., 2::2].repeat_interleave(4, -2) > 0,
+                cflh[..., 2::2, :].repeat_interleave(4, -1) > 0)
     return ons
 
 
@@ -1423,30 +1561,62 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
     Returns (y, u, v) uint8, the DLF levels (3,), the per-SB /
     per-candidate SSE (nsb, ncand) and the picked candidate index — the
     planes are post-DLF only and the index 0 when ``uniform_apply`` is
-    off (the key-frame search, whose caller picks the strengths)."""
-    h, w = rec_y.shape
+    off (the key-frame search, whose caller picks the strengths).
+
+    The one-stream call of ``p2_streams``."""
+    b = lambda a: None if a is None else a[None]
+    outs = p2_streams(
+        b(src_y), b(src_u), b(src_v), b(rec_y), b(rec_u), b(rec_v),
+        b(skip16), np.asarray(dlf_y)[None], np.asarray(dlf_uv)[None], cands,
+        (int(damping),), bd, dlf_on, cdef_on, uniform_apply, b(merge32),
+        b(inter16), b(merge64), b(mergeh), b(mergev), b(split16), b(skip8m))
+    return tuple(o[0] for o in outs)
+
+
+def p2_streams(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y,
+               dlf_uv, cands, damping, bd: int = 8, dlf_on: bool = True,
+               cdef_on: bool = True, uniform_apply: bool = True, merge32=None,
+               inter16=None, merge64=None, mergeh=None, mergev=None,
+               split16=None, skip8m=None):
+    """P2 over a batch of S independent streams, every stage one batch of
+    all streams' lines / blocks: planes (S, ...), skip16 / inter16 /
+    split16 (S, gh, gw), the merges (S, n), skip8m (S, 2gh, 2gw); dlf_y /
+    dlf_uv: (S, NLVL, 4) numpy ladders (each stream's qindex); damping: S
+    ints; cands: (ncand, 4), shared (as in the reference's multi-stream
+    step).  The DLF level search and the CDEF pick reduce per stream
+    (exact int64 SSEs).  Returns p2's outputs with a leading S."""
+    ns, h, w = rec_y.shape
     dev = rec_y.device
     gh, gw = h // BLK, w // BLK
     gh8, gw8 = h // 8, w // 8
     nb8 = gh8 * gw8
     sbr, sbc = (h + 63) // 64, (w + 63) // 64
+    nsb = sbr * sbc
     ncand = len(cands)
     ons = dict(y=(None, None), c=(None, None))
     split8 = split16 is not None
+    sar = torch.arange(ns, device=dev)
     if merge32 is not None:
         ons = _edge_enables(gh, gw, skip16, inter16, merge32, merge64,
                             mergeh, mergev, split16, skip8m)
 
+    def thresholds(params, li):
+        """(blimit, limit, thresh) of ladder step li: ints where every
+        stream has the same, else (S,) tensors."""
+        t = np.asarray(params)[:, li, 1:4]
+        if (t == t[:1]).all():
+            return tuple(int(x) for x in t[0])
+        return tuple(_t(t[:, k], dev) for k in range(3))
+
     def search_plane(src, rec, step, flen, params, onk):
         rec = rec.to(torch.int32)
         if not dlf_on:
-            return rec, torch.zeros((), dtype=torch.int32, device=dev)
+            return rec, torch.zeros(ns, dtype=torch.int32, device=dev)
         on_v, on_h = ons[onk]
         outs = [rec]
         sses = [_sse_plane(src, rec)]
         for li in range(1, NLVL):
-            thr = (int(params[li, 1]), int(params[li, 2]),
-                   int(params[li, 3]))
+            thr = thresholds(params, li)
             if split8:
                 f = _dlf_plane_flens(rec, step // 2, *thr, bd, on_v, on_h,
                                      (8, 14) if onk == "y" else (4, 6))
@@ -1454,56 +1624,64 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
                 f = _dlf_plane_traced(rec, step, *thr, flen, bd, on_v, on_h)
             outs.append(f)
             sses.append(_sse_plane(src, f))
-        best = torch.stack(sses).argmin()
-        return (torch.stack(outs)[best],
-                _t(params[:, 0], dev)[best])
+        best = torch.stack(sses).argmin(dim=0)
+        return (torch.stack(outs)[best, sar],
+                _t(np.asarray(params)[:, :, 0], dev)[sar, best])
 
     fy, ly = search_plane(src_y, rec_y, BLK, 14, dlf_y, "y")
     fu, lu = search_plane(src_u, rec_u, CBLK, 6, dlf_uv, "c")
     fv, lv = search_plane(src_v, rec_v, CBLK, 6, dlf_uv, "c")
     # chroma levels are coded only when a luma level is nonzero
     coff = ly == 0
-    fu = torch.where(coff, rec_u.to(torch.int32), fu)
-    fv = torch.where(coff, rec_v.to(torch.int32), fv)
+    fu = torch.where(coff[:, None, None], rec_u.to(torch.int32), fu)
+    fv = torch.where(coff[:, None, None], rec_v.to(torch.int32), fv)
     lu = torch.where(coff, 0, lu)
     lv = torch.where(coff, 0, lv)
-    levels = torch.stack([ly, lu, lv])
+    levels = torch.stack([ly, lu, lv], dim=-1)
     if not cdef_on:
         return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8),
-                levels, torch.zeros((sbr * sbc, ncand), dtype=torch.int64,
+                levels, torch.zeros((ns, nsb, ncand), dtype=torch.int64,
                                     device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
-    ar8 = torch.arange(nb8, device=dev)
-    ys8 = ar8 // gw8 * 8
-    xs8 = ar8 % gw8 * 8
-    blocks = _blocks_at(fy, ys8, xs8, 8)
+                torch.zeros(ns, dtype=torch.int64, device=dev))
+    ar8 = torch.arange(ns * nb8, device=dev)
+    sid8 = ar8 // nb8
+    ys8 = ar8 % nb8 // gw8 * 8
+    xs8 = ar8 % nb8 % gw8 * 8
+    blocks = _blocks_at(fy, ys8, xs8, 8, sid8)
     cs = bd - 8
     dirs, var = cdef_ops.cdef_find_dir(blocks, cs)
     skip8 = (skip8m if split8 else _up(skip16, 2)).reshape(-1)
     keep = skip8[:, None, None]
-    wy = cdef_stage._windows(cdef_stage._pad_vl(fy), ys8, xs8, 8)
+    wy = cdef_stage._windows(cdef_stage._pad_vl(fy), ys8, xs8, 8, sid8)
     cys, cxs = ys8 // 2, xs8 // 2
-    wu = cdef_stage._windows(cdef_stage._pad_vl(fu), cys, cxs, 4)
-    wv = cdef_stage._windows(cdef_stage._pad_vl(fv), cys, cxs, 4)
-    src_blk = (_blocks_at(src_y, ys8, xs8, 8), _blocks_at(src_u, cys, cxs, 4),
-               _blocks_at(src_v, cys, cxs, 4))
-    cur_u = _blocks_at(fu, cys, cxs, 4)
-    cur_v = _blocks_at(fv, cys, cxs, 4)
-    sb_of = (ys8 // 64) * sbc + (xs8 // 64)
+    wu = cdef_stage._windows(cdef_stage._pad_vl(fu), cys, cxs, 4, sid8)
+    wv = cdef_stage._windows(cdef_stage._pad_vl(fv), cys, cxs, 4, sid8)
+    src_blk = (_blocks_at(src_y, ys8, xs8, 8, sid8),
+               _blocks_at(src_u, cys, cxs, 4, sid8),
+               _blocks_at(src_v, cys, cxs, 4, sid8))
+    cur_u = _blocks_at(fu, cys, cxs, 4, sid8)
+    cur_v = _blocks_at(fv, cys, cxs, 4, sid8)
+    sb_of = sid8 * nsb + (ys8 // 64) * sbc + (xs8 // 64)
     cands_t = _t(cands, dev)
+    damp = [int(d) for d in damping]
+    if len(set(damp)) == 1:
+        damp = damp[0]
+    else:
+        damp = _t(damp, dev)[sid8]
+    nbt8 = ns * nb8
 
     def filt(cand):
-        """The three planes' filtered 8x8 / 4x4 blocks at one strength
-        set (a row of cands_t), skip blocks kept."""
-        pri_y = cdef_stage._adjust_strength(cand[0] << cs, var)
-        sec_y = ((cand[1] + (cand[1] == 3)) << cs).expand(nb8)
+        """The three planes' filtered 8x8 / 4x4 blocks at a strength set:
+        one row of cands_t, or a row per block; skip blocks kept."""
+        pri_y = cdef_stage._adjust_strength(cand[..., 0] << cs, var)
+        sec_y = ((cand[..., 1] + (cand[..., 1] == 3)) << cs).expand(nbt8)
         fb_y = cdef_ops.cdef_filter_block(wy, pri_y, sec_y, dirs,
-                                          damping + cs, damping + cs, cs,
+                                          damp + cs, damp + cs, cs,
                                           bd, n=8)
-        pri_c = (cand[2] << cs).expand(nb8)
-        sec_c = ((cand[3] + (cand[3] == 3)) << cs).expand(nb8)
+        pri_c = (cand[..., 2] << cs).expand(nbt8)
+        sec_c = ((cand[..., 3] + (cand[..., 3] == 3)) << cs).expand(nbt8)
         fb_u, fb_v = (cdef_ops.cdef_filter_block(
-            wc, pri_c, sec_c, dirs, damping - 1 + cs, damping - 1 + cs, cs,
+            wc, pri_c, sec_c, dirs, damp - 1 + cs, damp - 1 + cs, cs,
             bd, n=4) for wc in (wu, wv))
         return (torch.where(keep, blocks, fb_y),
                 torch.where(keep, cur_u, fb_u),
@@ -1513,24 +1691,27 @@ def p2(src_y, src_u, src_v, rec_y, rec_u, rec_v, skip16, dlf_y, dlf_uv,
     for ci in range(ncand):
         per8 = sum(((f - s).to(torch.int64) ** 2).sum(dim=(1, 2))
                    for f, s in zip(filt(cands_t[ci]), src_blk))
-        sses.append(torch.zeros(sbr * sbc, dtype=torch.int64,
+        sses.append(torch.zeros(ns * nsb, dtype=torch.int64,
                                 device=dev).index_add_(0, sb_of, per8))
-    sse_sb = torch.stack(sses, dim=1)                     # (nsb, ncand)
+    sse_sb = torch.stack(sses, dim=1).reshape(ns, nsb, ncand)
     if not uniform_apply:
         return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8),
-                levels, sse_sb, torch.zeros((), dtype=torch.int64,
+                levels, sse_sb, torch.zeros(ns, dtype=torch.int64,
                                             device=dev))
-    # frame-uniform pick (cdef_bits = 0) and apply, on the device
-    best = sse_sb.sum(dim=0).argmin()
-    by, bu, bv = filt(cands_t[best])
+    # each stream's frame-uniform pick (cdef_bits = 0) and apply, on the
+    # device
+    best = sse_sb.sum(dim=1).argmin(dim=1)
+    by, bu, bv = filt(cands_t[best[sid8]])
     out_y, out_u, out_v = fy.clone(), fu.clone(), fv.clone()
     r8 = torch.arange(8, device=dev)
-    out_y[(ys8[:, None, None] + r8[:, None]), (xs8[:, None, None] + r8)] = by
+    s3 = sid8[:, None, None]
+    out_y[s3, (ys8[:, None, None] + r8[:, None]),
+          (xs8[:, None, None] + r8)] = by
     r4 = r8[:4]
     crow = cys[:, None, None] + r4[:, None]
     ccol = cxs[:, None, None] + r4
-    out_u[crow, ccol] = bu
-    out_v[crow, ccol] = bv
+    out_u[s3, crow, ccol] = bu
+    out_v[s3, crow, ccol] = bv
     return (out_y.to(torch.uint8), out_u.to(torch.uint8),
             out_v.to(torch.uint8), levels, sse_sb, best)
 
@@ -1641,29 +1822,118 @@ class PendingInterFrame:
     """One dispatched inter frame: the P1 and P2 outputs on the device and
     the host copies of what collect_inter_frame reads (issued
     non-blocking at dispatch).  ``recon`` (the post-filter planes) is the
-    frame's DPB entry, usable by later frames at once."""
+    frame's DPB entry, usable by later frames at once.  A frame of a
+    stream batch shares the batch's host copies (``host``, one copy of
+    each batched output) and reads its own row ``index`` of them."""
 
-    def __init__(self, outs, p2_outs, ref_enums, h, w, qindex):
+    def __init__(self, outs, p2_outs, ref_enums, h, w, qindex, host=None,
+                 index=None):
         self.outs = outs
         self.p2_outs = p2_outs
         self.ref_enums = ref_enums
         self.h, self.w = h, w
         self.qindex = qindex
         self.recon = dict(y=p2_outs[0], u=p2_outs[1], v=p2_outs[2])
-        small = list(outs[3:]) + [p2_outs[3], p2_outs[5]]
-        self.host = [t.to("cpu", non_blocking=True) for t in small]
+        if host is None:
+            host = _host_copies(outs, p2_outs)
+        self.host = host
+        self.index = index
+
+
+def _host_copies(outs, p2_outs):
+    """Non-blocking host copies of the outputs collect_inter_frame reads."""
+    small = list(outs[3:]) + [p2_outs[3], p2_outs[5]]
+    return [t.to("cpu", non_blocking=True) for t in small]
 
 
 def _src_planes(src_pack_u8, h, w, dev):
     sp = torch.as_tensor(np.ascontiguousarray(src_pack_u8), device=dev)
-    return (sp[:h].to(torch.int32), sp[h:, :w // 2].to(torch.int32),
-            sp[h:, w // 2:].to(torch.int32))
+    return (sp[..., :h, :].to(torch.int32),
+            sp[..., h:, :w // 2].to(torch.int32),
+            sp[..., h:, w // 2:].to(torch.int32))
 
 
 @functools.lru_cache(maxsize=16)
 def _inter_rates(qindex: int, modes: tuple, exact: bool, device):
     return md_rate_args(qindex, modes, UV_MODES, inter_frame=True,
                         exact=exact, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_params(qindices: tuple, modes: tuple, exact: bool, bd: int,
+                   device):
+    """intra_encoder.stream_params with the inter rate tables, made once
+    per batch shape."""
+    return stream_params(qindices, lambda q: _inter_rates(q, modes, exact,
+                                                          device), device,
+                         bd)
+
+
+def run_inter_frames(src_packs, refs_per_stream, qindices, h: int, w: int,
+                     modes, bd: int = 8, ring: bool = True, rad2: int = 8,
+                     rad0: int = 7, cdef_cands=None, dlf_on: bool = True,
+                     cdef_on: bool = True, hp: bool = False,
+                     obmc: bool = False, interintra: bool = False,
+                     exact_rates: bool = False, compound: bool = True,
+                     skip_mode: bool = False, tx_search: bool = False,
+                     split8: bool = False, device=None):
+    """P1 + P2 of one inter frame of each of S independent streams as one
+    batched program on ``device`` (default: the current CUDA device):
+    src_packs [(H + H/2, W) uint8], refs_per_stream [{ref_enum: y/u/v
+    planes (tensors or numpy)}] with the same reference enums in every
+    stream, qindices one
+    per stream.  compound / skip_mode: the compound pairs and the
+    skip-mode pair are evaluated (the caller decides from its references).
+    Returns one PendingInterFrame per stream, which share one host copy of
+    the batch's outputs."""
+    _check_p1_tools(hp)
+    dev = device_mod.resolve(device)
+    ns = len(src_packs)
+    ref_enums = sorted(refs_per_stream[0])
+    if any(sorted(r) != ref_enums for r in refs_per_stream):
+        raise ValueError("every stream of a batch needs the same "
+                         "reference enums")
+    R = len(ref_enums)
+    refs_y, refs_u, refs_v = (torch.stack([torch.stack(
+        [torch.as_tensor(refs[e][p]).to(dev) for e in ref_enums])
+        for refs in refs_per_stream]) for p in ("y", "u", "v"))
+    src = _src_planes(np.stack([np.asarray(sp, np.uint8)
+                                for sp in src_packs]), h, w, dev)
+    qindices = tuple(int(q) for q in qindices)
+    qp, lam, rt = _stream_params(qindices, tuple(modes), bool(exact_rates),
+                                 bd, dev)
+    p1 = build_p1(h, w, R, tuple(modes), bd, ring, compound, rad2, rad0,
+                  hp, obmc, interintra, skip_mode, tx_search, split8)
+    outs = p1.streams(*src, refs_y, refs_u, refs_v, qp, lam, rt)
+    cands = np.asarray(cdef_cands if cdef_cands is not None
+                       else cdef_stage.SEARCH_SET, np.int32)
+    qy_f, qu_f, qv_f = outs[15], outs[16], outs[17]
+    gh, gw = h // BLK, w // BLK
+    skip16 = ((qy_f == 0).all(dim=-1) & (qu_f == 0).all(dim=-1)
+              & (qv_f == 0).all(dim=-1)).reshape(ns, gh, gw)
+    split16 = skip8 = None
+    if split8:
+        split16 = outs[25].reshape(ns, gh, gw)
+        skip8 = _derive_skip8(qy_f, qu_f, qv_f, skip16, split16, gh, gw)
+    with _region("p2"):
+        p2_outs = p2_streams(
+            *src, *outs[:3], skip16,
+            np.stack([dlf_ladder_params(q, False) for q in qindices]),
+            np.stack([dlf_ladder_params(q, True) for q in qindices]), cands,
+            [cdef_stage.cdef_damping(q) for q in qindices], bd, dlf_on,
+            cdef_on, merge32=outs[22], inter16=outs[5].reshape(ns, gh, gw),
+            merge64=outs[23], mergeh=outs[28], mergev=outs[29],
+            split16=split16, skip8m=skip8)
+    host = _host_copies(outs, p2_outs)
+    pends = []
+    for si in range(ns):
+        pend = PendingInterFrame([o[si] for o in outs],
+                                 [o[si] for o in p2_outs], ref_enums, h, w,
+                                 qindices[si], host=host, index=si)
+        pend.cdef_cands = cands
+        pend.cdef_on = cdef_on
+        pends.append(pend)
+    return pends
 
 
 def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
@@ -1676,49 +1946,20 @@ def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
                     tx_search: bool = False, split8: bool = False,
                     device=None) -> PendingInterFrame:
     """Run P1 + P2 of one inter frame on ``device`` (default: the current
-    CUDA device).  src_pack_u8: (H + H/2, W) uint8, luma above U|V; refs:
-    {ref_enum: dict of y/u/v device planes}, LAST first.  Returns a
-    PendingInterFrame; finish it with collect_inter_frame."""
+    CUDA device): the one-stream call of run_inter_frames.  src_pack_u8:
+    (H + H/2, W) uint8, luma above U|V; refs: {ref_enum: dict of y/u/v
+    device planes}, LAST first.  The compound pairs run where ALTREF is a
+    reference.  Returns a PendingInterFrame; finish it with
+    collect_inter_frame."""
     _check_p1_tools(hp)
     if cdf_state is not None:   # adapted rate tables: not ported, raises
         md_rate_args(qindex, (), (), cdf_state=cdf_state)
-    dev = device_mod.resolve(device)
     ref_enums = sorted(refs)
-    R = len(ref_enums)
-    refs_y, refs_u, refs_v = (torch.stack([refs[e][p].to(dev)
-                                           for e in ref_enums])
-                              for p in ("y", "u", "v"))
-    src = _src_planes(src_pack_u8, h, w, dev)
-    qp = quant.params_on(int(qindex), dev, bd)
-    lam = torch.tensor(frame_lambda(qindex, bd), device=dev)
-    rt = _inter_rates(int(qindex), tuple(modes), bool(exact_rates), dev)
-    has_bwd = R >= 2 and ref_enums[-1] == 7   # ALTREF_FRAME present
-    p1 = build_p1(h, w, R, tuple(modes), bd, ring, has_bwd, rad2, rad0,
-                  hp, obmc, interintra, skip_mode and has_bwd, tx_search,
-                  split8)
-    outs = p1(*src, refs_y, refs_u, refs_v, qp, lam, rt)
-    cands = np.asarray(cdef_cands if cdef_cands is not None
-                       else cdef_stage.SEARCH_SET, np.int32)
-    qy_f, qu_f, qv_f = outs[15], outs[16], outs[17]
-    gh, gw = h // BLK, w // BLK
-    skip16 = ((qy_f == 0).all(dim=1) & (qu_f == 0).all(dim=1)
-              & (qv_f == 0).all(dim=1)).reshape(gh, gw)
-    split16 = skip8 = None
-    if split8:
-        split16 = outs[25].reshape(gh, gw)
-        skip8 = _derive_skip8(qy_f, qu_f, qv_f, skip16, split16, gh, gw)
-    with _region("p2"):
-        p2_outs = p2(*src, *outs[:3], skip16,
-                     dlf_ladder_params(qindex, False),
-                     dlf_ladder_params(qindex, True), cands,
-                     cdef_stage.cdef_damping(qindex), bd, dlf_on, cdef_on,
-                     merge32=outs[22], inter16=outs[5].reshape(gh, gw),
-                     merge64=outs[23], mergeh=outs[28], mergev=outs[29],
-                     split16=split16, skip8m=skip8)
-    pend = PendingInterFrame(outs, p2_outs, ref_enums, h, w, qindex)
-    pend.cdef_cands = cands
-    pend.cdef_on = cdef_on
-    return pend
+    has_bwd = len(ref_enums) >= 2 and ref_enums[-1] == 7   # ALTREF present
+    return run_inter_frames(
+        [src_pack_u8], [refs], [qindex], h, w, modes, bd, ring, rad2, rad0,
+        cdef_cands, dlf_on, cdef_on, hp, obmc, interintra, exact_rates,
+        has_bwd, skip_mode and has_bwd, tx_search, split8, device)[0]
 
 
 def run_key_filters(src: Dict[str, np.ndarray],
@@ -1788,7 +2029,9 @@ def collect_inter_frame(pend: PendingInterFrame, bd: int = 8):
         dev = pend.recon["y"].device
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
-        pulled = [t.numpy() for t in pend.host]
+        index = getattr(pend, "index", None)
+        pulled = [t.numpy() if index is None else t[index].numpy()
+                  for t in pend.host]
     (ymode, umode, choose, iskip, imv, imv2, iref_idx, icomp, iwarp,
      iwedge, iobmc, iimodes, qy_f, qu_f, qv_f, gm_mats, gm_trans, gm_kinds,
      interp, merge32, merge64, itx, isplit, ismv, issk, mergeh, mergev,

@@ -159,20 +159,26 @@ def _ids_on(ids: tuple, device, dtype=torch.int32) -> torch.Tensor:
     return torch.as_tensor(ids, dtype=dtype, device=device)
 
 
-def _txb_bits(qcoeff_abs, coef_bits, base, eob_tbl, pos):
+def _txb_bits(qcoeff_abs, coef_bits, base, eob_tbl, pos, sid=None):
     """Transform-block rate: the context-exact model when ``coef_bits``
     is a CoefTables bundle (presets with exact_rates: M5-M10), else the
     analytic curve (M11-M13):
     2*log2(1+l) + 1 per nonzero level, the zero-symbol cost for zeros
-    before eob, the eob-position cost and the txb flag."""
+    before eob, the eob-position cost and the txb flag.  sid: the (B,)
+    stream of each block when the tables hold a stream batch's
+    (rate_est.stack_rate_args; ``base`` is then (S,))."""
     if isinstance(coef_bits, CoefTables):
-        return txb_bits_exact(qcoeff_abs, coef_bits, qcoeff_abs.shape[-1])
+        return txb_bits_exact(qcoeff_abs, coef_bits, qcoeff_abs.shape[-1],
+                              sid)
     nzm = qcoeff_abs > 0
     eob = torch.where(nzm, pos + 1, 0).amax(dim=(1, 2))
     af = qcoeff_abs.to(torch.float32)
     nz_cnt = nzm.sum(dim=(1, 2)).to(torch.float32)
     nz_bits = 2.0 * torch.log2(1.0 + af).sum(dim=(1, 2)) + nz_cnt
     zeros_before = eob.to(torch.float32) - nz_cnt
+    if sid is not None:
+        return (nz_bits + zeros_before * coef_bits[sid, 0]
+                + eob_tbl[sid, eob.long()] + base[sid])
     return nz_bits + zeros_before * coef_bits[0] + eob_tbl[eob.long()] + base
 
 
@@ -413,8 +419,10 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
 
     recon/src: (F, H, W) int32; fi/ys/xs: (B,) frame index and pixel
     coordinates; qp: QuantParams tensors, (2,) each, or (B, 2) rows of
-    per-block quantizers (adaptive quantization: the delta-q key frame);
-    lam: float32 scalar tensor, or (B,) with per-block rows;
+    per-block quantizers (adaptive quantization: the delta-q key frame),
+    or a StreamQuant (a batch of streams at their own qindices, whose
+    rates are rate_est.stack_rate_args tables read by the block's
+    stream); lam: float32 scalar tensor, or (B,) with per-block rows;
     modes: mode ids or (mode, angle_delta) pairs (filter-intra pseudo-modes
     >= FI_MODE_BASE included; they are dropped above 32x32, where the
     spec forbids them); rates: (coef_bits, txb_base, mode_bits, eob_tbl),
@@ -440,8 +448,9 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     transform + quantizer runs through ops/fused_txq: the hand-written
     CUDA kernel for tensors on the card, its plain version on the CPU
     (the reference takes its Pallas kernel under the same conditions on
-    the TPU); per-block quantizers take fwd_txfm2d + quantize, as in the
-    reference.  With mixed tx types the candidates are grouped by type:
+    the TPU); a StreamQuant takes the kernel's per-row form; per-block
+    quantizers take fwd_txfm2d + quantize, as in the reference.  With
+    mixed tx types the candidates are grouped by type:
     one forward/quantize pass per distinct type over all its candidates,
     one inverse per distinct type on the winners.  Every filter-intra
     candidate comes from one batched wavefront pass."""
@@ -462,8 +471,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
         above_ext, left_ext = _gather_ext_neighbors(
             recon, fi, ys, xs, n, above, left, tr_avail, bl_avail, edge)
     src_blk = _gather_block(src, fi, ys, xs, n, n)
-    per_block_qp = qp.zbin.dim() == 2
-    rows = lambda k: quant.QuantParams(*(a.repeat(k, 1) for a in qp))
+    stream_qp = isinstance(qp, quant.StreamQuant)
+    per_block_qp = not stream_qp and qp.zbin.dim() == 2
     pred_cache = {}
     fi_list = sorted({m for m, _ in cands if m >= cc.FI_MODE_BASE})
     if fi_list:
@@ -503,11 +512,15 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
         flat = resid_all.reshape(nm * b, n, n)
         if (tx0 == cc.DCT_DCT and tx_size == cc.TX_16X16
                 and not per_block_qp):
-            coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(flat, qp)
+            if stream_qp:
+                coeffs, qcoeff_all, dq_all = fused_txq.fused_txq_rows(
+                    flat, qp.repeat(nm))
+            else:
+                coeffs, qcoeff_all, dq_all = fused_txq.fused_txq(flat, qp)
         else:
             coeffs = tf.fwd_txfm2d(flat, tx0, tx_size)
             qcoeff_all, dq_all = quant.quantize(
-                coeffs, rows(nm) if per_block_qp else qp, tx_size)
+                coeffs, quant.repeat_rows(qp, nm), tx_size)
         dist = dist_of(coeffs, dq_all, flat, tx0)
     else:
         uniq_tx = list(dict.fromkeys(tx_types))
@@ -523,7 +536,7 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
             res_t = resid_all[idx].reshape(g * b, n, n)
             coeffs_t = tf.fwd_txfm2d(res_t, t, tx_size)
             qc_t, dq_t = quant.quantize(
-                coeffs_t, rows(g) if per_block_qp else qp, tx_size)
+                coeffs_t, quant.repeat_rows(qp, g), tx_size)
             qcoeff_all[idx] = qc_t.reshape(g, b, kk, kk)
             dq_all[idx] = dq_t.reshape(g, b, kk, kk)
             dist[idx] = dist_of(coeffs_t, dq_t, res_t, t).reshape(g, b)
@@ -538,11 +551,18 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
                 * 2.0 + (aq > 0).sum(dim=(1, 2)) + 8.0)
     else:
         coef_bits, txb_base, mode_bits, eob_tbl = rates
+        if stream_qp:
+            # a stream batch's tables: each block reads its stream's
+            mb = mode_bits[qp.sid].T
+            sid_all = qp.sid.repeat(nm)
+        else:
+            mb = mode_bits[:, None].expand(nm, b)
+            sid_all = None
         bits = (_txb_bits(aq, coef_bits, txb_base[0], eob_tbl,
-                          _scan_pos_on(tx_size, dev))
-                + mode_bits[:, None].expand(nm, b).reshape(-1))
+                          _scan_pos_on(tx_size, dev), sid_all)
+                + mb.reshape(-1))
     # per-block lambdas follow the candidate-major (mode, block) stacking
-    lam_flat = lam.repeat(nm) if per_block_qp else lam
+    lam_flat = lam.repeat(nm) if lam.dim() else lam
     cost = (dist + lam_flat * bits).reshape(nm, b)
     # zone-3 candidates (angle > 180) read bottom-left recon, which the
     # wavefront has not written yet where the spec marks it available:
@@ -626,9 +646,10 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     b = ys.shape[0]
     nm = len(UV_MODES)
     lam_pair = lam
-    if qp.zbin.dim() == 2:
+    sid = quant.stream_ids(qp)
+    if sid is not None or qp.zbin.dim() == 2:
         # per-block rows; each (mode, plane-pair) group is 2*B blocks
-        qp = quant.QuantParams(*(a.repeat(2, 1) for a in qp))
+        qp = quant.repeat_rows(qp, 2)
         lam_pair = lam.repeat(2)
     preds = []
     for mode in UV_MODES:
@@ -662,9 +683,10 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
         coef_bits, txb_base, uv_bits, eob_tbl = rates
         pos = _scan_pos_on(tx_size, dev)
         bits = _txb_bits(qcoeff_all.abs(), coef_bits, txb_base[1], eob_tbl,
-                         pos)
+                         pos, None if sid is None else qp.sid.repeat(nm))
         cost_uv = (dist + lam_flat * bits).reshape(nm, 2, b).sum(dim=1)
-        cost_uv = cost_uv + lam * uv_bits[:, None]
+        cost_uv = cost_uv + lam * (uv_bits[:, None] if sid is None
+                                   else uv_bits[sid].T)
     mi_best = cost_uv.argmin(dim=0)
     ar = torch.arange(b, device=dev)
     qall = qcoeff_all.reshape(nm, 2, b, n, n)
@@ -697,16 +719,14 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
         coeffs_c = tf.fwd_txfm2d(
             (src_pair[None] - pred_c).reshape(3 * 2 * b, n, n),
             cc.DCT_DCT, tx_size)
-        qp_c = qp
-        if qp.zbin.dim() == 2:
-            qp_c = quant.QuantParams(*(a.repeat(3, 1) for a in qp))
+        qp_c = quant.repeat_rows(qp, 3)
         qc_c, dq_c = quant.quantize(coeffs_c, qp_c, tx_size)
         rec_c = tf.inv_txfm2d_add(dq_c, flat_pred, cc.DCT_DCT, tx_size,
                                   bd=bd)
         dd = rec_c.reshape(3, 2 * b, n, n) - src_pair[None]
         d_c = (dd * dd).sum(dim=(2, 3)).to(torch.float32)    # (3, 2B)
         bits_c = _txb_bits(qc_c.abs(), coef_bits, txb_base[1], eob_tbl,
-                           pos).reshape(3, 2 * b)
+                           pos, quant.stream_ids(qp_c)).reshape(3, 2 * b)
         co = d_c + lam_pair * bits_c
         oi = co.argmin(dim=0)                                # (2B,)
         ar2 = torch.arange(2 * b, device=dev)
@@ -756,8 +776,12 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     sy: (F, H, W), su/sv: (F, H/2, W/2) tensors of pixel_dtype(bd);
     qp/lam: the frame quantizer and lambda, or (F*gh*gw, 2) / (F*gh*gw,)
     per-block rows in raster block order (adaptive quantization), which
-    each wave gathers for its slots; rates: the md_rate_args tuple on the
-    same device, its mode_bits one per luma candidate.
+    each wave gathers for its slots, or a StreamQuant whose sid is the
+    (F,) stream of each frame with (S,) lambdas (a stream batch at
+    several qindices; the luma step takes K1's per-row form); rates: the
+    md_rate_args tuple on the same device, its mode_bits one per luma
+    candidate (with a StreamQuant, rate_est.stack_rate_args of the
+    streams' tuples).
     tx_search/angle_deltas: the luma candidates are
     ``expand_tx_cands(modes, angle_deltas)`` and the returned y modes are
     indices into that list.  cfl: the chroma step gets the CfL
@@ -798,12 +822,16 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     av = torch.zeros_like(au)
     pchoose = torch.zeros(nbk, dtype=torch.bool, device=dev)
     cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rates[:7]
-    aq = qp.zbin.dim() == 2
+    streams = isinstance(qp, quant.StreamQuant)
+    aq = not streams and qp.zbin.dim() == 2
     qp_w, lam_w = qp, lam
     for ws in _device_schedule(gh, gw, nf, dev, tuple(tile_starts)):
         if aq:
             qp_w = quant.QuantParams(*(f[ws.bid] for f in qp))
             lam_w = lam[ws.bid]
+        elif streams:
+            qp_w = qp.take(ws.fi)
+            lam_w = lam[qp_w.sid]
         inter = None
         if palette is not None:
             inter = (palette[0][ws.bid], palette[1][ws.bid])
@@ -855,6 +883,23 @@ def frame_lambda(qindex: int, bd: int = 8) -> np.float32:
     """MD Lagrangian 0.7 * (dc step / 8)^2, in float32."""
     qstep = quant.dc_q(qindex, bd=bd) / 8.0
     return np.float32(0.7 * qstep * qstep)
+
+
+def stream_params(qindices, rates, device, bd: int = 8):
+    """(qp, lam, rt) of a batch of S streams at ``qindices``: for one
+    stream its frame quantizer, 0-d lambda and ``rates(qindex)``; for S >
+    1 a StreamQuant with sid = arange(S), the (S,) lambdas and the
+    streams' rate tuples stacked (rate_est.stack_rate_args)."""
+    from svt_av1_tpu_torch.codec.rate_est import stack_rate_args
+    if len(qindices) == 1:
+        q = int(qindices[0])
+        return (quant.params_on(q, device, bd),
+                torch.tensor(frame_lambda(q, bd), device=device), rates(q))
+    return (quant.StreamQuant(quant.stream_table(qindices, device, bd),
+                              torch.arange(len(qindices), device=device)),
+            torch.tensor([frame_lambda(q, bd) for q in qindices],
+                         device=device),
+            stack_rate_args([rates(int(q)) for q in qindices]))
 
 
 def _check_slice(modes, bd, h, w):

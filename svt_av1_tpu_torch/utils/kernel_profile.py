@@ -72,3 +72,63 @@ def inter_frame(frames, w: int, h: int, preset: int, qindex: int = 140):
               tx_search=feat.tx_search, split8=feat.part8)
     return (lambda: gop_fast.run_inter_frame(src, refs, qindex, h, w, **kw),
             gop_fast.collect_inter_frame)
+
+
+
+def range_kernels(fn, names):
+    """Run ``fn()`` once under torch.profiler and count the device kernels
+    (copies and memsets apart) that were launched inside each named range
+    (torch.profiler.record_function, as pipeline/gop_fast.py's _region).
+    A kernel's launch is the CUDA API call that shares its correlation
+    id (a launch through ctypes has no PyTorch op around it); failing
+    that, the PyTorch op it is linked to.  The kernel is counted in every
+    range of ``names`` whose span on the host holds that call's start.
+    Returns dict(by_range={name: kernels, all calls together},
+    kernels=all device kernels, unlinked=kernels found in neither way,
+    wall_s=fn's seconds, parse_s=the count's seconds).  A name the run
+    never entered maps to 0.  The events are read as the profiler
+    recorded them, not through its parsed event tree, whose kernel-to-
+    range attribution overcounted when one op launched thousands of
+    kernels."""
+    import bisect
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spans = {n: [] for n in names}
+    api_start, op_start = {}, {}
+    kernels = []
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CPU:
+            if name.startswith("cu"):
+                api_start[ev.correlation_id()] = ev.start_ns()
+            elif ev.linked_correlation_id() == 0:
+                op_start[ev.correlation_id()] = ev.start_ns()
+            if name in spans:
+                spans[name].append((ev.start_ns(), ev.end_ns()))
+        elif (ev.device_type() == DeviceType.CUDA
+              and not ev.is_user_annotation() and name not in spans
+              and not name.startswith(("Memcpy", "Memset"))):
+            kernels.append((ev.correlation_id(), ev.linked_correlation_id()))
+    for v in spans.values():
+        v.sort()
+    by_range = {n: 0 for n in names}
+    unlinked = 0
+    for corr, link in kernels:
+        t = api_start.get(corr, op_start.get(link))
+        if t is None:
+            unlinked += 1
+            continue
+        for n, v in spans.items():
+            i = bisect.bisect_right(v, (t, float("inf"))) - 1
+            if i >= 0 and v[i][0] <= t <= v[i][1]:
+                by_range[n] += 1
+    return dict(by_range=by_range, kernels=len(kernels), unlinked=unlinked,
+                wall_s=wall, parse_s=time.perf_counter() - t0)

@@ -61,6 +61,40 @@ def test_kernel_matches_plain_on_cuda(b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1440, 97])
+def test_kernel_rows_form_matches_twin_on_cuda(b):
+    """K1's per-row form (a quantizer row per block, one per stream) against
+    its plain twin: coefficients under the tie rule, the quantizer exact on
+    the kernel's own coefficients, and each block equal to the one-row
+    kernel at its row's quantizer, at qindices across 1-255 with flat
+    blocks that saturate the int16 clamp."""
+    _need_card()
+    qs = [1, 100, 121, 255]
+    rng = np.random.default_rng(b + 7)
+    resid_np = rng.integers(-255, 256, (b, 16, 16)).astype(np.int32)
+    resid_np[::5] = 255
+    resid = torch.from_numpy(resid_np).cuda()
+    sid = torch.from_numpy(rng.integers(0, len(qs), b)).cuda()
+    sq = quant.StreamQuant(quant.stream_table(qs, resid.device), sid)
+    before = fused_txq.launches_rows
+    coef, qc, dq = fused_txq.fused_txq_rows(resid, sq)
+    torch.cuda.synchronize()
+    assert fused_txq.launches_rows == before + 1
+    fv, fh, _, _ = tf._fwd_matrices(cc.DCT_DCT, cc.TX_16X16)
+    exact = tie_rule.exact_coeffs(resid_np, fv, fh)
+    pc, _, _ = fused_txq.fused_txq_rows_plain(resid, sq)
+    tie_rule.tie_mismatches(coef.cpu().numpy(), pc.cpu().numpy(), exact)
+    q_ref, d_ref = quant.quantize(coef, sq, cc.TX_16X16)
+    assert torch.equal(qc, q_ref) and torch.equal(dq, d_ref)
+    for s, q in enumerate(qs):
+        m = sid == s
+        one = fused_txq.fused_txq(resid[m].contiguous(),
+                                  quant.params_on(q, resid.device))
+        for a, o in zip((coef, qc, dq), one):
+            assert torch.equal(a[m], o)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [2112, 1920, 100, 1])
 def test_kernel_bit_identical_to_first_kernel(b):
     """The redesigned kernel and the first one (svt_fused_txq16_v1) sum in

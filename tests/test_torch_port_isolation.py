@@ -113,11 +113,32 @@ def test_no_import_of_the_jax_package():
             "pipeline/tf_stage.py", "pipeline/tpl.py", "ops/resize.py",
             "ops/restoration.py", "pipeline/lr_stage.py",
             "pipeline/noise_model.py", "utils/metrics.py",
-            "app/cli.py", "native/capi.py"} <= scanned
+            "app/cli.py", "native/capi.py",
+            "parallel/multistream.py"} <= scanned
     bad = [f"{os.path.relpath(f, REPO)}:{line}: {mod}" for f in files
            for line, mod in _jax_package_imports(f)]
     assert len(files) > 30
     assert not bad, "imports of the JAX package:\n" + "\n".join(bad)
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """The multi-stream module stands on the port alone: no import of jax
+    (the reference's mesh) or of the JAX package."""
+    files = [f for f in _port_sources()
+             if os.path.relpath(f, PORT).startswith("parallel" + os.sep)]
+    assert any(f.endswith("multistream.py") for f in files)
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(open(f).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f}:{node.lineno}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "svt_av1_tpu")]
+    assert not bad, "\n".join(bad)
 
 
 def test_port_imports_resolve():
@@ -300,6 +321,15 @@ ENTRY_POINTS = {
     "Encoder GOP levels 5 keyint -1": lambda: Encoder(EncoderConfig(
         source_width=32, source_height=32, intra_period_length=-1,
         hierarchical_levels=5)),
+    "run_inter_frames_batched": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.parallel.multistream").run_inter_frames_batched(
+            [np.zeros((48, 32), np.uint8)] * 2,
+            [{1: {p: np.zeros(s, np.uint8) for p, s in (
+                ("y", (32, 32)), ("u", (16, 16)), ("v", (16, 16)))}}] * 2,
+            [100, 140], (0,)),
+    "encode_intra_frames_batched": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.parallel.multistream").encode_intra_frames_batched(
+            _frames(2, 32, 32), [100, 140]),
     "hierarchical_me": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
             np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),
@@ -353,6 +383,25 @@ def test_wrapper_check_refuses(bad):
         qp = qp._replace(quant=qp.quant.long())
     with pytest.raises((TypeError, ValueError)):
         fused_txq._check(resid, qp)
+
+
+@pytest.mark.parametrize("bad", ["table dtype", "table shape", "sid length",
+                                 "sid dtype"])
+def test_rows_wrapper_check_refuses(bad):
+    """K1's per-row form checks its quantizer table and row index."""
+    resid = torch.zeros((4, 16, 16), dtype=torch.int32)
+    table = quant.stream_table([100, 140], "cpu")
+    sid = torch.tensor([0, 1, 1, 0])
+    if bad == "table dtype":
+        table = table.long()
+    elif bad == "table shape":
+        table = table.reshape(2, 10)
+    elif bad == "sid length":
+        sid = sid[:3]
+    else:
+        sid = sid.float()
+    with pytest.raises((TypeError, ValueError)):
+        fused_txq._check_rows(resid, quant.StreamQuant(table, sid))
 
 
 def test_native_loader_raises_with_compiler_output(tmp_path, monkeypatch):

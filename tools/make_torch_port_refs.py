@@ -60,6 +60,7 @@ TESTS = (
     "tests/test_torch_gop_shapes.py",
     "tests/test_torch_cli.py",
     "tests/test_torch_capi.py",
+    "tests/test_torch_multistream.py",
 )
 
 

@@ -3,12 +3,16 @@
 CPU's stream of every cpu-vs-cuda case of chip_smoke.py (phases 7, 12,
 16, 20, 27, 31 and 34), and of the cases that phases 39-41 hold to the
 CPU's digest alone (the CLI's main path at CIF x17 and its decoded
-frames, the M4 levels-5 GOP).  chip_smoke.py holds the
+frames, the M4 levels-5 GOP) and of phase 43's multi-stream cases (the
+outputs of tests/test_torch_multistream.py's batched encodes).
+chip_smoke.py holds the
 card's stream of each case to its digest instead of encoding the case on
 the CPU again; in phases 7-34 a card stream that does not match is
 encoded on the CPU there and held to the parity rule, as before.
 
     python tools/record_cpu_streams.py      # about ten minutes on the CPU
+    python tools/record_cpu_streams.py 43   # phase 43's only (a minute),
+                                            # the other digests kept
 
 Runs the same phase functions with the card's side on the CPU
 (chip_smoke.CARD = "cpu"), collecting each stream's digest
@@ -23,12 +27,22 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main():
+def main(argv):
     sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import clips
     import chip_smoke as cs
     cs.CARD = "cpu"
     cs.RECORDED = {}
+    if argv == ["43"]:
+        with open(cs.CPU_STREAMS) as f:
+            kept = {k: v for k, v in json.load(f).items()
+                    if not k.startswith("43/")}
+        cs.phase_multistream_small()
+        return write(cs, {**kept, **cs.RECORDED})
+    if argv:
+        print(f"record_cpu_streams: unknown arguments {argv}",
+              file=sys.stderr)
+        return 2
     # phases 7, 12 and 16 compare the packets of phases 5, 9 and 14 (the
     # frames main() gives them)
     cif17 = cs.synth_frames(17, *cs.CIF)
@@ -51,12 +65,17 @@ def main():
                                             folder)
     cs.stored_digest("39/ivf", ivf)
     cs.stored_digest("39/decoded", decoded)
+    cs.phase_multistream_small()
+    return write(cs, cs.RECORDED)
+
+
+def write(cs, digests):
     with open(cs.CPU_STREAMS, "w") as f:
-        json.dump(dict(sorted(cs.RECORDED.items())), f, indent=1)
+        json.dump(dict(sorted(digests.items())), f, indent=1)
         f.write("\n")
-    print(f"wrote {len(cs.RECORDED)} digests to {cs.CPU_STREAMS}")
+    print(f"wrote {len(digests)} digests to {cs.CPU_STREAMS}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
