@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --this-slice   # phases 1-4, 42, 43 and 25 only
+    python3 chip_smoke.py --this-slice   # phases 1-4, 44, 45 and 25 only
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 42 and 43 (this slice) run
-alone right after phase 4.  Then the earlier slices run in five
-processes that share the card: this one runs 39, 40 and 41, while four
+failure raises and exits non-zero.  Phases 44 and 45 (this slice) run
+alone right after phase 4.  Then the earlier slices run in six
+processes that share the card: this one runs 39, 40 and 41, while five
 workers that it starts and waits for (this script with --worker NAME;
 their lines are printed after this one's, their launch counts and K1
 batch sizes returned in result files) run 27 and 26, then 5-24 in order
 (earlier); 37 and 38, then 35 and 36 (ten_bit_rate); 32, 33 and 34
-(post_filters); 28, 31, 30 and 29 (m4).  While they run, no
+(post_filters); 28, 31, 30 and 29 (m4); 42 and 43 (multistream).  While
+they run, no
 time is measured (it would include the other processes' load): the
 times on those phases' lines print as nan and their kernel profiles are
 left out; those phases check streams, decodes and K1's launch counts.
@@ -34,8 +35,9 @@ Then phase 25 and the last lines.  The phases:
      and 16 for the varpart program's 16x16 steps, 20 for phase 31's M4
      pass B; 24, 12, 18, 8 and 10 for phase 40's rect clip, CLI cases,
      64x64 M12 GOP and 32x32 M4 GOP; 1440, 264 and 88 for phase 42's
-     four 1080p key frames, its CIF S = 4 step and phase 43's key frames),
-     qindex 140 and
+     four 1080p key frames, its CIF S = 4 step and phase 43's key frames;
+     66 for phase 44's CIF M10 IPPP GOP, 24, 12, 18 and 24 for phase 45's
+     streams), qindex 140 and
      255: bit-identical to the first kernel (svt_fused_txq16_v1, kept in
      the same source), the tie rule below against the plain PyTorch
      version, qcoeff/dqcoeff exact on its own coefficients; the same on
@@ -45,7 +47,9 @@ Then phase 25 and the last lines.  The phases:
      under the 10-bit tie rule below, the saturated blocks equal to the
      plain version's, at the sizes the 10-bit paths give it (k1_batches10:
      360 for the 1080p key frame of phase 37, 132 for its CIF x2 batch,
-     phase 38's), also timed on the 10-bit residuals; at each size
+     phase 38's; 480 for the pass B of phase 44's 1080p 10-bit M6 GOP, the
+     main path: 60 wave slots x 8 modes), also timed on the 10-bit
+     residuals; at each size
      the device time per launch of the kernel, the first kernel and the
      plain version (a CUDA graph of 20 launches on preallocated outputs,
      replayed 50 times between two CUDA events; three rounds in turns)
@@ -322,7 +326,7 @@ Then phase 25 and the last lines.  The phases:
      card; only where python3-config gives no flags to embed Python is
      the phase left out, and a line says so and why (a shim or client
      that does not compile or link fails the script);
- 42. the main path of this slice, multi-stream encoding
+ 42. the main path of slice 13, multi-stream encoding
      (svt_av1_tpu_torch/parallel/multistream.py, BASELINE config 5's
      shape): four streams of the 1080p bench clip (coded 1920x1088, stream
      s shifted 8 s px) at M10 through encode_gop_streams: one batched key
@@ -345,7 +349,32 @@ Then phase 25 and the last lines.  The phases:
      card (64x64, four streams): the batched key frames, the three inter
      cases and the reference demo's sequence, each held to the CPU's
      digest, else to the stored JAX outputs by the parity rule (>= 99% of
-     blocks equal); nothing is encoded on the CPU.
+     blocks equal); nothing is encoded on the CPU;
+ 44. the main path of this slice, the stage path
+     (pipeline/inter_encoder.encode_inter_frame, the inter frames the
+     reference codes off its fast GOP path) on BASELINE config 3's shape:
+     the 1080p bench clip at 10 bits (coded 1920x1088) x3 at M6,
+     hierarchical_levels 1 (key, ALTREF-role base, compound B), keyint -1,
+     DLF + CDEF + loop restoration, MCTF, qp 35, through send_picture /
+     flush on the default device, cold: wall seconds per frame and per
+     coded frame, the host stage seconds (device_md_inter: the inter
+     frames' mode decision), bytes, Y-PSNR (peak 1023), the inter (> 0)
+     and compound blocks (MCTF clips the key and base frames' sources at
+     255 at 10 bits, as the reference's does), K1's launches (254 a frame
+     in the two
+     inter frames' pass B at B = 480; the M6 key frame searches four tx
+     types and takes none); every shown frame decoded on the card to
+     uint16 planes equal to recon; then the API's default GOP (IPPP:
+     keyint 15, hierarchical_levels 0) at M10 with DLF + CDEF on the CIF
+     clip x5: fps, seconds per inter frame, K1 56 a frame at B = 66,
+     decoded on the card;
+ 45. the streams of tests/test_torch_stage_path.py on the card (IPPP 128x96
+     x4 with DLF + CDEF, low delay, S-frames, CBR with an inter-frame
+     recode, 10-bit IPPP, a 10-bit levels-2 GOP with CDEF + LR + MCTF +
+     TPL, film grain in a GOP, a 128x64 GOP asking for two tile columns),
+     each decoded on the card equal to its recon and held to the CPU's
+     digest (tools/record_cpu_streams.py 45), else to the stored JAX
+     stream by the parity rule; nothing is encoded on the CPU.
 
 Phases 7, 12, 16, 20, 27, 31 and 34 hold the card's stream of each of
 their cases to the CPU's: a stream whose sha1 equals the digest that
@@ -390,11 +419,12 @@ inputs come from svt_av1_tpu_torch/goldens.py; phase 36's and 38's
 cases and helpers from the test modules, which import the JAX package only
 inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
-record: K1 (fused_txq16) and its per-row form (fused_txq16_rows), each
-with its launches on this slice's main path (phase 42's batched run)
-and its time at that path's batch (B = 1440); by_batch has every size
-(bd the residuals' bit depth).  The last line is {"ok": true, "device":
-{...}}.
+record: K1 (fused_txq16) with its launches on this slice's main path
+(phase 44's 1080p 10-bit GOP) and its time at that path's batch (B =
+480, 10-bit residuals), and its per-row form (fused_txq16_rows) with its
+launches and time on phase 42's batched run (B = 1440);
+launches_by_path has every path, by_batch every size (bd the residuals'
+bit depth).  The last line is {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -584,6 +614,10 @@ def k1_batches():
     driven += [k1_batch(MS_STREAMS, P1080_CODED, 10),
                k1_batch(MS_STREAMS, CIF, 10),
                MS_STREAMS * wave_slots((64, 64)) * 11]
+    # phase 44's CIF M10 IPPP GOP (66, above); phase 45's streams: 128x96,
+    # 64x64, 96x64 and 128x64 at M10
+    driven += [k1_batch(1, size, 10)
+               for size in ((128, 96), (64, 64), (96, 64), (128, 64))]
     return list(dict.fromkeys(driven))
 
 
@@ -608,11 +642,15 @@ def k1_batches10():
     37's 1080p M10 key frame and CIF x2 send_pictures, phase 38's small
     streams (M10 at 128x96, the superres frame at 80x96, 64x64 and the
     96x64 AVIF still, send_pictures 64x64 x2, the M4 varpart frame's
-    16x16 steps)."""
+    16x16 steps), phase 44's pass B (1080p M6) and phase 45's 10-bit
+    streams (64x64 M10)."""
     sizes = [k1_batch(1, P1080_CODED, 10), k1_batch(CIF_FRAMES, CIF, 10)]
     sizes += [k1_batch(1, s, 10)
               for s in ((128, 96), (80, 96), (64, 64), (96, 64))]
     sizes += [k1_batch(2, (64, 64), 10)] + k1_varpart_batches((128, 96), 4)
+    # phase 44: pass B of the 1080p 10-bit M6 GOP (the stage path's main
+    # path: 60 wave slots x 8 modes)
+    sizes += [stage_batch()]
     return list(dict.fromkeys(sizes))
 
 
@@ -1572,8 +1610,9 @@ def encode_gop(frames, w, h, device, preset=10, clip=None,
 
 def gop_decode_check(pkts, device, shown_limit=None):
     """The port's decoder on ``device`` over a GOP stream: every shown
-    frame (show-existing ones included) must equal Packet.recon.  Returns
-    (frame headers and decisions of the coded frames, shown count)."""
+    frame (show-existing ones included), cropped to the render size, must
+    equal Packet.recon.  Returns (frame headers and decisions of the coded
+    frames, shown count)."""
     from svt_av1_tpu_torch.codec import obu
     from svt_av1_tpu_torch.codec.decoder import Decoder
     dec = Decoder(device=device)
@@ -1584,7 +1623,8 @@ def gop_decode_check(pkts, device, shown_limit=None):
             raise AssertionError(f"poc {p.pts}: {len(out)} frames shown")
         for rec in out:
             for k in ("y", "u", "v"):
-                if not np.array_equal(rec[k], p.recon[k]):
+                h, w = p.recon[k].shape
+                if not np.array_equal(rec[k][:h, :w], p.recon[k]):
                     raise AssertionError(f"decoder recon differs (plane {k},"
                                          f" poc {p.pts})")
             shown += 1
@@ -3772,6 +3812,8 @@ MS_STREAMS = 4
 MS_KEY_Q = 120
 MS_QINDICES = (100, 115, 130, 145)
 MS_ALONE = (0, 3)
+# phase 42's path of K1's per-row form (the batched run's pass B)
+MS_ROWS_PATH = f"multi-stream M10 1080p S={MS_STREAMS} x3 (per-row form)"
 MS_RANGES = ("p1.hme", "p1.gm_fit", "p1.interp_pick", "p1.warp",
              "p1.pass_a", "p1.compound", "p1.pass_b", "p1.merges", "p2")
 
@@ -3947,7 +3989,7 @@ def phase_multistream(card):
                 _fail("phase 42: recon not finite")
     ps = [[round(psnr(streams[s][t][0], res[s][t][1]["y"].cpu().numpy()),
                   3) for t in range(nf)] for s in range(MS_STREAMS)]
-    log(f"phase 42: the main path, {MS_STREAMS} streams x {nf} frames of "
+    log(f"phase 42: slice 13's main path, {MS_STREAMS} streams x {nf} frames of "
         f"the 1080p bench clip (coded {w}x{h}) at M10 (keys at qindex "
         f"{MS_KEY_Q}, P + compound B steps at {list(MS_QINDICES)}), DLF + "
         f"CDEF, batched (S = {MS_STREAMS}), after stream {first} alone: "
@@ -3964,9 +4006,7 @@ def phase_multistream(card):
         f"({card})")
     main_k1 = (k1["frame"], k1["rows"])
     by_path = {f"multi-stream M10 1080p S={MS_STREAMS} x{nf} (frame form)":
-               k1["frame"],
-               f"multi-stream M10 1080p S={MS_STREAMS} x{nf} (per-row form)":
-               k1["rows"]}
+               k1["frame"], MS_ROWS_PATH: k1["rows"]}
     for s in MS_ALONE:
         one, hd1, steps1, k1a, dt1, peak1 = alone[s]
         same = all(np.array_equal(a, b) for a, b in zip(
@@ -4122,6 +4162,246 @@ def ms_agreement(tms, key, got, ref):
     return eq / max(rows, 1)
 
 
+# -- this slice: the stage path (44-45) ---------------------------------------
+
+# BASELINE.json config 3's shape: the bench clip at 1920x1080 (coded
+# 1920x1088), 10 bits, M6, one pyramid level (key, ALTREF-role base,
+# compound B: the fewest frames that code a compound block), keyint -1,
+# DLF + CDEF + LR, MCTF, qp 35; the reference codes a 10-bit GOP on its
+# stage path
+STAGE_MAIN = dict(enc_mode=6, hierarchical_levels=1, intra_period_length=-1,
+                  enable_dlf_flag=1, cdef_level=1,
+                  enable_restoration_filtering=1, enable_tf=1, qp=35,
+                  encoder_bit_depth=10)
+STAGE_FRAMES = 3
+# the API's default GOP: keyint 15, hierarchical_levels 0 (IPPP), M10,
+# with DLF + CDEF
+IPPP = dict(intra_period_length=15, enable_dlf_flag=1, cdef_level=1, qp=35)
+IPPP_FRAMES = 5
+
+
+def stage_batch():
+    """K1's batch in the main path's pass B: one 1080p frame's wave slots
+    x M6's 8 luma modes."""
+    return k1_batch(1, P1080_CODED, 6)
+
+
+def frame_timer():
+    """A spy on Encoder._encode_frame and _encode_inter_job that records
+    each call's wall seconds (the card synchronized at both ends):
+    (install, remove, the list of (pts, seconds))."""
+    import torch
+    from svt_av1_tpu_torch.api.encoder import Encoder
+    seen = []
+    origs = {name: getattr(Encoder, name)
+             for name in ("_encode_frame", "_encode_inter_job",
+                          "_encode_key_job")}
+
+    def wrap(name, orig):
+        def spy(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = clock()
+            out = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            poc = a[0] if name == "_encode_key_job" else (
+                a[0].poc if name == "_encode_inter_job" else a[3])
+            seen.append((name, int(poc), clock() - t0))
+            return out
+        return spy
+
+    def install():
+        for name, orig in origs.items():
+            setattr(Encoder, name, wrap(name, orig))
+
+    def remove():
+        for name, orig in origs.items():
+            setattr(Encoder, name, orig)
+
+    return install, remove, seen
+
+
+def stage_gop(frames, w, h, fields):
+    """A GOP through send_picture / flush on the default device: (packets,
+    K1 launches, K1's batches, stage seconds, wall seconds, the frames'
+    (coder, poc, seconds))."""
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+
+    def run():
+        enc = Encoder(EncoderConfig(source_width=w, source_height=h,
+                                    **fields))
+        for f in frames:
+            enc.send_picture(*f)
+        enc.flush()
+        return list(iter(enc.get_packet, None))
+
+    install, remove, seen = frame_timer()
+    install()
+    try:
+        pkts, n, batches, stages, dt = counted(run)
+    finally:
+        remove()
+    return pkts, n, batches, stages, dt, seen
+
+
+def phase_stage_path(card):
+    """Phase 44, this slice's main path: the 1080p 10-bit M6 GOP of
+    BASELINE config 3's shape (STAGE_MAIN: key, ALTREF-role base,
+    compound B) through send_picture / flush on the default device, cold
+    (the script's first GOP), then the API's default GOP (IPPP, keyint 15,
+    levels 0, M10) with DLF + CDEF on the CIF bench clip x5, timed; both
+    on the stage path (pipeline/inter_encoder.encode_inter_frame) with
+    K1 in every luma wave of pass B.  Each line: wall seconds per frame
+    and per coded frame (the card synchronized around each), the host
+    stage seconds (device_md_inter is the inter frames' mode decision,
+    the host's dispatch and its wait for the decisions' copy), bytes,
+    Y-PSNR, the inter and compound blocks, K1's launches and batches
+    (the 1080p GOP: 254 a frame in its two inter frames at B = 480; its
+    M6 key frame searches four tx types and takes no K1; the CIF GOP:
+    56 a frame in all five at B = 66); every shown frame decoded on the
+    card equal to Packet.recon.  Returns (the main path's K1 launches,
+    launches by path)."""
+    import torch
+    w, h = P1080
+    frames = frames10(STAGE_FRAMES, w, h)
+    pkts, n, batches, stages, dt, seen = stage_gop(frames, w, h, STAGE_MAIN)
+    waves = waves_per_frame(*P1080_CODED)
+    if n != 2 * waves or batches != [stage_batch()]:
+        _fail(f"phase 44: fused_txq {n} launches at {batches} on the main "
+              f"path, {2 * waves} at B = {stage_batch()} predicted")
+    if pkts[0].recon["y"].dtype != np.uint16:
+        _fail("phase 44: the 10-bit recon is not uint16")
+    t1 = clock()
+    coded, shown = gop_decode_check(pkts, None)
+    dec_s = clock() - t1
+    counts = gop_block_counts(coded)
+    # the key frame and the base code MCTF'd sources, which the reference's
+    # MCTF clips at 255 whatever the bit depth (ROADMAP.md queue C): the
+    # B frame predicts from clipped pictures, so its compound blocks are
+    # counted, not required
+    if shown != STAGE_FRAMES or not counts["inter"]:
+        _fail(f"phase 44: {shown} frames shown, blocks {counts}")
+    shown_p = sorted((p for p in pkts if p.displayed), key=lambda p: p.pts)
+    ps = [round(psnr(frames[p.pts][0], p.recon["y"], 1023.0), 4)
+          for p in shown_p]
+    sec = {k: round(v[0], 3) for k, v in stages.items()}
+    per = [(name.strip("_"), poc, round(t, 3)) for name, poc, t in seen]
+    log(f"phase 44: the main path, the stage path's 10-bit GOP: the 1080p "
+        f"bench clip x{STAGE_FRAMES} (coded {P1080_CODED[0]}x"
+        f"{P1080_CODED[1]}) at M6, hierarchical_levels 1, keyint -1, DLF + "
+        f"CDEF + LR, MCTF, qp 35, cold: {dt:.3f} s, {dt / STAGE_FRAMES:.3f} "
+        f"s per frame; per coded frame (coder, poc, s) {per}; stage seconds "
+        f"{sec}; {sum(len(p.data) for p in pkts)} bytes, Y-PSNR per shown "
+        f"frame {ps} dB (peak 1023; MCTF clips its planes at 255 as the "
+        f"reference's does, ROADMAP.md queue C); blocks {counts}; K1 {n} "
+        f"launches at B = {batches} ({waves} waves a frame); decoded on the "
+        f"card to uint16 planes equal to recon ({dec_s:.1f} s); {card}")
+    by_path = {f"10-bit M6 stage-path GOP 1080p x{STAGE_FRAMES}": n}
+    main_n = n
+
+    cif = synth_frames(IPPP_FRAMES, *CIF)
+    pkts, n, batches, stages, dt, seen = stage_gop(cif, *CIF, IPPP)
+    cw = waves_per_frame(*CIF)
+    if n != IPPP_FRAMES * cw or batches != [k1_batch(1, CIF, 10)]:
+        _fail(f"phase 44: the CIF IPPP GOP launched fused_txq {n} times at "
+              f"{batches}; {IPPP_FRAMES * cw} at B = {k1_batch(1, CIF, 10)} "
+              "predicted")
+    coded, shown = gop_decode_check(pkts, None)
+    counts = gop_block_counts(coded)
+    if shown != IPPP_FRAMES or not counts["inter"]:
+        _fail(f"phase 44: IPPP {shown} frames shown, blocks {counts}")
+    inter_s = [t for name, poc, t in seen
+               if name == "_encode_frame" and poc > 0]
+    ps = float(np.mean([psnr(cif[p.pts][0], p.recon["y"]) for p in pkts]))
+    log(f"phase 44: the API's default GOP (IPPP: keyint 15, "
+        f"hierarchical_levels 0) at M10 with DLF + CDEF, CIF x{IPPP_FRAMES} "
+        f"on the default device: {IPPP_FRAMES / dt:.3f} fps ({dt:.3f} s); "
+        f"seconds per inter frame {[round(t, 3) for t in inter_s]} (mean "
+        f"{np.mean(inter_s) if inter_s else float('nan'):.3f}), key frame "
+        f"{[round(t, 3) for name, poc, t in seen if poc == 0]}; stage "
+        f"seconds {({k: round(v[0], 3) for k, v in stages.items()})}; "
+        f"{sum(len(p.data) for p in pkts)} bytes, mean Y-PSNR {ps:.4f} dB; "
+        f"blocks {counts}; K1 {n} launches at B = {batches}; decoded on the "
+        f"card equal to recon; {card}")
+    by_path[f"M10 IPPP GOP DLF+CDEF CIF x{IPPP_FRAMES}"] = n
+    torch.cuda.synchronize()
+    return main_n, by_path
+
+
+def stage_small_cases():
+    """(name, frames, EncoderConfig fields) of the streams of
+    tests/test_torch_stage_path.py."""
+    tsp = test_module("test_torch_stage_path")
+    return [(name, make(), fields)
+            for name, (make, fields) in sorted(tsp.STREAMS.items())]
+
+
+def phase_stage_small():
+    """Phase 45: the streams of tests/test_torch_stage_path.py (IPPP, low
+    delay, S-frames, a CBR recode, 10-bit IPPP, a 10-bit levels-2 GOP with
+    CDEF + LR + MCTF + TPL, film grain, two tile columns asked) on the
+    card, each decoded on the card equal to its recon and held to the
+    CPU's digest (tools/record_cpu_streams.py 45); a stream that differs
+    is held to the stored JAX stream (the CPU's, byte for byte) by the
+    parity rule: >= 99% of blocks equal, |dPSNR| <= 0.05 dB, |dbytes| <=
+    1%.  Nothing is encoded on the CPU."""
+    tsp = test_module("test_torch_stage_path")
+    for name, frames, fields in stage_small_cases():
+        t0 = clock()
+        pkts, recodes = tsp.port_stream(fields, frames, device=CARD)
+        dt = clock() - t0
+        coded, shown = gop_decode_check(pkts, CARD)
+        if shown != len(frames):
+            _fail(f"phase 45: {name}: {shown} frames shown")
+        if stored_digest(f"45/{name}", stream_digest(pkts)):
+            how = "equal to the CPU's digest"
+        else:
+            jax = tsp.stored_stream(f"stage_stream_{name}", fields, frames)
+            from svt_av1_tpu_torch.codec import obu
+            from svt_av1_tpu_torch.codec.decoder import Decoder
+            dec = Decoder(device=CARD)
+            ref_coded = []
+            for d in jax["data"]:
+                dec.decode_temporal_unit(d)
+                if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(d)]:
+                    ref_coded.append(dec.last_decisions)
+            pairs = [(a, fb.get(k)) for (_, fa), fb in zip(coded, ref_coded)
+                     for k, a in fa.items()]
+            agree = sum(_same_inter_block(a, b) and (
+                a.is_inter or same_block(a, b)) for a, b in pairs) / max(
+                    len(pairs), 1)
+            bd = 1023.0 if fields.get("encoder_bit_depth") == 10 else 255.0
+            shown_p = [p for p in pkts if p.displayed]
+            dps = abs(np.mean([psnr(f[0], p.recon["y"], bd) for f, p in zip(
+                frames, sorted(shown_p, key=lambda p: p.pts))])
+                - np.mean([psnr(f[0], r["y"], bd) for f, r in zip(
+                    frames, jax["recon"])]))
+            db = abs(sum(len(p.data) for p in pkts)
+                     / sum(map(len, jax["data"])) - 1.0)
+            how = (f"DIFFERENT from the CPU's digest: {agree:.2%} of blocks "
+                   f"equal to the stored JAX stream's, |dPSNR| {dps:.4f} "
+                   f"dB, |dbytes| {db:.2%}")
+            if agree < MIN_BLOCK_AGREE or dps > MAX_DPSNR or db > MAX_DBYTES:
+                _fail(f"phase 45: {name}: {how}")
+        log(f"phase 45: {name} ({frames[0][0].shape[1]}x"
+            f"{frames[0][0].shape[0]} x{len(frames)}) on the card: "
+            f"{dt:.2f} s, {sum(len(p.data) for p in pkts)} bytes, recodes "
+            f"{recodes}; decoded on the card equal to recon; {how}")
+
+
+def stage_slice(card):
+    """Phases 44-45 (this slice's), first and alone."""
+    main_n, by_path = phase_stage_path(card)
+    phase_stage_small()
+    return main_n, by_path
+
+
+def multistream_slices(card, cif17, by_path):
+    """Slice 13 (phases 42-43): four 1080p streams batched and two of them
+    alone, then the CPU tests' multi-stream cases on the card."""
+    by_path.update(phase_multistream(card)[1])
+    phase_multistream_small()
+
+
 def _fail(msg):
     raise AssertionError(msg)
 
@@ -4235,7 +4515,8 @@ WORKER = "--worker"
 # the groups of earlier slices that run each in a process of its own,
 # beside front_end_slices in this one (about 200-290 s each on the H100)
 WORKERS = {"earlier": earlier_slices, "ten_bit_rate": ten_bit_and_rate_slices,
-           "post_filters": post_filter_slices, "m4": m4_slices}
+           "post_filters": post_filter_slices, "m4": m4_slices,
+           "multistream": multistream_slices}
 
 
 def start_worker(name, folder):
@@ -4362,13 +4643,12 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first and alone (so that nothing else weighs on the main
-    # path's timing): four 1080p streams batched and two of them alone,
-    # then the CPU tests' multi-stream cases on the card
+    # path's timing): the stage path's 1080p 10-bit GOP and the CIF IPPP
+    # GOP, then the CPU tests' stage-path streams on the card
     cif17 = synth_frames(17, *CIF)
-    main_launches, by_path = phase_multistream(card)
-    phase_multistream_small()
+    main_launches, by_path = stage_slice(card)
     if "--this-slice" in sys.argv[1:]:
-        # a short call while the slice is built: phases 1-4, 42, 43, 25
+        # a short call while the slice is built: phases 1-4, 44, 45, 25
         return finish(card, krec, main_launches, by_path, smi)
 
     # the earlier slices in five processes that share the card: slice 12
@@ -4376,7 +4656,7 @@ def main():
     # is measured while they run (SHARED)
     global SHARED
     import tempfile
-    log(f"phases 5-41: in {len(WORKERS) + 1} processes that share the card "
+    log(f"phases 5-43: in {len(WORKERS) + 1} processes that share the card "
         f"(this one and the workers {', '.join(WORKERS)}, whose lines "
         f"follow this one's in that order); their times are not measured "
         f"and print as nan")
@@ -4420,20 +4700,23 @@ def finish(card, krec, main_launches, by_path, smi):
 
     check_no_jax()
     # the line's top-level numbers are K1's on this slice's main path
-    # (phase 42): the launches of its two forms in the batched run, each
-    # timed at that run's batch (four streams x 60 wave slots x 6 modes);
-    # every size is under by_batch (bd: the residuals' bit depth)
-    b_main = MS_STREAMS * k1_batch(1, P1080_CODED, 10)
+    # (phase 44): its launches in the pass B of the 1080p 10-bit M6 GOP,
+    # timed at that path's batch (60 wave slots x 8 modes) on 10-bit
+    # residuals; the per-row form's are phase 42's (four 1080p streams,
+    # its batched run, B = 4 x 60 x 6); every size is under by_batch (bd:
+    # the residuals' bit depth) and every path under launches_by_path
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == b_main and r["bd"] == 8)
-    r0 = next(r for r in krec["rows_by_batch"] if r["b"] == b_main)
+              if r["b"] == stage_batch() and r["bd"] == 10)
+    b_rows = MS_STREAMS * k1_batch(1, P1080_CODED, 10)
+    r0 = next(r for r in krec["rows_by_batch"] if r["b"] == b_rows)
+    rows_launches = by_path.get(MS_ROWS_PATH, 0)
     print(smi, flush=True)
     src = dict(route="cuda", source="svt_av1_tpu_torch/csrc/fused_txq.cu",
                replaces="svt_av1_tpu/ops/pallas/fused_txq.py:32",
                library_ms=None)
     print(json.dumps({"kernels": [dict(
         name="fused_txq16", **src,
-        launches=main_launches[0], max_abs_err=krec["max_abs_err"],
+        launches=main_launches, max_abs_err=krec["max_abs_err"],
         ms=b0["us"] / 1000, plain_ms=b0["plain_us"] / 1000,
         bound_ms=b0["bound_us"] / 1000, bound_by=b0["bound_by"],
         bound_us=b0["bound_us"], share=b0["share"],
@@ -4442,7 +4725,7 @@ def finish(card, krec, main_launches, by_path, smi):
         worst_tie_distance_10bit=krec["worst10"],
         launches_by_path=by_path, by_batch=krec["by_batch"]), dict(
         name="fused_txq16_rows", **src,
-        launches=main_launches[1], max_abs_err=krec["rows_max_abs_err"],
+        launches=rows_launches, max_abs_err=krec["rows_max_abs_err"],
         ms=r0["us"] / 1000, plain_ms=r0["plain_us"] / 1000,
         bound_ms=r0["bound_us"] / 1000, bound_by=r0["bound_by"],
         bound_us=r0["bound_us"], share=r0["share"],

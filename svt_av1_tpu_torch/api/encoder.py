@@ -11,19 +11,25 @@ port's slice.
   enc.get_stream_info(0)    ~ svt_av1_enc_get_stream_info (pass-1 stats)
 
 Slice: 4:2:0 at every preset (M0-M13), DLF, CDEF and loop restoration
-on or off; either all-intra (intra_period_length -2 or 0) at 8 or 10
-bits (uint16 planes; at 10 bits no palette, and send_pictures takes the
-per-block route, as in the reference), or the 8-bit hierarchical
-(random-access) GOP of the reference's fast path with hierarchical_levels
-1-5 (mini-GoPs of 2-32 frames) and intra_period_length > 0 or -1 (one key
-frame, then key frames at scene cuts only), with or without the
-lookahead (MCTF, enable_tf; TPL, enable_tpl_la); at M0-M8 its inter
-frames search the inter tx type and the OBMC and inter-intra motion
-modes, at M0-M6 the 8x8 split and TMVP too, at M0-M4 a third
-(GOLDEN-role) reference (gop_fast.run_inter_frame).  All-intra streams
-also take superres (superres_mode > 0: half width where the coded width
-is a multiple of 32), film grain (parameters estimated from the first
-frame's source, pipeline/noise_model.py) and adaptive quantization
+on or off, at 8 or 10 bits (uint16 planes; at 10 bits no palette, and
+send_pictures takes the per-block route, as in the reference): all-intra
+(intra_period_length -2 or 0); hierarchical (random-access) GOPs with
+hierarchical_levels 1-5 (mini-GoPs of 2-32 frames) and
+intra_period_length > 0 or -1 (one key frame, then key frames at scene
+cuts only), with or without the lookahead (MCTF, enable_tf; TPL,
+enable_tpl_la); and IPPP / low-delay GOPs (hierarchical_levels 0 or
+pred_structure != 2), with S-frames (sframe_dist).  An 8-bit single-tile
+grain-free hierarchical GOP without S-frames takes the reference's fast
+path (gop_fast.run_inter_frame: at M0-M8 its inter frames search the
+inter tx type and the OBMC and inter-intra motion modes, at M0-M6 the
+8x8 split and TMVP too, at M0-M4 a third, GOLDEN-role reference); every
+other inter frame takes its stage path (inter_encoder.encode_inter_frame:
+pass A over the references, the compound probe, pass B with K1 on every
+luma wave), each frame then filtered and packetized as a key frame is.
+All-intra streams also take superres (superres_mode > 0: half width
+where the coded width is a multiple of 32), film grain (parameters
+estimated from the first frame's source, pipeline/noise_model.py; in a
+GOP on every frame) and adaptive quantization
 (enable_adaptive_quantization 1: a per-64x64 variance qindex map coded
 as delta-q; 2: the same deltas as SEG_LVL_ALT_Q segments) on
 ``send_picture`` key frames at presets without varpart (M5-M13).  AVIF
@@ -46,22 +52,33 @@ array route of ``send_pictures`` only: tile-clamped availability in the
 wave loop and one native coder call per tile; every other route codes one
 tile, and tile_rows is not used, as in the reference.
 
-As in the reference, a GOP codes without superres and without AQ, and its
-key frames take loop restoration (the DPB slot holds the restored planes;
-inter frames signal RESTORE_NONE).  What still raises NotImplementedError,
+As in the reference, a GOP codes without superres; a hierarchical GOP's
+key frames take loop restoration on the fast path (the DPB slot holds the
+restored planes; its inter frames signal RESTORE_NONE), and on the stage
+path every frame takes the filters and loop restoration of a key frame.
+Tile columns (tile_columns) in a GOP code one tile, as the reference's
+per-block packetization does.  What still raises NotImplementedError,
 naming the ROADMAP.md item that brings it (nothing falls back to the JAX
-package): a GOP with film grain, with more than one tile column or at 10
-bits (the reference codes these on its stage path, which is not ported),
-low-delay and IPPP GOPs, S-frames, and a feature override (SVT_TPU_FEAT)
-that turns on a tool no preset uses (hp_mv, rdoq).
+package): a feature override (SVT_TPU_FEAT) that turns on a tool no
+preset uses (hp_mv on the fast path, which alone reads it; rdoq).
 
-In a GOP, ``send_picture`` holds frames until a mini-GoP is complete (or
-``flush``), then codes it in decode order: the base frame, the mid
-layers, and show-existing packets for hidden frames.  Key frames take the
-intra path below (their filters as the reference's GOP key frames take
-them: per-SB CDEF strengths at M0-M4); each inter frame runs the two
-device programs of pipeline/gop_fast.py, every frame of the mini-GoP
-dispatched before the first is entropy-coded.  The DPB's recon stays on
+An IPPP / low-delay GOP codes each frame as it arrives (_drain,
+_encode_frame): with MCTF a key frame waits for its next two frames and
+is filtered against them and the previous source frame; every inter
+frame predicts from slot 0 (the last frame) and chains its CDFs from it;
+every sframe_dist-th inter frame is an S-frame (error resilient, default
+CDFs, refresh-all); under one-pass VBR / CBR an inter frame over 3x its
+budget is coded once more at a higher qindex.
+
+In a hierarchical GOP, ``send_picture`` holds frames until a mini-GoP is
+complete (or ``flush``), then codes it in decode order: the base frame,
+the mid layers, and show-existing packets for hidden frames.  Key frames
+take the intra path below (their filters as the reference's GOP key
+frames take them: per-SB CDEF strengths at M0-M4); on the fast path each
+inter frame runs the two device programs of pipeline/gop_fast.py, every
+frame of the mini-GoP dispatched before the first is entropy-coded; on
+the stage path each is coded in turn, its CDFs chained from its LAST
+slot.  The DPB's recon stays on
 the device; a slot is freed after its last use in the mini-GoP.  At M0-M4
 (mref) the mid frames also search the mini-GoP's anchor, the base frame
 the previous mini-GoP's anchor, which the DPB keeps one mini-GoP longer.
@@ -120,8 +137,8 @@ from svt_av1_tpu_torch.codec import lr as lr_mod
 from svt_av1_tpu_torch.codec.film_grain import default_grain_params
 from svt_av1_tpu_torch.ops import resize
 from svt_av1_tpu_torch.pipeline import (cdef_stage, dlf_stage, gop, gop_fast,
-                                        intra_encoder, lr_stage, noise_model,
-                                        tf_stage, tpl)
+                                        inter_encoder, intra_encoder,
+                                        lr_stage, noise_model, tf_stage, tpl)
 from svt_av1_tpu_torch.pipeline import varpart as varpart_mod
 from svt_av1_tpu_torch.pipeline.dlf_stage import default_filter_level
 from svt_av1_tpu_torch.pipeline.presets import features_for
@@ -204,32 +221,6 @@ def _tile_layout(width: int, tile_columns: int):
     return obu.tile_cols_layout(width, max(0, min(int(tile_columns), 4)))
 
 
-def _unsupported(cfg: EncoderConfig):
-    """(reason, ROADMAP.md item) of the first setting outside the slice,
-    or None."""
-    gop = cfg.intra_period_length not in (-2, 0)
-    checks = (
-        (gop and cfg.encoder_bit_depth != 8,
-         "10-bit GOPs (the reference codes them on its stage path, which "
-         "is not ported)", "queue A item 7"),
-        (gop and (cfg.pred_structure != 2 or cfg.hierarchical_levels == 0),
-         "low-delay and IPPP GOPs (pred_structure != 2 or "
-         "hierarchical_levels 0)", "queue A item 7"),
-        (gop and len(_tile_layout(_align16(cfg.source_width),
-                                  cfg.tile_columns)) > 1,
-         "tile columns in a GOP (the reference codes it on its stage path, "
-         "which is not ported)", "queue A item 7"),
-        (gop and cfg.film_grain_denoise_strength > 0,
-         "film grain in a GOP (the reference codes it on its stage path, "
-         "which is not ported)", "queue A item 7"),
-        (cfg.sframe_dist > 0, "S-frames", "queue A item 7"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            return what, item
-    return None
-
-
 def _skip_map(decisions, gh: int, gw: int) -> np.ndarray:
     """(gh, gw) bool: skip flag per 16x16 cell, filled from each leaf
     decision's true block size."""
@@ -255,13 +246,18 @@ def _skip_map8(decisions, gh8: int, gw8: int) -> np.ndarray:
     return m
 
 
+def _sframe_setup(fp):
+    """The header of a switch frame: S_FRAME, error resilient, refresh
+    every slot, default CDFs."""
+    fp.frame_type = obu.S_FRAME
+    fp.error_resilient_mode = True
+    fp.refresh_frame_flags = 0xFF
+    fp.primary_ref_frame = obu.PRIMARY_REF_NONE
+
+
 class Encoder:
     def __init__(self, config: EncoderConfig, device=None):
         self.cfg = config.validate()
-        bad = _unsupported(config)
-        if bad is not None:
-            raise NotImplementedError(
-                f"{bad[0]}: not ported yet (ROADMAP.md {bad[1]})")
         self.device = device_mod.resolve(device)
         fast_ec.available()        # builds the native coder or raises
         self.render_w = config.source_width
@@ -290,15 +286,6 @@ class Encoder:
         self._grain_params = None
         self._grain_estimated = False
         self._feat = features_for(config.enc_mode)
-        # feature overrides (SVT_TPU_FEAT) can turn on tools that no preset
-        # uses and the port does not have
-        gop_mode = config.intra_period_length not in (-2, 0)
-        for on, what in ((self._feat.hp_mv and gop_mode,
-                          "1/8-pel MVs (hp_mv)"),
-                         (self._feat.rdoq, "RDOQ (rdoq)")):
-            if on:
-                raise NotImplementedError(
-                    f"{what}: not ported yet (ROADMAP.md queue A item 7)")
         # palette presets signal SELECT_SCREEN_CONTENT_TOOLS in the
         # sequence header at 8 bits; a frame turns the tools on when it
         # has palette candidates
@@ -352,10 +339,14 @@ class Encoder:
         self._ahd_running = None
         self._scene_cut = False
         self._last_ahd = 0.0
-        # hierarchical (random access) GOP: the fast path's state
+        # hierarchical (random access) GOP: hierarchical_levels > 0 with
+        # inter frames and the random-access structure; any other GOP is
+        # IPPP / low delay (_drain, _encode_frame)
         self._hier = 0
-        if config.intra_period_length not in (-2, 0):
-            self._hier = config.hierarchical_levels
+        if (config.hierarchical_levels > 0
+                and config.intra_period_length not in (-2, 0)
+                and config.pred_structure == 2):
+            self._hier = min(5, config.hierarchical_levels)
             self._h_frames: Dict[int, tuple] = {}  # poc -> (y, u, v)
             self._h_next_in = 0       # next arriving poc
             self._h_sched = 0         # first unscheduled poc
@@ -374,6 +365,27 @@ class Encoder:
             # order hints let skip mode pick the (fwd, bwd) pair
             self.sp.enable_order_hint = True
             self.sp.enable_ref_frame_mvs = bool(self._feat.tmvp)
+        # the fused fast GOP path (pipeline/gop_fast.py) codes 8-bit
+        # single-tile grain-free hierarchical GOPs without S-frames; every
+        # other inter frame takes the stage path
+        # (pipeline/inter_encoder.encode_inter_frame), as in the reference
+        self._fast = (self._hier > 0 and self.bd == 8
+                      and self.sr_denom == 8
+                      and config.film_grain_denoise_strength == 0
+                      and self._log2_tile_cols == 0
+                      and not config.avif and config.sframe_dist <= 0)
+        # the last source frame (the backward neighbour of an IPPP key
+        # frame's MCTF)
+        self._tf_hist = []
+        # feature overrides (SVT_TPU_FEAT) can turn on tools that no preset
+        # uses and the port does not have; the reference reads hp_mv on its
+        # fast path only
+        for on, what in ((self._feat.hp_mv and self._fast,
+                          "1/8-pel MVs (hp_mv)"),
+                         (self._feat.rdoq, "RDOQ (rdoq)")):
+            if on:
+                raise NotImplementedError(
+                    f"{what}: not ported yet (ROADMAP.md queue A item 7)")
 
     # -- API surface ---------------------------------------------------------
     def stream_header(self) -> bytes:
@@ -382,8 +394,10 @@ class Encoder:
     def send_picture(self, y, u, v, eos: bool = False):
         """Feed one frame (planar numpy: uint8, or uint16 at 10 bits).
         All-intra has no lookahead, so the frame is coded before this
-        returns; in a GOP the frame waits until its mini-GoP is complete.
-        AVIF codes one picture: a second raises ValueError."""
+        returns; an IPPP / low-delay GOP with MCTF holds a key frame until
+        its next two frames are in; a hierarchical GOP holds frames until
+        their mini-GoP is complete.  AVIF codes one picture: a second
+        raises ValueError."""
         self._one_still(1)
         y, u, v = self._checked(y, u, v)
         if self._hier:
@@ -396,7 +410,7 @@ class Encoder:
             self._drain_hier(flush=eos)
         else:
             self._la.append((y, u, v))
-            self._drain()
+            self._drain(flush=eos)
         if eos:
             self._eos_sent = True
 
@@ -405,32 +419,75 @@ class Encoder:
         if self._hier:
             self._drain_hier(flush=True)
         else:
-            self._drain()
+            self._drain(flush=True)
         self._eos_sent = True
 
-    def _drain(self):
+    def _drain(self, flush: bool = False):
+        """Code the frames waiting in the lookahead, in order: all-intra
+        frames at once; in an IPPP / low-delay GOP with MCTF, a key frame
+        once its next two frames are in (or at ``flush``), filtered against
+        the previous source frame and those two; the scene-cut detector
+        sees every GOP frame as it is coded."""
+        gop_mode = self.cfg.intra_period_length not in (-2, 0)
         while self._la:
+            if (self._tf_active() and self._frame_is_key(self._pts)
+                    and len(self._la) < 3 and not flush):
+                return
             y, u, v = self._la.popleft()
+            if gop_mode:
+                self._detect_scene_cut(y)
+            if self._tf_active() and self._frame_is_key(self._pts):
+                neighbors = list(self._tf_hist) + list(self._la)[:2]
+                if neighbors:
+                    with stage("key_tf"):
+                        y, u, v = tf_stage.mctf_filter_frame(
+                            (y, u, v), neighbors, device=self.device)
+            self._tf_hist = [(y, u, v)]
             self._packets.append(self._encode_frame(y, u, v, self._pts))
             self._pts += 1
 
+    def _frame_is_key(self, pts: int) -> bool:
+        """Key frames of an all-intra stream or an IPPP / low-delay GOP:
+        every frame (intra_period_length -2 or 0), a scene cut, the first
+        frame only (-1), or every N+1-th frame (N > 0)."""
+        period = self.cfg.intra_period_length
+        if period in (-2, 0):
+            return True
+        if self._scene_cut:
+            return True
+        if period == -1:
+            return pts == 0
+        return pts % (period + 1) == 0
+
     def _encode_frame(self, y, u, v, pts, qindex_override=None,
                       recode: bool = False) -> Packet:
-        """One key frame: its qindex (the pass-2 plan, one-pass VBR/CBR's
-        pick, else the configured one), the superres downscale, AQ's
-        qindex map, mode decision, then the filters and object
-        packetization.  Under one-pass VBR/CBR a frame over 8x its budget
-        is coded once more at a higher qindex, from the same reference
-        state (the recode loop); rate control, the first-pass stats and
-        the stat report see the frame once, at the qindex it keeps."""
+        """One frame of an all-intra stream or an IPPP / low-delay GOP: its
+        qindex (the pass-2 plan, one-pass VBR/CBR's pick, else the
+        configured one; a GOP's key frames boosted), the superres
+        downscale, AQ's qindex map on key frames, mode decision (the
+        preset's intra tools, or the stage path's inter frame from the
+        slot-0 reference), then the filters and object packetization; every
+        sframe_dist-th inter frame is an S-frame (error resilient, default
+        CDFs, refresh-all).  Under one-pass VBR/CBR a frame over 8x (key)
+        or 3x (inter) its budget is coded once more at a higher qindex,
+        from the same reference state (the recode loop); rate control, the
+        first-pass stats and the stat report see the frame once, at the
+        qindex it keeps."""
+        is_key = self._frame_is_key(pts) or self._ref is None
         if qindex_override is not None:
             qindex = int(qindex_override)
         elif self._q_plan is not None and pts < len(self._q_plan):
             qindex = int(self._q_plan[pts])
         elif self._rc.onepass is not None:
-            qindex = self._rc.pick_q(True, 0, pts)
+            qindex = self._rc.pick_q(is_key, 0, pts)
         else:
             qindex = self._rc.frame_qindex()
+        if (is_key and self.cfg.intra_period_length not in (-2, 0)
+                and self._q_plan is None and qindex_override is None
+                and self._rc.onepass is None):
+            # key-frame boost: the whole GOP references its key frames;
+            # a recode keeps its raised qindex
+            qindex = max(1, qindex - qindex // self._feat.kf_boost_div)
         # what a recode rewinds: the reference state, and whether the
         # sequence header went out (the first attempt's packet is dropped)
         snap = (self._ref, self._ref_cdfs, self._ref_nmv,
@@ -445,24 +502,37 @@ class Encoder:
                          + p[:, 1::2].astype(np.int32) + 1) >> 1
                         ).astype(p.dtype) for p in (y, u, v))
         qmap = seg_info = None
-        if self.cfg.enable_adaptive_quantization and not self._feat.varpart:
+        if (self.cfg.enable_adaptive_quantization and is_key
+                and not self._feat.varpart):
             if self.cfg.enable_adaptive_quantization == 2:
                 # segment-based AQ: the variance deltas become
                 # SEG_LVL_ALT_Q segments (segmentation.c role)
                 seg_info, qmap = _segment_qmap(y, qindex)
             else:
                 qmap = _variance_qmap(y, qindex)
-        decisions, recon, allow_sct = self._mode_decision(
-            y, u, v, qindex, qmap=qmap, varpart=self._feat.varpart)
-        pkt = self._packetize(decisions, recon, qindex, pts,
+        gm, interp, allow_sct = None, 0, False
+        if is_key:
+            decisions, recon, allow_sct = self._mode_decision(
+                y, u, v, qindex, qmap=qmap, varpart=self._feat.varpart)
+        else:
+            with stage("device_md_inter"):
+                decisions, recon, gm, interp = self._stage_inter(
+                    y, u, v, self._ref, qindex)
+        # switch frames (S_FRAME, Docs/Appendix-Switch-Frame.md role): every
+        # sframe_dist-th inter frame codes as an error-resilient switch
+        # point (default CDFs, refresh-all)
+        sframe = (not is_key and self.cfg.sframe_dist > 0
+                  and pts % self.cfg.sframe_dist == 0)
+        pkt = self._packetize(decisions, recon, qindex, pts, is_key=is_key,
                               allow_sct=allow_sct, src=dict(y=y, u=u, v=v),
                               src_full=src_full,
                               delta_q=qmap is not None and seg_info is None,
-                              seg=seg_info)
+                              seg=seg_info, gm=gm, interp=interp,
+                              fp_setup=_sframe_setup if sframe else None)
         bits = len(pkt.data) * 8
+        limit = (8.0 if is_key else 3.0) * self._rc.target_bits_per_frame
         if (not recode and self._rc.mode in (1, 2) and self._q_plan is None
-                and bits > 8.0 * self._rc.target_bits_per_frame
-                and qindex < self._rc.max_qindex):
+                and bits > limit and qindex < self._rc.max_qindex):
             (self._ref, self._ref_cdfs, self._ref_nmv,
              self._seq_hdr_sent) = snap
             return self._encode_frame(
@@ -472,10 +542,20 @@ class Encoder:
         if self.cfg.stat_report:
             with stage("stat_report"):
                 pkt.stats = metrics.frame_stats(src_full, pkt.recon, self.bd)
-        self._rc.feedback(bits, qindex, True)
+        self._rc.feedback(bits, qindex, is_key)
         if self._fp_stats is not None:
-            self._fp_stats.append((bits, qindex, 1.0))
+            self._fp_stats.append((bits, qindex, float(is_key)))
         return pkt
+
+    def _stage_inter(self, y, u, v, refs, qindex):
+        """The stage path's mode decision of one inter frame (padded
+        source planes; refs: a plane dict or {ref_enum: plane dict}):
+        (decisions, recon on the device, gm models, interp filter)."""
+        return inter_encoder.encode_inter_frame(
+            y, u, v, refs, qindex, modes=self._feat.intra_modes, bd=self.bd,
+            hme_rad2=self._feat.hme_rad2, hme_rad0=self._feat.hme_rad0,
+            subpel_ring=self._feat.subpel_ring,
+            exact_rates=self._feat.exact_rates, device=self.device)
 
     def _mode_decision(self, y, u, v, qindex, qmap=None, varpart=False):
         """Palette candidates and the frame program with the preset's
@@ -507,31 +587,51 @@ class Encoder:
                 palette_cands=pal_cands, qmap=qmap, device=self.device)
         return decisions, recon, pal_cands is not None
 
-    def _packetize(self, decisions, recon, qindex, pts,
+    def _packetize(self, decisions, recon, qindex, pts, is_key: bool = True,
                    allow_sct: bool = False, src=None, src_full=None,
                    prefilt=None, return_state: bool = False,
-                   delta_q: bool = False, seg=None) -> Packet:
-        """In-loop filters + entropy coding + OBU assembly for one key
-        frame from per-block decisions.  allow_sct: the frame has palette
-        candidates, so it turns the screen-content tools on.  src: the
-        padded source planes (numpy, at the superres width) the filter
-        searches measure against; without it DLF takes the heuristic
-        level, CDEF is signaled with zero strengths and loop restoration
-        with RESTORE_NONE, as in the reference.  src_full: the full-width
-        source loop restoration measures against under superres.
-        prefilt: the (recon, deblocked, header fields, cdef map) of
-        gop_fast.run_key_filters, which has filtered the frame already.
-        return_state: also return the filtered recon and the tile encoder
-        (its end-of-frame CDFs).  delta_q: the decisions carry per-block
-        qindex values (a TPL or AQ qmap), coded as delta-q at delta_q_res
-        2.  seg: (SegmentationParams, per-SB segment ids) of segment AQ."""
-        fp = obu.FrameParams(frame_type=obu.KEY_FRAME, show_frame=True,
+                   delta_q: bool = False, seg=None, fp_setup=None,
+                   chain="auto", gm=None, interp: int = 0) -> Packet:
+        """In-loop filters + entropy coding + OBU assembly for one frame
+        from per-block decisions (the reference's stage-path
+        ``_packetize``).  is_key: a key frame, else an inter frame of the
+        stage path.  allow_sct: the frame has palette candidates, so it
+        turns the screen-content tools on.  src: the padded source planes
+        (numpy, at the superres width) the filter searches measure against;
+        without it DLF takes the heuristic level, CDEF is signaled with zero
+        strengths and loop restoration with RESTORE_NONE, as in the
+        reference.  src_full: the full-width source loop restoration
+        measures against under superres.  prefilt: the (recon, deblocked,
+        header fields, cdef map) of gop_fast.run_key_filters, which has
+        filtered the frame already.  return_state: also return the filtered
+        recon and the tile encoder (its end-of-frame CDFs).  delta_q: the
+        decisions carry per-block qindex values (a TPL or AQ qmap), coded
+        as delta-q at delta_q_res 2.  seg: (SegmentationParams, per-SB
+        segment ids) of segment AQ.  fp_setup: a callable that edits the
+        frame header (a hierarchical GOP's show / refresh / references, an
+        S-frame's).  chain: "auto" chains through slot 0 (an inter frame
+        refreshes slot 0 and takes its CDFs from the last frame's, which
+        becomes ``_ref``), None starts from the default CDFs, a (cdfs, nmv)
+        pair starts from that state.  gm: {ref_enum: model} of the frame's
+        global motion; interp: its interpolation filter."""
+        frame_type = obu.KEY_FRAME if is_key else obu.INTER_FRAME
+        fp = obu.FrameParams(frame_type=frame_type, show_frame=True,
                              base_q_idx=qindex,
                              render_width=self.render_w,
                              render_height=self.render_h)
-        fp.allow_screen_content_tools = allow_sct
-        if self.sp.enable_order_hint:
-            fp.order_hint = pts & ((1 << self.sp.order_hint_bits) - 1)
+        if is_key:
+            fp.allow_screen_content_tools = allow_sct
+        auto_chain = isinstance(chain, str) and chain == "auto"
+        if not is_key and auto_chain:
+            fp.refresh_frame_flags = 0x01
+            if self._ref_cdfs is not None:
+                fp.primary_ref_frame = 0      # chain CDFs from slot 0
+        if gm:
+            fp.gm_trans = tuple(gm.get(i + 1) for i in range(7))
+        if not is_key:
+            fp.interpolation_filter = interp
+        if fp_setup is not None:
+            fp_setup(fp)
         if seg is not None:
             fp.segmentation = seg[0]
         if self.cfg.film_grain_denoise_strength > 0:
@@ -561,16 +661,46 @@ class Encoder:
                 fp.lr_types = tuple(i.frame_type for i in lr_info)
                 recon = lr_stage.apply_lr(recon, deblocked, lr_info,
                                           bd=self.bd)
-        self._ref = recon
+        init_cdfs = init_nmv = None
+        if auto_chain:
+            self._ref = recon
+            if fp.primary_ref_frame != obu.PRIMARY_REF_NONE:
+                init_cdfs, init_nmv = self._ref_cdfs, self._ref_nmv
+        elif chain is not None:
+            init_cdfs, init_nmv = chain
         tenc = TileEncoder(self.sr_w, self.sp.height, qindex,
                            reduced_tx_set=fp.reduced_tx_set,
                            update_cdfs=not fp.disable_cdf_update,
-                           frame_is_intra=True)
+                           frame_is_intra=is_key, init_cdfs=init_cdfs,
+                           init_nmv=init_nmv)
         if lr_info is not None:
             tenc.set_lr(lr_info)
         tenc.enable_filter_intra = self.sp.enable_filter_intra
         tenc.allow_palette = bool(fp.allow_screen_content_tools)
         tenc.bit_depth = self.bd
+        tenc.enable_masked_compound = self.sp.enable_masked_compound
+        tenc.enable_interintra = self.sp.enable_interintra_compound
+        tenc.is_motion_mode_switchable = fp.is_motion_mode_switchable
+        if not is_key:
+            fp.reference_select = any(d.ref2 for d in decisions.values()
+                                      if d.is_inter)
+            tenc.reference_select = fp.reference_select
+        if self.sp.enable_order_hint:
+            bits = self.sp.order_hint_bits
+            fp.order_hint = pts & ((1 << bits) - 1)
+            if not is_key:
+                fp.ref_hints = tuple(self._slot_hint[i]
+                                     for i in fp.ref_frame_idx)
+                if fp.error_resilient_mode or fp.frame_type == obu.S_FRAME:
+                    fp.ref_order_hints = tuple(self._slot_hint)
+                sm_pair = (obu.skip_mode_refs(fp.order_hint, fp.ref_hints,
+                                              bits)
+                           if fp.reference_select else None)
+                fp.skip_mode_present = sm_pair is not None
+                if fp.skip_mode_present:
+                    tenc.skip_mode_present = True
+                    tenc.skip_mode_frames = sm_pair
+                    tenc.interp_filter = fp.interpolation_filter
         if delta_q:
             fp.delta_q_present = True
             fp.delta_q_res = 2
@@ -584,6 +714,8 @@ class Encoder:
             # per-SB strengths: each SB's index is coded at its first
             # non-skip block
             tenc.set_cdef(fp.cdef_bits, cdef_idx)
+        if not is_key:
+            tenc.set_gm(fp.gm_trans)
         with stage("host_ec"):
             # the C array walk codes no segment ids, yet TileEncoder.encode
             # takes it for plain 16x16 DCT frames whatever their
@@ -591,10 +723,11 @@ class Encoder:
             # ROADMAP.md queue C item 4 (d)): segment AQ frames take the
             # per-block coder, which codes them as the spec reads them
             tile_data = tenc.encode(decisions, use_native=seg is None)
-        if not fp.disable_frame_end_update_cdf:
+        if auto_chain and not fp.disable_frame_end_update_cdf:
             self._ref_cdfs = tenc.cdfs
             self._ref_nmv = tenc.nmv
-        pkt = self._assemble(fp, tile_data, recon, pts)
+        pkt = self._assemble(fp, tile_data, recon, pts,
+                             frame_type=frame_type)
         if return_state:
             return pkt, recon, tenc
         return pkt
@@ -689,9 +822,10 @@ class Encoder:
             if eos:
                 self._eos_sent = True
             return
-        if self._hier:
+        if self.cfg.intra_period_length not in (-2, 0):
             # a GOP with inter frames: the sequential path; eos drains the
-            # last (partial) mini-GoP as send_picture(..., eos=True) does
+            # last (partial) mini-GoP, or an IPPP key frame still waiting
+            # for its MCTF neighbours, as send_picture(..., eos=True) does
             for (y, u, v) in frames:
                 self.send_picture(y, u, v)
             if eos:
@@ -829,13 +963,17 @@ class Encoder:
             return self._grain_params
         return default_grain_params(self.cfg.film_grain_denoise_strength)
 
-    def _assemble(self, fp, tile_data, recon, pts) -> Packet:
+    def _assemble(self, fp, tile_data, recon, pts,
+                  frame_type=None) -> Packet:
         """The temporal unit (with the sequence header on the first) and
         the recon (device tensors) cropped to the render size and copied
-        to the host."""
+        to the host.  frame_type: the packet's (the header's by default;
+        an S-frame's packet says INTER_FRAME, as in the reference)."""
         tu = obu.temporal_delimiter() + self._stream_start()
         tu += obu.write_frame_obu(self.sp, fp, tile_data)
-        return Packet(data=tu, pts=pts, frame_type=fp.frame_type,
+        return Packet(data=tu, pts=pts,
+                      frame_type=(fp.frame_type if frame_type is None
+                                  else frame_type),
                       recon=self._host_recon(recon))
 
     def _stream_start(self) -> bytes:
@@ -948,9 +1086,10 @@ class Encoder:
     def _encode_key_job(self, poc: int):
         """A GOP key frame: MCTF against its next two frames, TPL over its
         IPP chain (its qindex and delta-q map), the preset's intra MD, the
-        filters (the fused key-filter program when DLF is off and CDEF on,
-        else the stage path), packetization; the frame becomes the only
-        DPB entry."""
+        filters (on the fast path the fused key-filter program where the
+        preset searches them, else the stage path's filters in
+        _packetize), packetization; the frame becomes the only DPB
+        entry."""
         y, u, v = self._h_frames.pop(poc)
         if self._tf_active():
             neighbors = [self._h_frames[p] for p in (poc + 1, poc + 2)
@@ -972,12 +1111,12 @@ class Encoder:
                 chain.append(self._pad(*self._h_frames[p])[0])
             deps = [None] + [[i - 1] for i in range(1, len(chain))]
             with stage("key_tpl"):
-                stats = gop_fast.tpl_group_stats(chain, deps,
-                                                 device=self.device)
+                stats = self._tpl_stats(chain, deps)
             dep0 = tpl.synthesize(stats, deps)[0]
             qindex, self._arf_q = crf_qindex_calc(
-                qindex, tpl.r0_of(stats[0], dep0), 0, self._hier, True)
-            qmap = tpl.beta_qmap(stats[0], dep0, qindex)
+                qindex, tpl.r0_of(stats[0], dep0), 0, self._hier, True,
+                bd=self.bd)
+            qmap = tpl.beta_qmap(stats[0], dep0, qindex, bd=self.bd)
             if np.all(qmap == qindex):
                 qmap = None
         else:
@@ -986,7 +1125,7 @@ class Encoder:
                                                           qmap)
         prefilt = None
         dlf_wants = bool(self.cfg.enable_dlf_flag)
-        if ((dlf_wants or self.sp.enable_cdef)
+        if (self._fast and (dlf_wants or self.sp.enable_cdef)
                 and (not dlf_wants or self._feat.dlf_search)):
             skip16 = _skip_map(decisions, self.coded_h // 16,
                                self.coded_w // 16)
@@ -1001,7 +1140,7 @@ class Encoder:
             pkt, full, tenc = self._packetize(
                 decisions, recon, qindex, poc, allow_sct=allow_sct,
                 src=dict(y=y, u=u, v=v), prefilt=prefilt, return_state=True,
-                delta_q=qmap is not None)
+                delta_q=qmap is not None, chain=None)
         self._h_anchor_src = y
         # key refresh: the map keeps the key in slot 0 only
         self._dpb = {poc: 0}
@@ -1024,12 +1163,24 @@ class Encoder:
             return self._rc.pick_q(self._is_key_poc(poc), 0, poc)
         return self._rc.frame_qindex()
 
+    def _tpl_stats(self, srcs, deps):
+        """TPL's dispenser stats of a lookahead group (srcs: padded luma
+        planes; deps[i]: reference indices or None): one batched program
+        on the fast path (gop_fast.tpl_group_stats), else one
+        tpl.tpl_frame_stats per frame, as in the reference."""
+        if self._fast:
+            return gop_fast.tpl_group_stats(srcs, deps, device=self.device)
+        return [tpl.tpl_frame_stats(
+            srcs[i], None if not d else [srcs[j] for j in d],
+            device=self.device) for i, d in enumerate(deps)]
+
     def _encode_minigop(self, p0: int, n: int):
         """Code the mini-GoP after the anchor: MCTF of its base, TPL over
-        it (the frames' qindex), then every inter frame's device programs
-        are dispatched (the recon chain stays on the device), then each
-        is collected and entropy-coded in decode order.  A DPB slot is
-        freed after its last use."""
+        it (the frames' qindex), then on the fast path every inter frame's
+        device programs are dispatched (the recon chain stays on the
+        device), then each is collected and entropy-coded in decode order;
+        on the stage path each frame is coded in turn
+        (_encode_inter_job).  A DPB slot is freed after its last use."""
         anchor = self._h_anchor
         assert anchor == p0 - 1
         events = gop.minigop_schedule(anchor, n)
@@ -1052,7 +1203,7 @@ class Encoder:
         tpl_r0 = None
         if self.cfg.enable_tpl_la:
             tpl_r0 = self._minigop_tpl(anchor, p0, n, events)
-        mref = self._feat.mref
+        mref = self._feat.mref and self._fast
         if mref:
             # the base frame's GOLDEN-role reference: the previous
             # mini-GoP's anchor, kept alive one extra mini-GoP (keep_poc)
@@ -1074,27 +1225,53 @@ class Encoder:
         # the anchor stays stored past this mini-GoP, so that the next
         # base can search it as GOLDEN (freed there after its last use)
         keep_poc = anchor if mref else None
+
+        def q_for(ev):
+            if self._rc.onepass is not None and self._q_plan is None:
+                # one-pass VBR/CBR: each frame's pick from the buffer
+                # model at dispatch, before any frame of the mini-GoP is
+                # entropy-coded
+                return self._rc.pick_q(False, ev.layer, ev.poc)
+            if tpl_r0 is not None:
+                # the reference's CRF model (rc_process.c): the base
+                # scales its qstep by sqrt(r0), mid layers interpolate
+                # from the base's q toward cq, leaves code at cq
+                q, arf = crf_qindex_calc(
+                    base_q, tpl_r0[ev.poc], ev.layer, self._hier, False,
+                    arf_q=self._arf_q, ref_layer=max(0, ev.layer - 1),
+                    is_leaf=ev.layer >= self._hier, bd=self.bd)
+                if ev.layer == 0:
+                    self._arf_q = arf
+                return q
+            return gop.layer_qindex(base_q, ev.layer, self._hier + 1)
+
+        if not self._fast:
+            # the stage path, one frame at a time in decode order (its
+            # qindex: TPL's, else the layer offset from the base qindex,
+            # as in the reference); a slot is freed after its last use
+            for i, ev in enumerate(events):
+                if isinstance(ev, gop.CodeEvent):
+                    q = (q_for(ev) if tpl_r0 is not None
+                         else gop.layer_qindex(base_q, ev.layer,
+                                               self._hier + 1))
+                    self._encode_inter_job(ev, q)
+                else:
+                    slot = self._dpb[ev.poc]
+                    self._emit_show_existing(ev.poc, slot,
+                                             self._slot_recon[slot])
+                for poc, li in list(last_use.items()):
+                    if li == i and poc != end_poc and poc in self._dpb:
+                        slot = self._dpb.pop(poc)
+                        self._slot_free.add(slot)
+                        self._slot_recon.pop(slot, None)
+                        self._slot_state.pop(slot, None)
+            self._h_anchor = end_poc
+            self._h_prev_anchor = anchor
+            return
         records = []
         for i, ev in enumerate(events):
             if isinstance(ev, gop.CodeEvent):
-                if self._rc.onepass is not None and self._q_plan is None:
-                    # one-pass VBR/CBR: each frame's pick from the buffer
-                    # model at dispatch, before any frame of the mini-GoP
-                    # is entropy-coded
-                    q = self._rc.pick_q(False, ev.layer, ev.poc)
-                elif tpl_r0 is not None:
-                    # the reference's CRF model (rc_process.c): the base
-                    # scales its qstep by sqrt(r0), mid layers interpolate
-                    # from the base's q toward cq, leaves code at cq
-                    q, arf = crf_qindex_calc(
-                        base_q, tpl_r0[ev.poc], ev.layer, self._hier,
-                        False, arf_q=self._arf_q,
-                        ref_layer=max(0, ev.layer - 1),
-                        is_leaf=ev.layer >= self._hier)
-                    if ev.layer == 0:
-                        self._arf_q = arf
-                else:
-                    q = gop.layer_qindex(base_q, ev.layer, self._hier + 1)
+                q = q_for(ev)
                 with stage("dispatch_inter"):
                     records.append(self._dispatch_inter_fast(ev, q))
             else:
@@ -1109,7 +1286,7 @@ class Encoder:
                     self._slot_recon.pop(slot, None)
         for rec in records:
             if rec[0] == "show":
-                self._emit_show_existing_fast(rec[1], rec[2], rec[3])
+                self._emit_show_existing(rec[1], rec[2], rec[3])
             else:
                 self._collect_inter_fast(rec)
         self._h_anchor = end_poc
@@ -1133,8 +1310,7 @@ class Encoder:
             tail.append(p)
         order, deps = tpl.minigop_group(anchor, events, tail)
         with stage("gop_tpl"):
-            stats = gop_fast.tpl_group_stats([src_of[p] for p in order],
-                                             deps, device=self.device)
+            stats = self._tpl_stats([src_of[p] for p in order], deps)
         with stage("gop_tpl_synth"):
             mc_dep = tpl.synthesize(stats, deps)
         self._h_anchor_src = src_of[end_poc]
@@ -1210,7 +1386,60 @@ class Encoder:
                         dict(y=src[0], u=src[1], v=src[2]), pkt.recon)
         self._finish_packet(pkt, qindex, ev.layer)
 
-    def _emit_show_existing_fast(self, poc: int, slot: int, recon_dev):
+    def _encode_inter_job(self, ev, qindex: int):
+        """One inter frame of a hierarchical GOP on the stage path: mode
+        decision against its LAST (and ALTREF) slots
+        (inter_encoder.encode_inter_frame), then _packetize with the
+        filters and the frame header of its place in the pyramid (show,
+        refresh of its slot, references; CDFs from its LAST slot); a
+        stored frame's filtered recon and end-of-frame state fill its
+        slot."""
+        y, u, v = self._pad(*self._h_frames.pop(ev.poc))
+        last_slot = self._dpb[ev.last_poc]
+        refs = {mv_pred.LAST_FRAME: self._slot_recon[last_slot]}
+        bwd_slot = None
+        if ev.bwd_poc is not None:
+            bwd_slot = self._dpb[ev.bwd_poc]
+            refs[mv_pred.ALTREF_FRAME] = self._slot_recon[bwd_slot]
+        with stage("device_md_inter"):
+            decisions, recon, gm, interp = self._stage_inter(y, u, v, refs,
+                                                             qindex)
+        slot = min(self._slot_free) if ev.store else None
+        if ev.store:
+            self._slot_free.remove(slot)
+
+        def fp_setup(fp):
+            fp.show_frame = ev.shown
+            fp.showable_frame = not ev.shown
+            fp.refresh_frame_flags = (1 << slot) if ev.store else 0
+            idx = [last_slot] * 7
+            if bwd_slot is not None:
+                # the backward ref maps only to ALTREF, so that the
+                # skip-mode derivation picks (LAST, ALTREF), the pair
+                # compound signals
+                idx[mv_pred.ALTREF_FRAME - 1] = bwd_slot
+            fp.ref_frame_idx = tuple(idx)
+            fp.primary_ref_frame = 0        # CDFs from LAST's slot
+
+        pkt, full, tenc = self._packetize(
+            decisions, recon, qindex, ev.poc, is_key=False,
+            src=dict(y=y, u=u, v=v), chain=self._slot_state[last_slot],
+            fp_setup=fp_setup, return_state=True, gm=gm, interp=interp)
+        if ev.store:
+            self._dpb[ev.poc] = slot
+            self._slot_recon[slot] = full
+            self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
+            self._slot_hint[slot] = \
+                ev.poc & ((1 << self.sp.order_hint_bits) - 1)
+        pkt.displayed = ev.shown
+        if not ev.shown:
+            pkt.recon = None
+        self._finish_packet(pkt, qindex, ev.layer)
+
+    def _emit_show_existing(self, poc: int, slot: int, recon_dev):
+        """The show_existing_frame packet of the hidden frame ``poc`` stored
+        in ``slot`` (its device planes ``recon_dev``, copied to the host
+        with recon_enabled or stat_report)."""
         data = obu.temporal_delimiter() + obu.write_show_existing(slot)
         self._packets.append(Packet(
             data=data, pts=poc, frame_type=obu.INTER_FRAME,

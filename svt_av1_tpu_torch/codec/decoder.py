@@ -26,12 +26,13 @@ each with its own contexts and CDFs, and reconstructs with
 tile-clamped intra availability; the frame-end CDFs are tile 0's.
 Metadata OBUs (HDR content light level, mastering display) are parsed
 into ``metadata`` by type.  Shown planes are copied out once, filtered
-(uint8, or uint16 at 10 bits).  10-bit key frames reconstruct and filter
-at the sequence's bit depth (int16 planes on the device), and the
-reduced still-picture header (AVIF) is read.  What still raises, naming
-its ROADMAP.md item: 1/8-pel MVs, 10-bit inter frames, superres on inter
-frames, tile rows, and tile columns on inter frames (the reference's
-encoder codes none of these on the paths the port has).
+(uint8, or uint16 at 10 bits).  10-bit frames, key and inter, reconstruct
+and filter at the sequence's bit depth (int16 planes on the device), S-frames
+(error resilient, refresh-all) decode as inter frames, and the reduced
+still-picture header (AVIF) is read.  What still raises, naming its
+ROADMAP.md item: 1/8-pel MVs, superres on inter frames, tile rows, and
+tile columns on inter frames (the reference's encoder codes none of these
+on the paths the port has).
 """
 from __future__ import annotations
 
@@ -120,9 +121,6 @@ class Decoder:
         n_tiles = len(obu.tile_cols_layout(coded_w, fp.log2_tile_cols)) \
             * (1 << fp.log2_tile_rows)
         bd = self.sp.bit_depth
-        if bd != 8 and not is_intra:
-            raise NotImplementedError(
-                "10-bit inter frames: ROADMAP.md queue A item 7")
         if n_tiles > 1:
             return self._decode_frame_tiled(fp, tile_data, coded_w, n_tiles)
         if not is_intra and fp.superres_denom != 8:
@@ -201,7 +199,7 @@ class Decoder:
                          if m is not None}
             recon = reconstruct_inter_from_decisions(
                 decisions, refs, coded_w, self.sp.height, fp.base_q_idx,
-                gm=gm_models, interp=fp.interpolation_filter,
+                bd=bd, gm=gm_models, interp=fp.interpolation_filter,
                 device=self.device)
         if any(d.bsize != cc.BLOCK_16X16 for d in decisions.values()):
             flens = dlf_stage.flens_from_maps(

@@ -1263,16 +1263,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
     return p1
 
 
-def _edge_pad_to(plane, hh, ww):
-    """Edge-replicate an (..., H, W) plane to (hh, ww) at the
-    bottom/right."""
-    h, w = plane.shape[-2:]
-    if (h, w) == (hh, ww):
-        return plane.to(torch.int32)
-    dev = plane.device
-    rows = torch.arange(hh, device=dev).clamp(max=h - 1)
-    cols = torch.arange(ww, device=dev).clamp(max=w - 1)
-    return plane.to(torch.int32)[..., rows[:, None], cols[None, :]]
+_edge_pad_to = me_pipe.edge_pad_to
 
 
 def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,

@@ -127,24 +127,41 @@ def hme_core(h, w, rad2, rad1, rad0):
     return run
 
 
-def hierarchical_me(src: np.ndarray, ref: np.ndarray, rad2: int = 8,
-                    rad0: int = 7, rad1: int = 8, device=None
-                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def as_plane(a, device) -> torch.Tensor:
+    """An (h, w) plane (numpy array or tensor) as int32 on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+
+def edge_pad_to(plane: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
+    """Edge-replicate an (..., H, W) plane to (hh, ww) at the
+    bottom/right, as int32 (the HME pyramid wants multiples of 64)."""
+    h, w = plane.shape[-2:]
+    if (h, w) == (hh, ww):
+        return plane.to(torch.int32)
+    rows = torch.arange(hh, device=plane.device).clamp(max=h - 1)
+    cols = torch.arange(ww, device=plane.device).clamp(max=w - 1)
+    return plane.to(torch.int32)[..., rows[:, None], cols[None, :]]
+
+
+def hierarchical_me(src, ref, rad2: int = 8, rad0: int = 7, rad1: int = 8,
+                    device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Open-loop ME on ``device`` (default: the current CUDA device):
     per-16x16 integer MVs src -> ref as (gh, gw) numpy arrays (mv_y,
-    mv_x, ssd).  Dims that are not multiples of 64 are edge-padded for
-    the pyramid; the grid is cropped back."""
+    mv_x, ssd).  src/ref: (h, w) numpy arrays or tensors (8- or 10-bit
+    samples).  Dims that are not multiples of 64 are edge-padded for the
+    pyramid; the grid is cropped back.  The stage path's inter frames
+    (pipeline/inter_encoder.py) and TPL (pipeline/tpl.tpl_frame_stats)
+    call it."""
     dev = device_mod.resolve(device)
+    src, ref = as_plane(src, dev), as_plane(ref, dev)
     h, w = src.shape
     assert h % BLK == 0 and w % BLK == 0
     h64 = (h + 63) & ~63
     w64 = (w + 63) & ~63
-    if (h64, w64) != (h, w):
-        pads = ((0, h64 - h), (0, w64 - w))
-        src = np.pad(src, pads, mode="edge")
-        ref = np.pad(ref, pads, mode="edge")
     run = hme_core(h64, w64, rad2, rad1, rad0)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    mv_y, mv_x, ssd = run(t(src), t(ref))
+    mv_y, mv_x, ssd = run(edge_pad_to(src, h64, w64),
+                          edge_pad_to(ref, h64, w64))
     gh, gw = h // BLK, w // BLK
     return tuple(a[:gh, :gw].cpu().numpy() for a in (mv_y, mv_x, ssd))

@@ -16,8 +16,9 @@ Outputs per frame: r0 = intra / (intra + propagated), which sets a
 frame's qindex (rate_control.crf_qindex_calc), and a per-64x64 qindex
 map from the per-SB beta, which codes key frames with delta-q.
 ``synthesize``, ``r0_of`` and ``beta_qmap`` are copies of the
-reference's numpy functions.  The stage path's per-frame
-``tpl_frame_stats`` is not ported.
+reference's numpy functions.  ``tpl_frame_stats`` is the stage path's
+dispenser, one frame at a time over pipeline/me.hierarchical_me (GOPs
+off the fast path: 10 bits, film grain, tile columns).
 """
 from __future__ import annotations
 
@@ -27,8 +28,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.ops import mc, satd
 from svt_av1_tpu_torch.pipeline import gop
+from svt_av1_tpu_torch.pipeline import me as me_pipe
 
 BLK = 16
 
@@ -83,6 +86,56 @@ def tpl_costs_core(h: int, w: int):
         return intra_cost, inter_cost
 
     return run
+
+
+def tpl_frame_stats(src_y, refs, device=None) -> Dict[str, np.ndarray]:
+    """The dispenser step for one frame on ``device`` (default: the
+    current CUDA device): per 16x16 block the open-loop DC-intra SATD and,
+    against each reference, the inter SATD at its HME MV (TPL's radii,
+    clamped to the padded reference); per block the cheapest reference
+    wins (first on equal cost).  src_y: (h, w) plane (numpy or tensor, 8
+    or 10 bits); refs: a list of reference source planes, one plane, or
+    None / empty for an intra-only anchor.  As in the reference, the
+    inter prediction clips at 8 bits whatever the samples' depth.
+    Returns the dict that ``synthesize`` takes, costs as float64."""
+    dev = device_mod.resolve(device)
+    if refs is not None and not isinstance(refs, (list, tuple)):
+        refs = [refs]
+    src = me_pipe.as_plane(src_y, dev)
+    h, w = src.shape
+    gh, gw = h // BLK, w // BLK
+    nb = gh * gw
+    run = tpl_costs_core(h, w)
+    intra, _ = run(src)
+    intra = intra.cpu().numpy().astype(np.float64)
+    if not refs:
+        return dict(intra=intra, inter=np.full(nb, np.inf),
+                    mv=np.zeros((nb, 2), np.int32),
+                    ref_sel=np.zeros(nb, np.int32), gh=gh, gw=gw)
+    ys = (np.arange(nb) // gw * BLK).astype(np.int32)
+    xs = (np.arange(nb) % gw * BLK).astype(np.int32)
+    best_inter = best_mv = ref_sel = None
+    for ri, ref_y in enumerate(refs):
+        ref = me_pipe.as_plane(ref_y, dev)
+        mv_y, mv_x, _ = me_pipe.hierarchical_me(src, ref, rad2=8, rad0=4,
+                                                device=dev)
+        mvs = np.stack([mv_y.reshape(nb) * 8, mv_x.reshape(nb) * 8],
+                       axis=-1).astype(np.int32)
+        mvs = mc.clamp_mvs_for_pad(mvs[:, None], ys[:, None], xs[:, None],
+                                   BLK, h, w)[:, 0]
+        _, ec = run(src, mc.pad_plane(ref, mc.PAD),
+                    torch.as_tensor(mvs, device=dev), intra=False)
+        ec = ec.cpu().numpy().astype(np.float64)
+        if best_inter is None:
+            best_inter, best_mv = ec, mvs
+            ref_sel = np.zeros(nb, np.int32)
+        else:
+            take = ec < best_inter
+            best_inter = np.where(take, ec, best_inter)
+            best_mv = np.where(take[:, None], mvs, best_mv)
+            ref_sel = np.where(take, ri, ref_sel)
+    return dict(intra=intra, inter=best_inter, mv=best_mv, ref_sel=ref_sel,
+                gh=gh, gw=gw)
 
 
 def minigop_group(anchor: int, events, tail):

@@ -25,7 +25,8 @@
   recode, send_pictures x2 at M10 (the per-block route, K1 on every
   luma wave); at 8 bits encoder_color_format=3 (read nowhere: 4:2:0,
   as in the reference) and a levels-3 GOP with a scene cut.
-- A 10-bit GOP raises NotImplementedError naming its ROADMAP.md item.
+- A 10-bit GOP codes on the stage path (tests/test_torch_stage_path.py
+  has more).
 """
 import functools
 
@@ -619,13 +620,15 @@ def test_recode_at_10_bits():
 
 
 def test_ten_bit_gop_and_wrong_dtype_raise():
-    """A 10-bit GOP is the reference's stage path (not ported); a 10-bit
-    encoder takes uint16 planes only."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 7"):
-        Encoder(EncoderConfig(source_width=64, source_height=64,
-                              intra_period_length=15, hierarchical_levels=3,
-                              **TEN), device="cpu")
+    """A 10-bit GOP codes on the stage path, as in the reference (equal to
+    the JAX package's stored stream, decoded exactly to uint16 planes by
+    the port's decoder); a 10-bit encoder takes uint16 planes only."""
+    import test_torch_stage_path as tsp
+    pkts = tsp.check_stream(
+        "tenbit_gop_levels3",
+        dict(intra_period_length=15, hierarchical_levels=3, **TEN),
+        clips.natural_clip10(3, 64, 64, seed=15))
+    assert pkts[0].recon["y"].dtype == np.uint16
     enc = Encoder(EncoderConfig(source_width=32, source_height=32, **TEN),
                   device="cpu")
     y = np.zeros((32, 32), np.uint8)

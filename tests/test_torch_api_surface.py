@@ -17,9 +17,9 @@ and the settings the JAX package ignores.
   (one frame coded 20 times).
 - As in the JAX package: ``tile_rows``, and ``tile_columns`` on
   ``send_picture`` or on the per-block route of ``send_pictures``, code
-  one tile; a GOP whose width gives more than one tile column raises,
-  naming the stage path, and one that gives a single column codes it;
-  malformed metadata strings raise ConfigError.
+  one tile; a GOP whose width gives more than one tile column codes one
+  tile on the stage path, and one that gives a single column codes it on
+  the fast path; malformed metadata strings raise ConfigError.
 """
 import functools
 
@@ -216,14 +216,16 @@ def test_settings_that_code_one_tile(fields, route):
 
 
 def test_gop_tile_columns():
-    """A GOP whose width gives two tile columns raises, naming the stage
-    path; at 64 px wide the layout has one column, and the GOP codes one
-    tile, as in the JAX package."""
+    """A GOP whose width gives two tile columns codes on the stage path
+    with one tile, as the reference's per-block packetization does (equal
+    to the JAX package's stored stream, decoded exactly by the port's
+    decoder); at 64 px wide the layout has one column, and the fast path
+    codes one tile, as in the JAX package."""
+    import test_torch_stage_path as tsp
     gop = dict(intra_period_length=15, hierarchical_levels=2, enable_tf=0,
                enable_tpl_la=0)
-    with pytest.raises(NotImplementedError, match="stage path.*item 7"):
-        Encoder(EncoderConfig(source_width=128, source_height=64,
-                              tile_columns=1, **gop), device="cpu")
+    tsp.check_stream("api_gop_tile_columns", dict(tile_columns=1, **gop),
+                     clips.natural_clip(3, 128, 64, seed=16))
     frames = clips.natural_clip(3, 64, 64, seed=1)
 
     def run(cols):

@@ -22,8 +22,11 @@ package on the CPU.
   mini-GoP included), in the JAX package's send_picture + flush stream;
   recon_enabled=False leaves the packets as they were and skips the recon
   copies of shown inter and show-existing frames.
-- Every setting outside the slice raises NotImplementedError naming its
-  ROADMAP.md item.  (Presets M5-M9: tests/test_torch_gop_m6.py.)
+- The GOP settings the reference codes on its stage path (S-frames, low
+  delay, IPPP, 10 bits, tile columns, film grain) encode there, equal to
+  the JAX streams (tests/test_torch_stage_path.py has more); 1/8-pel MVs
+  on the fast path raise NotImplementedError naming their ROADMAP.md
+  item.  (Presets M5-M9: tests/test_torch_gop_m6.py.)
 """
 import functools
 
@@ -471,7 +474,7 @@ def test_recon_enabled_off_skips_recon_copies():
     assert all(p.recon is not None for p in on if p.displayed)
 
 
-# ------------------------------------------------------------ refusals ---
+# -------------------------------------- settings of the stage path ---
 
 GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
            enable_tpl_la=0)
@@ -488,11 +491,23 @@ GOP = dict(intra_period_length=15, hierarchical_levels=3, enable_tf=0,
     (dict(film_grain_denoise_strength=8), "item 7"),
 ])
 def test_out_of_scope_gop_settings_raise(fields, item):
-    cfg = EncoderConfig(**dict(dict(source_width=64, source_height=64,
-                                    **GOP), **fields))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue A {item}"):
-        Encoder(cfg, device="cpu")
+    """The GOP settings that the port refused until the stage path came
+    (ROADMAP.md queue A item 7, step 8) now encode, each on the stage
+    path as in the reference: S-frames, low delay, IPPP, 10 bits, two
+    tile columns (one tile coded), film grain.  Three frames of each,
+    byte-identical to the JAX package's stored stream and decoded exactly
+    by the port's decoder (tests/test_torch_stage_path.py has more)."""
+    import test_torch_stage_path as tsp
+    cfg = dict(dict(source_width=64, source_height=64, **GOP), **fields)
+    w = cfg.pop("source_width")
+    cfg.pop("source_height")
+    frames = (clips.natural_clip10(3, w, 64, seed=13)
+              if cfg.get("encoder_bit_depth") == 10
+              else clips.natural_clip(3, w, 64, seed=13))
+    enc = Encoder(tsp.config(EncoderConfig, cfg, frames), device="cpu")
+    assert not enc._fast, item
+    tsp.check_stream("gop_scope_" + "_".join(
+        f"{k}{v}" for k, v in sorted(fields.items())), cfg, frames)
 
 
 @pytest.mark.parametrize("tool", ["hp"])

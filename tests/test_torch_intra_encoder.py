@@ -331,14 +331,18 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("field,value", [
     ("intra_period_length", 15), ("encoder_bit_depth", 10)])
 def test_out_of_slice_configs_raise(field, value):
-    """An IPPP GOP, and 10 bits in a GOP (all-intra 10-bit streams are
-    ported: tests/test_torch_10bit.py)."""
-    cfg = EncoderConfig(source_width=64, source_height=64)
-    setattr(cfg, field, value)
+    """An IPPP GOP, and 10 bits in a GOP, which the port refused until the
+    stage path came, now encode as in the reference: two frames of each,
+    equal to the JAX package's stored stream and decoded exactly by the
+    port's decoder (tests/test_torch_stage_path.py has more)."""
+    import clips
+    import test_torch_stage_path as tsp
+    fields = {field: value}
     if field == "encoder_bit_depth":
-        cfg.intra_period_length, cfg.hierarchical_levels = 15, 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Encoder(cfg, device="cpu")
+        fields.update(intra_period_length=15, hierarchical_levels=3)
+    frames = (clips.natural_clip10(2, 64, 64, seed=18) if value == 10
+              else clips.natural_clip(2, 64, 64, seed=18))
+    tsp.check_stream(f"intra_encoder_{field}{value}", fields, frames)
 
 
 def test_send_picture_raises():

@@ -284,14 +284,21 @@ def test_presets_encode_with_filters(preset):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    # an IPPP GOP (hierarchical_levels 0): the hierarchical GOP is ported
-    # at M10-M13, low-delay and IPPP structures are not
+    # an IPPP GOP (hierarchical_levels 0), which the port refused until
+    # the stage path came (ROADMAP.md queue A item 7, step 8)
     ("intra_period_length", 15, "item 7")])
 def test_out_of_slice_still_raises(field, value, item):
-    cfg = EncoderConfig(**CFG)
-    setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        Encoder(cfg, device="cpu")
+    """The M6 key-frame configuration as an IPPP GOP: the key frame with
+    the preset's tools, then an inter frame on the stage path; equal to
+    the JAX package's stored stream and decoded exactly by the port's
+    decoder."""
+    import test_torch_stage_path as tsp
+    fields = dict(CFG, **{field: value})
+    fields.pop("source_width")
+    fields.pop("source_height")
+    frames = clips.natural_clip(2, W, H, seed=14)
+    pkts = tsp.check_stream(f"key_frame_{field}{value}", fields, frames)
+    assert [p.frame_type for p in pkts] == [0, 1], item
 
 
 def test_encode_intra_frame_refuses_aq_and_other_modes():

@@ -68,6 +68,8 @@ LR_NAMES = ("STRIPE", "OFFSET", "CTX_VERT", "BORDER", "save_boundaries",
 RESIZE_NAMES = ("scaled_width", "upscale_step_x0", "_upscale_plan",
                 "_filters")
 AQ_NAMES = ("_variance_qmap", "_segment_qmap")
+# the stage path's global-motion fits (host numpy float64)
+GM_NAMES = ("estimate_global_translation", "estimate_global_rotzoom")
 
 _PKG_NAME = re.compile(r"\bsvt_av1_tpu\b")
 
@@ -224,13 +226,15 @@ def _top_level_sources(path, names):
     ("svt_av1_tpu_torch/ops/resize.py", "svt_av1_tpu/ops/resize.py",
      RESIZE_NAMES),
     ("svt_av1_tpu_torch/api/encoder.py", "svt_av1_tpu/api/encoder.py",
-     AQ_NAMES)])
+     AQ_NAMES),
+    ("svt_av1_tpu_torch/pipeline/inter_encoder.py",
+     "svt_av1_tpu/pipeline/inter_encoder.py", GM_NAMES)])
 def test_copied_definitions_match_source(path, ref, names):
     """Definitions copied one by one (the numpy half of rate_est.py, the
     golden input generators, TPL's synthesizer and beta map, the SATD
     butterfly matrix, the restoration geometry and Wiener solve, the
-    superres plan, the AQ maps) equal their sources, import lines
-    aside."""
+    superres plan, the AQ maps, the stage path's global-motion fits)
+    equal their sources, import lines aside."""
     got = _top_level_sources(os.path.join(REPO, path), names)
     want = _top_level_sources(os.path.join(REPO, ref), names)
     assert set(got) == set(want) == set(names)
@@ -333,6 +337,21 @@ ENTRY_POINTS = {
     "hierarchical_me": lambda: importlib.import_module(
         "svt_av1_tpu_torch.pipeline.me").hierarchical_me(
             np.zeros((32, 32), np.uint8), np.zeros((32, 32), np.uint8)),
+    "encode_inter_frame": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.inter_encoder").encode_inter_frame(
+            *_frames(1, 32, 32)[0], dict(zip("yuv", _frames(1, 32, 32)[0])),
+            140),
+    "tpl_frame_stats": lambda: importlib.import_module(
+        "svt_av1_tpu_torch.pipeline.tpl").tpl_frame_stats(
+            np.zeros((32, 32), np.uint8), [np.zeros((32, 32), np.uint8)]),
+    "Encoder IPPP": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, intra_period_length=15)),
+    "Encoder S-frames": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, intra_period_length=-1,
+        sframe_dist=2)),
+    "Encoder 10-bit GOP": lambda: Encoder(EncoderConfig(
+        source_width=32, source_height=32, intra_period_length=15,
+        hierarchical_levels=2, encoder_bit_depth=10)),
 }
 
 

@@ -61,6 +61,10 @@ TESTS = (
     "tests/test_torch_cli.py",
     "tests/test_torch_capi.py",
     "tests/test_torch_multistream.py",
+    "tests/test_torch_stage_path.py",
+    "tests/test_torch_gop.py::test_out_of_scope_gop_settings_raise",
+    "tests/test_torch_key_frame.py::test_out_of_slice_still_raises",
+    "tests/test_torch_intra_encoder.py::test_out_of_slice_configs_raise",
 )
 
 
