@@ -3,18 +3,18 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --this-slice   # phases 1-4, 44, 45 and 25 only
+    python3 chip_smoke.py --this-slice   # phases 1-4, 46, 47 and 25 only
 
 Phases, one line each (ending with the seconds since the start); any
-failure raises and exits non-zero.  Phases 44 and 45 (this slice) run
-alone right after phase 4.  Then the earlier slices run in six
-processes that share the card: this one runs 39, 40 and 41, while five
+failure raises and exits non-zero.  Phases 46 and 47 (this slice) run
+alone right after phase 4.  Then the earlier slices run in seven
+processes that share the card: this one runs 39, 40 and 41, while six
 workers that it starts and waits for (this script with --worker NAME;
 their lines are printed after this one's, their launch counts and K1
 batch sizes returned in result files) run 27 and 26, then 5-24 in order
 (earlier); 37 and 38, then 35 and 36 (ten_bit_rate); 32, 33 and 34
-(post_filters); 28, 31, 30 and 29 (m4); 42 and 43 (multistream).  While
-they run, no
+(post_filters); 28, 31, 30 and 29 (m4); 42 and 43 (multistream); 44 and
+45 (stage).  While they run, no
 time is measured (it would include the other processes' load): the
 times on those phases' lines print as nan and their kernel profiles are
 left out; those phases check streams, decodes and K1's launch counts.
@@ -374,7 +374,27 @@ Then phase 25 and the last lines.  The phases:
      TPL, film grain in a GOP, a 128x64 GOP asking for two tile columns),
      each decoded on the card equal to its recon and held to the CPU's
      digest (tools/record_cpu_streams.py 45), else to the stored JAX
-     stream by the parity rule; nothing is encoded on the CPU.
+     stream by the parity rule; nothing is encoded on the CPU;
+ 46. the main path of this slice, the tools no preset turns on, with
+     SVT_TPU_FEAT=hp_mv=1,adapted_rates=1,rdoq=1 (1/8-pel MVs on the fast
+     path, the MD rate tables from the adapted CDFs, RDOQ after the
+     quantizer): the 1080p bench clip (coded 1920x1088) x3 at M10,
+     hierarchical_levels 1 (key, base, compound B), keyint -1, MCTF, TPL
+     off (the key frame is no delta-q frame: K1, then RDOQ on its
+     levels), DLF + CDEF, qp 35, through send_picture / flush on the
+     default device, cold then warm: seconds per frame, host stage
+     seconds, bytes, Y-PSNR, the odd-MV blocks and the blocks RDOQ
+     changed (each > 0), K1's launches (762 = 254 waves x 3 frames at B =
+     360); every shown frame decoded on the card equal to recon; then
+     bench.py's CIF M6 GOP (MCTF + TPL + DLF + CDEF, levels 3) x3 with the
+     same overrides, K1 112 at B = 88 (the two inter frames' pass B);
+ 47. the streams of tests/test_torch_feature_overrides.py on the card
+     (the reference's hp_mv and rdoq settings, rdoq at M10 through
+     send_picture and send_pictures, adapted_rates at M10 and M12, all
+     three, SVT_TPU_EXACT_RATES=0), each decoded on the card equal to its
+     recon and held to the CPU's digest (tools/record_cpu_streams.py 47),
+     else to the stored JAX stream (the CPU's) by the parity rule;
+     nothing is encoded on the CPU.
 
 Phases 7, 12, 16, 20, 27, 31 and 34 hold the card's stream of each of
 their cases to the CPU's: a stream whose sha1 equals the digest that
@@ -420,8 +440,9 @@ cases and helpers from the test modules, which import the JAX package only
 inside the functions that record its outputs) and checks at its end
 that neither was loaded.  The second-to-last line is the kernels' JSON
 record: K1 (fused_txq16) with its launches on this slice's main path
-(phase 44's 1080p 10-bit GOP) and its time at that path's batch (B =
-480, 10-bit residuals), and its per-row form (fused_txq16_rows) with its
+(phase 46's 1080p M10 GOP with the overrides) and its time at that
+path's batch (B = 360, 8-bit residuals), and its per-row form
+(fused_txq16_rows) with its
 launches and time on phase 42's batched run (B = 1440);
 launches_by_path has every path, by_batch every size (bd the residuals'
 bit depth).  The last line is {"ok": true, "device": {...}}.
@@ -618,6 +639,11 @@ def k1_batches():
     # 64x64, 96x64 and 128x64 at M10
     driven += [k1_batch(1, size, 10)
                for size in ((128, 96), (64, 64), (96, 64), (128, 64))]
+    # phase 46: the 1080p M10 GOP's key frame and pass B (60 wave slots x
+    # 6 modes, the main path) and the CIF M6 GOP's pass B (88, above);
+    # phase 47's streams: 64x64 at M6 / M10 / M12 (above), send_pictures
+    # 64x64 x2 at M10
+    driven += [k1_batch(1, P1080_CODED, 10), k1_batch(2, (64, 64), 10)]
     return list(dict.fromkeys(driven))
 
 
@@ -4388,10 +4414,237 @@ def phase_stage_small():
             f"{recodes}; decoded on the card equal to recon; {how}")
 
 
-def stage_slice(card):
-    """Phases 44-45 (this slice's), first and alone."""
-    main_n, by_path = phase_stage_path(card)
+def stage_slices(card, cif17, by_path):
+    """Slice 14 (phases 44-45): the stage path's 1080p 10-bit GOP and the
+    CIF IPPP GOP, then the CPU test's stage-path streams on the card."""
+    by_path.update(phase_stage_path(card)[1])
     phase_stage_small()
+
+
+# -- this slice: the tools no preset turns on (46-47) ------------------------
+
+# the feature overrides of this slice's main path (SVT_TPU_FEAT)
+OVERRIDES = "hp_mv=1,adapted_rates=1,rdoq=1"
+# the bench clip at 1080p (coded 1920x1088), 8 bits, M10, one pyramid
+# level (key, base, compound B: the fewest frames that code a compound
+# block), keyint -1, MCTF on, TPL off (so that the key frame is no
+# delta-q frame: it takes K1, then RDOQ), DLF + CDEF, qp 35
+OVR_MAIN = dict(enc_mode=10, hierarchical_levels=1, intra_period_length=-1,
+                enable_tf=1, enable_tpl_la=0, qp=35, **FILTERS)
+OVR_FRAMES = 3
+# a cold run longer than this is not repeated warm
+OVR_WARM_LIMIT_S = 60.0
+
+
+class feature_overrides:
+    """SVT_TPU_FEAT set to ``feat`` while the block runs (the port reads
+    it when an Encoder is made)."""
+
+    def __init__(self, feat):
+        self.feat = feat
+
+    def __enter__(self):
+        self.old = os.environ.get("SVT_TPU_FEAT")
+        os.environ["SVT_TPU_FEAT"] = self.feat
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("SVT_TPU_FEAT", None)
+        else:
+            os.environ["SVT_TPU_FEAT"] = self.old
+
+
+class rdoq_counter:
+    """ops/rdoq.optimize_levels wrapped while the block runs: ``blocks``
+    afterwards holds the count of blocks whose levels it changed (summed
+    on the device, read once at the end)."""
+
+    def __enter__(self):
+        import torch
+        from svt_av1_tpu_torch.ops import rdoq
+        self.mod, self.orig, self.sums = rdoq, rdoq.optimize_levels, []
+
+        def spy(coeffs, qcoeff, *a, **kw):
+            q, dq = self.orig(coeffs, qcoeff, *a, **kw)
+            self.sums.append((q != qcoeff).flatten(1).any(dim=1).sum())
+            return q, dq
+
+        rdoq.optimize_levels = spy
+        self.torch = torch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.optimize_levels = self.orig
+        self.calls = len(self.sums)
+        self.blocks = (int(self.torch.stack(self.sums).sum())
+                       if self.sums else 0)
+
+
+def odd_mv_blocks(coded):
+    """Inter blocks of the decoded frames with a 1/8-pel (odd) MV
+    component, in either of their MVs."""
+    n = 0
+    for _, dec in coded:
+        for b in dec.values():
+            if b.is_inter:
+                mvs = [b.mv] + ([b.mv2] if b.ref2 else [])
+                n += any((int(m[0]) | int(m[1])) & 1 for m in mvs)
+    return n
+
+
+def override_gop(tag, frames, size, fields, card, k1_want, plain=False):
+    """A GOP with OVERRIDES through send_picture / flush on the default
+    device, cold (then warm when the cold run took under
+    OVR_WARM_LIMIT_S), every shown frame decoded on the card equal to its
+    recon; K1's launches and batches held to ``k1_want`` (count,
+    [batch]).  With ``plain`` the same GOP once more without the
+    overrides, after the warm run, for its seconds and host stages.
+    Returns K1's launches."""
+    w, h = size
+    with feature_overrides(OVERRIDES):
+        with rdoq_counter() as rq:
+            pkts, n, batches, stages, dt, seen = stage_gop(frames, w, h,
+                                                           fields)
+        warm = None
+        if dt < OVR_WARM_LIMIT_S:
+            warm = stage_gop(frames, w, h, fields)[4]
+    base = ""
+    if plain:
+        b_pkts, b_n, _, b_st, b_dt, b_seen = stage_gop(frames, w, h, fields)
+        b_key = [round(t, 3) for name, _, t in b_seen
+                 if name == "_encode_key_job"]
+        b_ps = [round(psnr(frames[p.pts][0], p.recon["y"]), 4) for p in
+                sorted((p for p in b_pkts if p.displayed),
+                       key=lambda p: p.pts)]
+        base = (f"; without the overrides (after the warm run): {b_dt:.3f} "
+                f"s ({b_dt / len(frames):.3f} s a frame, the key frame "
+                f"{b_key} s), host stage seconds "
+                f"{({k: round(v[0], 3) for k, v in b_st.items()})}, "
+                f"{sum(len(p.data) for p in b_pkts)} bytes, Y-PSNR {b_ps} "
+                f"dB, K1 {b_n}")
+    if (n, batches) != k1_want:
+        _fail(f"phase {tag}: fused_txq {n} launches at {batches}; "
+              f"{k1_want[0]} at B = {k1_want[1]} predicted")
+    t1 = clock()
+    coded, shown = gop_decode_check(pkts, None)
+    dec_s = clock() - t1
+    counts = gop_block_counts(coded)
+    odd = odd_mv_blocks(coded)
+    if not (shown == len(frames) and counts["inter"] and odd and rq.blocks):
+        _fail(f"phase {tag}: {shown} frames shown, blocks {counts}, odd MV "
+              f"blocks {odd}, blocks RDOQ changed {rq.blocks}")
+    shown_p = sorted((p for p in pkts if p.displayed), key=lambda p: p.pts)
+    ps = [round(psnr(frames[p.pts][0], p.recon["y"]), 4) for p in shown_p]
+    sec = {k: (round(v[0], 3), v[1]) for k, v in stages.items()}
+    keys = [round(t, 3) for name, _, t in seen if name == "_encode_key_job"]
+    warm_s = ("not run" if warm is None else
+              f"{warm:.3f} s ({warm / len(frames):.3f} s a frame)")
+    log(f"phase {tag}: SVT_TPU_FEAT={OVERRIDES}, {w}x{h} x{len(frames)} "
+        f"{fields}: cold {dt:.3f} s ({dt / len(frames):.3f} s a frame, the "
+        f"key frame {keys} s), warm {warm_s}; host stage seconds (total, "
+        f"calls) {sec}; {sum(len(p.data) for p in pkts)} bytes, Y-PSNR "
+        f"per shown frame {ps} dB; blocks {counts}; odd-MV (1/8-pel) "
+        f"blocks {odd}; RDOQ changed the levels of {rq.blocks} "
+        f"candidate blocks in {rq.calls} calls; K1 {n} launches at B = "
+        f"{batches}; decoded on the card equal to recon ({dec_s:.1f} s)"
+        f"{base}; {card}")
+    return n
+
+
+def phase_overrides(card):
+    """Phase 46, this slice's main path: the 1080p bench clip x3 (OVR_MAIN:
+    M10, key + base + compound B, MCTF, DLF + CDEF) with the three tools
+    no preset turns on (OVERRIDES: 1/8-pel MVs, the adapted MD rate
+    tables, RDOQ) through send_picture / flush on the default device: K1
+    762 launches at B = 360, 254 on the key frame (RDOQ on its levels)
+    and 254 in each inter frame's pass B; then bench.py's CIF M6 GOP
+    (MCTF + TPL + DLF + CDEF, levels 3) x3 with the same overrides, K1 in
+    the two inter frames' pass B at B = 88 (the M6 key frame searches
+    four tx types and takes none).  Each line: seconds per frame cold
+    (and warm), host stage seconds, odd-MV blocks, blocks RDOQ changed,
+    Y-PSNR, bytes; every recon decoded on the card; the 1080p GOP's line
+    also the same GOP without the overrides, right after.  Returns (the main
+    path's K1 launches, launches by path)."""
+    import torch
+    waves = waves_per_frame(*P1080_CODED)
+    main_n = override_gop(
+        "46", synth_frames(OVR_FRAMES, *P1080), P1080, OVR_MAIN, card,
+        (OVR_FRAMES * waves, [k1_batch(1, P1080_CODED, 10)]), plain=True)
+    by_path = {f"M10 GOP 1080p x{OVR_FRAMES} {OVERRIDES}": main_n}
+    cw = waves_per_frame(*CIF)
+    by_path[f"M6 GOP MCTF+TPL CIF x3 {OVERRIDES}"] = override_gop(
+        "46", synth_frames(3, *CIF), CIF,
+        dict(M6_BENCH, enc_mode=6, qp=35), card,
+        (2 * cw, [k1_batch(1, CIF, 6)]))
+    torch.cuda.synchronize()
+    return main_n, by_path
+
+
+def phase_override_small():
+    """Phase 47: the streams of tests/test_torch_feature_overrides.py (the
+    reference's hp_mv and rdoq settings, rdoq at M10 through send_picture
+    and send_pictures, adapted_rates at M10 and M12, all three, and
+    SVT_TPU_EXACT_RATES=0) on the card, each decoded on the card equal to
+    its recon and held to the CPU's digest (tools/record_cpu_streams.py
+    47); a stream that differs (K1's ties) is held to the stored JAX
+    stream (the CPU's, byte for byte) by the parity rule.  Nothing is
+    encoded on the CPU."""
+    from svt_av1_tpu_torch.api.encoder import Encoder, EncoderConfig
+    tfo = test_module("test_torch_feature_overrides")
+    for name, (make, fields, feat, exact, batched, _) in tfo.STREAMS.items():
+        frames = make()
+        t0 = clock()
+        pkts = tfo.drive(Encoder, EncoderConfig, name, device=CARD)
+        dt = clock() - t0
+        coded, shown = gop_decode_check(pkts, CARD)
+        if shown != len(frames):
+            _fail(f"phase 47: {name}: {shown} frames shown")
+        if stored_digest(f"47/{name}", stream_digest(pkts)):
+            how = "equal to the CPU's digest"
+        else:
+            how = stream_parity(frames, pkts, coded, tfo.stored_stream(name))
+            if how is None:
+                _fail(f"phase 47: {name}: differs from the CPU's stream "
+                      "beyond the parity rule")
+        entry = "send_pictures" if batched else "send_picture"
+        log(f"phase 47: {name} (SVT_TPU_FEAT={feat!r}, "
+            f"SVT_TPU_EXACT_RATES={exact!r}, {entry}) "
+            f"on the card: {dt:.2f} s, {sum(len(p.data) for p in pkts)} "
+            f"bytes, odd-MV blocks {odd_mv_blocks(coded)}; decoded on the "
+            f"card equal to recon; {how}")
+
+
+def stream_parity(frames, pkts, coded, datas):
+    """The parity rule of a card stream against the CPU's packets
+    ``datas``, decoded on the card: >= 99% of blocks equal, |dPSNR| <=
+    0.05 dB, |dbytes| <= 1%.  Returns its line, or None if it fails."""
+    from svt_av1_tpu_torch.codec import obu
+    from svt_av1_tpu_torch.codec.decoder import Decoder
+    dec = Decoder(device=CARD)
+    ref_coded, ref_y = [], []
+    for d in datas:
+        ref_y += [r["y"] for r in dec.decode_temporal_unit(d)]
+        if obu.OBU_FRAME in [t for t, _ in obu.parse_obus(d)]:
+            ref_coded.append(dec.last_decisions)
+    pairs = [(a, fb.get(k)) for (_, fa), fb in zip(coded, ref_coded)
+             for k, a in fa.items()]
+    agree = sum(_same_inter_block(a, b) and (a.is_inter or same_block(a, b))
+                for a, b in pairs) / max(len(pairs), 1)
+    shown = sorted((p for p in pkts if p.displayed), key=lambda p: p.pts)
+    dps = abs(np.mean([psnr(frames[p.pts][0], p.recon["y"]) for p in shown])
+              - np.mean([psnr(f[0], y) for f, y in zip(frames, ref_y)]))
+    db = abs(sum(len(p.data) for p in pkts) / sum(map(len, datas)) - 1.0)
+    line = (f"DIFFERENT from the CPU's digest: {agree:.2%} of blocks equal "
+            f"to the CPU's stream's, |dPSNR| {dps:.4f} dB, |dbytes| "
+            f"{db:.2%}")
+    ok = agree >= MIN_BLOCK_AGREE and dps <= MAX_DPSNR and db <= MAX_DBYTES
+    return line if ok else None
+
+
+def override_slice(card):
+    """Phases 46-47 (this slice's), first and alone."""
+    main_n, by_path = phase_overrides(card)
+    phase_override_small()
     return main_n, by_path
 
 
@@ -4516,7 +4769,7 @@ WORKER = "--worker"
 # beside front_end_slices in this one (about 200-290 s each on the H100)
 WORKERS = {"earlier": earlier_slices, "ten_bit_rate": ten_bit_and_rate_slices,
            "post_filters": post_filter_slices, "m4": m4_slices,
-           "multistream": multistream_slices}
+           "multistream": multistream_slices, "stage": stage_slices}
 
 
 def start_worker(name, folder):
@@ -4643,12 +4896,12 @@ def main():
     fused_txq.batches.clear()           # from here on: the paths' batches
 
     # this slice first and alone (so that nothing else weighs on the main
-    # path's timing): the stage path's 1080p 10-bit GOP and the CIF IPPP
-    # GOP, then the CPU tests' stage-path streams on the card
+    # path's timing): the 1080p M10 GOP and the CIF M6 GOP with the three
+    # overrides, then the CPU tests' override streams on the card
     cif17 = synth_frames(17, *CIF)
-    main_launches, by_path = stage_slice(card)
+    main_launches, by_path = override_slice(card)
     if "--this-slice" in sys.argv[1:]:
-        # a short call while the slice is built: phases 1-4, 44, 45, 25
+        # a short call while the slice is built: phases 1-4, 46, 47, 25
         return finish(card, krec, main_launches, by_path, smi)
 
     # the earlier slices in five processes that share the card: slice 12
@@ -4656,7 +4909,7 @@ def main():
     # is measured while they run (SHARED)
     global SHARED
     import tempfile
-    log(f"phases 5-43: in {len(WORKERS) + 1} processes that share the card "
+    log(f"phases 5-45: in {len(WORKERS) + 1} processes that share the card "
         f"(this one and the workers {', '.join(WORKERS)}, whose lines "
         f"follow this one's in that order); their times are not measured "
         f"and print as nan")
@@ -4700,13 +4953,14 @@ def finish(card, krec, main_launches, by_path, smi):
 
     check_no_jax()
     # the line's top-level numbers are K1's on this slice's main path
-    # (phase 44): its launches in the pass B of the 1080p 10-bit M6 GOP,
-    # timed at that path's batch (60 wave slots x 8 modes) on 10-bit
-    # residuals; the per-row form's are phase 42's (four 1080p streams,
-    # its batched run, B = 4 x 60 x 6); every size is under by_batch (bd:
-    # the residuals' bit depth) and every path under launches_by_path
+    # (phase 46): its launches in the 1080p M10 GOP with the overrides
+    # (the key frame and the two inter frames' pass B), timed at that
+    # path's batch (60 wave slots x 6 modes) on 8-bit residuals; the
+    # per-row form's are phase 42's (four 1080p streams, its batched run,
+    # B = 4 x 60 x 6); every size is under by_batch (bd: the residuals'
+    # bit depth) and every path under launches_by_path
     b0 = next(r for r in krec["by_batch"]
-              if r["b"] == stage_batch() and r["bd"] == 10)
+              if r["b"] == k1_batch(1, P1080_CODED, 10) and r["bd"] == 8)
     b_rows = MS_STREAMS * k1_batch(1, P1080_CODED, 10)
     r0 = next(r for r in krec["rows_by_batch"] if r["b"] == b_rows)
     rows_launches = by_path.get(MS_ROWS_PATH, 0)

@@ -57,10 +57,12 @@ key frames take loop restoration on the fast path (the DPB slot holds the
 restored planes; its inter frames signal RESTORE_NONE), and on the stage
 path every frame takes the filters and loop restoration of a key frame.
 Tile columns (tile_columns) in a GOP code one tile, as the reference's
-per-block packetization does.  What still raises NotImplementedError,
-naming the ROADMAP.md item that brings it (nothing falls back to the JAX
-package): a feature override (SVT_TPU_FEAT) that turns on a tool no
-preset uses (hp_mv on the fast path, which alone reads it; rdoq).
+per-block packetization does.  The feature overrides (SVT_TPU_FEAT, and
+SVT_TPU_EXACT_RATES for the rate model) turn on the tools no preset uses
+where the reference reads them: rdoq on the key frames of the preset's
+frame program and on ``send_pictures``; hp_mv (1/8-pel MVs) and
+adapted_rates (MD rate tables from the CDFs of the newest stored frame,
+as the dispatch finds them) on the fast path's inter frames.
 
 An IPPP / low-delay GOP codes each frame as it arrives (_drain,
 _encode_frame): with MCTF a key frame waits for its next two frames and
@@ -131,6 +133,7 @@ from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.config import ConfigError, EncoderConfig
 from svt_av1_tpu_torch.codec import fast_ec, obu
 from svt_av1_tpu_torch.codec import constants as cc
+from svt_av1_tpu_torch.codec import mv as mv_mod
 from svt_av1_tpu_torch.codec import mv_pred
 from svt_av1_tpu_torch.codec.syntax import TileEncoder
 from svt_av1_tpu_torch.codec import lr as lr_mod
@@ -343,6 +346,8 @@ class Encoder:
         # inter frames and the random-access structure; any other GOP is
         # IPPP / low delay (_drain, _encode_frame)
         self._hier = 0
+        # the newest stored frame's adapted CDFs (adapted_rates' tables)
+        self._chain_cdfs = None
         if (config.hierarchical_levels > 0
                 and config.intra_period_length not in (-2, 0)
                 and config.pred_structure == 2):
@@ -377,15 +382,6 @@ class Encoder:
         # the last source frame (the backward neighbour of an IPPP key
         # frame's MCTF)
         self._tf_hist = []
-        # feature overrides (SVT_TPU_FEAT) can turn on tools that no preset
-        # uses and the port does not have; the reference reads hp_mv on its
-        # fast path only
-        for on, what in ((self._feat.hp_mv and self._fast,
-                          "1/8-pel MVs (hp_mv)"),
-                         (self._feat.rdoq, "RDOQ (rdoq)")):
-            if on:
-                raise NotImplementedError(
-                    f"{what}: not ported yet (ROADMAP.md queue A item 7)")
 
     # -- API surface ---------------------------------------------------------
     def stream_header(self) -> bytes:
@@ -854,7 +850,7 @@ class Encoder:
                     exact_rates=(self._feat.exact_rates
                                  and self._feat.exact_rates_intra),
                     tile_starts=self._tile_starts if arrays_ok else (0,),
-                    bd=self.bd, device=self.device)
+                    rdoq=self._feat.rdoq, bd=self.bd, device=self.device)
             if pending is not None:
                 self._emit(*pending, arrays_ok)
             pending = (launched, q, chunk)
@@ -1147,6 +1143,7 @@ class Encoder:
         self._slot_free = set(range(1, 8))
         self._slot_recon = {0: full}
         self._slot_state = {0: (tenc.cdfs, tenc.nmv)}
+        self._chain_cdfs = tenc.cdfs
         self._slot_mvfield = {}
         self._slot_hint = [poc & ((1 << self.sp.order_hint_bits) - 1)] * 8
         self._h_anchor = poc
@@ -1335,14 +1332,19 @@ class Encoder:
             refs[mv_pred.GOLDEN_FRAME] = self._slot_recon[gld_slot]
         src_pack = np.concatenate(
             [y, np.concatenate([u, v], axis=1)], axis=0)
+        # adapted_rates: the newest adapted CDFs at dispatch (the mini-GoP
+        # is dispatched before it is collected, so they lag by one stage,
+        # as in the reference)
+        cdf_state = self._chain_cdfs if self._feat.adapted_rates else None
         pend = gop_fast.run_inter_frame(
             src_pack, refs, qindex, self.coded_h, self.coded_w,
             modes=self._feat.intra_modes, ring=self._feat.subpel_ring,
             rad2=self._feat.hme_rad2, rad0=self._feat.hme_rad0,
             cdef_cands=cdef_stage.SEARCH_SET[:self._feat.cdef_candidates],
             dlf_on=bool(self.cfg.enable_dlf_flag),
-            cdef_on=self.sp.enable_cdef, hp=self._feat.hp_mv,
-            obmc=self._feat.obmc, interintra=self._feat.interintra,
+            cdef_on=self.sp.enable_cdef, cdf_state=cdf_state,
+            hp=self._feat.hp_mv, obmc=self._feat.obmc,
+            interintra=self._feat.interintra,
             exact_rates=self._feat.exact_rates,
             skip_mode=self.sp.enable_order_hint,
             tx_search=self._feat.tx_search, split8=self._feat.part8,
@@ -1377,6 +1379,7 @@ class Encoder:
                                          last_slot, slot, idx, ref_hints)
         if ev.store:
             self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
+            self._chain_cdfs = tenc.cdfs
         pkt.displayed = ev.shown
         if ev.shown and (self.recon_enabled or self.cfg.stat_report):
             pkt.recon = self._host_recon(recon_dev)
@@ -1429,6 +1432,7 @@ class Encoder:
             self._dpb[ev.poc] = slot
             self._slot_recon[slot] = full
             self._slot_state[slot] = (tenc.cdfs, tenc.nmv)
+            self._chain_cdfs = tenc.cdfs
             self._slot_hint[slot] = \
                 ev.poc & ((1 << self.sp.order_hint_bits) - 1)
         pkt.displayed = ev.shown
@@ -1499,6 +1503,8 @@ class Encoder:
         tenc.enable_interintra = self.sp.enable_interintra_compound
         tenc.is_motion_mode_switchable = fp.is_motion_mode_switchable
         tenc.reference_select = fp.reference_select
+        if fp.allow_high_precision_mv:
+            tenc.mv_precision = mv_mod.MV_SUBPEL_HIGH
         tenc.set_gm(fp.gm_trans)
         tenc.cur_hint = fp.order_hint
         tenc.ref_hints = {e: fp.ref_hints[e - 1] for e in range(1, 8)}

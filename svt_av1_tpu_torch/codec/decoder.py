@@ -45,6 +45,7 @@ import numpy as np
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.api.encoder import _skip_map, _skip_map8
 from svt_av1_tpu_torch.codec import lr as lr_mod
+from svt_av1_tpu_torch.codec import mv as mv_mod
 from svt_av1_tpu_torch.codec import mv_pred, obu
 from svt_av1_tpu_torch.codec.syntax import TileDecoder
 from svt_av1_tpu_torch.codec import constants as cc
@@ -127,10 +128,6 @@ class Decoder:
             raise NotImplementedError(
                 "superres on inter frames (scaled-reference motion "
                 "compensation): ROADMAP.md queue A item 7")
-        if not is_intra and fp.allow_high_precision_mv:
-            raise NotImplementedError(
-                "1/8-pel MVs (allow_high_precision_mv): ROADMAP.md queue A "
-                "item 7")
         chain = (not is_intra
                  and fp.primary_ref_frame != obu.PRIMARY_REF_NONE)
         init_cdfs = init_nmv = None
@@ -152,6 +149,8 @@ class Decoder:
         tdec.reference_select = fp.reference_select
         if not is_intra:
             tdec.set_gm(fp.gm_trans)
+            if fp.allow_high_precision_mv:
+                tdec.mv_precision = mv_mod.MV_SUBPEL_HIGH
             if fp.skip_mode_present:
                 tdec.skip_mode_present = True
                 tdec.skip_mode_frames = obu.skip_mode_refs(

@@ -5,12 +5,15 @@ Two parts:
 * The numpy derivations, copied from the reference's
   svt_av1_tpu/codec/rate_est.py with their names (``_sym_bits``,
   ``true_tables_for_qindex``, ``tables_for_qindex``,
-  ``rdoq_tables_for_qindex`` and their helpers).  ``tables_for_qindex``
+  ``rdoq_tables_for_qindex``, ``adapted_decision_tables`` and their
+  helpers).  ``tables_for_qindex``
   holds the tables MD decides with: a sparsity-calibrated level curve
   plus fitted eob-position costs, and zero mode-signaling costs, because
   pricing candidates with accurate static bits loses BD-rate against a
   coder whose CDFs adapt to what the encoder concentrates on.  The fitted
   tables are read from codec/data/md_rate_fit*.npz.
+  ``adapted_decision_tables`` re-derives the decision tables from an
+  adapted CDF state (the ``adapted_rates`` override).
 * The context-exact ``CoefTables`` bundle and ``md_rate_args`` with its
   tensors on a device.
 """
@@ -197,6 +200,54 @@ def tables_for_qindex(qindex: int) -> Dict[str, np.ndarray]:
                 uv_mode_bits_true=uv.astype(np.float32))
 
 
+def _avg_bits_vec(rows: np.ndarray, nsyms: int) -> np.ndarray:
+    """Vectorized _avg_bits (per-frame refresh path: hundreds of context
+    rows, host time must stay negligible)."""
+    flat = rows.reshape(-1, rows.shape[-1])[:, :nsyms].astype(np.int64)
+    v = np.concatenate(
+        [np.full((len(flat), 1), 32768, np.int64), flat], axis=1)
+    p = (v[:, :-1] - v[:, 1:]) / 32768.0
+    return (-np.log2(np.maximum(p, 1.0 / 32768.0))).mean(axis=0) \
+        .astype(np.float32)
+
+
+# get_txsize_entropy_ctx(TX_16X16) / (TX_8X8)
+_TXS_CTX_16, _TXS_CTX_8 = 2, 1
+
+
+def adapted_decision_tables(c) -> Dict[str, np.ndarray]:
+    """MD rate tables re-derived from an ADAPTED CDF state (the
+    primary-ref chain) — per-frame analog of the reference's rolling-CDF
+    rate refresh (enc_dec_process.c:3304-3318 av1_estimate_coef_rate /
+    md_rate_estimation.c).
+
+    MEASURED (round 3, preset-6 GOP pan clip, 4 CRFs): ~-2 dB at equal
+    bits versus the sparsity/fitted tables — SHIPS DISABLED
+    (presets.adapted_rates=False).  Root cause: _txb_bits evaluates
+    nonzero levels with the analytic VPU formula (no per-coefficient
+    table gather on the TPU), so only the zero-symbol cost, eob table
+    and txb flag from this derivation actually flow into decisions, and
+    pricing those "accurately" re-opens the same skip-bias trap the
+    round-2 static-accurate experiment hit.  The real counterpart of
+    the reference's rate refresh needs context-exact per-coefficient
+    pricing inside the device program — a rate-model redesign, not a
+    table swap."""
+    base_y = _avg_bits_vec(c.coeff_base[_TXS_CTX_16, 0], 4)
+    br_y = _avg_bits_vec(c.coeff_br[_TXS_CTX_16, 0], 4)
+    base_uv = _avg_bits_vec(c.coeff_base[_TXS_CTX_8, 1], 4)
+    br_uv = _avg_bits_vec(c.coeff_br[_TXS_CTX_8, 1], 4)
+    eob_y = _eob_table_from_cls(_avg_bits_vec(c.eob_flag[256][0], 9),
+                                256)
+    eob_uv = _eob_table_from_cls(_avg_bits_vec(c.eob_flag[64][1], 7),
+                                 64)
+    txb_y = float(_avg_bits_vec(c.txb_skip[_TXS_CTX_16], 2)[0])
+    txb_uv = float(_avg_bits_vec(c.txb_skip[_TXS_CTX_8], 2)[0])
+    return dict(coef_y=_level_curve(base_y, br_y),
+                coef_uv=_level_curve(base_uv, br_uv),
+                eob_y=eob_y, eob_uv=eob_uv,
+                txb_base=np.array([txb_y, txb_uv], np.float32))
+
+
 def exact_coef_tables(c: FrameCDFs, tx_size: int, plane: int,
                       luma_skip_ctx: int = 0) -> CoefTables:
     """Context-exact bit-cost tables (numpy float32 fields) for
@@ -246,37 +297,53 @@ def _default_exact_tables(qindex: int, tx_size: int, plane: int,
                              luma_skip_ctx)
 
 
+def exact_rates_override(exact: bool) -> bool:
+    """``exact`` under the SVT_TPU_EXACT_RATES A/B override, which wins
+    where it is set: "0" or "" turns the context-exact model off, any
+    other value on (the reference reads it in its md_rate_args)."""
+    env = os.environ.get("SVT_TPU_EXACT_RATES")
+    if env is not None:
+        return env not in ("0", "")
+    return bool(exact)
+
+
 def md_rate_args(qindex: int, modes, uv_modes, cdf_state=None,
                  inter_frame: bool = False, exact: bool = False,
                  device=None) -> tuple:
     """(coef_y, coef_uv, txb_base (2,), mode_bits (len(modes),),
     uv_bits (len(uv_modes),), eob_y (257,), eob_uv (65,), rq_y, rq_uv)
     as float32 tensors on ``device`` (default: the current CUDA device),
-    for the MD programs.
+    for the MD programs; rq_y / rq_uv are RDOQ's level + eob bundles.
 
     exact: context-exact CoefTables in the coef_y / coef_uv slots instead
-    of the (64,) level curves.  inter_frame: intra modes priced with
-    their true signaling cost plus the intra_inter flag (an inter frame's
-    choice is intra against inter).  cdf_state: the reference's adapted
-    decision tables (``adapted_rates``), off at every preset; it is not
-    ported and raises."""
-    if cdf_state is not None:
-        raise NotImplementedError(
-            "adapted MD rate tables (cdf_state, presets with "
-            "adapted_rates): not ported (ROADMAP.md queue A item 7)")
+    of the (64,) level curves (SVT_TPU_EXACT_RATES overrides it, see
+    exact_rates_override).  inter_frame: intra modes priced with their
+    true signaling cost plus the intra_inter flag (an inter frame's
+    choice is intra against inter).  cdf_state: an adapted FrameCDFs
+    (the primary-ref chain, ``adapted_rates``): the decision curves, eob
+    tables and txb flags come from adapted_decision_tables, and the
+    exact model's tables from this state instead of the default one."""
     t = tables_for_qindex(int(qindex))
+    if cdf_state is not None:
+        t = dict(t)
+        t.update(adapted_decision_tables(cdf_state))
     ykey = "y_mode_bits_true" if inter_frame else "y_mode_bits"
     ukey = "uv_mode_bits_true" if inter_frame else "uv_mode_bits"
     intra_flag = 1.5 if inter_frame else 0.0   # intra_inter symbol
+    # filter-intra pseudo-modes (>= FI_MODE_BASE) signal as DC
     mode_bits = np.array(
         [t[ykey][m if m < cc.INTRA_MODES else cc.DC_PRED] + intra_flag
          for m in modes], np.float32)
     uv_bits = np.array([t[ukey][m] for m in uv_modes], np.float32)
     rq = rdoq_tables_for_qindex(int(qindex))
     coef_y, coef_uv = t["coef_y"], t["coef_uv"]
-    if exact:
-        coef_y = _default_exact_tables(int(qindex), cc.TX_16X16, 0)
-        coef_uv = _default_exact_tables(int(qindex), cc.TX_8X8, 1)
+    if exact_rates_override(exact):
+        if cdf_state is not None:
+            coef_y = exact_coef_tables(cdf_state, cc.TX_16X16, 0)
+            coef_uv = exact_coef_tables(cdf_state, cc.TX_8X8, 1)
+        else:
+            coef_y = _default_exact_tables(int(qindex), cc.TX_16X16, 0)
+            coef_uv = _default_exact_tables(int(qindex), cc.TX_8X8, 1)
     return rate_args_to(
         (coef_y, coef_uv, t["txb_base"], mode_bits, uv_bits,
          t["eob_y"], t["eob_uv"], rq["rq_y"], rq["rq_uv"]),

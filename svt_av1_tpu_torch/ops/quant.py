@@ -208,8 +208,10 @@ def quantize(coeffs: torch.Tensor, qp: QuantParams, tx_size: int):
 
 
 def dequant_field(qp: QuantParams, h: int, w: int) -> torch.Tensor:
-    """(1, h, w) per-position dequant steps (DC at [0,0], AC elsewhere)."""
-    return _pick(qp.dequant, _dc_select(h, w, qp.dequant.device))[None]
+    """(1, h, w) per-position dequant steps (DC at [0,0], AC elsewhere),
+    or (B, h, w) when qp carries per-block rows."""
+    f = _pick(qp.dequant, _dc_select(h, w, qp.dequant.device))
+    return f if f.dim() == 3 else f[None]
 
 
 def dequantize(qcoeff: torch.Tensor, qp: QuantParams, tx_size: int):

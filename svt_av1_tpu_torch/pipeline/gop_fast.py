@@ -49,8 +49,10 @@ One departure from the reference, where it departs from the AV1
 specification: an OBMC candidate next to an 8x8 split neighbour blends
 that neighbour per 8-px segment with the sub MVs that touch the block
 (spec 7.11.3.10), as a decoder does; the reference leaves the neighbour
-out (ROADMAP.md queue C item 4).  1/8-pel MVs (hp_mv, off at every
-preset) raise.
+out (ROADMAP.md queue C item 4).  1/8-pel MVs (``hp``, the hp_mv
+override, off at every preset): the projection of a warped gm model and
+the clamps keep the low bit, and pass A refines each reference's winner
+over the eight 1/8-pel neighbours.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ import torch
 
 from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.codec import constants as cc
-from svt_av1_tpu_torch.codec.rate_est import md_rate_args
+from svt_av1_tpu_torch.codec.rate_est import (exact_rates_override,
+                                               md_rate_args)
 from svt_av1_tpu_torch.ops import cdef as cdef_ops
 from svt_av1_tpu_torch.ops import dlf as dlf_ops
 from svt_av1_tpu_torch.ops import interintra as ii_ops
@@ -87,8 +90,9 @@ WM = 1 << 16  # WARPEDMODEL_PREC_BITS unit
 # few microseconds each
 _region = torch.profiler.record_function
 NLVL = 5      # DLF ladder size (padded to a fixed length)
-HP_MV = ("1/8-pel MVs (hp_mv, off at every preset): not ported yet "
-         "(ROADMAP.md queue A item 7)")
+# the 1/8-pel refinement ring of pass A (hp), in the reference's order
+_HP_RING = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1),
+            (-1, -1))
 
 # extra luma tx types searched on inter winners (beyond DCT_DCT); they
 # share the TX_16X16 default scan, so one rate table serves all
@@ -281,15 +285,19 @@ def _gm_fit(mv_y, mv_x, gh, gw, dtype=torch.float32, raw=False):
     return mat, trans, kind
 
 
-def _gm_block_mvs(mat, gh, gw):
+def _gm_block_mvs(mat, gh, gw, hp=False):
     """(nb, 2) int32 1/8-pel block-center projections of a gm model on the
-    16x16 grid (gm_block_mv at quarter-pel precision: shift 14, doubled)."""
+    16x16 grid (gm_block_mv: shift 13 under allow_high_precision_mv, else
+    shift 14 doubled)."""
     dev = mat.device
     nb = gh * gw
     x = _t(np.arange(nb) % gw * BLK + BLK // 2 - 1, dev)
     y = _t(np.arange(nb) // gw * BLK + BLK // 2 - 1, dev)
     xc = (mat[2] - WM) * x + mat[3] * y + mat[0]
     yc = mat[4] * x + (mat[5] - WM) * y + mat[1]
+    if hp:
+        return torch.stack([_rpot_signed_t(yc, 13), _rpot_signed_t(xc, 13)],
+                           dim=-1)
     return torch.stack([_rpot_signed_t(yc, 14) * 2,
                         _rpot_signed_t(xc, 14) * 2], dim=-1)
 
@@ -319,15 +327,18 @@ def _warp_plane_traced(ref, mat, shear, p_w, p_h, bd, ss):
             .reshape(p_h, p_w))
 
 
-def _clamp_cands(cand, ys, xs, blk, h, w, pad=mc.PAD, blk_h=None):
-    """clamp_mvs_for_pad over (nb, K, 2) candidates, low bit cleared
-    (quarter-pel MVs).  blk_h: block height when it differs from the
-    width."""
+def _clamp_cands(cand, ys, xs, blk, h, w, pad=mc.PAD, hp=False,
+                 blk_h=None):
+    """clamp_mvs_for_pad over (nb, K, 2) candidates, the low bit cleared
+    (quarter-pel MVs) unless ``hp`` (1/8-pel).  blk_h: block height when
+    it differs from the width."""
     bh = blk if blk_h is None else blk_h
     r = torch.clamp(cand[..., 0], (-(ys + pad - 4) * 8)[:, None],
                     ((h + pad - 4 - (ys + bh)) * 8)[:, None])
     c = torch.clamp(cand[..., 1], (-(xs + pad - 4) * 8)[:, None],
                     ((w + pad - 4 - (xs + blk)) * 8)[:, None])
+    if hp:
+        return torch.stack([r, c], dim=-1)
     return torch.stack([r & ~1, c & ~1], dim=-1)
 
 
@@ -442,14 +453,14 @@ def _tx_funnel(resid, pred, bq, rec_coded, coded, chroma, mvb, qp, lam, rt,
 
 
 def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
-                 qp, lam, rt, bd, interp, nb, K, h, w, sid=None):
+                 qp, lam, rt, bd, interp, nb, K, h, w, sid=None, hp=False):
     """The 8x8 partition-split alternative of a 16x16 block against ONE
     reference: each of the four 8x8 subs picks its own MV from the
     parent's candidates, codes TX_8X8 luma and TX_4X4 chroma and decides
     skip on its own.  Returns (cost, cost_y, sub MVs (nb, 4, 2), sub skips
     (nb, 4), qy, rec_y (nb, 16, 16), qu, rec_u, qv, rec_v (nb, 8, 8)):
-    each sub's coefficients and recon in its quadrant.  sid, qp, lam and
-    interp as in _eval_ref."""
+    each sub's coefficients and recon in its quadrant.  sid, qp, lam,
+    interp and hp as in _eval_ref."""
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
     sidK, interpK = _rep(sid, K), _rep(interp, K)
@@ -465,7 +476,7 @@ def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
                                            z(CBLK), z(CBLK))
     for dy, dx in ((0, 0), (0, SUB), (SUB, 0), (SUB, SUB)):
         ys_s, xs_s = ys + dy, xs + dx
-        cand_s = _clamp_cands(cand, ys_s, xs_s, SUB, h, w)
+        cand_s = _clamp_cands(cand, ys_s, xs_s, SUB, h, w, hp=hp)
         mvsK = cand_s.permute(1, 0, 2).reshape(nb * K, 2)
         ysK, xsK = ys_s.repeat(K), xs_s.repeat(K)
         pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, SUB, mc.PAD, 0, bd,
@@ -527,13 +538,15 @@ def _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand, ys, xs,
 
 def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
               wref_v, cand, is_warp0, ys, xs, qp, lam, rt, bd, interp, nb,
-              K, h, w, tx_search=False, split8=False, sid=None):
+              K, h, w, tx_search=False, split8=False, sid=None, hp=False):
     """Pass-A candidate evaluation against ONE reference (skip-aware).
 
     cand: (nb, K, 2) clamped MVs (slot 0 = the global-motion candidate,
     signaling-only where is_warp0, (nb,) bool).  tx_search: the inter
     tx-type search on the winner's residual (_tx_funnel); split8: the 8x8
-    split alternative (_eval_split8).  A stream batch passes (S, ...)
+    split alternative (_eval_split8); hp: 1/8-pel MVs, the winner refined
+    over the eight 1/8-pel neighbours (_HP_RING) unless it is the warped
+    candidate.  A stream batch passes (S, ...)
     planes and sid, the (nb,) stream of each block; qp/lam are then the
     blocks' StreamQuant and (nb,) lambdas and interp (nb,) filter kinds
     (one stream: the frame quantizer, 0-d lambda and kind).  Returns the
@@ -542,29 +555,46 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
     coef_y, coef_uv, txbb, eob_y, eob_uv = rt
     dev = src_y.device
     ar = torch.arange(nb, device=dev)
-    ysK = ys.repeat(K)
-    xsK = xs.repeat(K)
-    sidK, interpK = _rep(sid, K), _rep(interp, K)
-    qpK, lamK = quant.repeat_rows(qp, K), _rep(lam, K)
-    mvsK = cand.permute(1, 0, 2).reshape(nb * K, 2)
-    pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, BLK, mc.PAD, 0, bd,
-                        kind=interpK, sid=sidK)
-    wslice = _blocks_at(wref_y, ys, xs, BLK, sid)
-    pred = torch.cat([torch.where(is_warp0[:, None, None], wslice,
-                                  pred[:nb]), pred[nb:]])
-    resid = _blocks_at(src_y, ysK, xsK, BLK, sidK) - pred
-    qc, dq, dist, bits = _txq_rd(resid, qpK, cc.DCT_DCT, cc.TX_16X16, coef_y,
-                                 txbb[0], eob_y, lamK)
-    mvb = _mv_bits(mvsK)
-    cost_coded = dist + lamK * (bits + mvb)
-    cost_skip = _sq_sum(resid) + lamK * (mvb + 2.0)
-    skip_k = cost_skip < cost_coded
-    cost = torch.where(skip_k, cost_skip, cost_coded).reshape(K, nb)
-    kbest = cost.argmin(dim=0)
-    pick = lambda a: a.reshape((K, nb) + a.shape[1:])[kbest, ar]
-    bmv, bq, bdq, bpred = pick(mvsK), pick(qc), pick(dq), pick(pred)
-    bcoded, bskipc = pick(cost_coded), pick(cost_skip)
+
+    def luma_rd(mvsK, kn, warp0):
+        """Luma RD of kn candidates a block (candidate-major (kn*nb, 2)
+        MVs; with warp0 the first is the warped prediction where
+        is_warp0): the winner's index and its (cost, mv, q, dq, pred,
+        coded cost, skip cost)."""
+        ysK, xsK = ys.repeat(kn), xs.repeat(kn)
+        sidK, interpK = _rep(sid, kn), _rep(interp, kn)
+        qpK, lamK = quant.repeat_rows(qp, kn), _rep(lam, kn)
+        pred = mc.mc_blocks(refp_y, ysK, xsK, mvsK, BLK, mc.PAD, 0, bd,
+                            kind=interpK, sid=sidK)
+        if warp0:
+            wslice = _blocks_at(wref_y, ys, xs, BLK, sid)
+            pred = torch.cat([torch.where(is_warp0[:, None, None], wslice,
+                                          pred[:nb]), pred[nb:]])
+        resid = _blocks_at(src_y, ysK, xsK, BLK, sidK) - pred
+        qc, dq, dist, bits = _txq_rd(resid, qpK, cc.DCT_DCT, cc.TX_16X16,
+                                     coef_y, txbb[0], eob_y, lamK)
+        mvb = _mv_bits(mvsK)
+        cost_coded = dist + lamK * (bits + mvb)
+        cost_skip = _sq_sum(resid) + lamK * (mvb + 2.0)
+        cost = torch.where(cost_skip < cost_coded, cost_skip, cost_coded)
+        kbest = cost.reshape(kn, nb).argmin(dim=0)
+        pick = lambda a: a.reshape((kn, nb) + a.shape[1:])[kbest, ar]
+        return kbest, [pick(a) for a in (cost, mvsK, qc, dq, pred,
+                                         cost_coded, cost_skip)]
+
+    kbest, best = luma_rd(cand.permute(1, 0, 2).reshape(nb * K, 2), K, True)
     warp_flag = (kbest == 0) & is_warp0
+    if hp:
+        # the 1/8-pel refinement ring around the winner (not a warped one)
+        ring = _t(_HP_RING, dev)
+        cand2 = _clamp_cands(best[1][:, None] + ring[None], ys, xs, BLK, h,
+                             w, hp=True)
+        _, best2 = luma_rd(cand2.permute(1, 0, 2).reshape(nb * 8, 2), 8,
+                           False)
+        improved = (best2[0] < best[0]) & ~warp_flag
+        best = [torch.where(improved.reshape((nb,) + (1,) * (a.dim() - 1)),
+                            a2, a) for a, a2 in zip(best, best2)]
+    _, bmv, bq, bdq, bpred, bcoded, bskipc = best
     rec_coded = tf.inv_txfm2d_add(bdq, bpred, cc.DCT_DCT, cc.TX_16X16, bd=bd)
     # chroma at the winner MV (the warped chroma planes under warp),
     # before the luma tx-type search: the inter chroma tx type is the
@@ -607,7 +637,8 @@ def _eval_ref(src_y, src_u, src_v, refp_y, refp_u, refp_v, wref_y, wref_u,
            torch.zeros((nb, 4), dtype=torch.bool, device=dev)]
     if split8:
         sp = _eval_split8(src_y, src_u, src_v, refp_y, refp_u, refp_v, cand,
-                          ys, xs, qp, lam, rt, bd, interp, nb, K, h, w, sid)
+                          ys, xs, qp, lam, rt, bd, interp, nb, K, h, w, sid,
+                          hp)
         take = sp[0] < out[0]
         t3 = take[:, None, None]
         out[0] = torch.where(take, sp[0], out[0])
@@ -966,11 +997,6 @@ class _AltEnv:
         return (el, best) + out
 
 
-def _check_p1_tools(hp):
-    if hp:
-        raise NotImplementedError(HP_MV)
-
-
 def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
              rad0=7, hp=False, obmc=False, interintra=False,
              skip_mode=False, tx_search=False, split8=False):
@@ -992,7 +1018,6 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
     fit (float32 sums over one frame's field: a batched reduction could
     order them differently), the warp of the references by each stream's
     model, and the wedge pick's matmul (_eval_pair)."""
-    _check_p1_tools(hp)
     gh, gw = h // BLK, w // BLK
     nb = gh * gw
     h64 = (h + 63) & ~63
@@ -1063,7 +1088,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                                            h // 2, bd, 1),
                         _warp_plane_traced(rv_[si], mat, shear, w // 2,
                                            h // 2, bd, 1)))
-                    gm_blk.append(_gm_block_mvs(mat, gh, gw))
+                    gm_blk.append(_gm_block_mvs(mat, gh, gw, hp))
                 wy, wu, wv = (torch.stack(p) for p in zip(*warped))
             kinds = torch.stack([g[2] for g in gms[r]])[sid]
             trans = torch.stack([g[1] for g in gms[r]])[sid]
@@ -1092,7 +1117,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
                 out = _eval_ref(src_y, src_u, src_v, *refps[r], wy, wu, wv,
                                 cand, is_warp0, ys, xs, qp_b, lam_b, rt5, bd,
                                 interp_b, nbt, K, h, w, tx_search, split8,
-                                sid)
+                                sid, hp)
             if best is None:
                 best = list(out)
             else:
@@ -1239,7 +1264,7 @@ def build_p1(h, w, R, modes, bd=8, ring=True, compound=True, rad2=8,
         with _region("p1.merges"):
             merge32, merge64, mergeH, mergeV = _skip_merges(
                 choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2, gh,
-                gw, h, w, isplit, iobmc, iimodes, ns)
+                gw, h, w, isplit, iobmc, iimodes, ns, hp)
         per = lambda a: a.reshape((ns, nb) + a.shape[1:])
         return (ry.to(torch.uint8), ru.to(torch.uint8),
                 rv.to(torch.uint8), per(ymode.to(torch.uint8)),
@@ -1267,7 +1292,7 @@ _edge_pad_to = me_pipe.edge_pad_to
 
 
 def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
-                 gh, gw, h, w, isplit, iobmc, iimodes, ns=1):
+                 gh, gw, h, w, isplit, iobmc, iimodes, ns=1, hp=False):
     """The partition-level skip merges: 2x2 groups of inter-skip winners
     sharing (ref, mv) — or the same compound pair — without warp or a
     masked compound become one 32x32 skip leaf, 2x2 merged 32s sharing
@@ -1277,7 +1302,8 @@ def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
     partition decision restricted to the lossless case).  The per-block
     inputs hold ``ns`` streams' blocks, stream-major; the outputs are
     (ns, gh//2 * gw//2) merge32 / mergeh / mergev and (ns, gh//4 * gw//4)
-    merge64 (at least one entry per stream)."""
+    merge64 (at least one entry per stream).  hp: the clamps keep 1/8-pel
+    MVs."""
     dev = choose.device
     gh2, gw2 = gh // 2, gw // 2
     # wedge, OBMC, inter-intra and split blocks keep their 16x16 leaves
@@ -1295,7 +1321,8 @@ def _skip_merges(choose, iskip, iwarp, iwedge, iref_idx, icomp, imv, imv2,
 
     def clamp_ok(mv, yy, xx, blk, blk_h=None):
         yy, xx = yy.repeat(ns), xx.repeat(ns)
-        cl = _clamp_cands(mv[:, None], yy, xx, blk, h, w, blk_h=blk_h)[:, 0]
+        cl = _clamp_cands(mv[:, None], yy, xx, blk, h, w, hp=hp,
+                          blk_h=blk_h)[:, 0]
         return (cl == mv).all(dim=-1)
 
     ref_i = iref_idx[:, None].to(torch.int32)
@@ -1850,11 +1877,22 @@ def _inter_rates(qindex: int, modes: tuple, exact: bool, device):
                         exact=exact, device=device)
 
 
-@functools.lru_cache(maxsize=16)
 def _stream_params(qindices: tuple, modes: tuple, exact: bool, bd: int,
-                   device):
-    """intra_encoder.stream_params with the inter rate tables, made once
-    per batch shape."""
+                   device, cdf_state=None):
+    """intra_encoder.stream_params with the inter rate tables: made once
+    per batch shape and exact flag (after SVT_TPU_EXACT_RATES), or, with
+    an adapted CDF state, from that state each time."""
+    exact = exact_rates_override(exact)
+    if cdf_state is None:
+        return _stream_params_on(qindices, modes, exact, bd, device)
+    return stream_params(qindices, lambda q: md_rate_args(
+        q, modes, UV_MODES, cdf_state, inter_frame=True, exact=exact,
+        device=device), device, bd)
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_params_on(qindices: tuple, modes: tuple, exact: bool, bd: int,
+                      device):
     return stream_params(qindices, lambda q: _inter_rates(q, modes, exact,
                                                           device), device,
                          bd)
@@ -1867,7 +1905,7 @@ def run_inter_frames(src_packs, refs_per_stream, qindices, h: int, w: int,
                      obmc: bool = False, interintra: bool = False,
                      exact_rates: bool = False, compound: bool = True,
                      skip_mode: bool = False, tx_search: bool = False,
-                     split8: bool = False, device=None):
+                     split8: bool = False, device=None, cdf_state=None):
     """P1 + P2 of one inter frame of each of S independent streams as one
     batched program on ``device`` (default: the current CUDA device):
     src_packs [(H + H/2, W) uint8], refs_per_stream [{ref_enum: y/u/v
@@ -1876,8 +1914,8 @@ def run_inter_frames(src_packs, refs_per_stream, qindices, h: int, w: int,
     per stream.  compound / skip_mode: the compound pairs and the
     skip-mode pair are evaluated (the caller decides from its references).
     Returns one PendingInterFrame per stream, which share one host copy of
-    the batch's outputs."""
-    _check_p1_tools(hp)
+    the batch's outputs.  hp: 1/8-pel MVs.  cdf_state: an adapted
+    FrameCDFs whose tables (rate_est.md_rate_args) the MD prices with."""
     dev = device_mod.resolve(device)
     ns = len(src_packs)
     ref_enums = sorted(refs_per_stream[0])
@@ -1892,7 +1930,7 @@ def run_inter_frames(src_packs, refs_per_stream, qindices, h: int, w: int,
                                 for sp in src_packs]), h, w, dev)
     qindices = tuple(int(q) for q in qindices)
     qp, lam, rt = _stream_params(qindices, tuple(modes), bool(exact_rates),
-                                 bd, dev)
+                                 bd, dev, cdf_state)
     p1 = build_p1(h, w, R, tuple(modes), bd, ring, compound, rad2, rad0,
                   hp, obmc, interintra, skip_mode, tx_search, split8)
     outs = p1.streams(*src, refs_y, refs_u, refs_v, qp, lam, rt)
@@ -1940,17 +1978,16 @@ def run_inter_frame(src_pack_u8: np.ndarray, refs: Dict[int, Dict],
     CUDA device): the one-stream call of run_inter_frames.  src_pack_u8:
     (H + H/2, W) uint8, luma above U|V; refs: {ref_enum: dict of y/u/v
     device planes}, LAST first.  The compound pairs run where ALTREF is a
-    reference.  Returns a PendingInterFrame; finish it with
-    collect_inter_frame."""
-    _check_p1_tools(hp)
-    if cdf_state is not None:   # adapted rate tables: not ported, raises
-        md_rate_args(qindex, (), (), cdf_state=cdf_state)
+    reference.  cdf_state: an adapted FrameCDFs for the MD rate tables
+    (the adapted_rates override).  Returns a PendingInterFrame; finish it
+    with collect_inter_frame."""
     ref_enums = sorted(refs)
     has_bwd = len(ref_enums) >= 2 and ref_enums[-1] == 7   # ALTREF present
     return run_inter_frames(
         [src_pack_u8], [refs], [qindex], h, w, modes, bd, ring, rad2, rad0,
         cdef_cands, dlf_on, cdef_on, hp, obmc, interintra, exact_rates,
-        has_bwd, skip_mode and has_bwd, tx_search, split8, device)[0]
+        has_bwd, skip_mode and has_bwd, tx_search, split8, device,
+        cdf_state)[0]
 
 
 def run_key_filters(src: Dict[str, np.ndarray],

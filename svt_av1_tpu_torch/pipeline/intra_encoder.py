@@ -5,8 +5,9 @@ Port of svt_av1_tpu/pipeline/intra_encoder.py for the all-intra slice
 all eleven, with the five filter-intra pseudo-modes at M0-M4 —, at M0-M8
 crossed with the tx-type search set and the angle-delta refinements of
 the directional modes; chroma DC/V/H/SMOOTH with their implied transform
-types plus the CfL candidate; exact palettes on screen content; no RDOQ
-or AQ).  The wave steps also take 32x32 and 64x64 blocks, for the
+types plus the CfL candidate; exact palettes on screen content; per-block
+quantizers; RDOQ after the quantizer where the ``rdoq`` override asks).
+The wave steps also take 32x32 and 64x64 blocks, for the
 variable-partition program (pipeline/varpart.py).
 
 The frame's 16x16 blocks are batched along 2:1 wavefronts (wave
@@ -35,12 +36,14 @@ from svt_av1_tpu_torch import device as device_mod
 from svt_av1_tpu_torch.codec import constants as cc
 from svt_av1_tpu_torch.codec import palette as pal
 from svt_av1_tpu_torch.codec import tables as tb
-from svt_av1_tpu_torch.codec.rate_est import md_rate_args
+from svt_av1_tpu_torch.codec.rate_est import (exact_rates_override,
+                                               md_rate_args)
 from svt_av1_tpu_torch.codec.syntax import (MAX_TX, BlockDecision,
                                              _chroma_tx_type,
                                              _chroma_tx_type_inter,
                                              max_chroma_tx_size)
 from svt_av1_tpu_torch.ops import dlf, fused_txq, intra, quant
+from svt_av1_tpu_torch.ops import rdoq as rdoq_mod
 from svt_av1_tpu_torch.ops import interintra as ii_ops
 from svt_av1_tpu_torch.ops import transforms as tf
 from svt_av1_tpu_torch.ops.coef_rate import CoefTables, txb_bits_exact
@@ -410,7 +413,7 @@ def _gather_ext_neighbors(recon, fi, ys, xs, n, above, left, tr_avail,
 def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
              modes, rates, bd=8, tx_types=None, tr_avail=None,
              bl_avail=None, inter=None, return_index=False, n=BLK,
-             tx_size=cc.TX_16X16, no_write=False, edge=None):
+             tx_size=cc.TX_16X16, no_write=False, edge=None, rdoq_tbl=None):
     """One luma wave step over n x n blocks (16x16 by default): every
     candidate of every slot through predict -> transform + quantize ->
     rate + distortion, the cheapest per slot kept, its normative
@@ -453,7 +456,11 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
     mixed tx types the candidates are grouped by type:
     one forward/quantize pass per distinct type over all its candidates,
     one inverse per distinct type on the winners.  Every filter-intra
-    candidate comes from one batched wavefront pass."""
+    candidate comes from one batched wavefront pass.  rdoq_tbl: RDOQ's
+    luma bundle (rate_est.md_rate_args()[7]); when given, the levels of
+    every candidate go through ops/rdoq.optimize_levels after the
+    quantizer (after K1 where K1 runs), before distortion and rate are
+    measured, as in the reference."""
     dev = recon.device
     b = ys.shape[0]
     cands = [m if isinstance(m, tuple) else (m, 0) for m in modes]
@@ -506,6 +513,14 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
                                 - s2 * (cf * cf).sum(dim=(1, 2)), min=0.0)
         return d
 
+    def rd_opt(coeffs, qc, t, g):
+        # RDOQ over g candidate-major copies of the batch
+        return rdoq_mod.optimize_levels(
+            coeffs, qc, quant.dequant_field(quant.repeat_rows(qp, g),
+                                            *qc.shape[-2:]),
+            tx_size, t, rdoq_tbl, lam.repeat(g) if lam.dim() else lam,
+            float(np.float32(tf.coeff_sse_scale(tx_size, t))))
+
     same_tx = tx_types is None or len(set(tx_types)) == 1
     if same_tx:
         tx0 = cc.DCT_DCT if tx_types is None else tx_types[0]
@@ -521,6 +536,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
             coeffs = tf.fwd_txfm2d(flat, tx0, tx_size)
             qcoeff_all, dq_all = quant.quantize(
                 coeffs, quant.repeat_rows(qp, nm), tx_size)
+        if rdoq_tbl is not None:
+            qcoeff_all, dq_all = rd_opt(coeffs, qcoeff_all, tx0, nm)
         dist = dist_of(coeffs, dq_all, flat, tx0)
     else:
         uniq_tx = list(dict.fromkeys(tx_types))
@@ -537,6 +554,8 @@ def _rd_step(recon, src, fi, ys, xs, sel, have_above, have_left, qp, lam,
             coeffs_t = tf.fwd_txfm2d(res_t, t, tx_size)
             qc_t, dq_t = quant.quantize(
                 coeffs_t, quant.repeat_rows(qp, g), tx_size)
+            if rdoq_tbl is not None:
+                qc_t, dq_t = rd_opt(coeffs_t, qc_t, t, g)
             qcoeff_all[idx] = qc_t.reshape(g, b, kk, kk)
             dq_all[idx] = dq_t.reshape(g, b, kk, kk)
             dist[idx] = dist_of(coeffs_t, dq_t, res_t, t).reshape(g, b)
@@ -608,7 +627,7 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
                     have_above, have_left, qp, lam, rates, bd=8,
                     luma_rec=None, cfl=False, inter=None, n=CBLK,
                     tx_size=cc.TX_8X8, uv_tx_types=UV_TX_TYPES,
-                    no_write=False):
+                    no_write=False, rdoq_tbl=None):
     """Joint U+V mode decision for one wave (uv_mode is signaled once per
     block; the chroma transform type is implied by the mode).  Every
     (mode, plane) pair runs its forward transform, quantizer and the
@@ -632,7 +651,10 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
     ADST is illegal).  rates None: the analytic proxy 2*sum(log2(1+|l|))
     + nonzeros + 4 per plane and no mode cost (the varpart program's).
     no_write: leave the planes alone and return the winners'
-    reconstructions in their place.
+    reconstructions in their place.  rdoq_tbl: RDOQ's chroma bundle
+    (rate_est.md_rate_args()[8]); when given, the regular modes' levels
+    go through ops/rdoq.optimize_levels after the quantizer (not the CfL
+    candidate's, as in the reference).
 
     Returns (uv_mode (B,), q_u, q_v, recon_u, recon_v) and, with cfl,
     (alpha_u, alpha_v) (B,) int32, signed q3, zero where CfL lost."""
@@ -666,6 +688,11 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
         sl = slice(mi * 2 * b, (mi + 1) * 2 * b)
         coeffs = tf.fwd_txfm2d(resid_all[sl], tx_type, tx_size)
         qc, dq = quant.quantize(coeffs, qp, tx_size)
+        if rdoq_tbl is not None:
+            qc, dq = rdoq_mod.optimize_levels(
+                coeffs, qc, quant.dequant_field(qp, n, n), tx_size, tx_type,
+                rdoq_tbl, lam_pair,
+                float(np.float32(tf.coeff_sse_scale(tx_size, tx_type))))
         recs.append(tf.inv_txfm2d_add(dq, pred_all[sl], tx_type, tx_size,
                                       bd=bd))
         qcs.append(qc)
@@ -769,7 +796,7 @@ def _rd_step_chroma(recon_u, recon_v, src_u, src_v, fi, ys, xs, sel,
 
 def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
                   angle_deltas=False, cfl=False, palette=None,
-                  tile_starts=(0,)):
+                  tile_starts=(0,), rdoq=False):
     """Whole-frame MD for a batch of F frames: a Python loop over the
     waves, each running the luma and the chroma step on F x maxb slots.
 
@@ -797,7 +824,9 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     int8 and, with ``palette``, the (F, gh*gw) bool palette choice (such
     blocks carry y mode DC_PRED and the palette's levels).  tile_starts:
     the block-column starts of the tile columns, which clamp the
-    neighbours' availability (the wave schedule is the same)."""
+    neighbours' availability (the wave schedule is the same).  rdoq: the
+    luma and chroma steps run RDOQ on their levels with the rq_y / rq_uv
+    bundles of ``rates``."""
     nf, h, w = sy.shape
     gh, gw = h // BLK, w // BLK
     dev = sy.device
@@ -821,7 +850,7 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     au = torch.zeros(nbk, dtype=torch.int8, device=dev)
     av = torch.zeros_like(au)
     pchoose = torch.zeros(nbk, dtype=torch.bool, device=dev)
-    cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv = rates[:7]
+    cy_t, cuv_t, txbb, modeb, uvb, eoby, eobuv, rqly, rqluv = rates
     streams = isinstance(qp, quant.StreamQuant)
     aq = not streams and qp.zbin.dim() == 2
     qp_w, lam_w = qp, lam
@@ -839,7 +868,8 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
                        ws.sel, ws.ha, ws.hl, qp_w, lam_w, cand_modes,
                        (cy_t, txbb, modeb, eoby), bd=bd, tx_types=cand_txs,
                        tr_avail=ws.tr, bl_avail=ws.bl, inter=inter,
-                       return_index=tx_search)
+                       return_index=tx_search,
+                       rdoq_tbl=rqly if rdoq else None)
         m, q = out[0], out[1]
         if palette is not None:
             pchoose[ws.rid] = out[3][ws.sel]
@@ -850,7 +880,8 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
         cout = _rd_step_chroma(
             recon_u, recon_v, src_u, src_v, ws.fi, ws.by * CBLK,
             ws.bx * CBLK, ws.sel, ws.ha, ws.hl, qp_w, lam_w,
-            (cuv_t, txbb, uvb, eobuv), bd=bd, luma_rec=luma_rec, cfl=cfl)
+            (cuv_t, txbb, uvb, eobuv), bd=bd, luma_rec=luma_rec, cfl=cfl,
+            rdoq_tbl=rqluv if rdoq else None)
         uvm, q_u, q_v = cout[0], cout[1], cout[2]
         if cfl:
             au[ws.rid] = cout[5][ws.sel].to(torch.int8)
@@ -874,8 +905,14 @@ def frame_program(sy, su, sv, qp, lam, rates, modes, bd=8, tx_search=False,
     return out
 
 
-@functools.lru_cache(maxsize=32)
 def _rate_args(qindex: int, modes: tuple, exact: bool, device):
+    """md_rate_args of a key frame, made once per (qindex, modes, the
+    exact flag after SVT_TPU_EXACT_RATES, device)."""
+    return _rate_args_on(qindex, modes, exact_rates_override(exact), device)
+
+
+@functools.lru_cache(maxsize=32)
+def _rate_args_on(qindex: int, modes: tuple, exact: bool, device):
     return md_rate_args(qindex, modes, UV_MODES, exact=exact, device=device)
 
 
@@ -914,14 +951,16 @@ def _check_slice(modes, bd, h, w):
 
 def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                                bd: int = 8, exact_rates: bool = False,
-                               tile_starts=(0,), device=None):
+                               tile_starts=(0,), rdoq: bool = False,
+                               device=None):
     """Enqueue the batched frame program (plain luma modes, with the
     filter-intra pseudo-modes at M0-M4, DCT_DCT) for
     frames = [(y, u, v), ...] (numpy, same dims, multiples of 16) on
     ``device`` (default: the current CUDA device).  On CUDA the work runs
     asynchronously; pair with encode_intra_frames_finish, so the host can
     entropy-code the previous batch meanwhile.  tile_starts: the
-    block-column starts of the frames' tile columns."""
+    block-column starts of the frames' tile columns.  rdoq: RDOQ after
+    the quantizer (after K1 on every luma step)."""
     h, w = frames[0][0].shape
     _check_slice(modes, bd, h, w)
     dev = device_mod.resolve(device)
@@ -932,7 +971,7 @@ def encode_intra_frames_launch(frames, qindex: int, modes=MODES,
                             for p in range(3)], bd, dev)
     rt = _rate_args(int(qindex), tuple(modes), bool(exact_rates), dev)
     out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
-                        tile_starts=tile_starts)
+                        tile_starts=tile_starts, rdoq=rdoq)
     return (out, h // BLK, w // BLK, len(frames))
 
 
@@ -1091,10 +1130,9 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
     frame, or None.  qmap: optional (sb_rows, sb_cols) int array of
     per-64x64 qindex values (the TPL delta-q key frame): every block takes
     its superblock's quantizer and lambda 0.7 * (dc_q / 8)^2; None =
-    uniform ``qindex``, which the rate tables take either way.  RDOQ is
-    outside the slice."""
-    if rdoq:
-        raise NotImplementedError("RDOQ: ROADMAP.md queue A item 7")
+    uniform ``qindex``, which the rate tables take either way.  rdoq:
+    RDOQ on the luma and chroma levels (ops/rdoq.py; with a qmap on the
+    per-block quantizers)."""
     h, w = src_y.shape
     _check_slice(modes, bd, h, w)
     gh, gw = h // BLK, w // BLK
@@ -1120,7 +1158,7 @@ def encode_intra_frame(src_y: np.ndarray, src_u: np.ndarray,
                             for p in (src_y, src_u, src_v)], bd, dev)
     out = frame_program(*planes, qp, lam, rt, tuple(modes), bd=bd,
                         tx_search=tx_search, angle_deltas=angle_deltas,
-                        cfl=cfl, palette=palette)
+                        cfl=cfl, palette=palette, rdoq=rdoq)
     (ym, um, qy, qu, qv, au, av) = (o[0].cpu().numpy() for o in out[3:10])
     decisions = _collect_decisions_dense(gh, gw, ym, um, qy, qu, qv,
                                          cands=cands, au=au, av=av,

@@ -24,9 +24,10 @@ package on the CPU.
   copies of shown inter and show-existing frames.
 - The GOP settings the reference codes on its stage path (S-frames, low
   delay, IPPP, 10 bits, tile columns, film grain) encode there, equal to
-  the JAX streams (tests/test_torch_stage_path.py has more); 1/8-pel MVs
-  on the fast path raise NotImplementedError naming their ROADMAP.md
-  item.  (Presets M5-M9: tests/test_torch_gop_m6.py.)
+  the JAX streams (tests/test_torch_stage_path.py has more); P1 with
+  1/8-pel MVs (the hp_mv override) against the JAX P1.  (Presets M5-M9:
+  tests/test_torch_gop_m6.py; the overrides:
+  tests/test_torch_feature_overrides.py.)
 """
 import functools
 
@@ -512,11 +513,43 @@ def test_out_of_scope_gop_settings_raise(fields, item):
 
 @pytest.mark.parametrize("tool", ["hp"])
 def test_m5_m9_inter_tools_raise(tool):
-    """1/8-pel MVs (hp_mv, off at every preset) are not ported; asking
-    P1 for them raises before any work, naming their item."""
-    refs = {1: {p: torch.zeros(s, dtype=torch.uint8)
-                for p, s in (("y", (32, 32)), ("u", (16, 16)),
-                             ("v", (16, 16)))}}
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tgf.run_inter_frame(np.zeros((48, 32), np.uint8), refs, QINDEX, 32,
-                            32, (0,), device="cpu", **{tool: True})
+    """1/8-pel MVs (hp_mv, off at every preset), which P1 refused until
+    they were ported (the name is kept): P1 at M10 with hp on the R = 2
+    inputs of test_p1_matches_jax against the JAX P1 with hp, by its
+    parity rule."""
+    from svt_av1_tpu.codec.rate_est import md_rate_args as jrate
+    from svt_av1_tpu.ops import quant as jq
+    from svt_av1_tpu.pipeline import gop_fast as jgf
+    feat = features_for(10)
+    modes = tuple(feat.intra_modes)
+    src_pack, refs = _p1_inputs(2)
+    args = (64, 96, 2, modes, 8, feat.subpel_ring, True, feat.hme_rad2,
+            feat.hme_rad0, tool == "hp")
+
+    def jax_run():
+        rt = jrate(QINDEX, modes, UV_MODES, None, inter_frame=True,
+                   exact=feat.exact_rates)
+        return jgf._jit_p1(*args, skip_mode=True)(
+            src_pack, *refs, *jq.make_quant_params(QINDEX),
+            tgf.frame_lambda(QINDEX), *rt[:7])
+
+    ref = port_refs.jax_ref(f"gop_p1_{tool}_r2", jax_run, src_pack, *refs,
+                            np.array([tool]))
+    rt = md_rate_args(QINDEX, modes, UV_MODES, inter_frame=True,
+                      exact=feat.exact_rates, device=CPU)
+    p1 = tgf.build_p1(*args, skip_mode=True)
+    got = [o.numpy() for o in p1(
+        *tgf._src_planes(src_pack, 64, 96, CPU),
+        *(torch.as_tensor(r) for r in refs), quant.params_on(QINDEX, CPU),
+        torch.tensor(tgf.frame_lambda(QINDEX)), rt)]
+    agree = _agreement(got, ref)
+    o, r = dict(zip(P1_OUT, got)), dict(zip(P1_OUT, ref))
+    mv = o["mv"][o["choose"].astype(bool)]
+    print(f"P1 {tool} R=2: {agree:.2%} of {o['choose'].size} blocks equal; "
+          f"odd MVs {int(((mv[:, 0] | mv[:, 1]) & 1).astype(bool).sum())}")
+    assert agree >= 0.99
+    for k in ("gm_mats", "gm_trans", "gm_kinds", "interp"):
+        np.testing.assert_array_equal(o[k], r[k], err_msg=k)
+    if agree == 1.0:
+        for k in P1_OUT:
+            np.testing.assert_array_equal(o[k], r[k], err_msg=k)

@@ -481,18 +481,26 @@ def test_m9_stream_is_m10_stream():
 
 @pytest.mark.parametrize("feature", ["hp_mv", "rdoq"])
 def test_feature_overrides_outside_the_slice_raise(monkeypatch, feature):
-    """1/8-pel MVs and RDOQ (on at no preset) stay refused at M6 when a
-    feature override turns them on, naming queue A item 7.  (The third
-    reference, mref, is ported: tests/test_torch_gop_m4.py.)"""
-    import dataclasses
-
-    from svt_av1_tpu_torch.api import encoder as enc_mod
-    monkeypatch.setattr(enc_mod, "features_for", lambda m: dataclasses.replace(
-        features_for(m), **{feature: True}))
-    cfg = EncoderConfig(source_width=64, source_height=64, enc_mode=6,
-                        intra_period_length=15, hierarchical_levels=2)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Encoder(cfg, device="cpu")
+    """1/8-pel MVs and RDOQ (on at no preset), which the port refused at
+    M6 until they were ported (the name is kept): with SVT_TPU_FEAT
+    turning one on, a 64x64 x3 levels-2 GOP at M6 is the JAX package's
+    stream byte for byte (the override in its fingerprint), decoded by
+    the port's decoder to every shown recon.  (The third reference,
+    mref: tests/test_torch_gop_m4.py; every override:
+    tests/test_torch_feature_overrides.py.)"""
+    import test_torch_stage_path as tsp
+    monkeypatch.setenv("SVT_TPU_FEAT", f"{feature}=1")
+    frames = clips.natural_clip(3, 64, 64, seed=13)
+    fields = dict(enc_mode=6, intra_period_length=15, hierarchical_levels=2)
+    enc = Encoder(tsp.config(EncoderConfig, fields, frames), device="cpu")
+    assert getattr(enc._feat, feature) and enc._fast
+    pkts = tsp.drive(enc, frames)
+    ref = port_refs.jax_ref(
+        f"gop_m6_override_{feature}",
+        lambda: tsp.jax_stream(fields, frames)[2:-3],
+        *[a for f in frames for a in f], np.array([f"{feature}=1"]))
+    assert [p.data for p in pkts] == [bytes(a) for a in ref]
+    tsp.decode_check(pkts, feature)
 
 
 # the reference's rect-partition test setting (tests/test_rect_partition.py)

@@ -302,17 +302,11 @@ def test_out_of_slice_still_raises(field, value, item):
 
 
 def test_encode_intra_frame_refuses_aq_and_other_modes():
-    """RDOQ (with or without the qmap of a TPL delta-q key frame, which is
-    ported) raises, naming its ROADMAP.md item; an id that is no luma mode
-    (nor a filter-intra pseudo-mode) and a bit depth other than 8 or 10
-    are refused.  (The luma modes of M0-M4, D45/D67/D203 and
-    filter-intra, are ported, at 10 bits too.)"""
+    """An id that is no luma mode (nor a filter-intra pseudo-mode) and a
+    bit depth other than 8 or 10 are refused.  (The luma modes of M0-M4,
+    D45/D67/D203 and filter-intra, are ported, at 10 bits too; RDOQ is
+    ported: tests/test_torch_feature_overrides.py.)"""
     y, u, v = clips.natural_clip(1, 32, 32)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tie.encode_intra_frame(y, u, v, 140, qmap=np.full((1, 1), 120),
-                               rdoq=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tie.encode_intra_frame(y, u, v, 140, rdoq=True, device="cpu")
     with pytest.raises(ValueError, match="bit depth"):
         tie.encode_intra_frame(y, u, v, 140, modes=(cc.DC_PRED,
                                                     cc.D45_PRED), bd=12,

@@ -578,8 +578,8 @@ def test_mctf_clips_10bit_planes_as_the_reference():
 def test_hp_mv_override_codes_ippp(monkeypatch):
     """The reference reads hp_mv on its fast path only: with the override
     an IPPP encoder is made and codes the stream it codes without it (a
-    hierarchical GOP on the fast path still refuses it:
-    tests/test_torch_gop_m6.py)."""
+    hierarchical GOP on the fast path codes 1/8-pel MVs:
+    tests/test_torch_feature_overrides.py)."""
     frames = clips.natural_clip(2, 64, 64, seed=12)
     fields = dict(intra_period_length=15)
     plain, _ = port_stream(fields, frames)

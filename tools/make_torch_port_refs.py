@@ -65,6 +65,10 @@ TESTS = (
     "tests/test_torch_gop.py::test_out_of_scope_gop_settings_raise",
     "tests/test_torch_key_frame.py::test_out_of_slice_still_raises",
     "tests/test_torch_intra_encoder.py::test_out_of_slice_configs_raise",
+    "tests/test_torch_feature_overrides.py",
+    "tests/test_torch_gop.py::test_m5_m9_inter_tools_raise",
+    "tests/test_torch_gop_m6.py::"
+    "test_feature_overrides_outside_the_slice_raise",
 )
 
 

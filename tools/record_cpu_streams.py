@@ -4,8 +4,10 @@ CPU's stream of every cpu-vs-cuda case of chip_smoke.py (phases 7, 12,
 16, 20, 27, 31 and 34), and of the cases that phases 39-41 hold to the
 CPU's digest alone (the CLI's main path at CIF x17 and its decoded
 frames, the M4 levels-5 GOP), of phase 43's multi-stream cases (the
-outputs of tests/test_torch_multistream.py's batched encodes) and of
-phase 45's stage-path streams (tests/test_torch_stage_path.py).
+outputs of tests/test_torch_multistream.py's batched encodes), of
+phase 45's stage-path streams (tests/test_torch_stage_path.py) and of
+phase 47's feature-override streams
+(tests/test_torch_feature_overrides.py).
 chip_smoke.py holds the
 card's stream of each case to its digest instead of encoding the case on
 the CPU again; in phases 7-34 a card stream that does not match is
@@ -15,6 +17,7 @@ encoded on the CPU there and held to the parity rule, as before.
     python tools/record_cpu_streams.py 43   # phase 43's only (a minute),
                                             # the other digests kept
     python tools/record_cpu_streams.py 45   # phase 45's only (a minute)
+    python tools/record_cpu_streams.py 47   # phase 47's only (a minute)
 
 Runs the same phase functions with the card's side on the CPU
 (chip_smoke.CARD = "cpu"), collecting each stream's digest
@@ -35,14 +38,13 @@ def main(argv):
     import chip_smoke as cs
     cs.CARD = "cpu"
     cs.RECORDED = {}
-    if argv in (["43"], ["45"]):
+    only = {"43": cs.phase_multistream_small, "45": cs.phase_stage_small,
+            "47": cs.phase_override_small}
+    if len(argv) == 1 and argv[0] in only:
         with open(cs.CPU_STREAMS) as f:
             kept = {k: v for k, v in json.load(f).items()
                     if not k.startswith(f"{argv[0]}/")}
-        if argv == ["43"]:
-            cs.phase_multistream_small()
-        else:
-            cs.phase_stage_small()
+        only[argv[0]]()
         return write(cs, {**kept, **cs.RECORDED})
     if argv:
         print(f"record_cpu_streams: unknown arguments {argv}",
@@ -72,6 +74,7 @@ def main(argv):
     cs.stored_digest("39/decoded", decoded)
     cs.phase_multistream_small()
     cs.phase_stage_small()
+    cs.phase_override_small()
     return write(cs, cs.RECORDED)
 
 
